@@ -1,0 +1,409 @@
+"""Llama-3-family decoder with a KV-cache decode path, in PyTorch.
+
+The counterpart of ``pytorch_operator_tpu/models/llama.py``: RMSNorm with
+f32 math, rotate-half rotary embeddings in f32, grouped-query attention
+(flash kernel or dense), SwiGLU MLP, an untied LM head computed in f32, and
+the serving forward (:func:`decode_forward`) over a flat per-layer cache
+(:func:`init_decode_cache`). Module and parameter names follow the JAX
+package (``embed``, ``layers.<i>.attn.q_proj``, ``mlp.gate_proj``, ...) so
+``convert.params_from_jax`` maps one tree onto the other.
+
+Weights live in PyTorch's ``nn.Linear`` orientation ``[out, in]``. Matmul
+weights and the embedding table are held in ``cfg.dtype`` (flax casts the
+f32 params to the compute dtype at every call; casting once is the same
+arithmetic); norm scales and the LM head stay f32.
+
+Not in this port yet (each raises ``NotImplementedError`` from the config):
+MoE, ring/ulysses sequence parallelism, int8 weights (``quantize``), int8 KV
+(``kv_quantize``) and remat. Pipeline parallelism has no config field; the
+port has no pp forward. All are queued in ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.flash_attention import flash_attention
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 128_256
+    d_model: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    head_dim: int = 128
+    d_ff: int = 14_336
+    rope_theta: float = 500_000.0
+    rms_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = torch.float32
+    remat: bool = False
+    remat_policy: str = "full"
+    # "dense" (materialized S x S scores) or "flash" (ops/flash_attention.py:
+    # the CUDA kernel on the card, its plain version on the CPU).
+    attn_impl: str = "dense"
+    xent_impl: str = "dense"
+    n_experts: int = 0
+    moe_top_k: int = 2
+    moe_dispatch: str = "dense"
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.0
+    # decode=True: attention reads and writes a KV cache passed by the
+    # caller (init_decode_cache), of static length max_decode_len.
+    decode: bool = False
+    max_decode_len: int = 2048
+    kv_quantize: Optional[str] = None
+    # Cache writes: False = every row at the offsets of row 0 (the
+    # single-stream generate loop); True = each row at its own offset (a
+    # continuous-batching engine's mixed-depth batch).
+    decode_per_row: bool = False
+    # Multi-token decode inputs: "self" = the whole prompt of a fresh cache
+    # (causal self-attention over the incoming tokens, flash when
+    # configured); "cache" = a chunk at positions [start, start+S) attending
+    # against the full cache under the position mask.
+    prefill_mode: str = "self"
+    quantize: Optional[str] = None
+
+    def __post_init__(self):
+        if self.quantize not in (None, "int8"):
+            raise ValueError(f"quantize={self.quantize!r} not in (None, 'int8')")
+        if self.kv_quantize not in (None, "int8"):
+            raise ValueError(
+                f"kv_quantize={self.kv_quantize!r} not in (None, 'int8')"
+            )
+        if self.prefill_mode not in ("self", "cache"):
+            raise ValueError(
+                f"prefill_mode={self.prefill_mode!r} not in ('self', 'cache')"
+            )
+        if (self.decode_per_row or self.prefill_mode != "self") and not self.decode:
+            raise ValueError(
+                "decode_per_row / prefill_mode='cache' require decode=True"
+            )
+        if self.decode and self.attn_impl in ("ring", "ulysses"):
+            raise ValueError(
+                f"attn_impl={self.attn_impl!r} is not supported with "
+                "decode=True (prefill uses flash/dense self-attention)"
+            )
+        for field, off, item in (
+            ("quantize", self.quantize is None, "int8 weights"),
+            ("kv_quantize", self.kv_quantize is None, "int8 KV cache"),
+            ("n_experts", self.n_experts == 0, "MoE"),
+            ("remat", not self.remat, "the training slice"),
+            (
+                "attn_impl",
+                self.attn_impl not in ("ring", "ulysses"),
+                "multi-GPU, ring/ulysses, MoE, pp",
+            ),
+        ):
+            if not off:
+                raise NotImplementedError(
+                    f"{field}={getattr(self, field)!r} is not ported yet "
+                    f"(ROADMAP.md: {item})"
+                )
+        if self.attn_impl not in ("dense", "flash"):
+            raise ValueError(f"attn_impl={self.attn_impl!r} not in ('dense', 'flash')")
+        if self.n_heads % self.n_kv_heads:
+            raise ValueError(
+                f"n_heads={self.n_heads} not a multiple of n_kv_heads={self.n_kv_heads}"
+            )
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.n_heads // self.n_kv_heads
+
+
+def llama3_8b(**over) -> LlamaConfig:
+    """The Llama-3-8B shape, with the flash kernel and chunked loss defaults."""
+    return LlamaConfig(**{"attn_impl": "flash", "xent_impl": "chunked", **over})
+
+
+def llama_0_3b(**over) -> LlamaConfig:
+    """~0.32B-parameter Llama shape (same defaults as :func:`llama3_8b`)."""
+    return llama3_8b(
+        **{
+            "vocab_size": 32000,
+            "d_model": 1024,
+            "n_layers": 16,
+            "n_heads": 8,
+            "n_kv_heads": 4,
+            "head_dim": 128,
+            "d_ff": 4096,
+            **over,
+        }
+    )
+
+
+def llama_1b(**over) -> LlamaConfig:
+    """~1.14B-parameter Llama shape."""
+    return llama3_8b(
+        **{
+            "vocab_size": 32000,
+            "d_model": 2048,
+            "n_layers": 16,
+            "n_heads": 16,
+            "n_kv_heads": 8,
+            "head_dim": 128,
+            "d_ff": 8192,
+            **over,
+        }
+    )
+
+
+def llama_tiny(**over) -> LlamaConfig:
+    """Scaled-down config for tests: same architecture, tiny dims, f32."""
+    base = dict(
+        vocab_size=256,
+        d_model=64,
+        n_layers=2,
+        n_heads=4,
+        n_kv_heads=2,
+        head_dim=16,
+        d_ff=128,
+        dtype=torch.float32,
+    )
+    base.update(over)
+    return LlamaConfig(**base)
+
+
+# --config name -> preset (the JAX package's workloads/llama_train.CONFIGS)
+CONFIGS = {
+    "8b": "llama3_8b",
+    "1b": "llama_1b",
+    "0.3b": "llama_0_3b",
+    "tiny": "llama_tiny",
+}
+
+
+def _linear(n_in: int, n_out: int, cfg: LlamaConfig, device) -> nn.Linear:
+    return nn.Linear(n_in, n_out, bias=False, device=device, dtype=cfg.dtype)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, dtype=torch.float32, device=device))
+
+    def forward(self, x):
+        x32 = x.float()
+        y = x32 * torch.rsqrt(x32.pow(2).mean(dim=-1, keepdim=True) + self.eps)
+        return (y * self.weight).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding, rotate-half convention. x: [B,S,H,D], positions: [B,S]."""
+    half = x.shape[-1] // 2
+    exponent = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device), exponent)
+    angles = positions[..., None].float() * freqs  # [B,S,half]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+class Attention(nn.Module):
+    """Grouped-query attention with RoPE; self-attention (flash or dense) or,
+    with ``cfg.decode``, KV-cache attention."""
+
+    def __init__(self, cfg: LlamaConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        self.q_proj = _linear(cfg.d_model, H * D, cfg, device)
+        self.k_proj = _linear(cfg.d_model, K * D, cfg, device)
+        self.v_proj = _linear(cfg.d_model, K * D, cfg, device)
+        self.o_proj = _linear(H * D, cfg.d_model, cfg, device)
+
+    def forward(self, x, positions, cache: Optional[Dict[str, torch.Tensor]] = None):
+        cfg = self.cfg
+        B, S, _ = x.shape
+        H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        q = apply_rope(self.q_proj(x).view(B, S, H, D), positions, cfg.rope_theta)
+        k = apply_rope(self.k_proj(x).view(B, S, K, D), positions, cfg.rope_theta)
+        v = self.v_proj(x).view(B, S, K, D)
+        if cfg.decode:
+            if cache is None:
+                raise ValueError("decode=True needs the layer's cache (init_decode_cache)")
+            out = self._decode_attend(q, k, v, positions, cache)
+        else:
+            out = self._self_attend(q, k, v)
+        return self.o_proj(out.reshape(B, S, H * D))
+
+    def _self_attend(self, q, k, v):
+        """Causal self-attention over the incoming tokens only: the train
+        forward, and the decode path's prefill (a fresh cache's prompt sits at
+        positions [0, S), so attention over the prompt alone is the full
+        causal attention). Returns [B,S,H,D]."""
+        cfg = self.cfg
+        B, S, H, D = q.shape
+        K = cfg.n_kv_heads
+        if cfg.attn_impl == "flash":
+            return flash_attention(q, k, v, causal=True)
+        qg = q.view(B, S, K, H // K, D)
+        scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) / math.sqrt(D)
+        causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~causal, torch.finfo(torch.float32).min)
+        probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
+        return torch.einsum("bkgst,btkd->bskgd", probs, v).reshape(B, S, H, D)
+
+    def _decode_attend(self, q, k, v, positions, cache):
+        """Write the incoming tokens' K/V into the layer's cache slabs
+        ``[B, K, L, D]`` IN PLACE (the caller's tensors change; no copy of
+        the slab is made), then attend: prefill (S > 1, ``prefill_mode="self"``)
+        over the incoming tokens, otherwise against the full cache."""
+        cfg = self.cfg
+        B, S, H, D = q.shape
+        ck, cv = cache["cached_key"], cache["cached_value"]
+        k_in = k.transpose(1, 2).to(cfg.dtype)  # [B, K, S, D]
+        v_in = v.transpose(1, 2).to(cfg.dtype)
+        if cfg.decode_per_row:
+            # Each row writes at its own positions[b, :].
+            rows = torch.arange(B, device=q.device)[:, None]
+            ck[rows, :, positions] = k_in.transpose(1, 2)
+            cv[rows, :, positions] = v_in.transpose(1, 2)
+        else:
+            # Batch-uniform: every row at row 0's offsets (positions[0, 0] on).
+            ck.index_copy_(2, positions[0], k_in)
+            cv.index_copy_(2, positions[0], v_in)
+        if S > 1 and cfg.prefill_mode == "self":
+            return self._self_attend(q, k, v)
+        return self._cache_attend(q, positions, ck, cv)
+
+    def _cache_attend(self, q, positions, ck, cv):
+        """q against the FULL cache with a per-(row, token) position-validity
+        mask col <= row. Returns [B,S,H,D]."""
+        cfg = self.cfg
+        B, S, H, D = q.shape
+        K, L = cfg.n_kv_heads, ck.shape[2]
+        qg = q.view(B, S, K, H // K, D)
+        scores = torch.einsum("bskgd,bktd->bkgst", qg.float(), ck.float()) / math.sqrt(D)
+        col = torch.arange(L, device=q.device)[None, None, :]  # [1,1,L]
+        row = positions[:, :, None]  # [B,S,1]
+        valid = (col <= row)[:, None, None, :, :]  # [B,1,1,S,L]
+        scores = scores.masked_fill(~valid, torch.finfo(torch.float32).min)
+        probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
+        return torch.einsum("bkgst,bktd->bskgd", probs, cv).reshape(B, S, H, D)
+
+
+class MLP(nn.Module):
+    """SwiGLU: down(silu(gate(x)) * up(x))."""
+
+    def __init__(self, cfg: LlamaConfig, device=None):
+        super().__init__()
+        self.gate_proj = _linear(cfg.d_model, cfg.d_ff, cfg, device)
+        self.up_proj = _linear(cfg.d_model, cfg.d_ff, cfg, device)
+        self.down_proj = _linear(cfg.d_ff, cfg.d_model, cfg, device)
+
+    def forward(self, x):
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class Block(nn.Module):
+    """Pre-norm decoder block."""
+
+    def __init__(self, cfg: LlamaConfig, device=None):
+        super().__init__()
+        self.attn_norm = RMSNorm(cfg.d_model, cfg.rms_eps, device)
+        self.attn = Attention(cfg, device)
+        self.mlp_norm = RMSNorm(cfg.d_model, cfg.rms_eps, device)
+        self.mlp = MLP(cfg, device)
+
+    def forward(self, x, positions, cache=None):
+        x = x + self.attn(self.attn_norm(x), positions, cache)
+        return x + self.mlp(self.mlp_norm(x))
+
+
+class Llama(nn.Module):
+    """Decoder-only LM: tokens [B,S] → logits [B,S,vocab] (f32).
+
+    ``return_hidden=True`` returns the final-norm hidden states [B,S,D]
+    instead of applying the LM head. With ``cfg.decode`` the forward needs a
+    cache (see :func:`decode_forward`).
+    """
+
+    def __init__(self, cfg: LlamaConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model, device=device, dtype=cfg.dtype)
+        self.layers = nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layers))
+        self.final_norm = RMSNorm(cfg.d_model, cfg.rms_eps, device)
+        self.lm_head = nn.Linear(
+            cfg.d_model, cfg.vocab_size, bias=False, device=device, dtype=torch.float32
+        )
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "Llama":
+        """Random init with flax's distributions: lecun_normal (truncated
+        normal, fan-in scaled) for matmul kernels, normal(1.0) for the
+        embedding, ones for the norms. Draws in f32, then casts."""
+        for name, p in self.named_parameters():
+            if name.endswith("norm.weight"):
+                p.fill_(1.0)
+                continue
+            w = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+            if name == "embed.weight":
+                w.normal_(0.0, 1.0, generator=generator)
+            else:
+                # flax lecun_normal: variance 1/fan_in, truncated at 2 std,
+                # std corrected for the truncation.
+                std = math.sqrt(1.0 / p.shape[1]) / 0.87962566103423978
+                nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+            p.copy_(w)
+        return self
+
+    def head_kernel(self) -> torch.Tensor:
+        """The LM-head weight as [D, V] f32 (the JAX layout)."""
+        return self.lm_head.weight.t()
+
+    def forward(self, tokens, positions=None, *, cache=None, return_hidden: bool = False):
+        if positions is None:
+            S = tokens.shape[-1]
+            positions = torch.arange(S, device=tokens.device).expand(tokens.shape)
+        positions = positions.long()  # cache writes index with it
+        x = self.embed(tokens)
+        for i, block in enumerate(self.layers):
+            x = block(x, positions, None if cache is None else cache[f"layer_{i}"]["attn"])
+        x = self.final_norm(x)
+        if return_hidden:
+            return x
+        return self.lm_head(x.float())
+
+
+def init_decode_cache(cfg: LlamaConfig, batch: int, device=None):
+    """Zero KV cache for :func:`decode_forward`: a flat per-layer dict
+    (``layer_0`` .. ``layer_{n-1}``), each ``{"attn": {"cached_key",
+    "cached_value"}}`` with slabs ``[B, K, max_decode_len, D]`` in
+    ``cfg.dtype``. The slabs are written in place by every forward."""
+    shape = (batch, cfg.n_kv_heads, cfg.max_decode_len, cfg.head_dim)
+
+    def slab():
+        return {
+            "cached_key": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "cached_value": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        }
+
+    return {f"layer_{i}": {"attn": slab()} for i in range(cfg.n_layers)}
+
+
+def decode_forward(model: Llama, cache, tokens, positions=None, *, return_hidden: bool = True):
+    """The serving forward over a :func:`init_decode_cache` cache.
+
+    ``model.cfg.decode`` must be True. Each layer writes the incoming
+    tokens' K/V into its slab in place and attends (prefill over the prompt,
+    decode steps against the cache). Returns ``(hidden_or_logits, cache)``;
+    the returned cache is the same dict, updated in place.
+    """
+    if not model.cfg.decode:
+        raise ValueError("decode_forward needs a model built with decode=True")
+    out = model(tokens, positions, cache=cache, return_hidden=return_hidden)
+    return out, cache

@@ -1,0 +1,95 @@
+"""Build and load the port's CUDA kernels.
+
+Each kernel is one source ``ops/csrc/<name>.cu`` with a plain C interface.
+It is compiled with ``nvcc`` for ``sm_90a`` into a shared library under the
+repository's gitignored ``build/kernels/`` tree and loaded with ``ctypes``.
+The library's file name carries a hash of the source and the flags, so an
+edited source is rebuilt and an unchanged one is reused. Nothing here runs at
+import: the first call of a kernel's wrapper builds it, and
+:func:`build` lets a caller start several builds at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+# ptxas's report (registers, shared memory, spills per kernel) of each build
+build_logs: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and under $CUDA_HOME/bin): the CUDA "
+        "kernels are built on the machine with the card"
+    )
+
+
+def _target(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str]) -> Dict[str, Path]:
+    """Compile every source in ``names`` whose library is missing, all
+    ``nvcc`` processes at once; return each name's library path. Raises
+    ``RuntimeError`` with nvcc's stderr when a build fails."""
+    targets = {n: _target(n) for n in names}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, so in targets.items():
+        if so.exists():
+            continue
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+            tmp,
+        )
+    failures = []
+    for name, (proc, tmp) in procs.items():
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failures.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{err}{out}")
+            continue
+        build_logs[name] = err + out
+        os.replace(tmp, targets[name])
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return targets
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            _loaded[name] = lib
+        return lib

@@ -1,0 +1,152 @@
+"""The port stands alone and never falls back to the CPU on its own.
+
+- No module of pytorch_operator_tpu_torch/ (nor chip_smoke.py) imports jax,
+  flax, optax, orbax or the JAX package — by AST scan, and by importing every
+  port module in a subprocess where those imports are poisoned.
+- Entry points resolve to CUDA unless the caller asks for the CPU; without a
+  GPU they raise. The kernel wrapper raises for tensors it cannot serve, and
+  the build raises when nvcc is missing.
+- The port's status channel writes the records the supervisor folds.
+"""
+
+import ast
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "pytorch_operator_tpu_torch"
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "pytorch_operator_tpu"}
+
+
+def _port_files():
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_no_forbidden_imports_by_ast():
+    offenders = []
+    for path in _port_files():
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                if name.split(".")[0] in FORBIDDEN:
+                    offenders.append(f"{path.relative_to(ROOT)}:{node.lineno} {name}")
+    assert len(_port_files()) > 10
+    assert not offenders, offenders
+
+
+def test_every_module_imports_with_jax_poisoned():
+    code = f"""
+import importlib, pkgutil, sys
+for name in {sorted(FORBIDDEN)!r}:
+    sys.modules[name] = None
+import pytorch_operator_tpu_torch as pkg
+mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for m in mods:
+    importlib.import_module(m)
+import chip_smoke
+print(len(mods))
+"""
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 12
+
+
+def _no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("this box has a GPU: the no-fallback path is not reachable")
+
+
+def test_generate_main_refuses_cpu_fallback(monkeypatch):
+    """Without --device cpu and without TPUJOB_PLATFORM=cpu, the entry point
+    targets CUDA and raises on a GPU-less box instead of running on the CPU."""
+    _no_gpu()
+    from pytorch_operator_tpu_torch.workloads import generate
+
+    monkeypatch.delenv("TPUJOB_PLATFORM", raising=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate.main(["--config", "tiny", "--max-new-tokens", "2", "--prompt-len", "4"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate.main(["--config", "tiny", "--device", "cuda"])
+
+
+@pytest.mark.parametrize(
+    "requested,env,expected",
+    [("cpu", None, "cpu"), (None, "cpu", "cpu"), ("cpu", "tpu", "cpu")],
+)
+def test_device_resolution_honours_cpu_requests(monkeypatch, requested, env, expected):
+    from pytorch_operator_tpu_torch.runtime.device import resolve_device
+
+    if env is None:
+        monkeypatch.delenv("TPUJOB_PLATFORM", raising=False)
+    else:
+        monkeypatch.setenv("TPUJOB_PLATFORM", env)
+    assert resolve_device(requested).type == expected
+
+
+def test_cuda_requests_raise_without_gpu(monkeypatch):
+    _no_gpu()
+    from pytorch_operator_tpu_torch.runtime.device import resolve_device
+
+    monkeypatch.setenv("TPUJOB_PLATFORM", "tpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda:0")
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
+
+
+def test_kernel_wrapper_never_falls_back():
+    """A tensor that is not on the CPU never reaches the plain version: the
+    wrapper raises for a device the kernel does not serve, and the kernel
+    path raises for a dtype it does not take."""
+    from pytorch_operator_tpu_torch.ops import flash_attention as fa
+
+    meta = [torch.empty(1, 64, 2, 64, device="meta") for _ in range(3)]
+    with pytest.raises(ValueError, match="kernel takes CUDA"):
+        fa.flash_attention(*meta)
+    half = [torch.zeros(1, 64, 2, 64, dtype=torch.float16) for _ in range(3)]
+    before = fa.launch_count
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa._launch(*half, causal=True, kv_len=64, scale=0.125)
+    assert fa.launch_count == before
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    from pytorch_operator_tpu_torch.ops import _build
+
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build(["flash_fwd"])
+
+
+def test_status_channel_and_world(monkeypatch, tmp_path):
+    from pytorch_operator_tpu_torch.runtime import rendezvous
+
+    monkeypatch.setenv("TPUJOB_STATUS_DIR", str(tmp_path))
+    monkeypatch.setenv("TPUJOB_REPLICA_TYPE", "Worker")
+    monkeypatch.setenv("TPUJOB_REPLICA_INDEX", "3")
+    monkeypatch.setenv("TPUJOB_NUM_PROCESSES", "1")
+    assert rendezvous.initialize_from_env().replica_index == 3
+    rendezvous.report_first_step(0)
+    rendezvous.report_metrics(7, decode_tokens_per_sec=12.5)
+    recs = [json.loads(line) for line in (tmp_path / "worker-3.jsonl").read_text().splitlines()]
+    assert [r["event"] for r in recs] == ["first_step", "metrics"]
+    assert recs[1]["step"] == 7 and recs[1]["decode_tokens_per_sec"] == 12.5
+    monkeypatch.setenv("TPUJOB_NUM_PROCESSES", "2")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rendezvous.initialize_from_env()

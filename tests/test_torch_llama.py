@@ -1,0 +1,153 @@
+"""The port's Llama (pytorch_operator_tpu_torch/models/llama.py) against the
+JAX package's, on the same weights, on the CPU.
+
+The JAX param tree goes through ``convert.params_from_jax``; inputs are made
+from a numpy seed. ``llama_tiny`` in f32 with ``attn_impl="flash"`` (the JAX
+kernel in pallas interpret mode, the port's plain version): full-forward
+logits, and the serving path — a prefill plus three decode steps through
+``decode_forward`` — for the uniform and per-row cache writes and for a
+chunked (``prefill_mode="cache"``) prefill, comparing hidden states and the
+returned cache slabs.
+
+Tolerance 1e-4: both sides compute in f32 and differ only in the order of
+their sums (matmuls, softmax, rotary), over two layers at unit scale.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+import tests.jaxenv  # noqa: F401
+import torch
+
+from pytorch_operator_tpu.models import llama as jax_llama
+from pytorch_operator_tpu_torch.models import llama as port_llama
+from pytorch_operator_tpu_torch.models.convert import params_from_jax
+
+TOL = 1e-4
+PROMPT = 8
+
+
+def _jax_params(cfg):
+    import flax.linen as nn
+    import jax
+
+    train_cfg = dataclasses.replace(
+        cfg, decode=False, decode_per_row=False, prefill_mode="self"
+    )
+    params = jax_llama.Llama(train_cfg).init(
+        jax.random.key(0), np.zeros((1, PROMPT), np.int32)
+    )["params"]
+    return jax.device_get(nn.meta.unbox(params))
+
+
+def _port_model(tree, **over):
+    cfg = port_llama.llama_tiny(attn_impl="flash", **over)
+    model = port_llama.Llama(cfg)
+    model.load_state_dict(params_from_jax(tree, cfg))
+    return model.requires_grad_(False)
+
+
+def _tokens(B, S, seed=1):
+    return np.random.default_rng(seed).integers(0, 256, (B, S)).astype(np.int32)
+
+
+def test_forward_logits_match():
+    cfg = jax_llama.llama_tiny(attn_impl="flash")
+    tree = _jax_params(cfg)
+    toks = _tokens(2, 16)
+    ref = jax_llama.Llama(cfg).apply({"params": tree}, toks)
+    model = _port_model(tree)
+    out = model(torch.from_numpy(toks).long())
+    assert out.dtype == torch.float32 and out.shape == (2, 16, 256)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=TOL)
+    hidden = model(torch.from_numpy(toks).long(), return_hidden=True)
+    np.testing.assert_allclose(
+        (hidden @ model.head_kernel()).numpy(), np.asarray(ref), atol=TOL
+    )
+
+
+def _check_cache(jc, pc, n_layers):
+    for i in range(n_layers):
+        for name in ("cached_key", "cached_value"):
+            np.testing.assert_allclose(
+                pc[f"layer_{i}"]["attn"][name].numpy(),
+                np.asarray(jc[f"layer_{i}"]["attn"][name]),
+                atol=TOL,
+                err_msg=f"layer_{i} {name}",
+            )
+
+
+@pytest.mark.parametrize(
+    "per_row,prefill_mode",
+    [(False, "self"), (True, "self"), (False, "cache")],
+    ids=["uniform", "per_row", "chunked_prefill"],
+)
+def test_decode_forward_matches(per_row, prefill_mode):
+    """Prefill (one shot, or two chunks under prefill_mode="cache"), then
+    three single-token steps; per-row steps sit at different depths."""
+    B, new = 2, 3
+    over = dict(
+        decode=True, max_decode_len=PROMPT + new + 1,
+        decode_per_row=per_row, prefill_mode=prefill_mode,
+    )
+    jcfg = jax_llama.llama_tiny(attn_impl="flash", **over)
+    tree = _jax_params(jcfg)
+    jmodel = jax_llama.Llama(jcfg)
+    model = _port_model(tree, **over)
+    jcache = jax_llama.init_decode_cache(jcfg, B)
+    pcache = port_llama.init_decode_cache(model.cfg, B)
+
+    def step(tokens, positions):
+        nonlocal jcache
+        jh, jcache = jax_llama.decode_forward(jmodel, tree, jcache, tokens, positions)
+        ph, _ = port_llama.decode_forward(
+            model, pcache, torch.from_numpy(tokens).long(),
+            None if positions is None else torch.from_numpy(positions).long(),
+        )
+        np.testing.assert_allclose(ph.numpy(), np.asarray(jh), atol=TOL)
+        return ph
+
+    prompt = _tokens(B, PROMPT)
+    if prefill_mode == "cache":
+        half = PROMPT // 2
+        pos = np.broadcast_to(np.arange(PROMPT, dtype=np.int32), (B, PROMPT))
+        step(prompt[:, :half], np.ascontiguousarray(pos[:, :half]))
+        step(prompt[:, half:], np.ascontiguousarray(pos[:, half:]))
+    else:
+        step(prompt, None)
+    _check_cache(jcache, pcache, jcfg.n_layers)
+    tok = _tokens(B, new, seed=2)
+    for i in range(new):
+        pos = np.full((B, 1), PROMPT + i, np.int32)
+        if per_row:
+            pos[1] += 1  # row 1 runs one slot ahead of row 0
+        step(tok[:, i : i + 1], pos)
+    _check_cache(jcache, pcache, jcfg.n_layers)
+
+
+def test_config_validation():
+    """Same validation as the JAX config; what the port lacks raises
+    NotImplementedError naming the ROADMAP item."""
+    with pytest.raises(ValueError, match="prefill_mode"):
+        port_llama.llama_tiny(prefill_mode="bogus")
+    with pytest.raises(ValueError, match="require decode=True"):
+        port_llama.llama_tiny(decode_per_row=True)
+    for over in (
+        {"n_experts": 4}, {"quantize": "int8"}, {"kv_quantize": "int8"},
+        {"remat": True}, {"attn_impl": "ring"}, {"attn_impl": "ulysses"},
+    ):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            port_llama.llama_tiny(**over)
+    cfg = port_llama.llama_0_3b()
+    assert (cfg.d_model, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim) == (
+        1024, 16, 8, 4, 128,
+    )
+    assert cfg.attn_impl == "flash" and cfg.dtype == torch.bfloat16
+
+
+def test_params_from_jax_rejects_wrong_config():
+    tree = _jax_params(jax_llama.llama_tiny())
+    with pytest.raises(ValueError, match="layers/attn/q_proj/kernel"):
+        params_from_jax(tree, port_llama.llama_tiny(n_heads=8, n_kv_heads=2))
