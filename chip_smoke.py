@@ -7,18 +7,32 @@ Phases, in order; any failure exits non-zero before the result line:
 1. Card identity (``nvidia-smi`` name and power limit), then the build of
    every kernel source with nvcc (all at once), with its time and ptxas's
    register report.
-2. Each kernel against its plain PyTorch version on the card, in the listed
-   cases, with the stated tolerance; kernel, plain-version and library
-   (``scaled_dot_product_attention``, timed only) times at the shape the main
-   path gives the kernel.
-3. The main path through the port's entry point: ``workloads.generate.run``
-   at ``llama_0_3b`` full width and depth (batch 8, 512-token prompt, 32 new
-   tokens, random weights from a seed). Launch counts are set to 0 just
-   before and read just after; every kernel must have run, the flash kernel
-   once per layer per prefill. Then the prefill's last-position logits of the
-   flash model are held against the dense-attention model on the same
-   weights.
-4. One ``{"kernels": [...]}`` line, the card's line, and as the last line
+2. The forward kernel against its plain PyTorch version on the card, in the
+   listed cases, with the stated tolerance; kernel, plain-version and library
+   (``scaled_dot_product_attention``, timed only) times at the generate
+   prefill's shape and at the training shape.
+3. The two backward kernels against their plain version
+   (``flash_attention_backward_reference``) on the same padded inputs, in the
+   listed cases, by ``grad_agreement`` (relative L2 error over the whole
+   gradient, over its late half and per row); at the training shape each
+   kernel's time, the plain backward's, SDPA's backward (timed only) and each
+   bound. Then the bf16 gradients of the public, differentiable
+   ``flash_attention`` on the card against the plain forward and backward, at
+   the training shape and at a padded one.
+4. The generate path: ``workloads.generate.run`` at ``llama_0_3b`` full
+   width and depth (batch 8, 512-token prompt, 32 new tokens, random weights
+   from a seed), launch counts set to 0 just before and read just after (the
+   forward kernel once per layer per prefill); the flash prefill's logits
+   against the dense model's; a profile of one generate call.
+5. The training path: ``workloads.llama_train.run`` at ``llama_0_3b`` full
+   width and depth (batch 4 x 4096 tokens, 1 warmup + 5 steps, AdamW, random
+   weights from a seed), launch counts set to 0 just before and read just
+   after (each of the three kernels once per layer per step; finite losses,
+   the last below the first); one step of flash + chunked loss against dense
+   attention + dense loss on the same weights (batch 4 x 1024: the loss, the
+   global gradient norm and each layer's q/k/v projection gradients); a
+   profile of one training step.
+6. One ``{"kernels": [...]}`` line, the card's line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -48,9 +62,12 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 
 # (name, B, S, H, KH, D, causal, kv_len, dtype): the generate prefill shape
-# first — its numbers go into the kernels line.
+# first and the training shape second — both are timed; the first's numbers
+# are the forward's in the kernels line.
+TRAIN_SHAPE = ("train", 4, 4096, 8, 4, 128, True, None, "bfloat16")
 FLASH_CASES = [
     ("slice", 8, 512, 8, 4, 128, True, None, "bfloat16"),
+    TRAIN_SHAPE,
     ("unaligned_S500", 8, 500, 8, 4, 128, True, None, "bfloat16"),
     ("kv_len_noncausal", 4, 512, 8, 4, 128, False, 300, "bfloat16"),
     ("G1", 4, 256, 8, 8, 128, True, None, "bfloat16"),
@@ -58,6 +75,42 @@ FLASH_CASES = [
     ("f32_no_tf32", 2, 256, 8, 4, 128, True, None, "float32"),
 ]
 TOL = {"bfloat16": 3e-2, "float32": 2e-5}
+# The backward cases: the training shape first (timed; its numbers go into
+# the kernels line), then padded S, non-causal kv_len, G 1, G 2 with D 64,
+# and f32 with TF32 off. Each gradient is held to its plain version by
+# flash_attention.grad_agreement: relative L2 error over the whole tensor and
+# over its late half within GRAD_RTOL (bf16 5e-3, f32 1e-4), and in its worst
+# row within ROW_RTOL (bf16 3e-2, f32 3e-4), so that a fault confined to late
+# tiles, whose causal gradients are 50-100x smaller than the first keys',
+# shows.
+BWD_CASES = [
+    TRAIN_SHAPE,
+    ("unaligned_S500", 2, 500, 8, 4, 128, True, None, "bfloat16"),
+    ("kv_len_noncausal", 2, 512, 8, 4, 128, False, 300, "bfloat16"),
+    ("G1", 2, 256, 8, 8, 128, True, None, "bfloat16"),
+    ("G2_D64", 2, 256, 8, 4, 64, True, None, "bfloat16"),
+    ("f32_no_tf32", 2, 256, 8, 4, 128, True, None, "float32"),
+]
+# The public function's bf16 gradients on the card against the plain forward
+# and backward: the training shape (no padding) and a padded one (S 500,
+# D 80), which exercises the autograd wrapper's pad of do and slice of the
+# gradients.
+AUTOGRAD_CASES = [TRAIN_SHAPE, ("padded_S500_D80", 2, 500, 8, 4, 80, True, None, "bfloat16")]
+
+
+# One training step, flash + chunked loss against dense attention + dense
+# loss on the same weights: both run bf16 matmuls in f32-accumulated products
+# but round p (and the loss's f32 logits against the head's f32 product) at
+# different points, which 16 layers carry into the loss and the gradients.
+# Loss and global gradient norm (readings 3.7e-5 and 6.9e-5, NVIDIA H100 80GB
+# HBM3 at 700 W) are held about 10x above their readings. The global norm is
+# dominated by the embedding and LM head, so each layer's q/k/v projection
+# gradient, which only a right attention backward gets right, is held as a
+# relative L2 difference; dense rounds its bf16 dprobs before the softmax
+# backward's subtraction, so these differ at the 1e-2 level.
+TRAIN_LOSS_RTOL = 5e-4
+TRAIN_GRAD_NORM_RTOL = 1e-3
+TRAIN_QKV_GRAD_RTOL = 5e-2  # readings: median 1.3e-2, worst layer 2.0e-2
 # Flash vs dense prefill, last-position logits: both run bf16 attention and
 # differ in where they round (the kernel rounds unnormalized p to bf16 and
 # divides after p·v; dense normalizes, then rounds), which 16 layers carry
@@ -89,12 +142,29 @@ def _flash_bound_ms(B, S, H, KH, D, causal, kv_len, dtype) -> tuple:
     pairs that this case's mask keeps."""
     esize = 2 if dtype == "bfloat16" else 4
     nbytes = esize * (2 * B * S * H * D + 2 * B * S * KH * D) + 4 * B * H * S
+    ops = 4 * D * B * H * _causal_pairs(S, causal, kv_len)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _causal_pairs(S, causal, kv_len) -> int:
     cols = kv_len or S
-    if causal:
-        pairs = sum(min(r + 1, cols) for r in range(S))
+    return sum(min(r + 1, cols) for r in range(S)) if causal else S * cols
+
+
+def _bwd_bound_ms(kernel, B, S, H, KH, D, causal, kv_len, dtype) -> tuple:
+    """Least time for one backward kernel on this card: q, k, v, do, lse and
+    delta read once and its gradients written once, against its products
+    over the live (row, col) pairs — dq three (q·kᵀ, do·vᵀ, ds·k), dkv four
+    (k·qᵀ, v·doᵀ, pᵀ·do, dsᵀ·q), 2·D operations a pair each."""
+    esize = 2 if dtype == "bfloat16" else 4
+    q_bytes, kv_bytes = esize * B * S * H * D, esize * B * S * KH * D
+    rows = 4 * B * H * S  # one f32 row vector
+    if kernel == "flash_bwd_dq":
+        nbytes, products = 3 * q_bytes + 2 * kv_bytes + 2 * rows, 3
     else:
-        pairs = S * cols
-    ops = 4 * D * B * H * pairs
+        nbytes, products = 2 * q_bytes + 4 * kv_bytes + 2 * rows, 4
+    ops = 2 * D * products * B * H * _causal_pairs(S, causal, kv_len)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -116,7 +186,7 @@ def phase_identity_and_build():
     from pytorch_operator_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    paths = _build.build(["flash_fwd"])
+    paths = _build.build(["flash_fwd", "flash_bwd"])
     _log(f"built {sorted(paths)} in {time.perf_counter() - t0:.2f}s")
     for name, report in _build.build_logs.items():
         for line in report.splitlines():
@@ -161,7 +231,7 @@ def phase_flash_vs_plain():
         _log(f"flash_fwd {name} {dtype}: max_abs_err {err:.3e} (tol {TOL[dtype]:.0e}) {'ok' if ok else 'FAIL'}")
         if not ok:
             _fail(f"flash_fwd disagrees with its plain version in case {name}")
-        if entry is None:
+        if name in ("slice", "train"):
             qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             ms = _time_ms(lambda: fa.flash_attention_with_lse(q, k, v, causal=causal, kv_len=kv_len))
             plain_ms = _time_ms(
@@ -176,6 +246,14 @@ def phase_flash_vs_plain():
                 f"flash_fwd {name} timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
             )
+            shape = f"B{B} S{S} H{H} KH{KH} D{D} {'causal' if causal else 'full'} {dtype}"
+            if name == "train":
+                entry.update(
+                    train_shape=shape, train_ms=ms, train_plain_ms=plain_ms,
+                    train_bound_ms=bound_ms, train_bound_by=bound_by,
+                    train_library_ms=library_ms, train_max_abs_err=err,
+                )
+                continue
             entry = {
                 "name": "flash_fwd",
                 "route": "cuda",
@@ -188,12 +266,147 @@ def phase_flash_vs_plain():
                 "bound_ms": bound_ms,
                 "bound_by": bound_by,
                 "library_ms": library_ms,
-                "shape": f"B{B} S{S} H{H} KH{KH} D{D} {'causal' if causal else 'full'} {dtype}",
+                "shape": shape,
             }
     return [entry]
 
 
-def phase_main_path(kernels):
+def _padded_case(gen, B, S, H, KH, D, dtype):
+    """Random q, k, v, do for one case, padded as the wrapper pads them."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_operator_tpu_torch.ops import flash_attention as fa
+
+    dt = getattr(torch, dtype)
+    _, _, S_pad, D_pad = fa._plan_tiling(S, D, 1024, 1024, True)
+    pad = (0, D_pad - D, 0, 0, 0, S_pad - S)
+    return [
+        F.pad(torch.randn((B, S, h, D), generator=gen, device="cuda").to(dt), pad)
+        for h in (H, KH, KH, H)
+    ]
+
+
+def phase_backward_vs_plain():
+    """Both backward kernels against their plain version on the same padded
+    inputs (the forward kernel's o and lse), every case; times and bounds at
+    the training shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_operator_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    entries = {}
+    for name, B, S, H, KH, D, causal, kv_len, dtype in BWD_CASES:
+        q, k, v, do = _padded_case(gen, B, S, H, KH, D, dtype)
+        args = dict(causal=causal, kv_len=kv_len or S, scale=1.0 / math.sqrt(D))
+        o, lse = fa._launch(q, k, v, **args)
+        grads = fa._launch_bwd(q, k, v, o, lse, do, **args)
+        torch.cuda.synchronize()
+        refs = fa.flash_attention_backward_reference(q, k, v, o, lse, do, **args)
+        errs = {
+            gname: _check_grad(f"flash_bwd {name} {dtype} {gname}", g, r, S)
+            for gname, g, r in zip(("dq", "dk", "dv"), grads, refs)
+        }
+        del refs
+        if name != "train":
+            continue
+        lse_c, delta = lse.contiguous(), fa.bwd_delta(o, do)
+        kin = (q, k, v, do, lse_c, delta)
+        dq_ms = _time_ms(lambda: fa._launch_dq(*kin, **args))
+        dkv_ms = _time_ms(lambda: fa._launch_dkv(*kin, **args))
+        plain_ms = _time_ms(
+            lambda: fa.flash_attention_backward_reference(q, k, v, o, lse, do, **args), reps=3
+        )
+        qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal, enable_gqa=True)
+        doh = do.transpose(1, 2).contiguous()
+        library_ms = _time_ms(
+            lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True)
+        )
+        shape = f"B{B} S{S} H{H} KH{KH} D{D} {'causal' if causal else 'full'} {dtype}"
+        for kname, ms, err in (
+            ("flash_bwd_dq", dq_ms, errs["dq"]),
+            ("flash_bwd_dkv", dkv_ms, max(errs["dk"], errs["dv"])),
+        ):
+            bound_ms, bound_by = _bwd_bound_ms(kname, B, S, H, KH, D, causal, kv_len, dtype)
+            _log(
+                f"{kname} {name} timing: kernel {ms:.4f} ms, plain backward {plain_ms:.4f} ms, "
+                f"SDPA backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
+            )
+            entries[kname] = {
+                "name": kname,
+                "route": "cuda",
+                "source": "pytorch_operator_tpu_torch/ops/csrc/flash_bwd.cu",
+                "replaces": "pytorch_operator_tpu/ops/flash_attention.py:"
+                + ("156" if kname == "flash_bwd_dq" else "197"),
+                "max_abs_err": err,
+                "ms": ms,
+                "kernel_ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "library_ms": library_ms,
+                "shape": shape,
+            }
+        del out, qh, kh, vh
+    torch.cuda.empty_cache()
+    _autograd_vs_plain(gen)
+    return [entries["flash_bwd_dq"], entries["flash_bwd_dkv"]]
+
+
+def _check_grad(what: str, g, r, seq_len: int) -> float:
+    """Hold one kernel gradient to its plain version (``grad_agreement``);
+    log the readings, fail on disagreement, return the max abs error."""
+    import torch
+
+    from pytorch_operator_tpu_torch.ops import flash_attention as fa
+
+    if not torch.isfinite(g.float()).all() or g.shape != r.shape:
+        _fail(f"{what}: non-finite or of shape {tuple(g.shape)}")
+    a = fa.grad_agreement(g, r, seq_len)
+    _log(
+        f"{what}: rel {a['rel']:.3e}, late half {a['rel_late']:.3e} (tol "
+        f"{fa.GRAD_RTOL[g.dtype]:.0e}), worst row {a['rel_row']:.3e} (tol "
+        f"{fa.ROW_RTOL[g.dtype]:.0e}); max_abs_err {a['max_abs']:.3e} {'ok' if a['ok'] else 'FAIL'}"
+    )
+    if not a["ok"]:
+        _fail(f"{what} disagrees with its plain version")
+    return a["max_abs"]
+
+
+def _autograd_vs_plain(gen):
+    """bf16 gradients of ``flash_attention`` through autograd on the card
+    (forward kernel, both backward kernels, the wrapper's padding) against
+    the plain forward and backward on the same, unpadded inputs."""
+    import torch
+
+    from pytorch_operator_tpu_torch.ops import flash_attention as fa
+
+    for name, B, S, H, KH, D, causal, kv_len, dtype in AUTOGRAD_CASES:
+        dt = getattr(torch, dtype)
+        q, k, v, do = (
+            torch.randn((B, S, h, D), generator=gen, device="cuda").to(dt) for h in (H, KH, KH, H)
+        )
+        qkv = [x.requires_grad_() for x in (q, k, v)]
+        grads = torch.autograd.grad(fa.flash_attention(*qkv, causal=causal), qkv, do)
+        q, k, v = (x.detach() for x in qkv)
+        args = dict(causal=causal, kv_len=S, scale=1.0 / math.sqrt(D))
+        o, lse = fa.flash_attention_reference(q, k, v, **args)
+        refs = fa.flash_attention_backward_reference(q, k, v, o, lse, do, **args)
+        for gname, g, r in zip(("dq", "dk", "dv"), grads, refs):
+            _check_grad(f"autograd {name} {dtype} {gname}", g, r, S)
+        del grads, refs, o, lse
+    torch.cuda.empty_cache()
+
+
+def _record_launches(kernels, path: str, launches: dict) -> None:
+    for k in kernels:
+        k.setdefault("launches_by_path", {})[path] = launches[k["name"]]
+
+
+def phase_generate(kernels):
     import dataclasses
 
     import torch
@@ -202,15 +415,14 @@ def phase_main_path(kernels):
     from pytorch_operator_tpu_torch.ops import flash_attention as fa
     from pytorch_operator_tpu_torch.workloads import generate
 
-    counters = {"flash_fwd": fa}
-    for mod in counters.values():
-        mod.reset_launch_count()
+    fa.reset_launch_count()
     result = generate.run(
         config="0.3b", batch_size=8, prompt_len=512, max_new_tokens=32,
         device="cuda", log=_log,
     )
-    launches = {name: mod.launch_count for name, mod in counters.items()}
-    _log(f"main path launches: {launches}")
+    launches = fa.launch_counts()
+    _log(f"generate path launches: {launches}")
+    _record_launches(kernels, "generate", launches)
     n_layers = llama_lib.llama_0_3b().n_layers
     if result["flash_launches_per_generate"] != n_layers:
         _fail(
@@ -220,10 +432,6 @@ def phase_main_path(kernels):
     # run(): 1 + 3 timed generate calls and 3 timed prefills, each one prefill.
     if launches["flash_fwd"] != 7 * n_layers:
         _fail(f"flash kernel launched {launches['flash_fwd']} times, expected {7 * n_layers}")
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-        if k["launches"] == 0:
-            _fail(f"kernel {k['name']} never ran on the main path")
     _log(
         f"generate 0.3b: {result['value']} tok/s, generate {result['generate_s']:.4f} s, "
         f"prefill_s {result['prefill_s']:.5f}"
@@ -275,6 +483,14 @@ def _profile_generate(model, prompt, new_tokens: int = 32):
         gen(cache, prompt, torch.Generator("cuda"))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    _report_profile(prof, wall, f"one generate call ({new_tokens - 1} decode steps)")
+
+
+def _report_profile(prof, wall: float, what: str, top: int = 12) -> None:
+    """Device time by kernel from a torch.profiler run, the card's busy
+    share of the wall time, and the number of kernel launches."""
+    import torch
+
     rows = [
         (e.key, e.device_time_total, e.count)
         for e in prof.key_averages()
@@ -282,17 +498,154 @@ def _profile_generate(model, prompt, new_tokens: int = 32):
     ]
     busy_us = sum(t for _, t, _ in rows)
     _log(
-        f"profile of one generate call: wall {1e3 * wall:.2f} ms, device busy "
-        f"{busy_us / 1e3:.2f} ms ({100 * busy_us / 1e6 / wall:.1f}% of wall; profiler on)"
+        f"profile of {what}: wall {1e3 * wall:.2f} ms, device busy {busy_us / 1e3:.2f} ms "
+        f"({100 * busy_us / 1e6 / wall:.1f}% of wall; profiler on), "
+        f"{sum(n for _, _, n in rows)} kernel launches"
     )
-    for key, t, n in sorted(rows, key=lambda r: -r[1])[:12]:
+    for key, t, n in sorted(rows, key=lambda r: -r[1])[:top]:
         _log(f"  {t / 1e3:9.3f} ms  {n:6d}x  {key[:100]}")
+
+
+def phase_train(kernels):
+    """The training main path at llama_0_3b, then flash + chunked against
+    dense on the same weights, then a profile of one step."""
+    import torch
+
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+    from pytorch_operator_tpu_torch.ops import flash_attention as fa
+    from pytorch_operator_tpu_torch.workloads import llama_train
+
+    warmup, steps = 1, 5
+    fa.reset_launch_count()
+    result = llama_train.run(
+        config="0.3b", batch_size=4, seq_len=4096, steps=steps, warmup=warmup,
+        device="cuda", log=_log,
+    )
+    launches = fa.launch_counts()
+    _log(f"training path launches: {launches}")
+    _record_launches(kernels, "train", launches)
+    n_layers = llama_lib.llama_0_3b().n_layers
+    for name, n in launches.items():
+        if n != n_layers * (warmup + steps):
+            _fail(f"{name} launched {n} times on the training path, expected "
+                  f"{n_layers * (warmup + steps)} (one per layer per step)")
+    losses = result["losses"]
+    if len(losses) != warmup + steps or not all(math.isfinite(x) for x in losses):
+        _fail(f"training losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        _fail(f"training loss did not fall: {losses}")
+    _log(
+        f"train 0.3b (B4 x S4096): {result['value']} tokens/s, step {result['step_s']:.4f} s, "
+        f"peak memory {result['peak_mem_bytes'] / 2**30:.2f} GiB, "
+        f"losses {[round(x, 4) for x in losses]}, per step {result['flash_launches_per_step']}"
+    )
+    _train_parity()
+    _profile_train()
+    return result
+
+
+def _train_model(cfg, seed: int):
+    import torch
+
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+
+    model = llama_lib.Llama(cfg, device="cuda")
+    return model.init_weights(torch.Generator(device="cuda").manual_seed(seed))
+
+
+def _train_parity(B: int = 4, S: int = 1024):
+    """One step's loss, global gradient norm and each layer's q/k/v
+    projection gradients: flash attention + chunked loss against dense
+    attention + dense loss, on the same weights."""
+    import dataclasses
+
+    import torch
+
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+    from pytorch_operator_tpu_torch.workloads import llama_train, trainer
+
+    cfg = llama_lib.llama_0_3b()
+    flash = _train_model(cfg, seed=3)
+    toks = torch.from_numpy(llama_train.synthetic_bigram_batch(B, S, cfg.vocab_size, 0))
+    toks = toks.to("cuda", torch.long)
+    out = {}
+    for name in ("flash", "dense"):
+        if name == "flash":
+            model = flash
+        else:
+            model = llama_lib.Llama(
+                dataclasses.replace(cfg, attn_impl="dense", xent_impl="dense"), device="cuda"
+            )
+            model.load_state_dict(flash.state_dict())
+            del flash
+        loss = trainer.make_lm_loss_fn(model)(toks)
+        loss.backward()
+        gnorm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(p.grad) for p in model.parameters()])
+        )
+        qkv = {
+            f"{i}.{proj}": getattr(layer.attn, proj).weight.grad
+            for i, layer in enumerate(model.layers)
+            for proj in ("q_proj", "k_proj", "v_proj")
+        }
+        out[name] = (float(loss.detach()), float(gnorm), qkv)
+        del model, loss
+    (lf, gf, qf), (ld, gd, qd) = out["flash"], out["dense"]
+    dl, dg = abs(lf - ld) / abs(ld), abs(gf - gd) / gd
+    dqkv = {
+        key: (torch.linalg.vector_norm(qf[key] - qd[key]) / torch.linalg.vector_norm(qd[key])).item()
+        for key in qd
+    }
+    worst = max(dqkv, key=dqkv.get)
+    _log(
+        f"train step flash+chunked vs dense (B{B} x S{S}): loss {lf:.5f} vs {ld:.5f} "
+        f"(rel {dl:.2e}, tol {TRAIN_LOSS_RTOL:.0e}); grad norm {gf:.5f} vs {gd:.5f} "
+        f"(rel {dg:.2e}, tol {TRAIN_GRAD_NORM_RTOL:.0e}); q/k/v projection gradients: "
+        f"worst layer {worst} rel {dqkv[worst]:.2e}, median "
+        f"{sorted(dqkv.values())[len(dqkv) // 2]:.2e} (tol {TRAIN_QKV_GRAD_RTOL:.0e})"
+    )
+    if (
+        not (math.isfinite(lf) and math.isfinite(gf))
+        or dl > TRAIN_LOSS_RTOL
+        or dg > TRAIN_GRAD_NORM_RTOL
+        or not dqkv[worst] <= TRAIN_QKV_GRAD_RTOL
+    ):
+        _fail("flash + chunked and dense training steps disagree")
+    torch.cuda.empty_cache()
+
+
+def _profile_train(B: int = 4, S: int = 4096):
+    """Where one training step's time goes at the training shape."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+    from pytorch_operator_tpu_torch.workloads import llama_train, trainer
+
+    cfg = llama_lib.llama_0_3b()
+    model = _train_model(cfg, seed=4)
+    step = trainer.make_lm_train_step(model, trainer.make_optimizer(model.parameters(), 3e-4))
+    toks = torch.from_numpy(llama_train.synthetic_bigram_batch(B, S, cfg.vocab_size, 0))
+    toks = toks.to("cuda", torch.long)
+    float(step(toks))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(step(toks))
+        wall = time.perf_counter() - t0
+    _report_profile(prof, wall, f"one training step (B{B} x S{S})", top=15)
+    del model, step
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
     card = phase_identity_and_build()
-    kernels = phase_flash_vs_plain()
-    phase_main_path(kernels)
+    kernels = phase_flash_vs_plain() + phase_backward_vs_plain()
+    phase_generate(kernels)
+    phase_train(kernels)
+    for k in kernels:
+        k["launches"] = sum(k["launches_by_path"].values())
+        if k["launches"] == 0:
+            _fail(f"kernel {k['name']} never ran on a main path")
 
     import torch
 

@@ -12,10 +12,12 @@ module there it keeps as its own copy.
   channel (``rendezvous.py``).
 - ``ops``     — hand-written Hopper kernels (``csrc/*.cu``, built with nvcc
   at first use by ``_build.py``) behind wrappers that keep a plain PyTorch
-  version for CPU tensors, and token sampling.
+  version for CPU tensors (flash attention forward and backward), the
+  chunked-vocab loss, and token sampling.
 - ``models``  — the Llama decoder with its KV-cache decode path, and the
   loader that turns a JAX param tree into this package's state dict.
-- ``workloads`` — runnable entry points (``generate``).
+- ``workloads`` — runnable entry points (``generate``, ``llama_train``) and
+  the training loop they share (``trainer``).
 
 Entry points run on ``cuda`` unless the caller asks for the CPU
 (``--device cpu`` or ``TPUJOB_PLATFORM=cpu``); with no GPU and no such

@@ -4,9 +4,11 @@ The JAX package's ``Llama.init`` yields nested dicts whose layer leaves are
 stacked ``[n_layers, ...]`` (flax ``nn.scan``) and whose matmul kernels keep
 ``DenseGeneral``'s ``[in, ...out]`` shape. :func:`params_from_jax` takes that
 tree as nested dicts of numpy arrays (e.g. after ``jax.device_get``) and
-returns the port's ``state_dict``: per-layer ``[out, in]`` weights, matmul
-weights and the embedding cast to ``cfg.dtype``, norm scales and the LM head
-kept in float32.
+returns the port's ``state_dict``: per-layer ``[out, in]`` weights, the norm
+scales in float32, and every other weight in ``cfg.param_dtype``, the dtype
+the port's ``Llama`` holds its parameters in. A serving model casts its matmul
+weights to ``cfg.dtype`` once after loading
+(:meth:`~pytorch_operator_tpu_torch.models.llama.Llama.cast_matmul_weights_`).
 """
 
 from __future__ import annotations
@@ -39,12 +41,12 @@ def params_from_jax(tree, cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
         return torch.from_numpy(a)
 
     def mm(a: torch.Tensor) -> torch.Tensor:
-        return a.to(cfg.dtype).contiguous()
+        return a.to(cfg.param_dtype).contiguous()
 
     sd = {
         "embed.weight": mm(leaf("embed/embedding", (V, M))),
         "final_norm.weight": leaf("final_norm/scale", (M,)),
-        "lm_head.weight": leaf("lm_head/kernel", (M, V)).t().contiguous(),
+        "lm_head.weight": mm(leaf("lm_head/kernel", (M, V)).t()),
     }
     q = leaf("layers/attn/q_proj/kernel", (L, M, H, D))
     k = leaf("layers/attn/k_proj/kernel", (L, M, K, D))

@@ -8,10 +8,14 @@ the serving forward (:func:`decode_forward`) over a flat per-layer cache
 package (``embed``, ``layers.<i>.attn.q_proj``, ``mlp.gate_proj``, ...) so
 ``convert.params_from_jax`` maps one tree onto the other.
 
-Weights live in PyTorch's ``nn.Linear`` orientation ``[out, in]``. Matmul
-weights and the embedding table are held in ``cfg.dtype`` (flax casts the
-f32 params to the compute dtype at every call; casting once is the same
-arithmetic); norm scales and the LM head stay f32.
+Weights live in PyTorch's ``nn.Linear`` orientation ``[out, in]``. As in
+flax (``param_dtype``/``dtype`` on every ``DenseGeneral`` and ``Embed``), the
+matmul weights and the embedding table are parameters in ``cfg.param_dtype``
+(f32 master weights for training) and are cast to ``cfg.dtype`` at the call,
+so their gradients arrive through the cast in the parameter's dtype. Norm
+scales stay f32 and the LM head computes in f32. A serving model casts its
+matmul weights once at load (:meth:`Llama.cast_matmul_weights_`), after which
+the per-call cast is a no-op.
 
 Not in this port yet (each raises ``NotImplementedError`` from the config):
 MoE, ring/ulysses sequence parallelism, int8 weights (``quantize``), int8 KV
@@ -96,7 +100,7 @@ class LlamaConfig:
             ("quantize", self.quantize is None, "int8 weights"),
             ("kv_quantize", self.kv_quantize is None, "int8 KV cache"),
             ("n_experts", self.n_experts == 0, "MoE"),
-            ("remat", not self.remat, "the training slice"),
+            ("remat", not self.remat, "remat"),
             (
                 "attn_impl",
                 self.attn_impl not in ("ring", "ulysses"),
@@ -182,8 +186,18 @@ CONFIGS = {
 }
 
 
-def _linear(n_in: int, n_out: int, cfg: LlamaConfig, device) -> nn.Linear:
-    return nn.Linear(n_in, n_out, bias=False, device=device, dtype=cfg.dtype)
+class _Linear(nn.Linear):
+    """A bias-free ``nn.Linear`` whose weight is a ``cfg.param_dtype``
+    parameter and whose product runs in ``cfg.dtype`` (flax
+    ``DenseGeneral(dtype=..., param_dtype=...)``): input and weight are cast
+    at the call."""
+
+    def __init__(self, n_in: int, n_out: int, cfg: LlamaConfig, device):
+        super().__init__(n_in, n_out, bias=False, device=device, dtype=cfg.param_dtype)
+        self.compute_dtype = cfg.dtype
+
+    def forward(self, x):
+        return F.linear(x.to(self.compute_dtype), self.weight.to(self.compute_dtype))
 
 
 class RMSNorm(nn.Module):
@@ -219,10 +233,10 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        self.q_proj = _linear(cfg.d_model, H * D, cfg, device)
-        self.k_proj = _linear(cfg.d_model, K * D, cfg, device)
-        self.v_proj = _linear(cfg.d_model, K * D, cfg, device)
-        self.o_proj = _linear(H * D, cfg.d_model, cfg, device)
+        self.q_proj = _Linear(cfg.d_model, H * D, cfg, device)
+        self.k_proj = _Linear(cfg.d_model, K * D, cfg, device)
+        self.v_proj = _Linear(cfg.d_model, K * D, cfg, device)
+        self.o_proj = _Linear(H * D, cfg.d_model, cfg, device)
 
     def forward(self, x, positions, cache: Optional[Dict[str, torch.Tensor]] = None):
         cfg = self.cfg
@@ -300,9 +314,9 @@ class MLP(nn.Module):
 
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
-        self.gate_proj = _linear(cfg.d_model, cfg.d_ff, cfg, device)
-        self.up_proj = _linear(cfg.d_model, cfg.d_ff, cfg, device)
-        self.down_proj = _linear(cfg.d_ff, cfg.d_model, cfg, device)
+        self.gate_proj = _Linear(cfg.d_model, cfg.d_ff, cfg, device)
+        self.up_proj = _Linear(cfg.d_model, cfg.d_ff, cfg, device)
+        self.down_proj = _Linear(cfg.d_ff, cfg.d_model, cfg, device)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -334,11 +348,13 @@ class Llama(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         self.cfg = cfg
-        self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model, device=device, dtype=cfg.dtype)
+        self.embed = nn.Embedding(
+            cfg.vocab_size, cfg.d_model, device=device, dtype=cfg.param_dtype
+        )
         self.layers = nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.d_model, cfg.rms_eps, device)
         self.lm_head = nn.Linear(
-            cfg.d_model, cfg.vocab_size, bias=False, device=device, dtype=torch.float32
+            cfg.d_model, cfg.vocab_size, bias=False, device=device, dtype=cfg.param_dtype
         )
 
     @torch.no_grad()
@@ -361,8 +377,21 @@ class Llama(nn.Module):
             p.copy_(w)
         return self
 
+    @torch.no_grad()
+    def cast_matmul_weights_(self) -> "Llama":
+        """Hold the matmul weights and the embedding table in ``cfg.dtype``
+        from now on (in place): a serving model pays the cast once at load
+        instead of at every call. Norm scales and the LM head keep their
+        dtype. Not for training: the optimizer would then update bf16
+        weights."""
+        for name, p in self.named_parameters():
+            if name == "embed.weight" or name.endswith("_proj.weight"):
+                p.data = p.data.to(self.cfg.dtype)
+        return self
+
     def head_kernel(self) -> torch.Tensor:
-        """The LM-head weight as [D, V] f32 (the JAX layout)."""
+        """The LM-head weight as [D, V] in its parameter dtype (the JAX
+        layout)."""
         return self.lm_head.weight.t()
 
     def forward(self, tokens, positions=None, *, cache=None, return_hidden: bool = False):
@@ -370,13 +399,17 @@ class Llama(nn.Module):
             S = tokens.shape[-1]
             positions = torch.arange(S, device=tokens.device).expand(tokens.shape)
         positions = positions.long()  # cache writes index with it
-        x = self.embed(tokens)
+        # Gather, then cast: the same values as flax's cast-then-gather
+        # (nn.Embed(dtype=bf16) casts the whole table first). The backward
+        # differs only in where it rounds: the rows of repeated tokens are
+        # summed in the table's own dtype (f32 for training) and not in bf16.
+        x = F.embedding(tokens, self.embed.weight).to(self.cfg.dtype)
         for i, block in enumerate(self.layers):
             x = block(x, positions, None if cache is None else cache[f"layer_{i}"]["attn"])
         x = self.final_norm(x)
         if return_hidden:
             return x
-        return self.lm_head(x.float())
+        return F.linear(x.float(), self.lm_head.weight.float())
 
 
 def init_decode_cache(cfg: LlamaConfig, batch: int, device=None):

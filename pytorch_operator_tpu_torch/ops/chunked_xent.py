@@ -1,0 +1,111 @@
+"""Memory-efficient softmax cross-entropy for large-vocab LM heads.
+
+The counterpart of ``pytorch_operator_tpu/ops/chunked_xent.py``: the LM-head
+matmul fused with the loss. A loop over vocab chunks keeps only ``[N,
+chunk]`` logits alive, carrying an online logsumexp (running max and scaled
+sum) across chunks, and the backward recomputes each chunk's logits instead of
+saving them. No ``[N, V]`` logits tensor ever exists.
+
+The JAX package leaves this to XLA (a ``lax.scan`` of plain matmuls, no
+Pallas kernel), so the port is plain PyTorch: each chunk's products go to
+``torch.matmul``. Semantics kept from the JAX op:
+
+- logits math is f32 whatever the input dtype;
+- labels clamp to ``[0, V)``;
+- a vocab that does not divide into chunks takes a clamped tail chunk
+  (``start = min(c·chunk, V − chunk)``) whose already-counted columns are
+  masked out (:func:`_fresh_mask`), with no padding copy;
+- the label correction in the backward is an indexed add into the chunk's
+  gradient, not a one-hot.
+
+``chunked_vocab_stats`` (the pipeline's vocab-parallel loss tail) waits for
+the pipeline-parallel slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _fresh_mask(start: int, c_idx: int, chunk: int, device) -> torch.Tensor:
+    """True for the columns of chunk ``c_idx`` (read from ``start``) that no
+    earlier chunk counted."""
+    return start + torch.arange(chunk, device=device) >= c_idx * chunk
+
+
+def _chunks(V: int, chunk: int):
+    """``(c_idx, start)`` of every chunk; the tail chunk's start is clamped
+    so that it reads ``chunk`` columns inside ``[0, V)``."""
+    return [(c, min(c * chunk, V - chunk)) for c in range(-(-V // chunk))]
+
+
+class ChunkedSoftmaxXent(torch.autograd.Function):
+    """``apply(hidden [N,D], w [D,V], labels [N] int64 in [0,V), chunk)`` →
+    per-token ``-log p(label)`` f32 ``[N]``; gradients to hidden and w."""
+
+    @staticmethod
+    def forward(ctx, hidden, w, labels, chunk):
+        N = hidden.shape[0]
+        V = w.shape[1]
+        h32 = hidden.float()
+        m = torch.full((N,), float("-inf"), device=hidden.device)
+        s = torch.zeros(N, device=hidden.device)
+        lab_logit = torch.zeros(N, device=hidden.device)
+        for c_idx, start in _chunks(V, chunk):
+            logits = h32 @ w[:, start : start + chunk].float()  # [N, chunk] f32
+            fresh = _fresh_mask(start, c_idx, chunk, hidden.device)
+            logits = logits.masked_fill(~fresh[None, :], float("-inf"))
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            s = s * torch.exp(m - m_new) + torch.exp(logits - m_new[:, None]).sum(dim=-1)
+            m = m_new
+            local = labels - start
+            in_chunk = (labels >= c_idx * chunk) & (local < chunk)
+            picked = logits.gather(1, local.clamp(0, chunk - 1)[:, None])[:, 0]
+            lab_logit = torch.where(in_chunk, picked, lab_logit)
+        lse = m + torch.log(s)
+        ctx.save_for_backward(hidden, w, labels, lse)
+        ctx.chunk = chunk
+        return lse - lab_logit
+
+    @staticmethod
+    def backward(ctx, ct):
+        hidden, w, labels, lse = ctx.saved_tensors
+        chunk = ctx.chunk
+        N = hidden.shape[0]
+        h32 = hidden.float()
+        ct32 = ct.float()
+        dh = torch.zeros(h32.shape, dtype=torch.float32, device=hidden.device)
+        dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+        rows = torch.arange(N, device=hidden.device)
+        for c_idx, start in _chunks(w.shape[1], chunk):
+            w_c = w[:, start : start + chunk].float()
+            g = torch.exp(h32 @ w_c - lse[:, None]) * ct32[:, None]  # softmax chunk · ct
+            local = labels - start
+            in_chunk = (labels >= c_idx * chunk) & (local < chunk)
+            # The label correction as an indexed add (one entry a row), not
+            # a second [N, chunk] one-hot buffer.
+            g.index_put_(
+                (rows, local.clamp(0, chunk - 1)), -ct32 * in_chunk, accumulate=True
+            )
+            # Tail chunk: zero the already-counted columns so the overlapped
+            # read-add-write into dw cannot count them twice.
+            g.mul_(_fresh_mask(start, c_idx, chunk, hidden.device)[None, :])
+            dh.add_(g @ w_c.T)
+            dw[:, start : start + chunk].add_(h32.T @ g)
+        return dh.to(hidden.dtype), dw.to(w.dtype), None, None
+
+
+def chunked_softmax_xent(hidden, w, labels, *, chunk: int = 8192):
+    """Per-token ``-log p(label)`` without materializing ``[N, V]`` logits.
+
+    hidden ``[N, D]`` (bf16/f32), w ``[D, V]`` (the LM-head kernel), labels
+    ``[N]`` int. Returns float32 ``[N]``. Gradients flow to ``hidden`` and
+    ``w``. Out-of-range labels clamp to ``[0, V)``, a defined behavior where
+    the dense path yields NaN.
+    """
+    N, D = hidden.shape
+    D2, V = w.shape
+    if D != D2:
+        raise ValueError(f"hidden D={D} vs w D={D2}")
+    labels = labels.long().clamp(0, V - 1)
+    return ChunkedSoftmaxXent.apply(hidden, w, labels, min(chunk, V))

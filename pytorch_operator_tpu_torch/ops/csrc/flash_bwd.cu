@@ -1,0 +1,649 @@
+// Flash attention backward for Hopper (sm_90a), plain C interface for ctypes.
+//
+// Replaces the TPU kernels `_dq_kernel` and `_dkv_kernel` of
+// pytorch_operator_tpu/ops/flash_attention.py (launched by `_flash_bwd_call`).
+// Both recompute p = exp(s - lse) from the forward's per-row lse instead of
+// reading a saved [S, S] matrix, with s = q k^T * scale masked exactly as the
+// forward masks it (_mask_scores: col <= row when causal, col < kv_len,
+// masked scores -1e30), and dead tiles skipped as _live_block skips them.
+//
+//   flash_bwd_dq:  dq  = scale * sum_j ds_j k_j,     ds = p * (dp - delta),
+//                  dp  = do v^T,                      one walk over live K tiles
+//   flash_bwd_dkv: dv  = sum_i p_i^T do_i,
+//                  dk  = scale * sum_i ds_i^T q_i,    one walk over live Q tiles
+//
+// delta = rowsum(do * o) is computed by the caller (as XLA computes it outside
+// the TPU kernels) and passed in as [B*H, S] f32 beside lse.
+//
+// What bounds it. At the training shape (B=4, S=4096, H=8, KH=4, D=128, bf16,
+// causal) the live (row, col) pairs are 268.5 M: dq does three products over
+// them (q k^T, do v^T, ds k; 6*D flops a pair, about 206 GFLOP, 0.21 ms at
+// the H100 SXM's published 989 TFLOP/s) and dkv four (k q^T, v do^T, p^T do,
+// ds^T q; about 275 GFLOP, 0.28 ms), against 100-170 MB of q/k/v/do/lse/delta
+// in and gradients out (0.03-0.05 ms at its 3.35 TB/s). So both are bound by
+// operations: the design keeps every product on the tensor cores and every
+// [S, S] intermediate in registers.
+//
+// Design.
+// - bf16, dq: the forward's layout. One CTA per (b*H + h, 64-row query tile),
+//   four warps of 16 rows, a loop over the live 64-key tiles. q lives in
+//   registers (A operand of q k^T), do in shared memory (A operand of
+//   do v^T). ds comes out of the score accumulator in the A-operand layout of
+//   ds k, as p does for p v in the forward, so it goes to the tensor cores
+//   cast to bf16 without shared memory; k is the B operand of that product
+//   read down its columns, as v is in the forward.
+// - bf16, dkv: the TRANSPOSED scores s^T = k q^T (rows = keys), so p^T and
+//   ds^T land in the accumulator layout that is the A operand of p^T do and
+//   ds^T q. One CTA per (b, kv head, 64-key tile) that walks the G query heads
+//   of its kv head and their live 64-row query tiles, keeping dk and dv in
+//   f32 registers: GQA's group sum happens in the kernel, with no per-query-
+//   head [B*H, S, D] intermediate and no atomics, so the result is
+//   deterministic. (The TPU writes per-query-head dk/dv in bf16 and sums the
+//   G heads outside; here the sum is taken in f32 and rounded once, which
+//   stays inside the bf16 tolerance.) Register pressure: dk and dv are
+//   2 x 64 f32 a thread; k and v are read from shared memory as A operands
+//   rather than held, and each query tile is taken in two 32-column halves,
+//   so the score and dp accumulators are 16 f32 each.
+// - Rounding follows the TPU kernels: products in bf16 with f32 accumulation,
+//   softmax math in f32, ds cast to bf16 before ds k / ds^T q, p cast to bf16
+//   before p^T do.
+// - f32: scalar kernels (no TF32), the forward's f32 scheme. dq: a warp per
+//   4 query rows, one lane per key of a 32-key tile. dkv: a warp per 4 keys,
+//   one lane per query of a 32-row query tile; dk and dv are D/32 columns a
+//   lane.
+// - q, k, v, do, dq, dk, dv are addressed through [B, S, heads, D] strides;
+//   lse and delta are [B*H, S] f32.
+//
+// Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+//             -shared -Xcompiler -fPIC  (see ../_build.py)
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kNeg = -1e30f;
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* lse;
+  const float* delta;
+  void* dq;
+  void* dk;
+  void* dv;
+  long long q_sb, q_ss, q_sh;
+  long long k_sb, k_ss, k_sh;
+  long long v_sb, v_ss, v_sh;
+  long long do_sb, do_ss, do_sh;
+  long long dq_sb, dq_ss, dq_sh;
+  long long dk_sb, dk_ss, dk_sh;
+  long long dv_sb, dv_ss, dv_sh;
+  int H, G, S, kv_len, causal;
+  float scale;
+};
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  __nv_bfloat162 t;
+  t.x = lo;
+  t.y = hi;
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// A-operand fragment (16 rows x 16 cols) of a row-major bf16 tile in shared
+// memory, rows r0 and r0 + 8 of this lane, columns c0 + t*2 (+8).
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* tile, int ld,
+                                       int r0, int c0, int t) {
+  const __nv_bfloat16* base = tile + c0 + t * 2;
+  a[0] = ld32(base + r0 * ld);
+  a[1] = ld32(base + (r0 + 8) * ld);
+  a[2] = ld32(base + r0 * ld + 8);
+  a[3] = ld32(base + (r0 + 8) * ld + 8);
+}
+
+// A-operand fragment of two adjacent 8-column accumulator tiles, cast to bf16.
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&lo)[4],
+                                         const float (&hi)[4]) {
+  a[0] = pack_f32(lo[0], lo[1]);
+  a[1] = pack_f32(lo[2], lo[3]);
+  a[2] = pack_f32(hi[0], hi[1]);
+  a[3] = pack_f32(hi[2], hi[3]);
+}
+
+// B operand read down a column of a row-major tile: B[k][n] = tile[k0 + k][n0 + n].
+__device__ __forceinline__ void mma_col_b(float (&c)[4], const uint32_t (&a)[4],
+                                          const __nv_bfloat16* tile, int ld, int k0, int n0,
+                                          int g, int t) {
+  const __nv_bfloat16* b = tile + (k0 + t * 2) * ld + n0 + g;
+  mma_bf16(c, a, pack_bf16(b[0], b[ld]), pack_bf16(b[8 * ld], b[9 * ld]));
+}
+
+// B operand read along a row: B[k][n] = tile[n0 + n][k0 + k] (a transposed operand).
+__device__ __forceinline__ void mma_row_b(float (&c)[4], const uint32_t (&a)[4],
+                                          const __nv_bfloat16* tile, int ld, int k0, int n0,
+                                          int g, int t) {
+  const __nv_bfloat16* b = tile + (n0 + g) * ld + k0 + t * 2;
+  mma_bf16(c, a, ld32(b), ld32(b + 8));
+}
+
+// Copy `rows` rows of D bf16 from global memory (row stride `stride`, from
+// row0) into a padded shared tile, 16 bytes a thread at a time.
+__device__ __forceinline__ void stage_rows_bf16(__nv_bfloat16* dst, int ld,
+                                                const __nv_bfloat16* src,
+                                                long long stride, int row0, int rows, int D) {
+  const int cpr = D / 8;
+  for (int c = threadIdx.x; c < rows * cpr; c += blockDim.x) {
+    const int r = c / cpr, cc = c % cpr;
+    *reinterpret_cast<uint4*>(dst + r * ld + cc * 8) =
+        *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * stride + cc * 8);
+  }
+}
+
+__device__ __forceinline__ bool keep(const Params& p, int row, int col) {
+  return col < p.kv_len && (!p.causal || col <= row);
+}
+
+// ------------------------------------------------------------------ bf16
+
+constexpr int BM = 64;  // rows per tile: 4 warps x 16
+constexpr int BN = 64;  // keys per tile
+
+template <int D>
+__global__ void __launch_bounds__(128) flash_bwd_dq_bf16(Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int LD = D + 8;  // padded smem row (elements), 16-byte multiple
+  __nv_bfloat16* sDO = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sK = sDO + BM * LD;
+  __nv_bfloat16* sV = sK + BN * LD;
+  __nv_bfloat16* sQ = sK;  // aliases sK: q lives in registers after staging
+
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H, kvh = h / p.G;
+  const int q0 = blockIdx.x * BM;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  const __nv_bfloat16* Q = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const __nv_bfloat16* K = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const __nv_bfloat16* V = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  const __nv_bfloat16* DO =
+      static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_sb + h * p.do_sh;
+
+  stage_rows_bf16(sQ, LD, Q, p.q_ss, q0, BM, D);
+  stage_rows_bf16(sDO, LD, DO, p.do_ss, q0, BM, D);
+  __syncthreads();
+
+  const int r0 = warp * 16 + g;
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) load_a(qf[kk], sQ, LD, r0, kk * 16, t);
+
+  const int row_a = q0 + r0, row_b = row_a + 8;
+  const float lse_a = p.lse[(long long)bh * p.S + row_a];
+  const float lse_b = p.lse[(long long)bh * p.S + row_b];
+  const float dl_a = p.delta[(long long)bh * p.S + row_a];
+  const float dl_b = p.delta[(long long)bh * p.S + row_b];
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+
+  int end = p.kv_len;
+  if (p.causal) end = min(end, q0 + BM);
+  const int n_tiles = (end + BN - 1) / BN;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * BN;
+    __syncthreads();  // the previous tile (or the q staging) is consumed
+    stage_rows_bf16(sK, LD, K, p.k_ss, k0, BN, D);
+    stage_rows_bf16(sV, LD, V, p.v_ss, k0, BN, D);
+    __syncthreads();
+
+    float s[BN / 8][4], dp[BN / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t dof[4];
+      load_a(dof, sDO, LD, r0, kk * 16, t);
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt) {
+        mma_row_b(s[nt], qf[kk], sK, LD, kk * 16, nt * 8, g, t);   // q k^T
+        mma_row_b(dp[nt], dof, sV, LD, kk * 16, nt * 8, g, t);     // do v^T
+      }
+    }
+
+    // ds = p * (dp - delta), p = exp(s * scale - lse), written over s.
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + nt * 8 + t * 2 + (e & 1);
+        const bool lo = e < 2;
+        const float sv = keep(p, lo ? row_a : row_b, col) ? s[nt][e] * p.scale : kNeg;
+        const float pv = expf(sv - (lo ? lse_a : lse_b));
+        s[nt][e] = pv * (dp[nt][e] - (lo ? dl_a : dl_b));
+      }
+    }
+
+    // acc += ds k, ds cast to bf16 straight from the accumulator registers.
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      uint32_t a[4];
+      acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) mma_col_b(acc[dt], a, sK, LD, kk * 16, dt * 8, g, t);
+    }
+  }
+
+  __nv_bfloat16* DQ = static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+    const int col = dt * 8 + t * 2;
+    *reinterpret_cast<__nv_bfloat162*>(DQ + (long long)row_a * p.dq_ss + col) =
+        __floats2bfloat162_rn(acc[dt][0] * p.scale, acc[dt][1] * p.scale);
+    *reinterpret_cast<__nv_bfloat162*>(DQ + (long long)row_b * p.dq_ss + col) =
+        __floats2bfloat162_rn(acc[dt][2] * p.scale, acc[dt][3] * p.scale);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(128) flash_bwd_dkv_bf16(Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int LD = D + 8;
+  constexpr int HALF = BM / 2;  // query columns per score pass
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sV = sK + BN * LD;
+  __nv_bfloat16* sQ = sV + BN * LD;
+  __nv_bfloat16* sDO = sQ + BM * LD;
+  float* sL = reinterpret_cast<float*>(sDO + BM * LD);
+  float* sDl = sL + BM;
+
+  const int KH = p.H / p.G;
+  const int b = blockIdx.y / KH, kvh = blockIdx.y % KH;
+  const int k0 = blockIdx.x * BN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  const __nv_bfloat16* K = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const __nv_bfloat16* V = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  stage_rows_bf16(sK, LD, K, p.k_ss, k0, BN, D);
+  stage_rows_bf16(sV, LD, V, p.v_ss, k0, BN, D);
+
+  const int r0 = warp * 16 + g;  // this lane's key rows in the tile: r0, r0 + 8
+  const int key_a = k0 + r0, key_b = key_a + 8;
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[dt][e] = dv[dt][e] = 0.f;
+  }
+
+  if (k0 < p.kv_len) {  // a key tile wholly past kv_len has zero gradients
+    // Causal: query tile i is live when its last row reaches the tile's first key.
+    const int i_begin = p.causal ? k0 / BM : 0;
+    const int n_q = p.S / BM;
+    for (int hh = 0; hh < p.G; ++hh) {
+      const int h = kvh * p.G + hh;
+      const long long bh = (long long)b * p.H + h;
+      const __nv_bfloat16* Q = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
+      const __nv_bfloat16* DO =
+          static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_sb + h * p.do_sh;
+      for (int i = i_begin; i < n_q; ++i) {
+        const int q0 = i * BM;
+        __syncthreads();  // the previous query tile is consumed
+        stage_rows_bf16(sQ, LD, Q, p.q_ss, q0, BM, D);
+        stage_rows_bf16(sDO, LD, DO, p.do_ss, q0, BM, D);
+        if (tid < BM) {
+          sL[tid] = p.lse[bh * p.S + q0 + tid];
+          sDl[tid] = p.delta[bh * p.S + q0 + tid];
+        }
+        __syncthreads();
+
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int qoff = half * HALF;
+          float st[HALF / 8][4], dpt[HALF / 8][4];
+#pragma unroll
+          for (int nt = 0; nt < HALF / 8; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
+          }
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            uint32_t ka[4], va[4];
+            load_a(ka, sK, LD, r0, kk * 16, t);
+            load_a(va, sV, LD, r0, kk * 16, t);
+#pragma unroll
+            for (int nt = 0; nt < HALF / 8; ++nt) {
+              mma_row_b(st[nt], ka, sQ, LD, kk * 16, qoff + nt * 8, g, t);    // k q^T
+              mma_row_b(dpt[nt], va, sDO, LD, kk * 16, qoff + nt * 8, g, t);  // v do^T
+            }
+          }
+
+          // p^T over st, ds^T = p^T * (dp^T - delta) over dpt; lse and delta
+          // are indexed by the column (the query).
+#pragma unroll
+          for (int nt = 0; nt < HALF / 8; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int qc = qoff + nt * 8 + t * 2 + (e & 1);
+              const int key = e < 2 ? key_a : key_b;
+              const float sv = keep(p, q0 + qc, key) ? st[nt][e] * p.scale : kNeg;
+              const float pv = expf(sv - sL[qc]);
+              st[nt][e] = pv;
+              dpt[nt][e] = pv * (dpt[nt][e] - sDl[qc]);
+            }
+          }
+
+          // dv += p^T do, dk += ds^T q over this half's 32 queries.
+#pragma unroll
+          for (int kk = 0; kk < HALF / 16; ++kk) {
+            uint32_t pa[4], da[4];
+            acc_to_a(pa, st[2 * kk], st[2 * kk + 1]);
+            acc_to_a(da, dpt[2 * kk], dpt[2 * kk + 1]);
+#pragma unroll
+            for (int dt = 0; dt < D / 8; ++dt) {
+              mma_col_b(dv[dt], pa, sDO, LD, qoff + kk * 16, dt * 8, g, t);
+              mma_col_b(dk[dt], da, sQ, LD, qoff + kk * 16, dt * 8, g, t);
+            }
+          }
+        }
+      }
+    }
+  }
+
+  __nv_bfloat16* DK = static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_sb + kvh * p.dk_sh;
+  __nv_bfloat16* DV = static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_sb + kvh * p.dv_sh;
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+    const int col = dt * 8 + t * 2;
+    *reinterpret_cast<__nv_bfloat162*>(DK + (long long)key_a * p.dk_ss + col) =
+        __floats2bfloat162_rn(dk[dt][0] * p.scale, dk[dt][1] * p.scale);
+    *reinterpret_cast<__nv_bfloat162*>(DK + (long long)key_b * p.dk_ss + col) =
+        __floats2bfloat162_rn(dk[dt][2] * p.scale, dk[dt][3] * p.scale);
+    *reinterpret_cast<__nv_bfloat162*>(DV + (long long)key_a * p.dv_ss + col) =
+        __floats2bfloat162_rn(dv[dt][0], dv[dt][1]);
+    *reinterpret_cast<__nv_bfloat162*>(DV + (long long)key_b * p.dv_ss + col) =
+        __floats2bfloat162_rn(dv[dt][2], dv[dt][3]);
+  }
+}
+
+// ------------------------------------------------------------------- f32
+
+constexpr int FBM = 16;  // dq: query rows per CTA, 4 warps x 4 rows
+constexpr int FBN = 32;  // dq: keys per tile, one per lane
+constexpr int FKN = 16;  // dkv: keys per CTA, 4 warps x 4 keys
+constexpr int FQM = 32;  // dkv: queries per tile, one per lane
+
+__device__ __forceinline__ void stage_rows_f32(float* dst, int ld, const float* src,
+                                               long long stride, int row0, int rows, int D) {
+  for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
+    const int r = i / D, c = i % D;
+    dst[r * ld + c] = src[(long long)(row0 + r) * stride + c];
+  }
+}
+
+template <int D>
+__device__ __forceinline__ float dot_rows(const float* a, const float* b) {
+  float s = 0.f;
+#pragma unroll 8
+  for (int d = 0; d < D; ++d) s += a[d] * b[d];
+  return s;
+}
+
+template <int D>
+__global__ void __launch_bounds__(128) flash_bwd_dq_f32(Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int LD = D + 1;  // odd stride: lanes reading a column hit distinct banks
+  constexpr int RPW = FBM / 4;
+  constexpr int CPL = D / 32;
+  float* sQ = reinterpret_cast<float*>(smem_raw);
+  float* sDO = sQ + FBM * LD;
+  float* sK = sDO + FBM * LD;
+  float* sV = sK + FBN * LD;
+
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H, kvh = h / p.G;
+  const int q0 = blockIdx.x * FBM;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  const float* Q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* K = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const float* V = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  const float* DO = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  stage_rows_f32(sQ, LD, Q, p.q_ss, q0, FBM, D);
+  stage_rows_f32(sDO, LD, DO, p.do_ss, q0, FBM, D);
+
+  float lse[RPW], dl[RPW], acc[RPW][CPL];
+#pragma unroll
+  for (int rr = 0; rr < RPW; ++rr) {
+    const int row = q0 + warp * RPW + rr;
+    lse[rr] = p.lse[(long long)bh * p.S + row];
+    dl[rr] = p.delta[(long long)bh * p.S + row];
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) acc[rr][c] = 0.f;
+  }
+
+  int end = p.kv_len;
+  if (p.causal) end = min(end, q0 + FBM);
+  const int n_tiles = (end + FBN - 1) / FBN;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * FBN;
+    __syncthreads();
+    stage_rows_f32(sK, LD, K, p.k_ss, k0, FBN, D);
+    stage_rows_f32(sV, LD, V, p.v_ss, k0, FBN, D);
+    __syncthreads();
+
+    const int col = k0 + lane;
+#pragma unroll
+    for (int rr = 0; rr < RPW; ++rr) {
+      const int r = warp * RPW + rr, row = q0 + r;
+      const float s = dot_rows<D>(sQ + r * LD, sK + lane * LD);
+      const float dp = dot_rows<D>(sDO + r * LD, sV + lane * LD);
+      const float sv = keep(p, row, col) ? s * p.scale : kNeg;
+      const float ds = expf(sv - lse[rr]) * (dp - dl[rr]);
+      for (int jj = 0; jj < FBN; ++jj) {
+        const float dsk = __shfl_sync(0xffffffffu, ds, jj);
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) acc[rr][c] += dsk * sK[jj * LD + lane + 32 * c];
+      }
+    }
+  }
+
+  float* DQ = static_cast<float*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+#pragma unroll
+  for (int rr = 0; rr < RPW; ++rr) {
+    const int row = q0 + warp * RPW + rr;
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) DQ[(long long)row * p.dq_ss + lane + 32 * c] = acc[rr][c] * p.scale;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(128) flash_bwd_dkv_f32(Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int LD = D + 1;
+  constexpr int KPW = FKN / 4;
+  constexpr int CPL = D / 32;
+  float* sK = reinterpret_cast<float*>(smem_raw);
+  float* sV = sK + FKN * LD;
+  float* sQ = sV + FKN * LD;
+  float* sDO = sQ + FQM * LD;
+  float* sL = sDO + FQM * LD;
+  float* sDl = sL + FQM;
+
+  const int KH = p.H / p.G;
+  const int b = blockIdx.y / KH, kvh = blockIdx.y % KH;
+  const int k0 = blockIdx.x * FKN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  const float* K = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const float* V = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  stage_rows_f32(sK, LD, K, p.k_ss, k0, FKN, D);
+  stage_rows_f32(sV, LD, V, p.v_ss, k0, FKN, D);
+
+  float dk[KPW][CPL], dv[KPW][CPL];
+#pragma unroll
+  for (int kr = 0; kr < KPW; ++kr) {
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) dk[kr][c] = dv[kr][c] = 0.f;
+  }
+
+  if (k0 < p.kv_len) {
+    const int i_begin = p.causal ? k0 / FQM : 0;
+    const int n_q = p.S / FQM;
+    for (int hh = 0; hh < p.G; ++hh) {
+      const int h = kvh * p.G + hh;
+      const long long bh = (long long)b * p.H + h;
+      const float* Q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+      const float* DO = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
+      for (int i = i_begin; i < n_q; ++i) {
+        const int q0 = i * FQM;
+        __syncthreads();
+        stage_rows_f32(sQ, LD, Q, p.q_ss, q0, FQM, D);
+        stage_rows_f32(sDO, LD, DO, p.do_ss, q0, FQM, D);
+        if (tid < FQM) {
+          sL[tid] = p.lse[bh * p.S + q0 + tid];
+          sDl[tid] = p.delta[bh * p.S + q0 + tid];
+        }
+        __syncthreads();
+
+        const int query = q0 + lane;
+#pragma unroll
+        for (int kr = 0; kr < KPW; ++kr) {
+          const int r = warp * KPW + kr, key = k0 + r;
+          const float s = dot_rows<D>(sK + r * LD, sQ + lane * LD);
+          const float dp = dot_rows<D>(sV + r * LD, sDO + lane * LD);
+          const float sv = keep(p, query, key) ? s * p.scale : kNeg;
+          const float pv = expf(sv - sL[lane]);
+          const float ds = pv * (dp - sDl[lane]);
+          for (int jj = 0; jj < FQM; ++jj) {
+            const float pj = __shfl_sync(0xffffffffu, pv, jj);
+            const float dsj = __shfl_sync(0xffffffffu, ds, jj);
+#pragma unroll
+            for (int c = 0; c < CPL; ++c) {
+              dv[kr][c] += pj * sDO[jj * LD + lane + 32 * c];
+              dk[kr][c] += dsj * sQ[jj * LD + lane + 32 * c];
+            }
+          }
+        }
+      }
+    }
+  }
+
+  float* DK = static_cast<float*>(p.dk) + b * p.dk_sb + kvh * p.dk_sh;
+  float* DV = static_cast<float*>(p.dv) + b * p.dv_sb + kvh * p.dv_sh;
+#pragma unroll
+  for (int kr = 0; kr < KPW; ++kr) {
+    const int key = k0 + warp * KPW + kr;
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      DK[(long long)key * p.dk_ss + lane + 32 * c] = dk[kr][c] * p.scale;
+      DV[(long long)key * p.dv_ss + lane + 32 * c] = dv[kr][c];
+    }
+  }
+}
+
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, const Params& p, cudaStream_t stream) {
+  // Above 48 KB a block's shared memory must be asked for per kernel.
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, 128, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+bool bad_shape(int S, int G, int H, int kv_len) {
+  return S % BM != 0 || kv_len <= 0 || kv_len > S || G <= 0 || H % G != 0;
+}
+
+size_t bf16_dq_smem(int D) { return (size_t)(BM + 2 * BN) * (D + 8) * 2; }
+size_t bf16_dkv_smem(int D) { return (size_t)(2 * BN + 2 * BM) * (D + 8) * 2 + 2 * BM * 4; }
+size_t f32_dq_smem(int D) { return (size_t)(2 * FBM + 2 * FBN) * (D + 1) * 4; }
+size_t f32_dkv_smem(int D) { return (size_t)(2 * FKN + 2 * FQM) * (D + 1) * 4 + 2 * FQM * 4; }
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. D must be 64 or 128 and S a multiple of
+// 64; kv_len = S means no length mask. Strides are in elements, for
+// [B, S, heads, D] tensors whose last dimension is contiguous; lse and delta
+// are [B*H, S] f32. Each returns the cudaError_t of its launch
+// (cudaErrorInvalidValue for an unsupported shape).
+extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                            const float* lse, const float* delta, void* dq,
+                            long long q_sb, long long q_ss, long long q_sh,
+                            long long k_sb, long long k_ss, long long k_sh,
+                            long long v_sb, long long v_ss, long long v_sh,
+                            long long do_sb, long long do_ss, long long do_sh,
+                            long long dq_sb, long long dq_ss, long long dq_sh,
+                            int B, int H, int G, int S, int D, int kv_len, int causal,
+                            float scale, int dtype, void* stream) {
+  if (bad_shape(S, G, H, kv_len)) return (int)cudaErrorInvalidValue;
+  Params p{q,     k,     v,     dout,  lse,   delta, dq,    nullptr, nullptr,
+           q_sb,  q_ss,  q_sh,  k_sb,  k_ss,  k_sh,  v_sb,  v_ss,    v_sh,
+           do_sb, do_ss, do_sh, dq_sb, dq_ss, dq_sh, 0,     0,       0,
+           0,     0,     0,     H,     G,     S,     kv_len, causal, scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && D == 128)
+    return (int)launch(flash_bwd_dq_bf16<128>, dim3(S / BM, B * H), bf16_dq_smem(D), p, st);
+  if (dtype == 1 && D == 64)
+    return (int)launch(flash_bwd_dq_bf16<64>, dim3(S / BM, B * H), bf16_dq_smem(D), p, st);
+  if (dtype == 0 && D == 128)
+    return (int)launch(flash_bwd_dq_f32<128>, dim3(S / FBM, B * H), f32_dq_smem(D), p, st);
+  if (dtype == 0 && D == 64)
+    return (int)launch(flash_bwd_dq_f32<64>, dim3(S / FBM, B * H), f32_dq_smem(D), p, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                             const float* lse, const float* delta, void* dk, void* dv,
+                             long long q_sb, long long q_ss, long long q_sh,
+                             long long k_sb, long long k_ss, long long k_sh,
+                             long long v_sb, long long v_ss, long long v_sh,
+                             long long do_sb, long long do_ss, long long do_sh,
+                             long long dk_sb, long long dk_ss, long long dk_sh,
+                             long long dv_sb, long long dv_ss, long long dv_sh,
+                             int B, int H, int G, int S, int D, int kv_len, int causal,
+                             float scale, int dtype, void* stream) {
+  if (bad_shape(S, G, H, kv_len)) return (int)cudaErrorInvalidValue;
+  Params p{q,     k,     v,     dout,  lse,   delta, nullptr, dk,    dv,
+           q_sb,  q_ss,  q_sh,  k_sb,  k_ss,  k_sh,  v_sb,    v_ss,  v_sh,
+           do_sb, do_ss, do_sh, 0,     0,     0,     dk_sb,   dk_ss, dk_sh,
+           dv_sb, dv_ss, dv_sh, H,     G,     S,     kv_len,  causal, scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int KH = H / G;
+  if (dtype == 1 && D == 128)
+    return (int)launch(flash_bwd_dkv_bf16<128>, dim3(S / BN, B * KH), bf16_dkv_smem(D), p, st);
+  if (dtype == 1 && D == 64)
+    return (int)launch(flash_bwd_dkv_bf16<64>, dim3(S / BN, B * KH), bf16_dkv_smem(D), p, st);
+  if (dtype == 0 && D == 128)
+    return (int)launch(flash_bwd_dkv_f32<128>, dim3(S / FKN, B * KH), f32_dkv_smem(D), p, st);
+  if (dtype == 0 && D == 64)
+    return (int)launch(flash_bwd_dkv_f32<64>, dim3(S / FKN, B * KH), f32_dkv_smem(D), p, st);
+  return (int)cudaErrorInvalidValue;
+}

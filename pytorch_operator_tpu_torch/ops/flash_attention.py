@@ -1,24 +1,29 @@
-"""Flash attention forward: a hand-written Hopper kernel and its plain version.
+"""Flash attention: hand-written Hopper kernels and their plain versions.
 
-The counterpart of ``pytorch_operator_tpu/ops/flash_attention.py``'s forward
-(``_fwd_kernel``). Same public layout — q ``[B,S,H,D]``, k and v
+The counterpart of ``pytorch_operator_tpu/ops/flash_attention.py``: the
+forward (``_fwd_kernel``) and the two backward kernels (``_dq_kernel``,
+``_dkv_kernel``) behind a ``torch.autograd.Function``, as the JAX module puts
+them behind a ``custom_vjp``. Same public layout — q ``[B,S,H,D]``, k and v
 ``[B,S,KH,D]`` with ``H % KH == 0`` (GQA) — and the same padding semantics:
-a shape the kernel does not tile is zero-padded (S to the tile, D to a
+a shape the kernels do not tile is zero-padded (S to the tile, D to a
 supported head width), padded key columns are masked through ``kv_len``,
 padded query rows and head columns are sliced off, and the softmax scale stays
-``1/sqrt(true D)``.
+``1/sqrt(true D)``. Gradients flow through the pad and the slice; padded query
+rows get a zero output gradient, so they add nothing to dk and dv.
 
-- A CUDA tensor goes to the kernel (``csrc/flash_fwd.cu``, built at first use
-  by ``_build.py``). A CUDA request the kernel cannot serve raises; nothing
-  falls back.
-- A CPU tensor goes to :func:`flash_attention_reference`, a dense masked
-  softmax with the kernel's arithmetic: bf16 (or f32) products summed in f32,
-  ``p`` cast to v's type before ``p·v``, ``lse = m + log l``.
+- A CUDA tensor goes to the kernels (``csrc/flash_fwd.cu``,
+  ``csrc/flash_bwd.cu``, built at first use by ``_build.py``). A CUDA request
+  a kernel cannot serve raises; nothing falls back.
+- A CPU tensor goes to the plain versions: :func:`flash_attention_reference`
+  (a dense masked softmax with the forward kernel's arithmetic: bf16 or f32
+  products summed in f32, ``p`` cast to v's type before ``p·v``,
+  ``lse = m + log l``) and :func:`flash_attention_backward_reference` (the
+  backward kernels' arithmetic, densely: p recomputed from lse, ``ds`` and
+  ``p`` cast to the input type before their products, dk and dv summed over
+  the query heads of each kv head).
 
-``launch_count`` counts kernel launches, so a run can show that its main path
-went through the kernel. Backward kernels (the TPU's ``_dq_kernel`` and
-``_dkv_kernel``) come with the training slice, behind an
-``autograd.Function``; this module is forward only.
+``launch_count``, ``dq_launch_count`` and ``dkv_launch_count`` count kernel
+launches, so a run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -33,16 +38,28 @@ import torch.nn.functional as F
 from . import _build
 
 _NEG = -1e30  # finite mask value: exp(_NEG - m) underflows to exactly 0.0
-KERNEL_TILE = 64  # the CUDA kernel's query and key tile (csrc/flash_fwd.cu)
+KERNEL_TILE = 64  # the CUDA kernels' query and key tile (csrc/flash_*.cu)
 KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launch_count = 0
+launch_count = 0  # flash_fwd
+dq_launch_count = 0  # flash_bwd_dq
+dkv_launch_count = 0  # flash_bwd_dkv
 
 
 def reset_launch_count() -> None:
-    global launch_count
-    launch_count = 0
+    """Set all three kernels' launch counts to 0."""
+    global launch_count, dq_launch_count, dkv_launch_count
+    launch_count = dq_launch_count = dkv_launch_count = 0
+
+
+def launch_counts() -> dict:
+    """The three kernels' launch counts, by kernel name."""
+    return {
+        "flash_fwd": launch_count,
+        "flash_bwd_dq": dq_launch_count,
+        "flash_bwd_dkv": dkv_launch_count,
+    }
 
 
 def _plan_tiling(S: int, D: int, block_q: int, block_k: int, on_cuda: bool):
@@ -77,12 +94,7 @@ def flash_attention_reference(q, k, v, *, causal: bool, kv_len: int, scale: floa
     G = H // KH
     qg = q.reshape(B, S, KH, G, D).float()
     s = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * scale
-    rows = torch.arange(S, device=q.device)[:, None]
-    cols = torch.arange(S, device=q.device)[None, :]
-    keep = cols < kv_len
-    if causal:
-        keep = keep & (cols <= rows)
-    s = s.masked_fill(~keep, _NEG)
+    s = s.masked_fill(~_keep_mask(S, causal, kv_len, q.device), _NEG)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)  # [B,KH,G,S,1], from the f32 p
@@ -92,52 +104,162 @@ def flash_attention_reference(q, k, v, *, causal: bool, kv_len: int, scale: floa
     return o, lse
 
 
+def _keep_mask(S: int, causal: bool, kv_len: int, device) -> torch.Tensor:
+    """``_mask_scores``'s rule as a [S, S] bool (row = query, col = key)."""
+    rows = torch.arange(S, device=device)[:, None]
+    cols = torch.arange(S, device=device)[None, :]
+    keep = cols < kv_len
+    if causal:
+        keep = keep & (cols <= rows)
+    return keep
+
+
+def flash_attention_backward_reference(q, k, v, o, lse, do, *, causal: bool, kv_len: int,
+                                       scale: float):
+    """The plain version of the two backward kernels on padded ``[B,S,H,D]``
+    / ``[B,S,KH,D]`` inputs, ``o`` the forward's output, ``lse`` its ``[B*H,
+    S]`` f32 log-sum-exp and ``do`` the output gradient. Repeats the kernels'
+    arithmetic densely: ``p = exp(s - lse)``, ``delta = rowsum(do·o)``,
+    ``ds = p·(dp - delta)``, ``ds`` and ``p`` cast to the input dtype before
+    ``ds·k``, ``dsᵀ·q`` and ``pᵀ·do``, every product summed in f32, and dk/dv
+    summed over the G query heads of each kv head. Returns ``(dq, dk, dv)``
+    in q's, k's and v's dtypes."""
+    B, S, H, D = q.shape
+    KH = k.shape[2]
+    G = H // KH
+    qg = q.reshape(B, S, KH, G, D).float()
+    dog = do.reshape(B, S, KH, G, D).float()
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * scale
+    s = s.masked_fill(~_keep_mask(S, causal, kv_len, q.device), _NEG)
+    p = torch.exp(s - lse.reshape(B, KH, G, S, 1))
+    dp = torch.einsum("bskgd,btkd->bkgst", dog, v.float())
+    delta = (do.float() * o.float()).sum(-1).reshape(B, S, KH, G).permute(0, 2, 3, 1)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bkgst,btkd->bskgd", ds.to(k.dtype).float(), k.float()) * scale
+    dk = torch.einsum("bkgst,bskgd->btkd", ds.to(q.dtype).float(), qg) * scale
+    dv = torch.einsum("bkgst,bskgd->btkd", p.to(do.dtype).float(), dog)
+    return dq.reshape(B, S, H, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# How far a backward kernel's gradient may stray from its plain version, as a
+# relative L2 error over the whole tensor and its late half (GRAD_RTOL) and in
+# its worst row (ROW_RTOL): bf16 rounds each output once (one step is 2**-8 of
+# the value) and may round p, ds and the forward's o the other way where they
+# differ in the last f32 bits, and a row's 64-128 values average less of that
+# away; f32 only sums in another order.
+GRAD_RTOL = {torch.bfloat16: 5e-3, torch.float32: 1e-4}
+ROW_RTOL = {torch.bfloat16: 3e-2, torch.float32: 3e-4}
+
+
+def grad_agreement(g: torch.Tensor, r: torch.Tensor, seq_len: int) -> dict:
+    """How gradient ``g`` (``[B, S, heads, D]``) strays from its plain
+    version ``r``, at scales that follow the values (under a causal mask the
+    first keys' gradients are 50-100x the rest, so one tolerance scaled to
+    the largest value passes a wrong late half):
+
+    - ``max_abs``: the largest element error, for the record;
+    - ``rel``: ``|g - r| / |r|`` (L2) over the whole tensor;
+    - ``rel_late``: the same over positions ``seq_len // 2 .. seq_len``;
+    - ``rel_row``: the worst row (one position of one head), its error over
+      its own norm plus a tenth of the mean row norm (a row that should be
+      zero has to stay near zero; a row that is small by cancellation may
+      differ by more than its own size).
+
+    ``ok`` when ``rel`` and ``rel_late`` are within ``GRAD_RTOL`` and
+    ``rel_row`` within ``ROW_RTOL``."""
+    d, r32 = g.float() - r.float(), r.float()
+
+    def rel(a, b):
+        na, nb = torch.linalg.vector_norm(a).item(), torch.linalg.vector_norm(b).item()
+        return na / nb if nb > 0 else (0.0 if na == 0 else math.inf)
+
+    late = slice(seq_len // 2, seq_len)
+    row_err, row_ref = (torch.linalg.vector_norm(x, dim=-1) for x in (d, r32))
+    floor = max(0.1 * row_ref.mean().item(), torch.finfo(torch.float32).tiny)
+    out = {
+        "max_abs": d.abs().max().item(),
+        "rel": rel(d, r32),
+        "rel_late": rel(d[:, late], r32[:, late]),
+        "rel_row": (row_err / (row_ref + floor)).max().item(),
+    }
+    out["ok"] = (
+        max(out["rel"], out["rel_late"]) <= GRAD_RTOL[g.dtype]
+        and out["rel_row"] <= ROW_RTOL[g.dtype]
+    )
+    return out
+
+
 def _aligned(x: torch.Tensor) -> bool:
-    """The bf16 kernel moves rows as 16-byte vectors: base and the B, S and
+    """The bf16 kernels move rows as 16-byte vectors: base and the B, S and
     head strides must be multiples of 8 elements."""
     return x.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in x.stride()[:3])
 
 
-def _bind(lib):
-    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.flash_fwd.argtypes = (
-        [ptr] * 5 + [i64] * 12 + [i32] * 7 + [ctypes.c_float, i32, ptr]
-    )
-    lib.flash_fwd.restype = i32
+def _kernel_inputs(*xs):
+    """Check dtype and layout for the kernels; return the tensors with a
+    contiguous last dim (and 16-byte-aligned rows for bf16)."""
+    dt = xs[0].dtype
+    if dt not in _KERNEL_DTYPES or any(x.dtype != dt for x in xs):
+        raise TypeError(
+            "flash kernel takes float32 or bfloat16 q/k/v of one dtype, got "
+            + "/".join(str(x.dtype) for x in xs)
+        )
+    out = []
+    for x in xs:
+        if x.stride(-1) != 1 or (dt == torch.bfloat16 and not _aligned(x)):
+            x = x.contiguous()
+        out.append(x)
+    return out
+
+
+def _strides(*xs):
+    return [st for x in xs for st in x.stride()[:3]]
+
+
+_libs = {}
+
+
+def _kernel_lib(name: str):
+    """The ctypes library of kernel source ``name``, built and bound at first
+    use."""
+    lib = _libs.get(name)
+    if lib is None:
+        lib = _build.load(name)
+        ptr, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
+        tail = [i32] * 7 + [f32, i32, ptr]
+        if name == "flash_fwd":
+            lib.flash_fwd.argtypes = [ptr] * 5 + [i64] * 12 + tail
+            lib.flash_fwd.restype = i32
+        else:
+            lib.flash_bwd_dq.argtypes = [ptr] * 7 + [i64] * 15 + tail
+            lib.flash_bwd_dq.restype = i32
+            lib.flash_bwd_dkv.argtypes = [ptr] * 8 + [i64] * 18 + tail
+            lib.flash_bwd_dkv.restype = i32
+        _libs[name] = lib
     return lib
 
 
-_lib = None
+def _check_padded(q, k):
+    B, S, H, D = q.shape
+    if D not in KERNEL_HEAD_DIMS or S % KERNEL_TILE:
+        raise ValueError(f"unpadded shape S={S}, D={D} reached the kernel")
+    return B, S, H, D, k.shape[2]
 
 
 def _launch(q, k, v, *, causal: bool, kv_len: int, scale: float):
-    """Launch the CUDA kernel on padded inputs; raise on anything it cannot
-    serve. Returns ``(o, lse)`` like :func:`flash_attention_reference`."""
-    global _lib, launch_count
-    if q.dtype not in _KERNEL_DTYPES or not (q.dtype == k.dtype == v.dtype):
-        raise TypeError(
-            f"flash kernel takes float32 or bfloat16 q/k/v of one dtype, got "
-            f"{q.dtype}/{k.dtype}/{v.dtype}"
-        )
-    B, S, H, D = q.shape
-    KH = k.shape[2]
-    if D not in KERNEL_HEAD_DIMS or S % KERNEL_TILE:
-        raise ValueError(f"unpadded shape S={S}, D={D} reached the kernel")
-    ins = []
-    for x in (q, k, v):
-        if x.stride(-1) != 1 or (x.dtype == torch.bfloat16 and not _aligned(x)):
-            x = x.contiguous()
-        ins.append(x)
-    q, k, v = ins
+    """Launch the forward kernel on padded inputs; raise on anything it
+    cannot serve. Returns ``(o, lse)`` like :func:`flash_attention_reference`."""
+    global launch_count
+    q, k, v = _kernel_inputs(q, k, v)
+    B, S, H, D, KH = _check_padded(q, k)
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
-    if _lib is None:
-        _lib = _bind(_build.load("flash_fwd"))
+    lib = _kernel_lib("flash_fwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _lib.flash_fwd(
+        rc = lib.flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+            *_strides(q, k, v, o),
             B, H, H // KH, S, D, kv_len, int(causal), scale,
             _KERNEL_DTYPES[q.dtype], stream,
         )
@@ -145,6 +267,106 @@ def _launch(q, k, v, *, causal: bool, kv_len: int, scale: float):
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {rc}")
     launch_count += 1
     return o, lse
+
+
+def bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``delta = rowsum(do·o)`` as ``[B*H, S]`` f32: one reduction outside
+    the kernels, as the JAX package computes it outside its kernels."""
+    B, S, H, _ = o.shape
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(B * H, S).contiguous()
+
+
+def _bwd_call(entry: str, q, k, v, do, lse, delta, outs, *, causal, kv_len, scale):
+    B, S, H, D, KH = _check_padded(q, k)
+    lib = _kernel_lib("flash_bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = getattr(lib, entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), *(x.data_ptr() for x in outs), *_strides(q, k, v, do, *outs),
+            B, H, H // KH, S, D, kv_len, int(causal), scale, _KERNEL_DTYPES[q.dtype], stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
+
+
+def _launch_dq(q, k, v, do, lse, delta, *, causal: bool, kv_len: int, scale: float):
+    """Launch ``flash_bwd_dq`` on padded, kernel-ready inputs (see
+    :func:`_launch_bwd`); returns dq."""
+    global dq_launch_count
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _bwd_call("flash_bwd_dq", q, k, v, do, lse, delta, (dq,),
+              causal=causal, kv_len=kv_len, scale=scale)
+    dq_launch_count += 1
+    return dq
+
+
+def _launch_dkv(q, k, v, do, lse, delta, *, causal: bool, kv_len: int, scale: float):
+    """Launch ``flash_bwd_dkv`` on padded, kernel-ready inputs (see
+    :func:`_launch_bwd`); returns ``(dk, dv)``, summed over each kv head's
+    query heads."""
+    global dkv_launch_count
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _bwd_call("flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv),
+              causal=causal, kv_len=kv_len, scale=scale)
+    dkv_launch_count += 1
+    return dk, dv
+
+
+def _launch_bwd(q, k, v, o, lse, do, *, causal: bool, kv_len: int, scale: float):
+    """Launch the two backward kernels on padded inputs; raise on anything
+    they cannot serve. Returns ``(dq, dk, dv)`` like
+    :func:`flash_attention_backward_reference`."""
+    q, k, v, do = _kernel_inputs(q, k, v, do.contiguous())
+    args = (q, k, v, do, lse.contiguous(), bwd_delta(o, do))
+    kw = dict(causal=causal, kv_len=kv_len, scale=scale)
+    dq = _launch_dq(*args, **kw)
+    dk, dv = _launch_dkv(*args, **kw)
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention with the flash backward, on unpadded ``[B,S,H,D]`` /
+    ``[B,S,KH,D]`` inputs; ``apply(q, k, v, causal, kv_len, block_q,
+    block_k)`` returns ``(o, lse)``. Forward pads, runs the forward kernel
+    (CUDA) or :func:`flash_attention_reference` (CPU) and saves the padded
+    q, k, v, o and the ``[B*H, S_pad]`` lse — the JAX residual without its
+    128-lane broadcast. Backward pads ``do`` the same way and runs the two
+    backward kernels (CUDA) or :func:`flash_attention_backward_reference`
+    (CPU), then slices the padding off. lse is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, kv_len, block_q, block_k):
+        B, S, H, D = q.shape
+        on_cuda = q.device.type == "cuda"
+        _, _, S_pad, D_pad = _plan_tiling(S, D, block_q, block_k, on_cuda)
+        if S_pad != S and kv_len is None:
+            kv_len = S  # padded key columns must not attend
+        kv_len = S_pad if kv_len is None else kv_len
+        scale = 1.0 / math.sqrt(D)
+        pad = (0, D_pad - D, 0, 0, 0, S_pad - S)
+        if S_pad != S or D_pad != D:
+            q, k, v = (F.pad(x, pad) for x in (q, k, v))
+        run = _launch if on_cuda else flash_attention_reference
+        o, lse = run(q, k, v, causal=causal, kv_len=kv_len, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = dict(causal=causal, kv_len=kv_len, scale=scale)
+        ctx.pad, ctx.S, ctx.D = pad, S, D
+        lse_out = lse[:, :S]
+        ctx.mark_non_differentiable(lse_out)
+        return o[:, :S, :, :D], lse_out
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        S, D = ctx.S, ctx.D
+        do = F.pad(do, ctx.pad) if do.shape != o.shape else do
+        run = _launch_bwd if q.device.type == "cuda" else flash_attention_backward_reference
+        dq, dk, dv = run(q, k, v, o, lse, do, **ctx.args)
+        return (
+            dq[:, :S, :, :D], dk[:, :S, :, :D], dv[:, :S, :, :D], None, None, None, None,
+        )
 
 
 def flash_attention_with_lse(
@@ -157,12 +379,13 @@ def flash_attention_with_lse(
     block_k: int = 1024,
     kv_len: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Flash attention returning ``(o [B,S,H,D], lse [B*H, S] f32)``.
+    """Flash attention returning ``(o [B,S,H,D], lse [B*H, S] f32)``;
+    differentiable in q, k and v (not through lse).
 
     ``kv_len``: one true sequence length for the whole batch; keys at
     positions >= kv_len are masked out. ``block_q``/``block_k`` are the JAX
     wrapper's knobs: they shape the padding of the CPU path, while the CUDA
-    kernel's tile is fixed at 64x64 (see :func:`_plan_tiling`).
+    kernels' tile is fixed at 64x64 (see :func:`_plan_tiling`).
     """
     B, S, H, D = q.shape
     KH = k.shape[2]
@@ -172,24 +395,12 @@ def flash_attention_with_lse(
         raise ValueError(f"H={H} not a multiple of KH={KH}")
     if kv_len is not None and not 0 < kv_len <= S:
         raise ValueError(f"kv_len={kv_len} outside (0, S={S}]")
-    dev = q.device.type
-    if dev not in ("cuda", "cpu") or k.device != q.device or v.device != q.device:
+    if q.device.type not in ("cuda", "cpu") or k.device != q.device or v.device != q.device:
         raise ValueError(
             f"q/k/v on {q.device}/{k.device}/{v.device}: the kernel takes CUDA "
             "tensors and the plain version CPU tensors, all on one device"
         )
-    on_cuda = dev == "cuda"
-    _, _, S_pad, D_pad = _plan_tiling(S, D, block_q, block_k, on_cuda)
-    if S_pad != S and kv_len is None:
-        kv_len = S  # padded key columns must not attend
-    kv_len = S_pad if kv_len is None else kv_len
-    scale = 1.0 / math.sqrt(D)
-    if S_pad != S or D_pad != D:
-        pad = (0, D_pad - D, 0, 0, 0, S_pad - S)
-        q, k, v = (F.pad(x, pad) for x in (q, k, v))
-    run = _launch if on_cuda else flash_attention_reference
-    o, lse = run(q, k, v, causal=causal, kv_len=kv_len, scale=scale)
-    return o[:, :S, :, :D], lse[:, :S]
+    return FlashAttentionFunction.apply(q, k, v, causal, kv_len, block_q, block_k)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 1024,

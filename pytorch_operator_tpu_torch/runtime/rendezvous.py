@@ -3,8 +3,11 @@
 The port's own copy of what a single-process workload needs from
 ``pytorch_operator_tpu/runtime/rendezvous.py``: the supervisor-injected
 world (``WorldInfo``/``world_from_env``) and the JSONL status channel
-(``report``/``report_first_step``/``report_metrics``), written in the same
-record format so a port job reports to the unchanged supervisor.
+(``report``/``report_first_step``/``report_metrics``, and the training
+heartbeat ``progress_enabled``/``report_progress`` with its echo of the
+supervisor's clock probe), written in the same record format so a port job
+reports to the unchanged supervisor. The fault-injection hook of the JAX
+``report_progress`` (``drop_heartbeat``) is not ported.
 
 Multi-process worlds (``torch.distributed`` over the injected c10d
 variables) are a later slice: ``initialize_from_env`` raises
@@ -99,3 +102,62 @@ def report_first_step(step: int = 0) -> None:
 
 def report_metrics(step: int, **metrics) -> None:
     report("metrics", step=step, **metrics)
+
+
+def progress_enabled() -> bool:
+    """Is anyone listening? Workloads gate their heartbeat on this so a
+    standalone run (no supervisor, no status dir) pays no telemetry fences."""
+    return _status_path() is not None
+
+
+# The supervisor writes its round-trip clock probe here (obs/clock.py of the
+# JAX package); each probe seq is echoed once.
+_PROBE_FILE = "clock_probe.json"
+_probe_echoed_seq: Optional[int] = None
+
+
+def _maybe_echo_probe() -> None:
+    """Echo the supervisor's clock probe once per seq: a ``clock_probe``
+    record whose own ``ts`` is this replica's send time."""
+    global _probe_echoed_seq
+    d = os.environ.get("TPUJOB_STATUS_DIR")
+    if not d:
+        return
+    try:
+        rec = json.loads((Path(d) / _PROBE_FILE).read_text())
+        probe = {"probe_ts": float(rec["probe_ts"]), "seq": int(rec["seq"])}
+    except (OSError, ValueError, TypeError, KeyError):
+        return
+    if probe["seq"] == _probe_echoed_seq:
+        return
+    _probe_echoed_seq = probe["seq"]
+    report("clock_probe", probe_ts=probe["probe_ts"], seq=probe["seq"])
+
+
+def report_progress(
+    step: int,
+    *,
+    loss: Optional[float] = None,
+    steps_per_sec: Optional[float] = None,
+    throughput: Optional[float] = None,
+    unit: Optional[str] = None,
+    step_time_ms: Optional[float] = None,
+    feed_stall_ms: Optional[float] = None,
+) -> None:
+    """Live training heartbeat (step/loss/throughput), the record the
+    supervisor folds into its per-job gauges. Emit every ~10 s, not every
+    step: the caller pays a device fence to know the loss."""
+    fields = {}
+    for name, value, digits in (
+        ("loss", loss, 6),
+        ("steps_per_sec", steps_per_sec, 4),
+        ("throughput", throughput, 4),
+        ("step_time_ms", step_time_ms, 3),
+        ("feed_stall_ms", feed_stall_ms, 3),
+    ):
+        if value is not None:
+            fields[name] = round(float(value), digits)
+    if unit is not None:
+        fields["unit"] = unit
+    report("progress", step=step, **fields)
+    _maybe_echo_probe()

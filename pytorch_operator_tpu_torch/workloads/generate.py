@@ -103,7 +103,8 @@ def load_params(
     """Build the serving model for ``cfg`` on ``device``: random init from
     ``seed`` (flax's distributions), or the weights of a JAX param tree
     (``jax_params``, nested dicts of arrays) through ``params_from_jax``.
-    Returns ``(model, n_params)``."""
+    The matmul weights and the embedding are then cast to ``cfg.dtype`` once,
+    so no decode step casts a weight. Returns ``(model, n_params)``."""
     model = llama_lib.Llama(cfg, device=device)
     if jax_params is not None:
         model.load_state_dict(params_from_jax(jax_params, cfg))
@@ -111,7 +112,7 @@ def load_params(
     else:
         model.init_weights(torch.Generator(device=device).manual_seed(seed))
         src = "random init — no tokenizer here"
-    model.requires_grad_(False).eval()
+    model.cast_matmul_weights_().requires_grad_(False).eval()
     n_params = sum(p.numel() for p in model.parameters())
     log(f"[generate] config={config}: {n_params / 1e6:.1f}M params ({src})")
     return model, n_params

@@ -124,6 +124,48 @@ def test_kernel_wrapper_never_falls_back():
     assert fa.launch_count == before
 
 
+def test_backward_wrapper_never_falls_back(monkeypatch):
+    """The backward kernels' wrapper raises when a launch fails (here a
+    stand-in library whose entry points return a CUDA error), and for a
+    dtype the kernels do not take; it never computes the plain version, and
+    the launch counts do not move."""
+    import contextlib
+    import types
+
+    from pytorch_operator_tpu_torch.ops import flash_attention as fa
+
+    calls = []
+
+    def failing(name, rc):
+        def entry(*args):
+            calls.append(name)
+            return rc
+        return entry
+
+    lib = types.SimpleNamespace(
+        flash_bwd_dq=failing("dq", 700), flash_bwd_dkv=failing("dkv", 0)
+    )
+    monkeypatch.setitem(fa._libs, "flash_bwd", lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(
+        torch.cuda, "current_stream", lambda dev=None: types.SimpleNamespace(cuda_stream=0)
+    )
+    monkeypatch.setattr(
+        fa, "flash_attention_backward_reference",
+        lambda *a, **k: pytest.fail("the plain version ran for a kernel request"),
+    )
+    q, k, v, o, do = (torch.zeros(1, 64, 2, 64) for _ in range(5))
+    lse = torch.zeros(2, 64)
+    before = (fa.dq_launch_count, fa.dkv_launch_count)
+    with pytest.raises(RuntimeError, match="flash_bwd_dq kernel launch failed: CUDA error 700"):
+        fa._launch_bwd(q, k, v, o, lse, do, causal=True, kv_len=64, scale=0.125)
+    assert calls == ["dq"] and (fa.dq_launch_count, fa.dkv_launch_count) == before
+    half = [x.half() for x in (q, k, v, o, do)]
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa._launch_bwd(*half[:4], lse, half[4], causal=True, kv_len=64, scale=0.125)
+    assert calls == ["dq"]
+
+
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     from pytorch_operator_tpu_torch.ops import _build
 

@@ -2,14 +2,24 @@
 
 Imports torch only (no jax), so it runs on a machine with an NVIDIA GPU and
 nvcc: ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q``.
-Without a GPU every test skips. Tolerances: 3e-2 for bf16 (the kernel rounds
-p to bf16 before p·v, the plain version sums in another order), 2e-5 for f32
-with TF32 off.
+Without a GPU every test skips. Forward tolerances: 3e-2 for bf16 (the
+kernel rounds p to bf16 before p·v, the plain version sums in another order),
+2e-5 for f32 with TF32 off. Backward (dq, dk, dv against
+``flash_attention_backward_reference`` on the same padded inputs, the
+kernel's own o and lse, and through autograd against the plain forward and
+backward): ``flash_attention.grad_agreement``, a relative L2 error over the
+whole gradient and over its late half within ``GRAD_RTOL`` (bf16 5e-3, f32
+1e-4) and in its worst row within ``ROW_RTOL`` (bf16 3e-2, f32 3e-4), so
+that a fault in late tiles shows although causal gradients there are far
+below the first keys'.
 """
+
+import math
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from pytorch_operator_tpu_torch.ops import _build
 from pytorch_operator_tpu_torch.ops import flash_attention as fa
@@ -65,10 +75,84 @@ def test_flash_fwd_matches_plain(cuda_device, case):
     torch.testing.assert_close(lse.cpu(), lse_ref, atol=tol, rtol=0)
 
 
+def _rand(shape, dt, device, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES, ids=_case_id)
+def test_flash_bwd_matches_plain(cuda_device, case):
+    """Both backward kernels against their plain version on the same padded
+    inputs, the forward kernel's o and lse, on the card."""
+    B, S, H, KH, D, causal, kv_len, dtype = case
+    dt = getattr(torch, dtype)
+    _, _, S_pad, D_pad = fa._plan_tiling(S, D, 1024, 1024, True)
+    pad = (0, D_pad - D, 0, 0, 0, S_pad - S)
+    q, k, v, do = (
+        F.pad(_rand((B, S, h, D), dt, cuda_device, seed), pad)
+        for seed, h in enumerate((H, KH, KH, H))
+    )
+    kv = kv_len or S
+    args = dict(causal=causal, kv_len=kv, scale=1.0 / math.sqrt(D))
+    o, lse = fa._launch(q, k, v, **args)
+    before = (fa.dq_launch_count, fa.dkv_launch_count)
+    grads = fa._launch_bwd(q, k, v, o, lse, do, **args)
+    torch.cuda.synchronize()
+    assert (fa.dq_launch_count, fa.dkv_launch_count) == (before[0] + 1, before[1] + 1)
+    refs = fa.flash_attention_backward_reference(q, k, v, o, lse, do, **args)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert g.dtype == dt and g.shape == r.shape, name
+        assert torch.isfinite(g.float()).all(), name
+        agree = fa.grad_agreement(g, r, S)
+        assert agree["ok"], (name, agree)
+
+
+@pytest.mark.cuda
+def test_autograd_through_kernels(cuda_device):
+    """Gradients through the public function launch each kernel once, flow
+    through the padding (S 100, D 80), and agree with the CPU path (plain
+    forward and backward) in f32."""
+    B, S, H, KH, D = 2, 100, 4, 2, 80
+    q, k, v, w = (_rand((B, S, h, D), torch.float32, "cpu", s) for s, h in enumerate((H, KH, KH, H)))
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        qkv = [x.to(dev).requires_grad_() for x in (q, k, v)]
+        fa.reset_launch_count()
+        o = fa.flash_attention(*qkv, causal=True)
+        grads[dev] = torch.autograd.grad((o * w.to(dev)).sum(), qkv)
+    assert (fa.launch_count, fa.dq_launch_count, fa.dkv_launch_count) == (1, 1, 1)
+    for g_cpu, g_cuda in zip(grads["cpu"], grads["cuda"]):
+        torch.testing.assert_close(g_cuda.cpu(), g_cpu, atol=5e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,S,H,KH,D", [(2, 500, 8, 4, 80), (2, 1024, 8, 4, 128)], ids=["S500-D80", "S1024-D128"]
+)
+def test_autograd_through_kernels_bf16(cuda_device, B, S, H, KH, D):
+    """bf16 gradients through the public function (both backward kernels,
+    the wrapper's pad of do and slice of the gradients) against the plain
+    forward and backward on the same, unpadded inputs."""
+    q, k, v, do = (_rand((B, S, h, D), torch.bfloat16, cuda_device, s)
+                   for s, h in enumerate((H, KH, KH, H)))
+    qkv = [x.requires_grad_() for x in (q, k, v)]
+    grads = torch.autograd.grad(fa.flash_attention(*qkv, causal=True), qkv, do)
+    args = dict(causal=True, kv_len=S, scale=1.0 / math.sqrt(D))
+    o, lse = fa.flash_attention_reference(q.detach(), k.detach(), v.detach(), **args)
+    refs = fa.flash_attention_backward_reference(
+        q.detach(), k.detach(), v.detach(), o, lse, do, **args
+    )
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        agree = fa.grad_agreement(g, r, S)
+        assert agree["ok"], (name, agree)
+
+
 @pytest.mark.cuda
 def test_build_reports_ptxas(cuda_device):
     """The build runs nvcc with ptxas's report on (registers, spills)."""
     fa.flash_attention(*(torch.zeros(1, 64, 2, 64, device=cuda_device) for _ in range(3)))
-    path = _build.build(["flash_fwd"])["flash_fwd"]
-    assert path.exists() and path.parent == _build.BUILD_DIR
-    print(_build.build_logs.get("flash_fwd", "(library reused: no build this run)"))
+    paths = _build.build(["flash_fwd", "flash_bwd"])
+    for name, path in paths.items():
+        assert path.exists() and path.parent == _build.BUILD_DIR
+        print(_build.build_logs.get(name, f"{name}: library reused, no build this run"))

@@ -151,3 +151,54 @@ def test_params_from_jax_rejects_wrong_config():
     tree = _jax_params(jax_llama.llama_tiny())
     with pytest.raises(ValueError, match="layers/attn/q_proj/kernel"):
         params_from_jax(tree, port_llama.llama_tiny(n_heads=8, n_kv_heads=2))
+
+
+def test_f32_params_cast_at_the_call():
+    """Parameters in param_dtype (f32), cast to the compute dtype (bf16) at
+    the call: the same logits as weights cast once at load (the arithmetic
+    is the same, so the logits are bit-equal), close to JAX's flax model
+    (param_dtype f32, dtype bf16), and generate's one-time cast gives the
+    greedy tokens of the cast-at-call model."""
+    from pytorch_operator_tpu_torch.workloads import generate as port_generate
+
+    jcfg = jax_llama.llama_tiny(dtype=jax_llama.jnp.bfloat16)
+    tree = _jax_params(jcfg)
+    toks = torch.from_numpy(_tokens(2, 16)).long()
+    cfg = port_llama.llama_tiny(dtype=torch.bfloat16)
+
+    sd = params_from_jax(tree, cfg)
+    assert all(t.dtype == torch.float32 for t in sd.values())
+    master = port_llama.Llama(cfg)
+    master.load_state_dict(sd)
+    assert all(p.dtype == torch.float32 for p in master.parameters())
+    cast_once = port_llama.Llama(cfg)
+    cast_once.load_state_dict(sd)
+    cast_once.cast_matmul_weights_()
+    assert cast_once.embed.weight.dtype == torch.bfloat16
+    assert cast_once.layers[0].mlp.up_proj.weight.dtype == torch.bfloat16
+    assert cast_once.lm_head.weight.dtype == torch.float32
+    with torch.no_grad():
+        logits = master(toks)
+        assert torch.equal(logits, cast_once(toks))
+    ref = np.asarray(jax_llama.Llama(jcfg).apply({"params": tree}, toks.numpy()))
+    # bf16 activations on both sides, rounded at different places.
+    np.testing.assert_allclose(logits.numpy(), ref, atol=5e-2)
+
+    # Gradients reach the f32 master weights through the cast.
+    master(toks).sum().backward()
+    assert master.layers[0].attn.q_proj.weight.grad.dtype == torch.float32
+    assert master.embed.weight.grad.dtype == torch.float32
+
+    dcfg = port_llama.llama_tiny(dtype=torch.bfloat16, decode=True, max_decode_len=16)
+    served, _ = port_generate.load_params(
+        dcfg, config="tiny", device="cpu", jax_params=tree, log=lambda m: None
+    )
+    assert served.layers[1].attn.o_proj.weight.dtype == torch.bfloat16
+    at_call = port_llama.Llama(dcfg)
+    at_call.load_state_dict(params_from_jax(tree, dcfg))
+    outs = []
+    for model in (served, at_call):
+        gen = port_generate.make_generate(model.requires_grad_(False), max_new_tokens=6)
+        cache = port_generate.init_cache(model, 2)
+        outs.append(gen(cache, toks[:, :8], torch.Generator())[0])
+    assert torch.equal(outs[0], outs[1])
