@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel is one source ``ops/csrc/<name>.cu`` with a plain C interface.
-It is compiled with ``nvcc`` for ``sm_90a`` into a shared library under the
-repository's gitignored ``build/kernels/`` tree and loaded with ``ctypes``.
-The library's file name carries a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is reused. Nothing here runs at
-import: the first call of a kernel's wrapper builds it, and
+Each kernel is one source ``ops/csrc/<name>.cu`` with a plain C interface,
+which may include the shared headers ``ops/csrc/*.cuh``. It is compiled with
+``nvcc`` for ``sm_90a`` into a shared library under the repository's
+gitignored ``build/kernels/`` tree and loaded with ``ctypes``. The library's
+file name carries a hash of the source, every header and the flags, so an
+edited source or header is rebuilt and an unchanged one is reused. Nothing
+here runs at import: the first call of a kernel's wrapper builds it, and
 :func:`build` lets a caller start several builds at once.
 """
 
@@ -51,6 +52,9 @@ def _nvcc() -> str:
 def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -25,13 +25,16 @@
 // [S, S] intermediate in registers.
 //
 // Design.
-// - bf16, dq: the forward's layout. One CTA per (b*H + h, 64-row query tile),
-//   four warps of 16 rows, a loop over the live 64-key tiles. q lives in
-//   registers (A operand of q k^T), do in shared memory (A operand of
-//   do v^T). ds comes out of the score accumulator in the A-operand layout of
-//   ds k, as p does for p v in the forward, so it goes to the tensor cores
-//   cast to bf16 without shared memory; k is the B operand of that product
-//   read down its columns, as v is in the forward.
+// - bf16, dq: the forward's Hopper main loop (flash_sm90.cuh). One CTA of
+//   three warpgroups per (b*H + h, 128-row query tile), heaviest causal tiles
+//   first: the producer's elected thread loads the Q and dO tiles once and
+//   streams K and V tiles of BN = 64 keys through a 3-stage TMA ring; each
+//   consumer warpgroup owns 64 rows. s = q k^T and dp = do v^T by wgmma
+//   m64n64k16 from shared memory (K-major); p = exp2(s * scale * log2(e) -
+//   lse * log2(e)), ds = p * (dp - delta) in the accumulator registers; dq +=
+//   ds k by wgmma m64nDk16 with ds cast to bf16 from the registers and k read
+//   MN-major. BN = 64 keeps a thread at 32 + 32 + D/2 f32 accumulators. The
+//   mask is evaluated only on tiles that cross the diagonal or kv_len.
 // - bf16, dkv: the TRANSPOSED scores s^T = k q^T (rows = keys), so p^T and
 //   ds^T land in the accumulator layout that is the A operand of p^T do and
 //   ds^T q. One CTA per (b, kv head, 64-key tile) that walks the G query heads
@@ -61,9 +64,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_sm90.cuh"
+
 namespace {
 
-constexpr float kNeg = -1e30f;
+constexpr float kNeg = sm90::kNeg;
 
 struct Params {
   const void* q;
@@ -166,108 +171,160 @@ __device__ __forceinline__ bool keep(const Params& p, int row, int col) {
 
 // ------------------------------------------------------------------ bf16
 
-constexpr int BM = 64;  // rows per tile: 4 warps x 16
-constexpr int BN = 64;  // keys per tile
+constexpr int BM = 64;  // dkv: keys per CTA and query rows per tile, 4 warps x 16
+constexpr int BN = 64;  // dkv: the key tile
+constexpr int QM = 128;  // dq: query rows per CTA, two consumer warpgroups x 64
+constexpr int KN = 64;   // dq: keys per ring tile
 
 template <int D>
-__global__ void __launch_bounds__(128) flash_bwd_dq_bf16(Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int LD = D + 8;  // padded smem row (elements), 16-byte multiple
-  __nv_bfloat16* sDO = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sDO + BM * LD;
-  __nv_bfloat16* sV = sK + BN * LD;
-  __nv_bfloat16* sQ = sK;  // aliases sK: q lives in registers after staging
+struct DqSmem {
+  static constexpr int kStages = 3;
+  static constexpr uint32_t kQ = QM * D * 2, kTile = KN * D * 2;
+  static constexpr uint32_t kDO = kQ, kK = 2 * kQ, kV = kK + kStages * kTile;
+  static constexpr uint32_t kBars = kV + kStages * kTile;
+  // barriers: Q + dO, full[kStages], empty[kStages]; 1024 bytes of alignment slack
+  static constexpr size_t kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
+};
 
-  const int bh = blockIdx.y;
+template <int D>
+__global__ void __launch_bounds__(sm90::kThreads, 1)
+    flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo, Params p) {
+  using L = DqSmem<D>;
+  constexpr int STAGES = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (sm90::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sQ = base, sDO = base + L::kDO, sK = base + L::kK, sV = base + L::kV;
+  const uint32_t q_bar = base + L::kBars, full = q_bar + 8, empty = full + 8 * STAGES;
+
+  const int bh = blockIdx.x;
   const int b = bh / p.H, h = bh % p.H, kvh = h / p.G;
-  const int q0 = blockIdx.x * BM;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int m_block = p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;  // heaviest first
+  const int q0 = m_block * QM;
+  const int n_tiles = sm90::live_tiles(p.kv_len, p.causal, q0 + QM, KN);
+  const int wg = threadIdx.x / 128;
 
-  const __nv_bfloat16* Q = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* K = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const __nv_bfloat16* V = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  const __nv_bfloat16* DO =
-      static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_sb + h * p.do_sh;
-
-  stage_rows_bf16(sQ, LD, Q, p.q_ss, q0, BM, D);
-  stage_rows_bf16(sDO, LD, DO, p.do_ss, q0, BM, D);
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_bar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(full + 8 * s, 1);
+      sm90::mbar_init(empty + 8 * s, sm90::kConsumerWarps);
+    }
+    sm90::fence_barrier_init();
+  }
   __syncthreads();
 
-  const int r0 = warp * 16 + g;
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) load_a(qf[kk], sQ, LD, r0, kk * 16, t);
-
-  const int row_a = q0 + r0, row_b = row_a + 8;
-  const float lse_a = p.lse[(long long)bh * p.S + row_a];
-  const float lse_b = p.lse[(long long)bh * p.S + row_b];
-  const float dl_a = p.delta[(long long)bh * p.S + row_a];
-  const float dl_b = p.delta[(long long)bh * p.S + row_b];
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-
-  int end = p.kv_len;
-  if (p.causal) end = min(end, q0 + BM);
-  const int n_tiles = (end + BN - 1) / BN;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * BN;
-    __syncthreads();  // the previous tile (or the q staging) is consumed
-    stage_rows_bf16(sK, LD, K, p.k_ss, k0, BN, D);
-    stage_rows_bf16(sV, LD, V, p.v_ss, k0, BN, D);
-    __syncthreads();
-
-    float s[BN / 8][4], dp[BN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+  if (wg == 0) {  // producer
+    sm90::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      sm90::mbar_expect_tx(q_bar, 2 * L::kQ);
+      sm90::load_tile<D, QM>(&tq, sQ, q_bar, h, q0, b);
+      sm90::load_tile<D, QM>(&tdo, sDO, q_bar, h, q0, b);
+      sm90::produce_kv<D, KN, STAGES>(&tk, &tv, sK, sV, full, empty, kvh, b, n_tiles);
     }
+  } else {  // consumers: 64 query rows each
+    sm90::setmaxnreg_inc<240>();
+    const sm90::Lane ln;
+    const int row0 = q0 + (wg - 1) * 64;
+    const int row_a = row0 + ln.r;
+    const uint32_t sQw = sQ + (wg - 1) * 64 * 128, sDOw = sDO + (wg - 1) * 64 * 128;
+    const float c = p.scale * sm90::kLog2e;
+    float lse2[2], dl[2];  // rows row_a and row_a + 8; rows past S carry do = 0
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t dof[4];
-      load_a(dof, sDO, LD, r0, kk * 16, t);
+    for (int half = 0; half < 2; ++half) {
+      const int row = row_a + 8 * half;
+      const bool in = row < p.S;
+      lse2[half] = in ? p.lse[(long long)bh * p.S + row] * sm90::kLog2e : 0.f;
+      dl[half] = in ? p.delta[(long long)bh * p.S + row] : 0.f;
+    }
+
+    float acc[D / 2];
 #pragma unroll
-      for (int nt = 0; nt < BN / 8; ++nt) {
-        mma_row_b(s[nt], qf[kk], sK, LD, kk * 16, nt * 8, g, t);   // q k^T
-        mma_row_b(dp[nt], dof, sV, LD, kk * 16, nt * 8, g, t);     // do v^T
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    sm90::mbar_wait(q_bar, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int stage = j % STAGES;
+      const uint32_t tK = sK + stage * L::kTile, tV = sV + stage * L::kTile;
+      sm90::mbar_wait(full + 8 * stage, (j / STAGES) & 1);
+
+      // s = q k^T and dp = do v^T for this warpgroup's 64 rows and 64 keys.
+      float s[KN / 2], dp[KN / 2];
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::wgmma_ss(s, sm90::desc_k_major(sQw, QM, kk), sm90::desc_k_major(tK, KN, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::wgmma_ss(dp, sm90::desc_k_major(sDOw, QM, kk), sm90::desc_k_major(tV, KN, kk),
+                       kk > 0);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait();
+      sm90::fence_regs(s);
+      sm90::fence_regs(dp);
+
+      // ds = p * (dp - delta), p = exp(s * scale - lse), written over s.
+      const int k0 = j * KN;
+      const bool edge = sm90::edge_tile(k0, KN, row0, p.kv_len, p.causal);
+#pragma unroll
+      for (int i = 0; i < KN / 2; ++i) {
+        const int half = (i >> 1) & 1;
+        float pv = sm90::exp2_approx(s[i] * c - lse2[half]);
+        if (edge && !sm90::keep(row_a + 8 * half, k0 + ln.col(i), p.kv_len, p.causal)) pv = 0.f;
+        s[i] = pv * (dp[i] - dl[half]);
       }
+
+      // acc += ds k, ds cast to bf16 straight from the accumulator registers.
+      uint32_t da[KN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < KN / 16; ++kk) sm90::acc_to_a(da[kk], s, kk);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KN / 16; ++kk)
+        sm90::wgmma_rs<1>(acc, da[kk], sm90::desc_mn_major(tK, KN, kk), 1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait();
+      sm90::fence_regs(acc);
+      sm90::fence_regs(da);
+      __syncwarp();
+      if (ln.lane == 0) sm90::mbar_arrive(empty + 8 * stage);
     }
 
-    // ds = p * (dp - delta), p = exp(s * scale - lse), written over s.
+    __nv_bfloat16* DQ = static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
+    for (int half = 0; half < 2; ++half) {
+      const int row = row_a + 8 * half;
+      if (row >= p.S) continue;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nt * 8 + t * 2 + (e & 1);
-        const bool lo = e < 2;
-        const float sv = keep(p, lo ? row_a : row_b, col) ? s[nt][e] * p.scale : kNeg;
-        const float pv = expf(sv - (lo ? lse_a : lse_b));
-        s[nt][e] = pv * (dp[nt][e] - (lo ? dl_a : dl_b));
-      }
-    }
-
-    // acc += ds k, ds cast to bf16 straight from the accumulator registers.
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) mma_col_b(acc[dt], a, sK, LD, kk * 16, dt * 8, g, t);
+      for (int jj = 0; jj < D / 8; ++jj)
+        *reinterpret_cast<__nv_bfloat162*>(DQ + (long long)row * p.dq_ss + jj * 8 + 2 * ln.t) =
+            __floats2bfloat162_rn(acc[4 * jj + 2 * half] * p.scale,
+                                  acc[4 * jj + 2 * half + 1] * p.scale);
     }
   }
+}
 
-  __nv_bfloat16* DQ = static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = dt * 8 + t * 2;
-    *reinterpret_cast<__nv_bfloat162*>(DQ + (long long)row_a * p.dq_ss + col) =
-        __floats2bfloat162_rn(acc[dt][0] * p.scale, acc[dt][1] * p.scale);
-    *reinterpret_cast<__nv_bfloat162*>(DQ + (long long)row_b * p.dq_ss + col) =
-        __floats2bfloat162_rn(acc[dt][2] * p.scale, acc[dt][3] * p.scale);
-  }
+template <int D>
+cudaError_t launch_dq_bf16(const Params& p, int B, cudaStream_t stream) {
+  const int KH = p.H / p.G;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = sm90::make_tile_map(&tq, p.q, B, p.S, p.H, D, p.q_sb, p.q_ss, p.q_sh, QM);
+  if (err == cudaSuccess)
+    err = sm90::make_tile_map(&tdo, p.dout, B, p.S, p.H, D, p.do_sb, p.do_ss, p.do_sh, QM);
+  if (err == cudaSuccess)
+    err = sm90::make_tile_map(&tk, p.k, B, p.S, KH, D, p.k_sb, p.k_ss, p.k_sh, KN);
+  if (err == cudaSuccess)
+    err = sm90::make_tile_map(&tv, p.v, B, p.S, KH, D, p.v_sb, p.v_ss, p.v_sh, KN);
+  if (err != cudaSuccess) return err;
+  const size_t smem = DqSmem<D>::kBytes;
+  static std::atomic<uint64_t> smem_set{0};
+  err = sm90::set_smem_once(smem_set, flash_bwd_dq_sm90<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * p.H, (p.S + QM - 1) / QM);
+  flash_bwd_dq_sm90<D><<<grid, sm90::kThreads, smem, stream>>>(tq, tk, tv, tdo, p);
+  return cudaGetLastError();
 }
 
 template <int D>
@@ -582,7 +639,6 @@ bool bad_shape(int S, int G, int H, int kv_len) {
   return S % BM != 0 || kv_len <= 0 || kv_len > S || G <= 0 || H % G != 0;
 }
 
-size_t bf16_dq_smem(int D) { return (size_t)(BM + 2 * BN) * (D + 8) * 2; }
 size_t bf16_dkv_smem(int D) { return (size_t)(2 * BN + 2 * BM) * (D + 8) * 2 + 2 * BM * 4; }
 size_t f32_dq_smem(int D) { return (size_t)(2 * FBM + 2 * FBN) * (D + 1) * 4; }
 size_t f32_dkv_smem(int D) { return (size_t)(2 * FKN + 2 * FQM) * (D + 1) * 4 + 2 * FQM * 4; }
@@ -609,10 +665,8 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
            do_sb, do_ss, do_sh, dq_sb, dq_ss, dq_sh, 0,     0,       0,
            0,     0,     0,     H,     G,     S,     kv_len, causal, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && D == 128)
-    return (int)launch(flash_bwd_dq_bf16<128>, dim3(S / BM, B * H), bf16_dq_smem(D), p, st);
-  if (dtype == 1 && D == 64)
-    return (int)launch(flash_bwd_dq_bf16<64>, dim3(S / BM, B * H), bf16_dq_smem(D), p, st);
+  if (dtype == 1 && D == 128) return (int)launch_dq_bf16<128>(p, B, st);
+  if (dtype == 1 && D == 64) return (int)launch_dq_bf16<64>(p, B, st);
   if (dtype == 0 && D == 128)
     return (int)launch(flash_bwd_dq_f32<128>, dim3(S / FBM, B * H), f32_dq_smem(D), p, st);
   if (dtype == 0 && D == 64)

@@ -6,31 +6,38 @@
 // over K tiles, dead-tile skipping, GQA by reading K/V of kv head h / G in
 // place, and lse = m + log(l) per query row.
 //
-// What bounds it. At the generate slice's prefill shape (B=8, S=512, H=8,
-// KH=4, D=128, bf16, causal) one launch reads q, k, v once and writes o and
-// lse: about 25 MB, 7.5 us at 3.35 TB/s, while the two matmuls over the
-// causal half are about 4.3 GFLOP, 4.4 us at 989 TFLOP/s — so the bound is
-// memory. The
-// [S, S] score matrix never leaves the SM: each CTA keeps its scores in
-// registers and its running max, sum and output accumulator in registers, so
-// device traffic stays O(S*D) as the bound assumes.
+// What bounds it. At the training shape (B=4, S=4096, H=8, KH=4, D=128, bf16,
+// causal) the two products over the 33.6 M live (row, col) pairs of each of
+// the 32 heads are 137.5 GFLOP, 0.139 ms at 989 TFLOP/s, against 34 MB of
+// q, k, v, o and lse (0.01 ms at 3.35 TB/s): bound by operations. At the
+// generate prefill shape (B=8, S=512) the bytes bound it (7.5 us against
+// 4.4 us of products). The [S, S] score matrix never leaves the SM.
 //
-// Design.
-// - One CTA per (b*H + h, 64-row query tile); a loop over 64-key tiles
-//   inside the CTA replaces the TPU's sequential grid axis. Tiles above the
-//   causal diagonal or past kv_len are never loaded.
-// - bf16: four warps, 16 query rows each, mma.sync m16n8k16 (bf16 in, f32
-//   accumulate) for q k^T and p v. The score accumulator's register layout is
-//   the A-operand layout of the next product, so p goes from registers to the
-//   tensor core cast to bf16 (as the TPU kernel casts p to v's type) while
-//   the row sum l uses the f32 p. Q is staged through shared memory once into
-//   registers; K and V tiles then reuse that shared memory.
-// - f32: a scalar kernel (no TF32), one warp per group of query rows, one
-//   lane per key of the tile for the scores, D/32 output columns per lane.
-// - Masking follows _mask_scores exactly: keep col <= row (causal) and
-//   col < kv_len, masked scores are -1e30 so exp underflows to 0.
-// - q, k, v, o are addressed through [B, S, heads, D] strides, so the
-//   wrapper needs no transpose; lse is written as [B*H, S] f32.
+// Design (bf16), on the Hopper main loop of flash_sm90.cuh:
+// - One CTA of three warpgroups per (b*H + h, 128-row query tile), the
+//   heaviest causal tiles launched first. The producer warpgroup's elected
+//   thread loads the Q tile once and streams K and V tiles of BN = 128 keys
+//   through a ring of 2 (D 128) or 3 (D 64) stages by TMA; the two consumer
+//   warpgroups own 64 query rows each.
+// - s = q k^T by wgmma m64n128k16 (Q and K from shared memory, K-major);
+//   o += p v by wgmma m64nDk16 with p cast to bf16 straight from the score
+//   accumulator (the accumulator layout is the register-A layout), v read
+//   MN-major with the transpose bit. Products are bf16 with f32 accumulation
+//   and p is rounded to bf16 before p v while l sums the f32 p, as the TPU
+//   kernel rounds.
+// - Online softmax in f32 on the accumulator fragments, in base 2 with
+//   scale * log2(e) folded into the scores; lse is written in natural log.
+// - The mask (_mask_scores: keep col <= row when causal and col < kv_len,
+//   masked scores -1e30) is evaluated only on a tile that crosses the
+//   diagonal or kv_len.
+// - S padded to 64 by the wrapper: the last query tile may hold 64 rows past
+//   S; TMA zero-fills them and the epilogue stores only rows < S.
+//
+// f32: a scalar kernel (no TF32), one warp per group of query rows, one lane
+// per key of the tile for the scores, D/32 output columns per lane.
+//
+// q, k, v, o are addressed through [B, S, heads, D] strides, so the wrapper
+// needs no transpose; lse is written as [B*H, S] f32.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC  (see ../_build.py)
@@ -39,9 +46,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_sm90.cuh"
+
 namespace {
 
-constexpr float kNeg = -1e30f;
+constexpr float kNeg = sm90::kNeg;
 
 struct Params {
   const void* q;
@@ -57,187 +66,162 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&t);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 t;
-  t.x = lo;
-  t.y = hi;
-  return *reinterpret_cast<uint32_t*>(&t);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Number of K tiles of width bn that hold a live column for query rows
-// [q0, q0 + bm): the causal diagonal and kv_len bound the walk (_live_block).
-__device__ __forceinline__ int live_tiles(const Params& p, int q0, int bm, int bn) {
-  int end = p.kv_len;
-  if (p.causal) end = min(end, q0 + bm);
-  return (end + bn - 1) / bn;
-}
-
 // ------------------------------------------------------------------ bf16
 
-constexpr int BM = 64;  // query rows per CTA: 4 warps x 16
-constexpr int BN = 64;  // keys per tile
+constexpr int BM = 128;  // query rows per CTA: two consumer warpgroups x 64
+constexpr int BN = 128;  // keys per tile
 
 template <int D>
-__global__ void __launch_bounds__(128) flash_fwd_bf16(Params p) {
-  constexpr int LD = D + 8;  // padded smem row (elements), 16-byte multiple
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  __shared__ __align__(16) __nv_bfloat16 smem[2 * BN * LD];
-  __nv_bfloat16* sK = smem;
-  __nv_bfloat16* sV = smem + BN * LD;
-  __nv_bfloat16* sQ = smem;  // aliases sK: Q lives in registers after staging
+struct FwdSmem {
+  static constexpr int kStages = D == 128 ? 2 : 3;
+  static constexpr uint32_t kQ = BM * D * 2, kTile = BN * D * 2;
+  static constexpr uint32_t kK = kQ, kV = kK + kStages * kTile, kBars = kV + kStages * kTile;
+  // barriers: Q, full[kStages], empty[kStages]; 1024 bytes of alignment slack
+  static constexpr size_t kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
+};
 
-  const int bh = blockIdx.y;
+template <int D>
+__global__ void __launch_bounds__(sm90::kThreads, 1)
+    flash_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, Params p) {
+  using L = FwdSmem<D>;
+  constexpr int STAGES = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (sm90::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sQ = base, sK = base + L::kK, sV = base + L::kV;
+  const uint32_t q_bar = base + L::kBars, full = q_bar + 8, empty = full + 8 * STAGES;
+
+  const int bh = blockIdx.x;
   const int b = bh / p.H, h = bh % p.H, kvh = h / p.G;
-  const int q0 = blockIdx.x * BM;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int m_block = p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;  // heaviest first
+  const int q0 = m_block * BM;
+  const int n_tiles = sm90::live_tiles(p.kv_len, p.causal, q0 + BM, BN);
+  const int wg = threadIdx.x / 128;
 
-  const __nv_bfloat16* Q = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* K = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const __nv_bfloat16* V = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-
-  for (int c = tid; c < BM * CPR; c += blockDim.x) {
-    const int r = c / CPR, cc = c % CPR;
-    *reinterpret_cast<uint4*>(sQ + r * LD + cc * 8) =
-        *reinterpret_cast<const uint4*>(Q + (long long)(q0 + r) * p.q_ss + cc * 8);
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_bar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(full + 8 * s, 1);
+      sm90::mbar_init(empty + 8 * s, sm90::kConsumerWarps);
+    }
+    sm90::fence_barrier_init();
   }
   __syncthreads();
 
-  const int r0 = warp * 16 + g;
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const __nv_bfloat16* base = sQ + kk * 16 + t * 2;
-    qf[kk][0] = *reinterpret_cast<const uint32_t*>(base + r0 * LD);
-    qf[kk][1] = *reinterpret_cast<const uint32_t*>(base + (r0 + 8) * LD);
-    qf[kk][2] = *reinterpret_cast<const uint32_t*>(base + r0 * LD + 8);
-    qf[kk][3] = *reinterpret_cast<const uint32_t*>(base + (r0 + 8) * LD + 8);
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;
-  const int row_a = q0 + r0, row_b = row_a + 8;
-
-  const int n_tiles = live_tiles(p, q0, BM, BN);
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * BN;
-    __syncthreads();  // the previous tile (or the Q staging) is consumed
-    for (int c = tid; c < BN * CPR; c += blockDim.x) {
-      const int r = c / CPR, cc = c % CPR;
-      *reinterpret_cast<uint4*>(sK + r * LD + cc * 8) =
-          *reinterpret_cast<const uint4*>(K + (long long)(k0 + r) * p.k_ss + cc * 8);
-      *reinterpret_cast<uint4*>(sV + r * LD + cc * 8) =
-          *reinterpret_cast<const uint4*>(V + (long long)(k0 + r) * p.v_ss + cc * 8);
+  if (wg == 0) {  // producer
+    sm90::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      sm90::mbar_expect_tx(q_bar, L::kQ);
+      sm90::load_tile<D, BM>(&tq, sQ, q_bar, h, q0, b);
+      sm90::produce_kv<D, BN, STAGES>(&tk, &tv, sK, sV, full, empty, kvh, b, n_tiles);
     }
-    __syncthreads();
+  } else {  // consumers: 64 query rows each
+    sm90::setmaxnreg_inc<240>();
+    const sm90::Lane ln;
+    const int row0 = q0 + (wg - 1) * 64;
+    const int row_a = row0 + ln.r;
+    const uint32_t sQw = sQ + (wg - 1) * 64 * 128;
+    const float c = p.scale * sm90::kLog2e;
 
-    // s = q k^T for this warp's 16 rows and the tile's 64 keys.
-    float s[BN / 8][4];
+    float o[D / 2];
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m_a = kNeg, m_b = kNeg, l_a = 0.f, l_b = 0.f;
+
+    sm90::mbar_wait(q_bar, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int stage = j % STAGES;
+      const uint32_t tK = sK + stage * L::kTile, tV = sV + stage * L::kTile;
+      sm90::mbar_wait(full + 8 * stage, (j / STAGES) & 1);
+
+      // s = q k^T for this warpgroup's 64 rows and the tile's 128 keys.
+      float s[BN / 2];
+      sm90::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::wgmma_ss(s, sm90::desc_k_major(sQw, BM, kk), sm90::desc_k_major(tK, BN, kk), kk > 0);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait();
+      sm90::fence_regs(s);
+
+      const int k0 = j * BN;
+      const bool edge = sm90::edge_tile(k0, BN, row0, p.kv_len, p.causal);
+      float mx_a = kNeg, mx_b = kNeg;
 #pragma unroll
-      for (int nt = 0; nt < BN / 8; ++nt) {
-        const __nv_bfloat16* kb = sK + (nt * 8 + g) * LD + kk * 16 + t * 2;
-        mma_bf16(s[nt], qf[kk], *reinterpret_cast<const uint32_t*>(kb),
-                 *reinterpret_cast<const uint32_t*>(kb + 8));
+      for (int i = 0; i < BN / 2; ++i) {
+        float x = s[i] * c;
+        if (edge && !sm90::keep(row_a + 8 * ((i >> 1) & 1), k0 + ln.col(i), p.kv_len, p.causal))
+          x = kNeg;
+        s[i] = x;
+        if (i & 2) mx_b = fmaxf(mx_b, x); else mx_a = fmaxf(mx_a, x);
       }
-    }
-
-    float tmax0 = kNeg, tmax1 = kNeg;
+      const float mn_a = fmaxf(m_a, sm90::quad_max(mx_a));
+      const float mn_b = fmaxf(m_b, sm90::quad_max(mx_b));
+      const float alpha_a = sm90::exp2_approx(m_a - mn_a), alpha_b = sm90::exp2_approx(m_b - mn_b);
+      float ls_a = 0.f, ls_b = 0.f;
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nt * 8 + t * 2 + (e & 1);
-        const int row = e < 2 ? row_a : row_b;
-        const bool keep = col < p.kv_len && (!p.causal || col <= row);
-        s[nt][e] = keep ? s[nt][e] * p.scale : kNeg;
+      for (int i = 0; i < BN / 2; ++i) {
+        const float e = sm90::exp2_approx(s[i] - ((i & 2) ? mn_b : mn_a));
+        s[i] = e;
+        if (i & 2) ls_b += e; else ls_a += e;
       }
-      tmax0 = fmaxf(tmax0, fmaxf(s[nt][0], s[nt][1]));
-      tmax1 = fmaxf(tmax1, fmaxf(s[nt][2], s[nt][3]));
-    }
-    const float mn0 = fmaxf(m0, quad_max(tmax0));
-    const float mn1 = fmaxf(m1, quad_max(tmax1));
-    const float alpha0 = expf(m0 - mn0), alpha1 = expf(m1 - mn1);
-    float ls0 = 0.f, ls1 = 0.f;
+      l_a = l_a * alpha_a + sm90::quad_sum(ls_a);
+      l_b = l_b * alpha_b + sm90::quad_sum(ls_b);
+      m_a = mn_a;
+      m_b = mn_b;
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      s[nt][0] = expf(s[nt][0] - mn0);
-      s[nt][1] = expf(s[nt][1] - mn0);
-      s[nt][2] = expf(s[nt][2] - mn1);
-      s[nt][3] = expf(s[nt][3] - mn1);
-      ls0 += s[nt][0] + s[nt][1];
-      ls1 += s[nt][2] + s[nt][3];
-    }
-    l0 = l0 * alpha0 + quad_sum(ls0);
-    l1 = l1 * alpha1 + quad_sum(ls1);
-    m0 = mn0;
-    m1 = mn1;
+      for (int i = 0; i < D / 2; ++i) o[i] *= (i & 2) ? alpha_b : alpha_a;
+
+      // o += p v, p cast to bf16 straight from the score registers.
+      uint32_t pa[BN / 16][4];
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      acc[dt][0] *= alpha0;
-      acc[dt][1] *= alpha0;
-      acc[dt][2] *= alpha1;
-      acc[dt][3] *= alpha1;
+      for (int kk = 0; kk < BN / 16; ++kk) sm90::acc_to_a(pa[kk], s, kk);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        sm90::wgmma_rs<1>(o, pa[kk], sm90::desc_mn_major(tV, BN, kk), 1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait();
+      sm90::fence_regs(o);
+      sm90::fence_regs(pa);
+      __syncwarp();
+      if (ln.lane == 0) sm90::mbar_arrive(empty + 8 * stage);
     }
 
-    // acc += p v, p cast to bf16 straight from the score registers.
+    __nv_bfloat16* O = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
+    const float inv_a = 1.f / l_a, inv_b = 1.f / l_b;
 #pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t a[4] = {
-          pack_f32(s[2 * kk][0], s[2 * kk][1]), pack_f32(s[2 * kk][2], s[2 * kk][3]),
-          pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+    for (int half = 0; half < 2; ++half) {
+      const int row = row_a + 8 * half;
+      if (row >= p.S) continue;
+      const float inv = half ? inv_b : inv_a;
 #pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const __nv_bfloat16* vb = sV + (kk * 16 + t * 2) * LD + dt * 8 + g;
-        mma_bf16(acc[dt], a, pack_bf16(vb[0], vb[LD]), pack_bf16(vb[8 * LD], vb[9 * LD]));
-      }
+      for (int jj = 0; jj < D / 8; ++jj)
+        *reinterpret_cast<__nv_bfloat162*>(O + (long long)row * p.o_ss + jj * 8 + 2 * ln.t) =
+            __floats2bfloat162_rn(o[4 * jj + 2 * half] * inv, o[4 * jj + 2 * half + 1] * inv);
+      if (ln.t == 0)
+        p.lse[(long long)bh * p.S + row] = (half ? m_b : m_a) * sm90::kLn2 + logf(half ? l_b : l_a);
     }
   }
+}
 
-  __nv_bfloat16* O = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = dt * 8 + t * 2;
-    *reinterpret_cast<__nv_bfloat162*>(O + (long long)row_a * p.o_ss + col) =
-        __floats2bfloat162_rn(acc[dt][0] / l0, acc[dt][1] / l0);
-    *reinterpret_cast<__nv_bfloat162*>(O + (long long)row_b * p.o_ss + col) =
-        __floats2bfloat162_rn(acc[dt][2] / l1, acc[dt][3] / l1);
-  }
-  if (t == 0) {
-    p.lse[(long long)bh * p.S + row_a] = m0 + logf(l0);
-    p.lse[(long long)bh * p.S + row_b] = m1 + logf(l1);
-  }
+template <int D>
+cudaError_t launch_bf16(const Params& p, int B, cudaStream_t stream) {
+  const int KH = p.H / p.G;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = sm90::make_tile_map(&tq, p.q, B, p.S, p.H, D, p.q_sb, p.q_ss, p.q_sh, BM);
+  if (err == cudaSuccess)
+    err = sm90::make_tile_map(&tk, p.k, B, p.S, KH, D, p.k_sb, p.k_ss, p.k_sh, BN);
+  if (err == cudaSuccess)
+    err = sm90::make_tile_map(&tv, p.v, B, p.S, KH, D, p.v_sb, p.v_ss, p.v_sh, BN);
+  if (err != cudaSuccess) return err;
+  const size_t smem = FwdSmem<D>::kBytes;
+  static std::atomic<uint64_t> smem_set{0};
+  err = sm90::set_smem_once(smem_set, flash_fwd_sm90<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * p.H, (p.S + BM - 1) / BM);
+  flash_fwd_sm90<D><<<grid, sm90::kThreads, smem, stream>>>(tq, tk, tv, p);
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------------- f32
@@ -277,7 +261,7 @@ __global__ void __launch_bounds__(128) flash_fwd_f32(Params p) {
     for (int c = 0; c < CPL; ++c) acc[rr][c] = 0.f;
   }
 
-  const int n_tiles = live_tiles(p, q0, FBM, FBN);
+  const int n_tiles = sm90::live_tiles(p.kv_len, p.causal, q0 + FBM, FBN);
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * FBN;
     __syncthreads();
@@ -328,10 +312,9 @@ __global__ void __launch_bounds__(128) flash_fwd_f32(Params p) {
   }
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, int tile, const Params& p, int B, cudaStream_t stream) {
-  dim3 grid(p.S / tile, B * p.H);
-  kernel<<<grid, 128, 0, stream>>>(p);
+template <int D>
+cudaError_t launch_f32(const Params& p, int B, cudaStream_t stream) {
+  flash_fwd_f32<D><<<dim3(p.S / FBM, B * p.H), 128, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -348,14 +331,14 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, f
                          long long o_sb, long long o_ss, long long o_sh,
                          int B, int H, int G, int S, int D, int kv_len, int causal,
                          float scale, int dtype, void* stream) {
-  if (S % BM != 0 || kv_len <= 0 || kv_len > S || G <= 0 || H % G != 0)
+  if (S % 64 != 0 || kv_len <= 0 || kv_len > S || G <= 0 || H % G != 0)
     return (int)cudaErrorInvalidValue;
   Params p{q,    k,    v,    o,    lse,  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
            v_ss, v_sh, o_sb, o_ss, o_sh, H,    G,    S,    kv_len, causal, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && D == 128) return (int)launch(flash_fwd_bf16<128>, BM, p, B, st);
-  if (dtype == 1 && D == 64) return (int)launch(flash_fwd_bf16<64>, BM, p, B, st);
-  if (dtype == 0 && D == 128) return (int)launch(flash_fwd_f32<128>, FBM, p, B, st);
-  if (dtype == 0 && D == 64) return (int)launch(flash_fwd_f32<64>, FBM, p, B, st);
+  if (dtype == 1 && D == 128) return (int)launch_bf16<128>(p, B, st);
+  if (dtype == 1 && D == 64) return (int)launch_bf16<64>(p, B, st);
+  if (dtype == 0 && D == 128) return (int)launch_f32<128>(p, B, st);
+  if (dtype == 0 && D == 64) return (int)launch_f32<64>(p, B, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,0 +1,378 @@
+// Hopper (sm_90a) building blocks shared by the flash attention kernels of
+// flash_fwd.cu and flash_bwd.cu: TMA tile loads into a ring of shared-memory
+// stages guarded by mbarriers, wgmma on those tiles, and the warp-specialised
+// CTA shape that drives them.
+//
+// The CTA: warpgroup 0 is the producer — one elected thread issues every TMA
+// load and the warpgroup gives its registers back (setmaxnreg.dec); warpgroups
+// 1 and 2 are consumers, each owning 64 query rows of a 128-row tile, and take
+// those registers (setmaxnreg.inc). A query tile (and, for the backward, its
+// dO tile) is loaded once; K/V tiles stream through STAGES slots, each with a
+// "full" barrier (the producer's expect-tx, completed by TMA's byte count) and
+// an "empty" barrier (one arrival per consumer warp once its wgmmas on the
+// slot have completed).
+//
+// Layout. Every tile is stored as D/64 boxes of [rows][64] bf16, 128 bytes a
+// row, in TMA's 128-byte swizzle, each box 1024-byte aligned. The same tile
+// serves wgmma two ways:
+// - K-major (D is the reduction): Q, dO as A and K, V as B of q·kᵀ, do·vᵀ.
+//   16 columns of a box are 32 bytes into its swizzled row; 8-row groups are
+//   1024 bytes apart (SBO).
+// - MN-major (keys are the reduction, transpose bit set): V of p·v and K of
+//   ds·k. 16 keys are 2048 bytes; the two 64-column boxes of D 128 are one box
+//   apart (LBO), 8-key groups 1024 bytes (SBO).
+//
+// Tensor maps are built on the host over the [B, S, heads, D] strided tensors
+// as 4-D (D, heads, S, B) with a box of (64, 1, rows, 1), so GQA reads kv head
+// h / G in place and rows past S are zero-filled by TMA.
+//
+// Issue every wgmma unconditionally: one issued under an `if` makes ptxas
+// serialise all of them (its C7520 note): 8% on an H100 in a variant of the
+// forward that issued its last p·v inside the loop.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <atomic>
+
+namespace sm90 {
+
+constexpr float kNeg = -1e30f;        // masked score: exp underflows to exactly 0
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kThreads = 384;         // producer warpgroup + two consumer warpgroups
+constexpr int kConsumerWarps = 8;     // arrivals that free a ring slot
+constexpr int kBoxCols = 64;          // bf16 columns of one 128-byte swizzled row
+
+// ------------------------------------------------------------------ host
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no -lcuda).
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// A 4-D map (D, heads, S, B) over a bf16 [B, S, heads, D] tensor with element
+// strides sb, ss, sh (the last dimension contiguous), box (64, 1, rows, 1),
+// 128-byte swizzle, zero fill past the edges. A dimension of extent 1 gets its
+// packed stride, since torch may give such a dimension any stride.
+inline cudaError_t make_tile_map(CUtensorMap* map, const void* base, int B, int S, int heads,
+                                 int D, long long sb, long long ss, long long sh, int rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const long long packed_h = 2LL * D, packed_s = packed_h * heads, packed_b = packed_s * S;
+  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  cuuint64_t strides[3] = {(cuuint64_t)(heads == 1 ? packed_h : 2 * sh),
+                           (cuuint64_t)(S == 1 ? packed_s : 2 * ss),
+                           (cuuint64_t)(B == 1 ? packed_b : 2 * sb)};
+  cuuint32_t box[4] = {(cuuint32_t)kBoxCols, 1, (cuuint32_t)rows, 1};
+  cuuint32_t elem[4] = {1, 1, 1, 1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Raise a kernel's dynamic shared-memory limit once per device rather than at
+// every launch. `done` is the launcher's function-local static (one per
+// kernel instance), one bit a device; a device past 63 is set every time.
+template <typename Kernel>
+inline cudaError_t set_smem_once(std::atomic<uint64_t>& done, Kernel kernel, size_t bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? 1ull << dev : 0;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_acq_rel);
+  return err;
+}
+
+// Number of key tiles of width bn holding a live column for query rows below
+// row_end: the causal diagonal and kv_len bound the walk (_live_block).
+__device__ __forceinline__ int live_tiles(int kv_len, int causal, int row_end, int bn) {
+  const int end = causal && row_end < kv_len ? row_end : kv_len;
+  return (end + bn - 1) / bn;
+}
+
+// ---------------------------------------------------------------- device
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` of barrier `bar` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// One [rows, D] tile at (row, head, batch): D/64 boxes, rows * 128 bytes apart.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(const CUtensorMap* map, uint32_t dst, uint32_t bar,
+                                          int head, int row, int batch) {
+#pragma unroll
+  for (int c = 0; c < D / kBoxCols; ++c)
+    tma_load_4d(dst + c * ROWS * 128, map, bar, c * kBoxCols, head, row, batch);
+}
+
+// The producer's walk: K and V tiles j = 0 .. n_tiles-1 of kv head `head`
+// into ring slot j % STAGES, each slot waited empty, then armed with its byte
+// count. full/empty are the slots' first barrier; slot s's is 8 * s further.
+template <int D, int BN, int STAGES>
+__device__ __forceinline__ void produce_kv(const CUtensorMap* tk, const CUtensorMap* tv,
+                                           uint32_t sK, uint32_t sV, uint32_t full,
+                                           uint32_t empty, int head, int batch, int n_tiles) {
+  constexpr uint32_t kTile = BN * D * 2;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % STAGES;
+    mbar_wait(empty + 8 * s, ((j / STAGES) & 1) ^ 1);  // the first round passes at once
+    mbar_expect_tx(full + 8 * s, 2 * kTile);
+    load_tile<D, BN>(tk, sK + s * kTile, full + 8 * s, head, j * BN, batch);
+    load_tile<D, BN>(tv, sV + s * kTile, full + 8 * s, head, j * BN, batch);
+  }
+}
+
+// wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1 = B128.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// K-major operand: 16 columns kk of a tile of `rows` rows (D/64 boxes). A
+// swizzled K-major operand has no leading offset (16 bytes, unused).
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t tile, int rows, int kk) {
+  return smem_desc(tile + (kk >> 2) * rows * 128 + (kk & 3) * 32, 16, 1024);
+}
+
+// MN-major operand: 16 rows (keys) kk of a tile of `rows` rows; N runs along D.
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t tile, int rows, int kk) {
+  return smem_desc(tile + kk * 16 * 128, rows * 128, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until every committed wgmma group of this thread has completed.
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// After wgmma_wait: the asynchronous wgmma wrote (or read) these registers,
+// so the compiler must not move their uses across the wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// d (m64 x N f32, the accumulator layout: per 8 columns j, d[4j], d[4j+1] at
+// row warp*16 + lane/4, columns 8j + 2*(lane%4) + {0,1}; d[4j+2], d[4j+3] 8
+// rows below) += A (64 x 16) * B (16 x N). wgmma_ss: A and B in shared memory,
+// both K-major. wgmma_rs: A in registers (the m16k16 fragment: rows lane/4
+// and +8, columns 2*(lane%4) and +8), B in shared memory, MN-major when
+// TransB = 1. accumulate = 0 overwrites d.
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <int TransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TransB));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <int TransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TransB));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+// The A fragment of 16 columns kk of an accumulator, cast to bf16: the m64
+// accumulator layout is the register-A layout of the next product.
+template <int N>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[N], int kk) {
+  a[0] = pack_bf16x2(d[8 * kk + 0], d[8 * kk + 1]);
+  a[1] = pack_bf16x2(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack_bf16x2(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack_bf16x2(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// This thread's place in a consumer warpgroup: accumulator rows r and r + 8
+// of the warpgroup's 64, and its column pair 2 * t within each 8 columns.
+struct Lane {
+  int warp, lane, r, t;
+  __device__ __forceinline__ Lane() {
+    const int tid = threadIdx.x % 128;
+    warp = tid / 32;
+    lane = tid % 32;
+    r = warp * 16 + lane / 4;
+    t = lane % 4;
+  }
+  // Accumulator element i lies in row r + 8 * ((i >> 1) & 1) and this column.
+  __device__ __forceinline__ int col(int i) const { return (i >> 2) * 8 + 2 * t + (i & 1); }
+};
+
+// _mask_scores: keep col <= row when causal and col < kv_len.
+__device__ __forceinline__ bool keep(int row, int col, int kv_len, int causal) {
+  return col < kv_len && (!causal || col <= row);
+}
+
+// Whether key tile [k0, k0 + bn) needs the mask for query rows from row0:
+// only a tile that crosses the causal diagonal or kv_len does.
+__device__ __forceinline__ bool edge_tile(int k0, int bn, int row0, int kv_len, int causal) {
+  return (causal && k0 + bn - 1 > row0) || k0 + bn > kv_len;
+}
+
+}  // namespace sm90

@@ -38,7 +38,7 @@ import torch.nn.functional as F
 from . import _build
 
 _NEG = -1e30  # finite mask value: exp(_NEG - m) underflows to exactly 0.0
-KERNEL_TILE = 64  # the CUDA kernels' query and key tile (csrc/flash_*.cu)
+KERNEL_TILE = 64  # the CUDA kernels take S in multiples of this (csrc/flash_*.cu)
 KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -64,8 +64,8 @@ def launch_counts() -> dict:
 
 def _plan_tiling(S: int, D: int, block_q: int, block_k: int, on_cuda: bool):
     """Resolve ``(block_q, block_k, S_pad, D_pad)`` for a possibly unaligned
-    shape. On CUDA the kernel's 64x64 tile and its head widths (64, 128) set
-    the padding; the requested blocks do not change it. On the CPU the plain
+    shape. On CUDA the kernels' unit of S (``KERNEL_TILE``) and their head
+    widths (64, 128) set the padding; the requested blocks do not change it. On the CPU the plain
     version needs no tiling, and the blocks pad S as the JAX wrapper does in
     interpret mode (unequal blocks where neither divides the other collapse to
     the smaller one)."""
@@ -152,10 +152,11 @@ ROW_RTOL = {torch.bfloat16: 3e-2, torch.float32: 3e-4}
 
 
 def grad_agreement(g: torch.Tensor, r: torch.Tensor, seq_len: int) -> dict:
-    """How gradient ``g`` (``[B, S, heads, D]``) strays from its plain
-    version ``r``, at scales that follow the values (under a causal mask the
-    first keys' gradients are 50-100x the rest, so one tolerance scaled to
-    the largest value passes a wrong late half):
+    """How gradient ``g`` (``[B, S, heads, D]``; also the forward's o, see
+    :func:`forward_agreement`) strays from its plain version ``r``, at scales
+    that follow the values (under a causal mask the first keys' gradients are
+    50-100x the rest, so one tolerance scaled to the largest value passes a
+    wrong late half):
 
     - ``max_abs``: the largest element error, for the record;
     - ``rel``: ``|g - r| / |r|`` (L2) over the whole tensor;
@@ -189,9 +190,29 @@ def grad_agreement(g: torch.Tensor, r: torch.Tensor, seq_len: int) -> dict:
     return out
 
 
+# The forward's largest absolute error of o and of lse: bf16 rounds p before
+# p·v and the plain version sums in another order; f32 with TF32 off.
+FWD_ATOL = {torch.bfloat16: 3e-2, torch.float32: 2e-5}
+
+
+def forward_agreement(o, lse, o_ref, lse_ref, seq_len: int) -> dict:
+    """How the forward's ``(o, lse)`` stray from their plain version. Under a
+    causal mask a late row's o is about ``sqrt(e / row)`` of the first rows',
+    so an absolute tolerance sized for those passes a wrong late tile: o is
+    held by :func:`grad_agreement` (relative L2 over the whole tensor, its
+    late half and its worst row) and, with lse, by its largest absolute error
+    (``FWD_ATOL``). Returns ``grad_agreement``'s readings of o plus
+    ``lse_max_abs``; ``ok`` when every check holds."""
+    out = grad_agreement(o, o_ref, seq_len)
+    out["lse_max_abs"] = (lse.float() - lse_ref.float()).abs().max().item()
+    out["ok"] = out["ok"] and max(out["max_abs"], out["lse_max_abs"]) <= FWD_ATOL[o.dtype]
+    return out
+
+
 def _aligned(x: torch.Tensor) -> bool:
-    """The bf16 kernels move rows as 16-byte vectors: base and the B, S and
-    head strides must be multiples of 8 elements."""
+    """The bf16 kernels read rows by TMA (forward, dq) or as 16-byte vectors
+    (dkv): base and the B, S and head strides must be multiples of 16 bytes
+    (8 elements)."""
     return x.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in x.stride()[:3])
 
 
@@ -385,7 +406,7 @@ def flash_attention_with_lse(
     ``kv_len``: one true sequence length for the whole batch; keys at
     positions >= kv_len are masked out. ``block_q``/``block_k`` are the JAX
     wrapper's knobs: they shape the padding of the CPU path, while the CUDA
-    kernels' tile is fixed at 64x64 (see :func:`_plan_tiling`).
+    kernels pad S to a multiple of 64 (see :func:`_plan_tiling`).
     """
     B, S, H, D = q.shape
     KH = k.shape[2]

@@ -123,6 +123,31 @@ def test_bf16_forward_close():
     )
 
 
+@pytest.mark.parametrize("fault", [None, "late_diagonal_tile_dropped", "late_lse_shifted"])
+def test_forward_agreement_catches_late_faults(fault):
+    """``forward_agreement``, the check that holds the forward kernel to its
+    plain version on the card, passes a bf16 rounding of the plain o and
+    fails a forward that drops the diagonal 64-key tile's p·v of the late
+    rows (l still summed over it, so lse is unchanged), or whose late lse is
+    off by 0.05."""
+    B, S, H, D = 1, 1024, 2, 64
+    q, k, v = (torch.from_numpy(x) for x in _qkv(13, B, S, H, H, D))
+    args = dict(causal=True, kv_len=S, scale=1 / math.sqrt(D))
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, **args)
+    o, lse = o_ref.to(torch.bfloat16), lse_ref.clone()
+    if fault == "late_diagonal_tile_dropped":
+        s = torch.einsum("bshd,bthd->bhst", q, k) * args["scale"]
+        p = torch.exp(s - lse_ref.reshape(B, H, S, 1))  # normalised; masked scores
+        rows, cols = torch.arange(S)[:, None], torch.arange(S)[None, :]
+        p = p.masked_fill(cols > rows, 0.0)  # the causal mask
+        p = p.masked_fill((rows >= S // 2) & (cols // 64 == rows // 64), 0.0)
+        o = torch.einsum("bhst,bthd->bshd", p, v).to(torch.bfloat16)
+    elif fault == "late_lse_shifted":
+        lse[:, S - 1] += 0.05
+    agree = fa.forward_agreement(o, lse, o_ref, lse_ref, S)
+    assert agree["ok"] == (fault is None), agree
+
+
 @pytest.mark.parametrize("causal,kv_len", [(True, None), (False, 40), (True, 45)])
 def test_lse_matches_dense_logsumexp(causal, kv_len):
     """lse [B*H, S] = log-sum-exp over the unmasked scores of each row,
@@ -143,8 +168,8 @@ def test_lse_matches_dense_logsumexp(causal, kv_len):
 
 
 def test_cuda_tiling_plan():
-    """The kernel's padding plan (pure arithmetic): 64x64 tiles, head dims
-    padded to 64 or 128, wider heads refused."""
+    """The kernel's padding plan (pure arithmetic): S padded to a multiple of
+    64, head dims padded to 64 or 128, wider heads refused."""
     plan = fa._plan_tiling
     assert plan(512, 128, 1024, 1024, True) == (64, 64, 512, 128)
     assert plan(500, 128, 1024, 1024, True) == (64, 64, 512, 128)

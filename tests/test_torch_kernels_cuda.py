@@ -4,7 +4,9 @@ Imports torch only (no jax), so it runs on a machine with an NVIDIA GPU and
 nvcc: ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q``.
 Without a GPU every test skips. Forward tolerances: 3e-2 for bf16 (the
 kernel rounds p to bf16 before p·v, the plain version sums in another order),
-2e-5 for f32 with TF32 off. Backward (dq, dk, dv against
+2e-5 for f32 with TF32 off, on the largest absolute error of o and lse; and o
+by ``flash_attention.forward_agreement``'s relative checks, since a late causal
+row's o is far below the first rows'. Backward (dq, dk, dv against
 ``flash_attention_backward_reference`` on the same padded inputs, the
 kernel's own o and lse, and through autograd against the plain forward and
 backward): ``flash_attention.grad_agreement``, a relative L2 error over the
@@ -25,6 +27,9 @@ from pytorch_operator_tpu_torch.ops import _build
 from pytorch_operator_tpu_torch.ops import flash_attention as fa
 
 # (B, S, H, KH, D, causal, kv_len, dtype): the generate prefill shape first.
+# The bf16 kernels take 128 query rows a CTA and 128 (forward) or 64 (dq)
+# keys a tile, so the cases include S 192 (a last query tile half past S),
+# S 64 (one tile, smaller than the CTA's rows) and a kv_len inside a tile.
 CASES = [
     (8, 512, 8, 4, 128, True, None, "bfloat16"),
     (2, 500, 8, 4, 128, True, None, "bfloat16"),
@@ -34,6 +39,9 @@ CASES = [
     (2, 130, 4, 2, 80, False, None, "bfloat16"),
     (2, 256, 8, 4, 128, True, None, "float32"),
     (1, 100, 4, 1, 64, False, 77, "float32"),
+    (2, 192, 8, 4, 128, True, None, "bfloat16"),
+    (2, 64, 8, 4, 128, True, None, "bfloat16"),
+    (2, 256, 8, 4, 64, False, 77, "bfloat16"),
 ]
 
 
@@ -73,6 +81,8 @@ def test_flash_fwd_matches_plain(cuda_device, case):
     assert torch.isfinite(o.float()).all()
     torch.testing.assert_close(o.float().cpu(), o_ref.float(), atol=tol, rtol=0)
     torch.testing.assert_close(lse.cpu(), lse_ref, atol=tol, rtol=0)
+    agree = fa.forward_agreement(o.cpu(), lse.cpu(), o_ref, lse_ref, S)
+    assert agree["ok"], agree
 
 
 def _rand(shape, dt, device, seed):
