@@ -6,8 +6,9 @@ Phases, in order; any failure exits non-zero before the result line:
 
 1. Card identity (``nvidia-smi`` name and power limit), then the build of
    every kernel source with nvcc (all at once), with its time and ptxas's
-   register report; a ptxas note that it serialised a kernel's ``wgmma``s
-   (C7520) fails the run.
+   registers and spills for each kernel, and the bf16 dkv's dynamic shared
+   memory; a ptxas note that it serialised a kernel's ``wgmma``s (C7520)
+   fails the run.
 2. The forward kernel against its plain PyTorch version on the card, in the
    listed cases, by ``forward_agreement`` (o by relative L2 error over the
    whole tensor, its late half and per row; o and lse by their largest
@@ -19,8 +20,8 @@ Phases, in order; any failure exits non-zero before the result line:
    (``flash_attention_backward_reference``) on the same padded inputs, in the
    listed cases, by ``grad_agreement`` (relative L2 error over the whole
    gradient, over its late half and per row); at the training shape each
-   kernel's time, the plain backward's, SDPA's backward (timed only) and each
-   bound. Then the bf16 gradients of the public, differentiable
+   kernel's time and host time a call, the plain backward's, SDPA's backward
+   (timed only) and each bound. Then the bf16 gradients of the public, differentiable
    ``flash_attention`` on the card against the plain forward and backward, at
    the training shape and at a padded one.
 4. The generate path: ``workloads.generate.run`` at ``llama_0_3b`` full
@@ -47,6 +48,7 @@ from __future__ import annotations
 import functools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -69,14 +71,21 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 # (name, B, S, H, KH, D, causal, kv_len, dtype): the generate prefill shape
 # first and the training shape second — both are timed; the first's numbers
 # are the forward's in the kernels line. The edge cases meet the bf16
-# kernels' tiles (128 query rows a CTA; 128 keys a forward tile, 64 a dq
-# tile): S 192 leaves the last query tile half past S, S 64 is one tile
-# smaller than a CTA's rows, kv_len 77 ends inside a key tile.
+# kernels' tiles (128 query rows a forward or dq CTA, 128 keys a dkv CTA of
+# two 64-key warpgroups; 128 keys a forward tile, 64 a dq tile, 64 query rows
+# a dkv tile): S 192 leaves the last query tile, and the last dkv CTA's
+# second warpgroup, past S; S 64 is one tile smaller than a CTA's rows;
+# kv_len 77 ends inside a key tile; G 8 is dkv's longest walk over query
+# heads; causal kv_len 100 ends inside a dkv CTA's second warpgroup; kv_len
+# 40 leaves that warpgroup wholly masked.
 TRAIN_SHAPE = ("train", 4, 4096, 8, 4, 128, True, None, "bfloat16")
 EDGE_CASES = [
     ("S192_causal", 2, 192, 8, 4, 128, True, None, "bfloat16"),
     ("S64_one_tile", 2, 64, 8, 4, 128, True, None, "bfloat16"),
     ("kv_len77_D64", 2, 256, 8, 4, 64, False, 77, "bfloat16"),
+    ("G8", 2, 256, 8, 1, 128, True, None, "bfloat16"),
+    ("causal_kv_len100", 2, 256, 8, 4, 128, True, 100, "bfloat16"),
+    ("kv_len40_D64", 2, 192, 8, 4, 64, False, 40, "bfloat16"),
 ]
 FLASH_CASES = [
     ("slice", 8, 512, 8, 4, 128, True, None, "bfloat16"),
@@ -212,6 +221,11 @@ def _bwd_bound_ms(kernel, B, S, H, KH, D, causal, kv_len, dtype) -> tuple:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# The kernel a line of ptxas's report is about, from the mangled name of the
+# entry it follows: (name, head width) of flash_bwd_dkv_sm90<128> and the like.
+_PTXAS_KERNEL = re.compile(r"(?:entry function '|Function properties for )\w*(flash_\w+?)ILi(\d+)E")
+
+
 def phase_identity_and_build():
     import torch
 
@@ -233,18 +247,27 @@ def phase_identity_and_build():
     _log(f"built {sorted(paths)} in {time.perf_counter() - t0:.2f}s")
     serialised = []
     for name, report in _build.build_logs.items():
+        kernel = name
         for line in report.splitlines():
+            entry = _PTXAS_KERNEL.search(line)
+            if entry:
+                kernel = f"{entry.group(1)}<{entry.group(2)}>"
             if any(w in line for w in ("registers", "spill", "warning", "C7520", "Performance Loss")):
-                _log(f"ptxas {name}: {line.strip()}")
+                _log(f"ptxas {kernel}: {line.strip()}")
             # ptxas's note that it serialised a kernel's wgmmas (one issued
             # under a condition): a silent slowdown of a kernel that is right.
             if "C7520" in line or "Performance Loss" in line:
-                serialised.append(f"{name}: {line.strip()}")
+                serialised.append(f"{kernel}: {line.strip()}")
     missing = sorted(set(paths) - set(_build.build_logs))
     _log(f"ptxas wgmma serialisation notes: {len(serialised)}"
          + (f" (libraries reused, not checked: {missing})" if missing else ""))
     if serialised:
         _fail(f"ptxas serialised wgmma: {serialised}")
+    from pytorch_operator_tpu_torch.ops import flash_attention as fa
+
+    lib = fa._kernel_lib("flash_bwd")
+    _log("flash_bwd_dkv_sm90 dynamic shared memory: "
+         + ", ".join(f"D{d} {lib.flash_bwd_dkv_smem(d)} B" for d in fa.KERNEL_HEAD_DIMS))
     return card
 
 
@@ -375,7 +398,8 @@ def phase_backward_vs_plain():
         kin = (q, k, v, do, lse_c, delta)
         dq_call = functools.partial(fa._launch_dq, *kin, **args)
         dq_ms, dq_host_us = _time_ms(dq_call), _host_us(dq_call)
-        dkv_ms = _time_ms(lambda: fa._launch_dkv(*kin, **args))
+        dkv_call = functools.partial(fa._launch_dkv, *kin, **args)
+        dkv_ms, dkv_host_us = _time_ms(dkv_call), _host_us(dkv_call)
         plain_ms = _time_ms(
             lambda: fa.flash_attention_backward_reference(q, k, v, o, lse, do, **args), reps=3
         )
@@ -413,7 +437,11 @@ def phase_backward_vs_plain():
                 "library_ms": library_ms,
                 "shape": shape,
             }
-        _log(f"flash_bwd_dq {name}: host {dq_host_us:.1f} us a call")
+        _log(
+            f"backward {name}: dq + dkv {dq_ms + dkv_ms:.4f} ms (SDPA backward "
+            f"{library_ms:.4f} ms); host a call: flash_bwd_dq {dq_host_us:.1f} us, "
+            f"flash_bwd_dkv {dkv_host_us:.1f} us"
+        )
         del out, qh, kh, vh
     torch.cuda.empty_cache()
     _autograd_vs_plain(gen)

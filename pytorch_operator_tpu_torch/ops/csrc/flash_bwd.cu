@@ -21,8 +21,10 @@
 // the H100 SXM's published 989 TFLOP/s) and dkv four (k q^T, v do^T, p^T do,
 // ds^T q; about 275 GFLOP, 0.28 ms), against 100-170 MB of q/k/v/do/lse/delta
 // in and gradients out (0.03-0.05 ms at its 3.35 TB/s). So both are bound by
-// operations: the design keeps every product on the tensor cores and every
-// [S, S] intermediate in registers.
+// operations: the design keeps every product on wgmma (the only route to
+// Hopper's full tensor-core rate), feeds it by TMA so that loads overlap the
+// products, evaluates the mask only on the tiles that need it, and keeps
+// every [S, S] intermediate in registers.
 //
 // Design.
 // - bf16, dq: the forward's Hopper main loop (flash_sm90.cuh). One CTA of
@@ -35,21 +37,32 @@
 //   ds k by wgmma m64nDk16 with ds cast to bf16 from the registers and k read
 //   MN-major. BN = 64 keeps a thread at 32 + 32 + D/2 f32 accumulators. The
 //   mask is evaluated only on tiles that cross the diagonal or kv_len.
-// - bf16, dkv: the TRANSPOSED scores s^T = k q^T (rows = keys), so p^T and
-//   ds^T land in the accumulator layout that is the A operand of p^T do and
-//   ds^T q. One CTA per (b, kv head, 64-key tile) that walks the G query heads
-//   of its kv head and their live 64-row query tiles, keeping dk and dv in
-//   f32 registers: GQA's group sum happens in the kernel, with no per-query-
-//   head [B*H, S, D] intermediate and no atomics, so the result is
-//   deterministic. (The TPU writes per-query-head dk/dv in bf16 and sums the
-//   G heads outside; here the sum is taken in f32 and rounded once, which
-//   stays inside the bf16 tolerance.) Register pressure: dk and dv are
-//   2 x 64 f32 a thread; k and v are read from shared memory as A operands
-//   rather than held, and each query tile is taken in two 32-column halves,
-//   so the score and dp accumulators are 16 f32 each.
+// - bf16, dkv: the same main loop with the roles of queries and keys
+//   swapped. One CTA of three warpgroups per (b*KH + kv head, 128-key tile),
+//   the lowest (under causal the heaviest) key tiles first: the producer
+//   loads the K and V tiles once and streams the walk's 64-row Q and dO
+//   tiles, each with its 64 lse and delta values (1-D bulk copies on the same
+//   barrier), through a 3-stage TMA ring. The walk is the G query heads of
+//   the kv head and, in each, the live query tiles (under causal from the one
+//   that holds the tile's first key), so GQA's group sum happens in the
+//   kernel: dk and dv stay in f32 registers over all G heads and are rounded
+//   once, with no per-query-head [B*H, S, D] intermediate and no atomics, so
+//   the result is deterministic. (The TPU writes per-query-head dk/dv in bf16
+//   and sums the G heads outside; the plain version sums in f32 as here.)
+//   Each consumer warpgroup owns 64 keys and works on transposed scores:
+//   s^T = k q^T and dp^T = v do^T by wgmma m64n64k16 (K and V rows as A, the
+//   Q and dO tiles as B, all K-major), p^T and ds^T in the accumulator
+//   registers with lse and delta indexed by the column, then dv += p^T do
+//   and dk += ds^T q by wgmma m64nDk16 with p^T and ds^T cast to bf16 from
+//   the registers (the accumulator layout is the register-A layout) and do,
+//   q read MN-major. A thread holds dk and dv (2 x D/2 f32) and s^T, dp^T
+//   (2 x 32). Every wgmma is issued on every tile: where the causal diagonal
+//   leaves the second warpgroup's keys wholly masked, its p^T is 0.
 // - Rounding follows the TPU kernels: products in bf16 with f32 accumulation,
 //   softmax math in f32, ds cast to bf16 before ds k / ds^T q, p cast to bf16
 //   before p^T do.
+// - S = 64 mod 128: TMA zero-fills the rows past S of the last query (dq) or
+//   key (dkv) tile, and the epilogue stores only rows below S.
 // - f32: scalar kernels (no TF32), the forward's f32 scheme. dq: a warp per
 //   4 query rows, one lane per key of a 32-key tile. dkv: a warp per 4 keys,
 //   one lane per query of a 32-row query tile; dk and dv are D/32 columns a
@@ -91,90 +104,16 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&t);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 t;
-  t.x = lo;
-  t.y = hi;
-  return *reinterpret_cast<uint32_t*>(&t);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A-operand fragment (16 rows x 16 cols) of a row-major bf16 tile in shared
-// memory, rows r0 and r0 + 8 of this lane, columns c0 + t*2 (+8).
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* tile, int ld,
-                                       int r0, int c0, int t) {
-  const __nv_bfloat16* base = tile + c0 + t * 2;
-  a[0] = ld32(base + r0 * ld);
-  a[1] = ld32(base + (r0 + 8) * ld);
-  a[2] = ld32(base + r0 * ld + 8);
-  a[3] = ld32(base + (r0 + 8) * ld + 8);
-}
-
-// A-operand fragment of two adjacent 8-column accumulator tiles, cast to bf16.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&lo)[4],
-                                         const float (&hi)[4]) {
-  a[0] = pack_f32(lo[0], lo[1]);
-  a[1] = pack_f32(lo[2], lo[3]);
-  a[2] = pack_f32(hi[0], hi[1]);
-  a[3] = pack_f32(hi[2], hi[3]);
-}
-
-// B operand read down a column of a row-major tile: B[k][n] = tile[k0 + k][n0 + n].
-__device__ __forceinline__ void mma_col_b(float (&c)[4], const uint32_t (&a)[4],
-                                          const __nv_bfloat16* tile, int ld, int k0, int n0,
-                                          int g, int t) {
-  const __nv_bfloat16* b = tile + (k0 + t * 2) * ld + n0 + g;
-  mma_bf16(c, a, pack_bf16(b[0], b[ld]), pack_bf16(b[8 * ld], b[9 * ld]));
-}
-
-// B operand read along a row: B[k][n] = tile[n0 + n][k0 + k] (a transposed operand).
-__device__ __forceinline__ void mma_row_b(float (&c)[4], const uint32_t (&a)[4],
-                                          const __nv_bfloat16* tile, int ld, int k0, int n0,
-                                          int g, int t) {
-  const __nv_bfloat16* b = tile + (n0 + g) * ld + k0 + t * 2;
-  mma_bf16(c, a, ld32(b), ld32(b + 8));
-}
-
-// Copy `rows` rows of D bf16 from global memory (row stride `stride`, from
-// row0) into a padded shared tile, 16 bytes a thread at a time.
-__device__ __forceinline__ void stage_rows_bf16(__nv_bfloat16* dst, int ld,
-                                                const __nv_bfloat16* src,
-                                                long long stride, int row0, int rows, int D) {
-  const int cpr = D / 8;
-  for (int c = threadIdx.x; c < rows * cpr; c += blockDim.x) {
-    const int r = c / cpr, cc = c % cpr;
-    *reinterpret_cast<uint4*>(dst + r * ld + cc * 8) =
-        *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * stride + cc * 8);
-  }
-}
-
 __device__ __forceinline__ bool keep(const Params& p, int row, int col) {
   return col < p.kv_len && (!p.causal || col <= row);
 }
 
 // ------------------------------------------------------------------ bf16
 
-constexpr int BM = 64;  // dkv: keys per CTA and query rows per tile, 4 warps x 16
-constexpr int BN = 64;  // dkv: the key tile
 constexpr int QM = 128;  // dq: query rows per CTA, two consumer warpgroups x 64
 constexpr int KN = 64;   // dq: keys per ring tile
+constexpr int KM = 128;  // dkv: keys per CTA, two consumer warpgroups x 64
+constexpr int QN = 64;   // dkv: query rows per ring tile; the unit of S
 
 template <int D>
 struct DqSmem {
@@ -328,125 +267,201 @@ cudaError_t launch_dq_bf16(const Params& p, int B, cudaStream_t stream) {
 }
 
 template <int D>
-__global__ void __launch_bounds__(128) flash_bwd_dkv_bf16(Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int LD = D + 8;
-  constexpr int HALF = BM / 2;  // query columns per score pass
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sV = sK + BN * LD;
-  __nv_bfloat16* sQ = sV + BN * LD;
-  __nv_bfloat16* sDO = sQ + BM * LD;
-  float* sL = reinterpret_cast<float*>(sDO + BM * LD);
-  float* sDl = sL + BM;
+struct DkvSmem {
+  static constexpr int kStages = 3;
+  static constexpr uint32_t kKV = KM * D * 2, kTile = QN * D * 2, kRow = QN * 4;
+  static constexpr uint32_t kV = kKV, kQ = 2 * kKV, kDO = kQ + kStages * kTile;
+  static constexpr uint32_t kLse = kDO + kStages * kTile, kDelta = kLse + kStages * kRow;
+  static constexpr uint32_t kBars = kDelta + kStages * kRow;
+  // barriers: K + V, full[kStages], empty[kStages]; 1024 bytes of alignment slack
+  static constexpr size_t kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(sm90::kThreads, 1)
+    flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo, Params p) {
+  using L = DkvSmem<D>;
+  constexpr int STAGES = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t sK = base, sV = base + L::kV, sQ = base + L::kQ, sDO = base + L::kDO;
+  const uint32_t sLse = base + L::kLse, sDelta = base + L::kDelta;
+  const uint32_t kv_bar = base + L::kBars, full = kv_bar + 8, empty = full + 8 * STAGES;
 
   const int KH = p.H / p.G;
-  const int b = blockIdx.y / KH, kvh = blockIdx.y % KH;
-  const int k0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.x / KH, kvh = blockIdx.x % KH;
+  const int k0 = blockIdx.y * KM;  // causal: the lowest, heaviest key tiles launch first
+  // The walk: query tiles i_begin .. n_q - 1 of each of the G query heads of
+  // kv head kvh, one flattened sequence. Causal: a tile is live from the one
+  // that holds query k0. A key tile wholly past kv_len walks nothing.
+  const int n_q = p.S / QN;
+  const int i_begin = p.causal ? k0 / QN : 0;
+  const int n_items = k0 < p.kv_len ? p.G * (n_q - i_begin) : 0;
+  const int wg = threadIdx.x / 128;
 
-  const __nv_bfloat16* K = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const __nv_bfloat16* V = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  stage_rows_bf16(sK, LD, K, p.k_ss, k0, BN, D);
-  stage_rows_bf16(sV, LD, V, p.v_ss, k0, BN, D);
-
-  const int r0 = warp * 16 + g;  // this lane's key rows in the tile: r0, r0 + 8
-  const int key_a = k0 + r0, key_b = key_a + 8;
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[dt][e] = dv[dt][e] = 0.f;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(kv_bar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(full + 8 * s, 1);
+      sm90::mbar_init(empty + 8 * s, sm90::kConsumerWarps);
+    }
+    sm90::fence_barrier_init();
   }
+  __syncthreads();
 
-  if (k0 < p.kv_len) {  // a key tile wholly past kv_len has zero gradients
-    // Causal: query tile i is live when its last row reaches the tile's first key.
-    const int i_begin = p.causal ? k0 / BM : 0;
-    const int n_q = p.S / BM;
-    for (int hh = 0; hh < p.G; ++hh) {
-      const int h = kvh * p.G + hh;
-      const long long bh = (long long)b * p.H + h;
-      const __nv_bfloat16* Q = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-      const __nv_bfloat16* DO =
-          static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_sb + h * p.do_sh;
-      for (int i = i_begin; i < n_q; ++i) {
-        const int q0 = i * BM;
-        __syncthreads();  // the previous query tile is consumed
-        stage_rows_bf16(sQ, LD, Q, p.q_ss, q0, BM, D);
-        stage_rows_bf16(sDO, LD, DO, p.do_ss, q0, BM, D);
-        if (tid < BM) {
-          sL[tid] = p.lse[bh * p.S + q0 + tid];
-          sDl[tid] = p.delta[bh * p.S + q0 + tid];
-        }
-        __syncthreads();
-
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int qoff = half * HALF;
-          float st[HALF / 8][4], dpt[HALF / 8][4];
-#pragma unroll
-          for (int nt = 0; nt < HALF / 8; ++nt) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
-          }
-#pragma unroll
-          for (int kk = 0; kk < D / 16; ++kk) {
-            uint32_t ka[4], va[4];
-            load_a(ka, sK, LD, r0, kk * 16, t);
-            load_a(va, sV, LD, r0, kk * 16, t);
-#pragma unroll
-            for (int nt = 0; nt < HALF / 8; ++nt) {
-              mma_row_b(st[nt], ka, sQ, LD, kk * 16, qoff + nt * 8, g, t);    // k q^T
-              mma_row_b(dpt[nt], va, sDO, LD, kk * 16, qoff + nt * 8, g, t);  // v do^T
-            }
-          }
-
-          // p^T over st, ds^T = p^T * (dp^T - delta) over dpt; lse and delta
-          // are indexed by the column (the query).
-#pragma unroll
-          for (int nt = 0; nt < HALF / 8; ++nt) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int qc = qoff + nt * 8 + t * 2 + (e & 1);
-              const int key = e < 2 ? key_a : key_b;
-              const float sv = keep(p, q0 + qc, key) ? st[nt][e] * p.scale : kNeg;
-              const float pv = expf(sv - sL[qc]);
-              st[nt][e] = pv;
-              dpt[nt][e] = pv * (dpt[nt][e] - sDl[qc]);
-            }
-          }
-
-          // dv += p^T do, dk += ds^T q over this half's 32 queries.
-#pragma unroll
-          for (int kk = 0; kk < HALF / 16; ++kk) {
-            uint32_t pa[4], da[4];
-            acc_to_a(pa, st[2 * kk], st[2 * kk + 1]);
-            acc_to_a(da, dpt[2 * kk], dpt[2 * kk + 1]);
-#pragma unroll
-            for (int dt = 0; dt < D / 8; ++dt) {
-              mma_col_b(dv[dt], pa, sDO, LD, qoff + kk * 16, dt * 8, g, t);
-              mma_col_b(dk[dt], da, sQ, LD, qoff + kk * 16, dt * 8, g, t);
-            }
-          }
+  if (wg == 0) {  // producer
+    sm90::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      sm90::mbar_expect_tx(kv_bar, 2 * L::kKV);
+      sm90::load_tile<D, KM>(&tk, sK, kv_bar, kvh, k0, b);
+      sm90::load_tile<D, KM>(&tv, sV, kv_bar, kvh, k0, b);
+      int h = kvh * p.G, i = i_begin;
+      for (int it = 0; it < n_items; ++it) {
+        const int s = it % STAGES;
+        const uint32_t bar = full + 8 * s;
+        sm90::mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);  // the first round passes at once
+        sm90::mbar_expect_tx(bar, 2 * L::kTile + 2 * L::kRow);
+        sm90::load_tile<D, QN>(&tq, sQ + s * L::kTile, bar, h, i * QN, b);
+        sm90::load_tile<D, QN>(&tdo, sDO + s * L::kTile, bar, h, i * QN, b);
+        const long long row = ((long long)b * p.H + h) * p.S + i * QN;
+        sm90::bulk_load(sLse + s * L::kRow, p.lse + row, L::kRow, bar);
+        sm90::bulk_load(sDelta + s * L::kRow, p.delta + row, L::kRow, bar);
+        if (++i == n_q) {
+          i = i_begin;
+          ++h;
         }
       }
     }
-  }
+  } else {  // consumers: 64 keys each; accumulator rows are keys, columns queries
+    sm90::setmaxnreg_inc<240>();
+    const sm90::Lane ln;
+    const int kw0 = k0 + (wg - 1) * 64;
+    const int key_a = kw0 + ln.r;  // this thread's keys: key_a and key_a + 8
+    const uint32_t sKw = sK + (wg - 1) * 64 * 128, sVw = sV + (wg - 1) * 64 * 128;
+    const float* lse_s = reinterpret_cast<const float*>(smem_raw + (sLse - raw));
+    const float* delta_s = reinterpret_cast<const float*>(smem_raw + (sDelta - raw));
+    const float c = p.scale * sm90::kLog2e;
 
-  __nv_bfloat16* DK = static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_sb + kvh * p.dk_sh;
-  __nv_bfloat16* DV = static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_sb + kvh * p.dv_sh;
+    float dk[D / 2], dv[D / 2];
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = dt * 8 + t * 2;
-    *reinterpret_cast<__nv_bfloat162*>(DK + (long long)key_a * p.dk_ss + col) =
-        __floats2bfloat162_rn(dk[dt][0] * p.scale, dk[dt][1] * p.scale);
-    *reinterpret_cast<__nv_bfloat162*>(DK + (long long)key_b * p.dk_ss + col) =
-        __floats2bfloat162_rn(dk[dt][2] * p.scale, dk[dt][3] * p.scale);
-    *reinterpret_cast<__nv_bfloat162*>(DV + (long long)key_a * p.dv_ss + col) =
-        __floats2bfloat162_rn(dv[dt][0], dv[dt][1]);
-    *reinterpret_cast<__nv_bfloat162*>(DV + (long long)key_b * p.dv_ss + col) =
-        __floats2bfloat162_rn(dv[dt][2], dv[dt][3]);
+    for (int x = 0; x < D / 2; ++x) dk[x] = dv[x] = 0.f;
+
+    sm90::mbar_wait(kv_bar, 0);
+    int i = i_begin;
+    for (int it = 0; it < n_items; ++it) {
+      const int stage = it % STAGES;
+      const uint32_t tQ = sQ + stage * L::kTile, tDO = sDO + stage * L::kTile;
+      sm90::mbar_wait(full + 8 * stage, (it / STAGES) & 1);
+
+      // s^T = k q^T and dp^T = v do^T for this warpgroup's 64 keys and the
+      // tile's 64 queries.
+      float st[QN / 2], dpt[QN / 2];
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::wgmma_ss(st, sm90::desc_k_major(sKw, KM, kk), sm90::desc_k_major(tQ, QN, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::wgmma_ss(dpt, sm90::desc_k_major(sVw, KM, kk), sm90::desc_k_major(tDO, QN, kk),
+                       kk > 0);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait();
+      sm90::fence_regs(st);
+      sm90::fence_regs(dpt);
+
+      // p^T = exp(s^T * scale - lse) over st, ds^T = p^T * (dp^T - delta)
+      // over dpt; lse and delta are indexed by the column (the query).
+      const int q0 = i * QN;
+      const bool edge = sm90::edge_tile(kw0, 64, q0, p.kv_len, p.causal);
+      const float* ls = lse_s + stage * QN;
+      const float* dls = delta_s + stage * QN;
+#pragma unroll
+      for (int jj = 0; jj < QN / 8; ++jj) {
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * jj + 2 * ln.t);
+        const float2 d2 = *reinterpret_cast<const float2*>(dls + 8 * jj + 2 * ln.t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = 4 * jj + e;
+          const float lse = (e & 1) ? l2.y : l2.x, dl = (e & 1) ? d2.y : d2.x;
+          float pv = sm90::exp2_approx(st[x] * c - lse * sm90::kLog2e);
+          if (edge && !sm90::keep(q0 + ln.col(x), key_a + 8 * (e >> 1), p.kv_len, p.causal))
+            pv = 0.f;
+          st[x] = pv;
+          dpt[x] = pv * (dpt[x] - dl);
+        }
+      }
+
+      // dv += p^T do, dk += ds^T q: p^T and ds^T cast to bf16 straight from
+      // the registers, do and q read MN-major (the queries are the reduction).
+      uint32_t pa[QN / 16][4], da[QN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < QN / 16; ++kk) {
+        sm90::acc_to_a(pa[kk], st, kk);
+        sm90::acc_to_a(da[kk], dpt, kk);
+      }
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < QN / 16; ++kk)
+        sm90::wgmma_rs<1>(dv, pa[kk], sm90::desc_mn_major(tDO, QN, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < QN / 16; ++kk)
+        sm90::wgmma_rs<1>(dk, da[kk], sm90::desc_mn_major(tQ, QN, kk), 1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait();
+      sm90::fence_regs(dv);
+      sm90::fence_regs(dk);
+      sm90::fence_regs(pa);
+      sm90::fence_regs(da);
+      __syncwarp();
+      if (ln.lane == 0) sm90::mbar_arrive(empty + 8 * stage);
+      if (++i == n_q) i = i_begin;
+    }
+
+    // Keys past S (the second warpgroup's, when S = 64 mod 128) are not stored.
+    __nv_bfloat16* DK = static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_sb + kvh * p.dk_sh;
+    __nv_bfloat16* DV = static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_sb + kvh * p.dv_sh;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int key = key_a + 8 * half;
+      if (key >= p.S) continue;
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj) {
+        const int x = 4 * jj + 2 * half, col = jj * 8 + 2 * ln.t;
+        *reinterpret_cast<__nv_bfloat162*>(DK + (long long)key * p.dk_ss + col) =
+            __floats2bfloat162_rn(dk[x] * p.scale, dk[x + 1] * p.scale);
+        *reinterpret_cast<__nv_bfloat162*>(DV + (long long)key * p.dv_ss + col) =
+            __floats2bfloat162_rn(dv[x], dv[x + 1]);
+      }
+    }
   }
+}
+
+template <int D>
+cudaError_t launch_dkv_bf16(const Params& p, int B, cudaStream_t stream) {
+  // lse and delta rows arrive by 1-D bulk copies: 16-byte aligned bases.
+  if ((reinterpret_cast<uintptr_t>(p.lse) | reinterpret_cast<uintptr_t>(p.delta)) & 15)
+    return cudaErrorInvalidValue;
+  const int KH = p.H / p.G;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = sm90::make_tile_map(&tq, p.q, B, p.S, p.H, D, p.q_sb, p.q_ss, p.q_sh, QN);
+  if (err == cudaSuccess)
+    err = sm90::make_tile_map(&tdo, p.dout, B, p.S, p.H, D, p.do_sb, p.do_ss, p.do_sh, QN);
+  if (err == cudaSuccess)
+    err = sm90::make_tile_map(&tk, p.k, B, p.S, KH, D, p.k_sb, p.k_ss, p.k_sh, KM);
+  if (err == cudaSuccess)
+    err = sm90::make_tile_map(&tv, p.v, B, p.S, KH, D, p.v_sb, p.v_ss, p.v_sh, KM);
+  if (err != cudaSuccess) return err;
+  const size_t smem = DkvSmem<D>::kBytes;
+  static std::atomic<uint64_t> smem_set{0};
+  err = sm90::set_smem_once(smem_set, flash_bwd_dkv_sm90<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * KH, (p.S + KM - 1) / KM);
+  flash_bwd_dkv_sm90<D><<<grid, sm90::kThreads, smem, stream>>>(tq, tk, tv, tdo, p);
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------------- f32
@@ -625,31 +640,34 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_f32(Params p) {
   }
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, const Params& p, cudaStream_t stream) {
-  // Above 48 KB a block's shared memory must be asked for per kernel.
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+size_t f32_dq_smem(int D) { return (size_t)(2 * FBM + 2 * FBN) * (D + 1) * 4; }
+size_t f32_dkv_smem(int D) { return (size_t)(2 * FKN + 2 * FQM) * (D + 1) * 4 + 2 * FQM * 4; }
+
+// The f32 kernels: 128 threads; above 48 KB a block's shared memory must be
+// asked for, once per device and kernel instance.
+template <int D, bool DKV>
+cudaError_t launch_f32(const Params& p, int B, cudaStream_t stream) {
+  const auto kernel = DKV ? flash_bwd_dkv_f32<D> : flash_bwd_dq_f32<D>;
+  const size_t smem = DKV ? f32_dkv_smem(D) : f32_dq_smem(D);
+  const dim3 grid = DKV ? dim3(p.S / FKN, B * (p.H / p.G)) : dim3(p.S / FBM, B * p.H);
+  static std::atomic<uint64_t> smem_set{0};
+  cudaError_t err = sm90::set_smem_once(smem_set, kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, 128, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 bool bad_shape(int S, int G, int H, int kv_len) {
-  return S % BM != 0 || kv_len <= 0 || kv_len > S || G <= 0 || H % G != 0;
+  return S % QN != 0 || kv_len <= 0 || kv_len > S || G <= 0 || H % G != 0;
 }
-
-size_t bf16_dkv_smem(int D) { return (size_t)(2 * BN + 2 * BM) * (D + 8) * 2 + 2 * BM * 4; }
-size_t f32_dq_smem(int D) { return (size_t)(2 * FBM + 2 * FBN) * (D + 1) * 4; }
-size_t f32_dkv_smem(int D) { return (size_t)(2 * FKN + 2 * FQM) * (D + 1) * 4 + 2 * FQM * 4; }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. D must be 64 or 128 and S a multiple of
 // 64; kv_len = S means no length mask. Strides are in elements, for
 // [B, S, heads, D] tensors whose last dimension is contiguous; lse and delta
-// are [B*H, S] f32. Each returns the cudaError_t of its launch
-// (cudaErrorInvalidValue for an unsupported shape).
+// are [B*H, S] f32 (16-byte aligned for the bf16 dkv). Each returns the
+// cudaError_t of its launch (cudaErrorInvalidValue for an unsupported shape).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                             const float* lse, const float* delta, void* dq,
                             long long q_sb, long long q_ss, long long q_sh,
@@ -667,10 +685,8 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && D == 128) return (int)launch_dq_bf16<128>(p, B, st);
   if (dtype == 1 && D == 64) return (int)launch_dq_bf16<64>(p, B, st);
-  if (dtype == 0 && D == 128)
-    return (int)launch(flash_bwd_dq_f32<128>, dim3(S / FBM, B * H), f32_dq_smem(D), p, st);
-  if (dtype == 0 && D == 64)
-    return (int)launch(flash_bwd_dq_f32<64>, dim3(S / FBM, B * H), f32_dq_smem(D), p, st);
+  if (dtype == 0 && D == 128) return (int)launch_f32<128, false>(p, B, st);
+  if (dtype == 0 && D == 64) return (int)launch_f32<64, false>(p, B, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -690,14 +706,15 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
            do_sb, do_ss, do_sh, 0,     0,     0,     dk_sb,   dk_ss, dk_sh,
            dv_sb, dv_ss, dv_sh, H,     G,     S,     kv_len,  causal, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int KH = H / G;
-  if (dtype == 1 && D == 128)
-    return (int)launch(flash_bwd_dkv_bf16<128>, dim3(S / BN, B * KH), bf16_dkv_smem(D), p, st);
-  if (dtype == 1 && D == 64)
-    return (int)launch(flash_bwd_dkv_bf16<64>, dim3(S / BN, B * KH), bf16_dkv_smem(D), p, st);
-  if (dtype == 0 && D == 128)
-    return (int)launch(flash_bwd_dkv_f32<128>, dim3(S / FKN, B * KH), f32_dkv_smem(D), p, st);
-  if (dtype == 0 && D == 64)
-    return (int)launch(flash_bwd_dkv_f32<64>, dim3(S / FKN, B * KH), f32_dkv_smem(D), p, st);
+  if (dtype == 1 && D == 128) return (int)launch_dkv_bf16<128>(p, B, st);
+  if (dtype == 1 && D == 64) return (int)launch_dkv_bf16<64>(p, B, st);
+  if (dtype == 0 && D == 128) return (int)launch_f32<128, true>(p, B, st);
+  if (dtype == 0 && D == 64) return (int)launch_f32<64, true>(p, B, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of one bf16 dkv CTA at head width D (0 for another D).
+extern "C" long long flash_bwd_dkv_smem(int D) {
+  return D == 128 ? (long long)DkvSmem<128>::kBytes
+                  : D == 64 ? (long long)DkvSmem<64>::kBytes : 0;
 }

@@ -5,22 +5,25 @@
 //
 // The CTA: warpgroup 0 is the producer — one elected thread issues every TMA
 // load and the warpgroup gives its registers back (setmaxnreg.dec); warpgroups
-// 1 and 2 are consumers, each owning 64 query rows of a 128-row tile, and take
-// those registers (setmaxnreg.inc). A query tile (and, for the backward, its
-// dO tile) is loaded once; K/V tiles stream through STAGES slots, each with a
-// "full" barrier (the producer's expect-tx, completed by TMA's byte count) and
-// an "empty" barrier (one arrival per consumer warp once its wgmmas on the
-// slot have completed).
+// 1 and 2 are consumers, each owning 64 rows of the CTA's 128-row tile, and
+// take those registers (setmaxnreg.inc). The CTA's own tiles are loaded once
+// and the other side's tiles stream through STAGES slots: the forward and dq
+// hold a query tile (and dO) and stream K/V tiles; dkv holds a K/V tile and
+// streams Q/dO tiles with their lse and delta rows. Each slot has a "full"
+// barrier (the producer's expect-tx, completed by TMA's byte count) and an
+// "empty" barrier (one arrival per consumer warp once its wgmmas on the slot
+// have completed).
 //
 // Layout. Every tile is stored as D/64 boxes of [rows][64] bf16, 128 bytes a
 // row, in TMA's 128-byte swizzle, each box 1024-byte aligned. The same tile
 // serves wgmma two ways:
-// - K-major (D is the reduction): Q, dO as A and K, V as B of q·kᵀ, do·vᵀ.
-//   16 columns of a box are 32 bytes into its swizzled row; 8-row groups are
-//   1024 bytes apart (SBO).
-// - MN-major (keys are the reduction, transpose bit set): V of p·v and K of
-//   ds·k. 16 keys are 2048 bytes; the two 64-column boxes of D 128 are one box
-//   apart (LBO), 8-key groups 1024 bytes (SBO).
+// - K-major (D is the reduction): Q, dO as A and K, V as B of q·kᵀ, do·vᵀ;
+//   K, V as A and Q, dO as B of k·qᵀ, v·doᵀ. 16 columns of a box are 32
+//   bytes into its swizzled row; 8-row groups are 1024 bytes apart (SBO).
+// - MN-major (the tile's rows are the reduction, transpose bit set): V of
+//   p·v, K of ds·k, dO of pᵀ·do and Q of dsᵀ·q. 16 rows are 2048 bytes; the
+//   two 64-column boxes of D 128 are one box apart (LBO), 8-row groups 1024
+//   bytes (SBO).
 //
 // Tensor maps are built on the host over the [B, S, heads, D] strided tensors
 // as 4-D (D, heads, S, B) with a box of (64, 1, rows, 1), so GQA reads kv head
@@ -161,6 +164,16 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A 1-D bulk copy of `bytes` from global to shared memory, counted on barrier
+// `bar` like a tile: both addresses 16-byte aligned, bytes a multiple of 16.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 

@@ -210,9 +210,8 @@ def forward_agreement(o, lse, o_ref, lse_ref, seq_len: int) -> dict:
 
 
 def _aligned(x: torch.Tensor) -> bool:
-    """The bf16 kernels read rows by TMA (forward, dq) or as 16-byte vectors
-    (dkv): base and the B, S and head strides must be multiples of 16 bytes
-    (8 elements)."""
+    """The bf16 kernels read their tiles by TMA: base and the B, S and head
+    strides must be multiples of 16 bytes (8 elements)."""
     return x.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in x.stride()[:3])
 
 
@@ -256,6 +255,8 @@ def _kernel_lib(name: str):
             lib.flash_bwd_dq.restype = i32
             lib.flash_bwd_dkv.argtypes = [ptr] * 8 + [i64] * 18 + tail
             lib.flash_bwd_dkv.restype = i32
+            lib.flash_bwd_dkv_smem.argtypes = [i32]
+            lib.flash_bwd_dkv_smem.restype = ctypes.c_longlong
         _libs[name] = lib
     return lib
 

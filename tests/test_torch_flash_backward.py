@@ -86,6 +86,50 @@ def test_padded_seq_grads(causal):
     _assert_grads(got, _jax_grads(dense, q, k, v, w), TOL, "JAX dense")
 
 
+def _dense_kv_len(q, k, v, *, causal: bool, kv_len: int):
+    """``_dense_reference`` with keys at or past ``kv_len`` masked: a query
+    row below kv_len sees the (causal) prefix, a later row all kv_len keys."""
+    import jax.numpy as jnp
+
+    kk, vv = k[:, :kv_len], v[:, :kv_len]
+    head = _dense_reference(q[:, :kv_len], kk, vv, causal=causal)
+    tail = _dense_reference(q[:, kv_len:], kk, vv, causal=False)
+    return jnp.concatenate([head, tail], axis=1)
+
+
+# The shapes at which the dkv kernel's walk and tiles meet their edges, small:
+# (B, S, H, KH, D, causal, kv_len, block). G 8 is the longest walk over the
+# query heads of one kv head; a causal kv_len ends inside a key tile (70) or
+# below one 64-key warpgroup's first tile (20); S 192 with 64-blocks is
+# S = 64 mod 128, where the kernel's last 128-key tile is half past S.
+DKV_EDGE_CASES = {
+    "G8_causal": (1, 64, 8, 1, 16, True, None, 16),
+    "G8_full": (1, 64, 8, 1, 16, False, None, 16),
+    "causal_kv_len70": (1, 96, 4, 2, 16, True, 70, 32),
+    "causal_kv_len20": (1, 96, 4, 2, 16, True, 20, 32),
+    "S192_causal": (1, 192, 2, 1, 16, True, None, 64),
+    "S192_full_kv_len100": (1, 192, 2, 1, 16, False, 100, 64),
+}
+
+
+@pytest.mark.parametrize("case", DKV_EDGE_CASES.values(), ids=DKV_EDGE_CASES.keys())
+def test_dkv_edge_grads_match_jax_kernel_and_dense(case):
+    """The plain backward, which the card's checks hold the dkv kernel to, at
+    the kernel's edge shapes against ``jax.grad`` through the JAX flash
+    kernel (``_dkv_kernel`` in interpret mode) and the dense oracle."""
+    B, S, H, KH, D, causal, kv_len, block = case
+    q, k, v, w = _inputs(12, B, S, H, KH, D)
+    kw = dict(causal=causal, kv_len=kv_len, block_q=block, block_k=block)
+    got = _port_grads(q, k, v, w, **kw)
+    _assert_grads(got, _jax_grads(_flash(**kw), q, k, v, w), TOL, "JAX flash")
+    if kv_len is None:
+        dense = lambda q, k, v: _dense_reference(q, k, v, causal=causal)  # noqa: E731
+    else:
+        dense = lambda q, k, v: _dense_kv_len(q, k, v, causal=causal, kv_len=kv_len)  # noqa: E731
+        assert np.abs(got[1][:, kv_len:]).max() == 0 and np.abs(got[2][:, kv_len:]).max() == 0
+    _assert_grads(got, _jax_grads(dense, q, k, v, w), TOL, "JAX dense")
+
+
 def test_kv_len_grads():
     """Keys past kv_len get zero dk/dv and add nothing to dq."""
     B, S, H, KH, D, L = 1, 48, 4, 2, 16, 37

@@ -27,9 +27,13 @@ from pytorch_operator_tpu_torch.ops import _build
 from pytorch_operator_tpu_torch.ops import flash_attention as fa
 
 # (B, S, H, KH, D, causal, kv_len, dtype): the generate prefill shape first.
-# The bf16 kernels take 128 query rows a CTA and 128 (forward) or 64 (dq)
-# keys a tile, so the cases include S 192 (a last query tile half past S),
-# S 64 (one tile, smaller than the CTA's rows) and a kv_len inside a tile.
+# The bf16 kernels take 128 query rows (forward, dq) or 128 keys (dkv, two
+# warpgroups of 64) a CTA, and 128 (forward) or 64 (dq) keys or 64 query rows
+# (dkv) a tile, so the cases include S 192 (a last query tile, and a last dkv
+# CTA's second warpgroup, past S), S 64 (one tile, smaller than the CTA's
+# rows), a kv_len inside a tile, G 8 (dkv's longest walk over query heads),
+# causal kv_len 100 (ending inside a dkv CTA's second warpgroup) and kv_len 40
+# (that warpgroup wholly masked).
 CASES = [
     (8, 512, 8, 4, 128, True, None, "bfloat16"),
     (2, 500, 8, 4, 128, True, None, "bfloat16"),
@@ -42,6 +46,9 @@ CASES = [
     (2, 192, 8, 4, 128, True, None, "bfloat16"),
     (2, 64, 8, 4, 128, True, None, "bfloat16"),
     (2, 256, 8, 4, 64, False, 77, "bfloat16"),
+    (2, 256, 8, 1, 128, True, None, "bfloat16"),
+    (2, 256, 8, 4, 128, True, 100, "bfloat16"),
+    (2, 192, 8, 4, 64, False, 40, "bfloat16"),
 ]
 
 
