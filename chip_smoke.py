@@ -28,7 +28,8 @@ Phases, in order; any failure exits non-zero before the result line:
    width and depth (batch 8, 512-token prompt, 32 new tokens, random weights
    from a seed), launch counts set to 0 just before and read just after (the
    forward kernel once per layer per prefill); the flash prefill's logits
-   against the dense model's; a profile of one generate call.
+   against the dense model's; a profile of one generate call (run after
+   phase 6: no timed run follows a profiler session).
 5. The training path: ``workloads.llama_train.run`` at ``llama_0_3b`` full
    width and depth (batch 4 x 4096 tokens, 1 warmup + 5 steps, AdamW, random
    weights from a seed), launch counts set to 0 just before and read just
@@ -36,8 +37,30 @@ Phases, in order; any failure exits non-zero before the result line:
    the last below the first); one step of flash + chunked loss against dense
    attention + dense loss on the same weights (batch 4 x 1024: the loss, the
    global gradient norm and each layer's q/k/v projection gradients); a
-   profile of one training step.
-6. One ``{"kernels": [...]}`` line, the card's line, and as the last line
+   profile of one training step (run after phase 6).
+6. The serve path, at ``llama_0_3b`` full width and depth (random weights
+   from a seed, bf16 weights and cache; 8 slots, chunk 128, block 64,
+   ``max_decode_len`` 4096): (a) ``workloads.serve.run`` over the file
+   spool, fed by a client thread with the engine stream that bench.py
+   times (a warmup pair left out of the stats, then 24 requests of prompts
+   64-511 and 64-191 new tokens, sent at once), launch counts set to 0 just
+   before and read just after (the engine prefills and decodes through the
+   cache attention, as the JAX engine does: no flash launch); every
+   response whole and in the vocabulary, none rejected; the engine's decode
+   tokens/s, TTFT (from submit, and from admission) and TPOT percentiles;
+   every emitted token held by teacher forcing on the same weights against
+   the prompt serve.run synthesised for its id: the dense model's logits
+   over prompt + emitted tokens, the chosen token within ``LOGITS_TOL`` of
+   each position's largest logit, and the exact argmax at no less than
+   ``SERVE_EXACT_SHARE_MIN`` of the positions; (b) a ``ServingEngine`` on
+   the same weights driven directly with edge requests (a prompt of one
+   chunk, one a token into a second chunk, one at the cache budget, a
+   single-token request, more requests than slots), held the same way;
+   (c) the admission of 8 prompts (prefill time a chunk), a decode block
+   timed, then profiled (the card's busy share, kernel launches per decode
+   step, host ops by host time), then timed again after the profiler
+   session.
+7. One ``{"kernels": [...]}`` line, the card's line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -554,18 +577,24 @@ def phase_generate(kernels):
     )
     if err > LOGITS_TOL:
         _fail("flash and dense prefill logits disagree")
-    _profile_generate(flash_model, prompt)
-    return result
+    return _profile_generate
 
 
-def _profile_generate(model, prompt, new_tokens: int = 32):
-    """Where one generate call's time goes: torch.profiler over one call,
-    device time by kernel and the card's busy share of the wall time."""
+def _profile_generate(new_tokens: int = 32):
+    """Where one generate call's time goes: torch.profiler over one call
+    (batch 8, 512-token prompt), device time by kernel and the card's busy
+    share of the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
     from pytorch_operator_tpu_torch.workloads import generate
 
+    cfg = llama_lib.llama_0_3b(decode=True, max_decode_len=512 + new_tokens)
+    model, _ = generate.load_params(cfg, config="0.3b", device="cuda", seed=1, log=_log)
+    prompt = torch.randint(
+        0, cfg.vocab_size, (8, 512), device="cuda", generator=torch.Generator("cuda").manual_seed(2)
+    )
     gen = generate.make_generate(model, max_new_tokens=new_tokens)
     cache = generate.init_cache(model, prompt.shape[0])
     gen(cache, prompt, torch.Generator("cuda"))
@@ -578,9 +607,10 @@ def _profile_generate(model, prompt, new_tokens: int = 32):
     _report_profile(prof, wall, f"one generate call ({new_tokens - 1} decode steps)")
 
 
-def _report_profile(prof, wall: float, what: str, top: int = 12) -> None:
+def _report_profile(prof, wall: float, what: str, top: int = 12) -> tuple:
     """Device time by kernel from a torch.profiler run, the card's busy
-    share of the wall time, and the number of kernel launches."""
+    share of the wall time, and the number of kernel launches. Returns
+    (busy seconds, launches)."""
     import torch
 
     rows = [
@@ -589,18 +619,21 @@ def _report_profile(prof, wall: float, what: str, top: int = 12) -> None:
         if e.device_time_total > 0 and e.device_type == torch.autograd.DeviceType.CUDA
     ]
     busy_us = sum(t for _, t, _ in rows)
+    launches = sum(n for _, _, n in rows)
     _log(
         f"profile of {what}: wall {1e3 * wall:.2f} ms, device busy {busy_us / 1e3:.2f} ms "
         f"({100 * busy_us / 1e6 / wall:.1f}% of wall; profiler on), "
-        f"{sum(n for _, _, n in rows)} kernel launches"
+        f"{launches} kernel launches"
     )
     for key, t, n in sorted(rows, key=lambda r: -r[1])[:top]:
         _log(f"  {t / 1e3:9.3f} ms  {n:6d}x  {key[:100]}")
+    return busy_us / 1e6, launches
 
 
 def phase_train(kernels):
     """The training main path at llama_0_3b, then flash + chunked against
-    dense on the same weights, then a profile of one step."""
+    dense on the same weights. Returns the profile of one step, to run
+    later."""
     import torch
 
     from pytorch_operator_tpu_torch.models import llama as llama_lib
@@ -632,8 +665,7 @@ def phase_train(kernels):
         f"losses {[round(x, 4) for x in losses]}, per step {result['flash_launches_per_step']}"
     )
     _train_parity()
-    _profile_train()
-    return result
+    return _profile_train
 
 
 def _train_model(cfg, seed: int):
@@ -729,11 +761,298 @@ def _profile_train(B: int = 4, S: int = 4096):
     torch.cuda.empty_cache()
 
 
+# The serve path's knobs: examples/serve.yaml's, without int8.
+SERVE_KNOBS = dict(slots=8, chunk=128, block=64, max_decode_len=4096)
+# Teacher forcing holds every greedy token the engine emits within LOGITS_TOL
+# of its position's largest logit, and the exact argmax at no less than this
+# share of a run's positions. The engine decodes at batch 8 and the dense
+# model runs batch 1, so bf16 rounds apart, and random weights' logits lie
+# close: a sound engine chose the exact argmax at 0.969 of the edge requests'
+# positions, one whose admitted slot starts a position late at 0.882 (NVIDIA
+# H100 80GB HBM3 at 700 W).
+SERVE_EXACT_SHARE_MIN = 0.925
+
+
+def _bench_stream(vocab: int):
+    """The engine stream that bench.py times (bench.py:550-571): a warmup
+    pair, then 24 requests of 64-511 prompt and 64-191 new tokens, their
+    lengths drawn from the same seed-0 generator in the same order (the draws
+    of bench.py's prompt tokens kept in step). Returns ``(warmup, stream)``,
+    lists of ``(prompt_len, max_new_tokens)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    warmup = [(100, 33), (260, 33)]
+    for p, _ in warmup:
+        rng.integers(0, vocab, (p,))
+    stream = []
+    for _ in range(24):
+        p, n = int(rng.integers(64, 512)), int(rng.integers(64, 192))
+        rng.integers(0, vocab, (p,))
+        stream.append((p, n))
+    return warmup, stream
+
+
+def _pct(xs, q: float) -> float:
+    """``ServingEngine.stats``'s percentile rule."""
+    xs = sorted(xs)
+    return round(xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))], 3)
+
+
+def _teacher_gaps(model):
+    """The dense non-decode model over ``model``'s tensors (no copy). Returns
+    ``gaps(prompt, tokens)``: at each generated position, the largest logit
+    less the emitted token's, on the host."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+
+    teacher = llama_lib.Llama(
+        dataclasses.replace(model.cfg, decode=False, attn_impl="dense"), device="meta"
+    )
+    teacher.load_state_dict(model.state_dict(), assign=True)
+    head = teacher.head_kernel().float()
+
+    @torch.no_grad()
+    def gaps(prompt, toks):
+        p, n = len(prompt), len(toks)
+        seq = np.concatenate([prompt, np.asarray(toks[:-1], np.int32)])
+        hidden = teacher(torch.from_numpy(seq).long().cuda()[None], return_hidden=True)
+        logits = hidden[0, p - 1 :].float() @ head  # [n, V]: position p-1+i predicts token i
+        chosen = logits[torch.arange(n), torch.tensor(toks, device="cuda")]
+        return (logits.max(-1).values - chosen).cpu()
+
+    return gaps
+
+
+def _hold_gaps(what: str, gaps: dict) -> None:
+    """Fail unless every teacher-forced gap is within LOGITS_TOL and the
+    exact argmax share reaches SERVE_EXACT_SHARE_MIN."""
+    worst = max(gaps, key=lambda k: float(gaps[k].max()))
+    exact = sum(int((g == 0).sum()) for g in gaps.values())
+    total = sum(len(g) for g in gaps.values())
+    _log(
+        f"{what}: {len(gaps)} requests, {total} tokens teacher-forced; worst gap "
+        f"{float(gaps[worst].max()):.4f} ({worst}; tol {LOGITS_TOL}); exact argmax share "
+        f"{exact / total:.4f} (min {SERVE_EXACT_SHARE_MIN})"
+    )
+    if not float(gaps[worst].max()) <= LOGITS_TOL:
+        _fail(f"{what}: an emitted token is not within LOGITS_TOL of its teacher-forced argmax")
+    if not exact / total >= SERVE_EXACT_SHARE_MIN:
+        _fail(f"{what}: the exact argmax share is below {SERVE_EXACT_SHARE_MIN}")
+
+
+def phase_serve(kernels):
+    """The serve main path at llama_0_3b through ``workloads.serve.run`` on
+    bench.py's engine stream, every emitted token held by teacher forcing;
+    then the engine on edge requests, held the same way; then a profile of
+    one decode block."""
+    import tempfile
+    import threading
+    import zlib
+
+    import numpy as np
+    import torch
+
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+    from pytorch_operator_tpu_torch.ops import flash_attention as fa
+    from pytorch_operator_tpu_torch.serving import Spool
+    from pytorch_operator_tpu_torch.workloads import generate, serve
+
+    cfg = llama_lib.llama_0_3b(decode=True, max_decode_len=SERVE_KNOBS["max_decode_len"])
+    warmup, stream = _bench_stream(cfg.vocab_size)
+    got, stream_ids, errors = {}, [], []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as spool_dir:
+        spool = Spool(spool_dir)
+
+        def client():
+            # The warmup pair is answered before the stream is sent, so the
+            # stats that serve.run resets after it hold the stream alone.
+            try:
+                for batch in (warmup, stream):
+                    ids = [spool.submit(prompt_len=p, max_new_tokens=n) for p, n in batch]
+                    if batch is stream:
+                        stream_ids.extend(ids)
+                    for rid, (p, n) in zip(ids, batch):
+                        got[rid] = (p, n, spool.wait_response(rid, timeout=900))
+            except Exception as e:  # reported below: the phase fails on it
+                errors.append(repr(e))
+
+        thread = threading.Thread(target=client, daemon=True)
+        thread.start()
+        fa.reset_launch_count()
+        stats = serve.run(
+            config="0.3b", spool_dir=spool_dir, **SERVE_KNOBS,
+            max_requests=len(warmup) + len(stream), warmup=len(warmup), idle_timeout=300,
+            seed=0, device="cuda", log=_log,
+        )
+        launches = fa.launch_counts()
+        thread.join(timeout=120)
+    _log(f"serve path launches: {launches}")
+    _record_launches(kernels, "serve", launches)
+    if errors or thread.is_alive():
+        _fail(f"serve client failed: {errors or 'still waiting'}")
+    n_all = len(warmup) + len(stream)
+    if (stats["served"], stats["rejected"], len(got), stats["requests"]) != (n_all, 0, n_all, len(stream)):
+        _fail(
+            f"served {stats['served']}, rejected {stats['rejected']}, answered {len(got)}, "
+            f"{stats['requests']} in the stats"
+        )
+    for rid, (p, n, r) in got.items():
+        toks = r.get("tokens") or []
+        if (
+            len(toks) != n or r["prompt_len"] != p or not r["ttft_ms"] > 0
+            or not all(0 <= t < cfg.vocab_size for t in toks)
+        ):
+            _fail(f"serve response {rid}: {len(toks)} tokens of {n}, prompt {r.get('prompt_len')}, "
+                  f"ttft_ms {r.get('ttft_ms')}")
+    if any(launches.values()):
+        _fail("the serve path launched a flash kernel: the engine prefills through the cache")
+    own = [got[rid][2]["ttft_ms"] - got[rid][2]["admit_wait_ms"] for rid in stream_ids]
+    _log(
+        f"serve 0.3b, bench.py's engine stream ({len(stream)} requests after a warmup pair, sent "
+        f"at once into {SERVE_KNOBS['slots']} slots; prompts {min(p for p, _ in stream)}-"
+        f"{max(p for p, _ in stream)}, new {min(n for _, n in stream)}-{max(n for _, n in stream)}, "
+        f"{sum(n for _, n in stream)} tokens): decode {stats['decode_tokens_per_sec']} tok/s; "
+        f"TTFT from submit (queueing behind the slots included) p50 {stats['ttft_ms_p50']} ms "
+        f"p99 {stats['ttft_ms_p99']} ms; TTFT from admission (the request's own prefill and first "
+        f"token) p50 {_pct(own, 0.5)} ms p99 {_pct(own, 0.99)} ms; TPOT p50 {stats['tpot_ms_p50']} "
+        f"ms p99 {stats['tpot_ms_p99']} ms"
+    )
+    torch.cuda.empty_cache()
+    # serve.run's weights (the same seed), and every stream token held against
+    # the prompt serve.run synthesised for its id (crc32 of the id).
+    model, _ = generate.load_params(cfg, config="0.3b", device="cuda", seed=0, log=_log, tag="serve")
+    gaps = _teacher_gaps(model)
+    held = {}
+    for rid in stream_ids:
+        p, _, r = got[rid]
+        prompt = np.random.default_rng(zlib.crc32(rid.encode())).integers(0, cfg.vocab_size, (p,))
+        held[rid] = gaps(prompt.astype(np.int32), r["tokens"])
+    _hold_gaps("serve stream", held)
+    engine = _serve_edges(model, gaps)
+    _profile_decode_block(engine)
+    return stats
+
+
+def _serve_edges(model, gaps):
+    """Edge requests through one engine on ``model``, every greedy token held
+    by teacher forcing (``gaps``); a reading of agreement with the
+    single-stream rollout."""
+    import numpy as np
+    import torch
+
+    from pytorch_operator_tpu_torch.serving import Request, ServingEngine
+    from pytorch_operator_tpu_torch.workloads import generate
+
+    cfg, L, chunk = model.cfg, SERVE_KNOBS["max_decode_len"], SERVE_KNOBS["chunk"]
+    engine = ServingEngine(cfg, model, slots=SERVE_KNOBS["slots"], chunk=chunk, block=SERVE_KNOBS["block"])
+    rng = np.random.default_rng(11)
+    shapes = [
+        ("one_chunk", chunk, 96),
+        ("second_chunk", chunk + 1, 96),
+        ("budget_edge", L - 1 - 64, 64),  # p + new = L - 1
+        ("single_token", 300, 1),
+    ] + [(f"fill{i}", int(rng.integers(64, 1025)), int(rng.integers(16, 129))) for i in range(7)]
+    prompts = {name: rng.integers(0, cfg.vocab_size, (p,)).astype(np.int32) for name, p, _ in shapes}
+    for name, _, n in shapes:
+        engine.submit(Request(name, prompts[name], n, time.time()))
+    results = {r.id: r for r in engine.run_until_drained()}
+    if sorted(results) != sorted(name for name, _, _ in shapes):
+        _fail(f"edge requests answered: {sorted(results)}")
+    held, same = {}, 0
+    for name, p, n in shapes:
+        toks = results[name].tokens
+        if len(toks) != n:
+            _fail(f"edge request {name}: {len(toks)} tokens of {n}")
+        held[name] = gaps(prompts[name], toks)
+        with torch.no_grad():
+            rollout, _ = generate.make_generate(model, max_new_tokens=n)(
+                generate.init_cache(model, 1), torch.from_numpy(prompts[name]).long().cuda()[None],
+                torch.Generator("cuda"),
+            )
+        same += int(rollout[0].tolist() == toks)
+        g = held[name]
+        _log(f"serve edge {name} (prompt {p}, new {n}): worst gap {float(g.max()):.4f}, "
+             f"exact argmax {int((g == 0).sum())}/{n}, equals the rollout {rollout[0].tolist() == toks}")
+    _log(f"serve edges: {len(shapes)} requests through {engine.slots} slots; requests equal to "
+         f"the single-stream rollout {same}/{len(shapes)}")
+    _hold_gaps("serve edges", held)
+    torch.cuda.empty_cache()
+    return engine
+
+
+def _profile_decode_block(engine):
+    """One decode block over all 8 slots: wall time with the profiler off,
+    then the card's busy share and kernel launches per decode step with
+    torch.profiler on, and the host ops that take the most host time, then
+    one more block timed after the profiler session. The first iteration's
+    wall less a block's is the admission of the 8 prompts (their prefill
+    chunks and first tokens): the TTFT of a request that finds a free
+    slot."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_operator_tpu_torch.serving import Request
+
+    prompt_len = 512
+    rng = np.random.default_rng(13)
+    for i in range(engine.slots):
+        prompt = rng.integers(0, engine.cfg.vocab_size, (prompt_len,)).astype(np.int32)
+        engine.submit(Request(f"prof{i}", prompt, 5 * engine.block, time.time()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.step()  # admission and a first block
+    first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine.step()  # one block, no admission
+    off = time.perf_counter() - t0
+    chunks = engine.slots * -(-prompt_len // engine.chunk)
+    _log(
+        f"serve admission of {engine.slots} prompts of {prompt_len} ({chunks} prefill chunks of "
+        f"{engine.chunk}): {1e3 * (first - off):.2f} ms (first iteration {1e3 * first:.2f} ms less "
+        f"a block), {1e3 * (first - off) / chunks:.3f} ms a chunk"
+    )
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.step()
+        wall = time.perf_counter() - t0
+    busy_s, launches = _report_profile(
+        prof, wall, f"one decode block ({engine.block} steps x {engine.slots} slots)"
+    )
+    _log(
+        f"serve decode block: {1e3 * off:.2f} ms with the profiler off "
+        f"({1e3 * off / engine.block:.3f} ms a step); device busy {1e3 * busy_s / engine.block:.3f} "
+        f"ms a step, {100 * busy_s / off:.1f}% of the unprofiled block; "
+        f"{launches / engine.block:.1f} kernel launches a decode step"
+    )
+    host = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU]
+    _log("host ops of the profiled block by self host time (profiler on):")
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
+        _log(f"  host {e.self_cpu_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:80]}")
+    t0 = time.perf_counter()
+    engine.step()
+    after = time.perf_counter() - t0
+    _log(
+        f"serve decode block after the profiler session: {1e3 * after:.2f} ms "
+        f"({1e3 * after / engine.block:.3f} ms a step; before it {1e3 * off / engine.block:.3f})"
+    )
+    engine.abort_in_flight()
+
+
 def main() -> int:
     card = phase_identity_and_build()
     kernels = phase_flash_vs_plain() + phase_backward_vs_plain()
-    phase_generate(kernels)
-    phase_train(kernels)
+    # Each path's profile runs after every timed run: no timed run follows
+    # a profiler session.
+    profiles = [phase_generate(kernels), phase_train(kernels)]
+    phase_serve(kernels)
+    for run_profile in profiles:
+        run_profile()
     for k in kernels:
         k["launches"] = sum(k["launches_by_path"].values())
         if k["launches"] == 0:

@@ -1,0 +1,51 @@
+"""Jittered exponential backoff — the port's copy of ``Backoff`` from
+``pytorch_operator_tpu/backoff.py``, the schedule the spool's response wait
+and the ring transport's spool-scan gate poll on.
+
+Exponential growth, a cap, and DETERMINISTIC jitter derived by hashing
+(seed, attempt), never from a PRNG or the clock, so both packages sleep the
+identical schedule.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import math
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class Backoff:
+    """attempt (0-based) -> delay seconds: ``base * factor^attempt``,
+    capped, then jittered by ±``jitter`` fraction deterministically."""
+
+    base_s: float = 0.1
+    cap_s: float = 30.0
+    factor: float = 2.0
+    jitter: float = 0.25
+    seed: int = 0
+
+    def delay(self, attempt: int) -> float:
+        attempt = max(0, attempt)
+        exp = attempt
+        if self.factor > 1.0 and self.base_s > 0:
+            # Clamp the exponent at the cap crossover: past it the
+            # un-jittered delay is cap_s regardless, and an unbounded
+            # attempt counter (an idle poll loop running for hours)
+            # would overflow float pow. Jitter still hashes the REAL
+            # attempt, so capped delays stay decorrelated.
+            limit = math.log(
+                max(self.cap_s, self.base_s) / self.base_s
+            ) / math.log(self.factor)
+            exp = min(exp, int(limit) + 1)
+        d = min(self.cap_s, self.base_s * self.factor ** exp)
+        if self.jitter:
+            h = hashlib.blake2b(
+                f"{self.seed}:{attempt}".encode(), digest_size=8
+            ).digest()
+            frac = int.from_bytes(h, "big") / 2**64  # [0, 1)
+            d *= 1.0 + self.jitter * (2.0 * frac - 1.0)
+        return max(0.0, d)
+
+    def delays(self, attempts: int):
+        return [self.delay(a) for a in range(attempts)]

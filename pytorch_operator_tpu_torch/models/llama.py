@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Dict, Optional
 
 import torch
@@ -438,5 +439,47 @@ def decode_forward(model: Llama, cache, tokens, positions=None, *, return_hidden
     """
     if not model.cfg.decode:
         raise ValueError("decode_forward needs a model built with decode=True")
+    if positions is not None:
+        _debug_check_decode_positions(positions, model.cfg)
     out = model(tokens, positions, cache=cache, return_hidden=return_hidden)
     return out, cache
+
+
+def _debug_check_decode_positions(positions: torch.Tensor, cfg: LlamaConfig) -> None:
+    """The ``TPUJOB_DEBUG_CHECKS`` assert on decode positions, per the
+    config's contract (the JAX package's check of the same name):
+
+    - always: rows are per-row CONTIGUOUS (pos[b, s] = pos[b, 0] + s) and
+      every write lands inside the cache (pos < max_decode_len);
+    - ``decode_per_row=False``: batch-uniform (the cache write offset reads
+      row 0);
+    - ``prefill_mode="self"``: multi-token inputs start at position 0
+      (self-attention prefill would silently drop earlier context at a
+      nonzero start; chunked continuations need prefill_mode="cache").
+
+    No-op unless the env var is set: it copies the positions to the host,
+    a device sync per call."""
+    if os.environ.get("TPUJOB_DEBUG_CHECKS", "").lower() in ("", "0", "false", "no"):
+        return
+    pos = positions.detach().cpu()
+    S = pos.shape[-1]
+    if not bool((pos == pos[:, :1] + torch.arange(S)).all()):
+        raise ValueError(f"decode positions must be contiguous per row; got {pos}")
+    if not cfg.decode_per_row and not bool((pos == pos[0:1]).all()):
+        raise ValueError(
+            "decode positions must be batch-uniform (unpadded equal-length "
+            f"batch); got rows {pos}. Bucket ragged prompts to equal length, "
+            "generate row-by-row, or build the model with decode_per_row=True "
+            "(serving engine)."
+        )
+    if int(pos.max()) >= cfg.max_decode_len:
+        raise ValueError(
+            f"decode position {int(pos.max())} >= max_decode_len "
+            f"{cfg.max_decode_len}: the cache write would fault or corrupt the rollout"
+        )
+    if cfg.prefill_mode == "self" and S > 1 and bool((pos[:, 0] != 0).any()):
+        raise ValueError(
+            "multi-token decode input (prefill) must start at position 0, got "
+            f"starts {pos[:, 0]}: prefill_mode='self' attends over the incoming "
+            "tokens only. Chunked prefill needs prefill_mode='cache'."
+        )

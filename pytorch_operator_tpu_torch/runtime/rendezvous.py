@@ -5,7 +5,8 @@ The port's own copy of what a single-process workload needs from
 world (``WorldInfo``/``world_from_env``) and the JSONL status channel
 (``report``/``report_first_step``/``report_metrics``, and the training
 heartbeat ``progress_enabled``/``report_progress`` with its echo of the
-supervisor's clock probe), written in the same record format so a port job
+supervisor's clock probe, and the serve-plane load beat ``report_serve``),
+written in the same record format so a port job
 reports to the unchanged supervisor. The fault-injection hook of the JAX
 ``report_progress`` (``drop_heartbeat``) is not ported.
 
@@ -161,3 +162,40 @@ def report_progress(
         fields["unit"] = unit
     report("progress", step=step, **fields)
     _maybe_echo_probe()
+
+
+def report_serve(
+    requests: int,
+    *,
+    slots: int,
+    slots_free: int,
+    queued: int = 0,
+    pending: int = 0,
+    ttft_ms_p50: Optional[float] = None,
+    ttft_ms_p99: Optional[float] = None,
+    tpot_ms_p50: Optional[float] = None,
+    tpot_ms_p99: Optional[float] = None,
+    block_ms: Optional[float] = None,
+) -> None:
+    """Serve-plane load beat: slot occupancy, queue depth and latency
+    percentiles of this engine replica, as the JAX package's ``serve``
+    record. The supervisor's router reads the newest record per replica for
+    least-loaded dispatch, and the queue_growth / batch_size_collapse
+    detectors judge the same stream. ``block_ms`` is the decode-block phase:
+    ms until the engine's current block completes and a slot can be filled."""
+    fields: dict = {
+        "slots": int(slots),
+        "slots_free": int(slots_free),
+        "queued": int(queued),
+        "pending": int(pending),
+    }
+    for k, v in (
+        ("ttft_ms_p50", ttft_ms_p50),
+        ("ttft_ms_p99", ttft_ms_p99),
+        ("tpot_ms_p50", tpot_ms_p50),
+        ("tpot_ms_p99", tpot_ms_p99),
+        ("block_ms", block_ms),
+    ):
+        if v is not None:
+            fields[k] = round(float(v), 3)
+    report("serve", requests=int(requests), **fields)

@@ -99,6 +99,7 @@ def load_params(
     jax_params=None,
     seed: int = 0,
     log=print,
+    tag: str = "generate",
 ):
     """Build the serving model for ``cfg`` on ``device``: random init from
     ``seed`` (flax's distributions), or the weights of a JAX param tree
@@ -114,7 +115,7 @@ def load_params(
         src = "random init — no tokenizer here"
     model.cast_matmul_weights_().requires_grad_(False).eval()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"[generate] config={config}: {n_params / 1e6:.1f}M params ({src})")
+    log(f"[{tag}] config={config}: {n_params / 1e6:.1f}M params ({src})")
     return model, n_params
 
 

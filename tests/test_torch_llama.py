@@ -202,3 +202,60 @@ def test_f32_params_cast_at_the_call():
         cache = port_generate.init_cache(model, 2)
         outs.append(gen(cache, toks[:, :8], torch.Generator())[0])
     assert torch.equal(outs[0], outs[1])
+
+
+class TestDebugChecks:
+    """``TPUJOB_DEBUG_CHECKS`` decode-position asserts in ``decode_forward``
+    (the four cases of tests/test_serving_batch.py's TestDebugChecks)."""
+
+    @staticmethod
+    def _model(**over):
+        cfg = port_llama.llama_tiny(decode=True, max_decode_len=16, **over)
+        model = port_llama.Llama(cfg).init_weights(torch.Generator().manual_seed(0))
+        return model.requires_grad_(False), cfg
+
+    def test_per_row_model_accepts_ragged_positions(self, monkeypatch):
+        monkeypatch.setenv("TPUJOB_DEBUG_CHECKS", "1")
+        model, cfg = self._model(decode_per_row=True)
+        cache = port_llama.init_decode_cache(cfg, 2)
+        tok = torch.zeros((2, 1), dtype=torch.long)
+        pos = torch.tensor([[3], [7]])  # ragged: fine per-row
+        out, _ = port_llama.decode_forward(model, cache, tok, pos)
+        assert out.shape == (2, 1, cfg.d_model)
+        uniform, _ = self._model()
+        with pytest.raises(ValueError, match="batch-uniform"):
+            port_llama.decode_forward(uniform, cache, tok, pos)
+
+    def test_overflow_positions_rejected(self, monkeypatch):
+        monkeypatch.setenv("TPUJOB_DEBUG_CHECKS", "1")
+        model, cfg = self._model(decode_per_row=True)
+        cache = port_llama.init_decode_cache(cfg, 2)
+        tok = torch.zeros((2, 1), dtype=torch.long)
+        pos = torch.tensor([[3], [16]])  # row 1 past the cache
+        with pytest.raises(ValueError, match="max_decode_len"):
+            port_llama.decode_forward(model, cache, tok, pos)
+        with pytest.raises(ValueError, match="contiguous"):
+            port_llama.decode_forward(
+                model, cache, torch.zeros((2, 2), dtype=torch.long),
+                torch.tensor([[3, 5], [7, 8]]),
+            )
+
+    def test_self_mode_still_rejects_nonzero_prefill_start(self, monkeypatch):
+        monkeypatch.setenv("TPUJOB_DEBUG_CHECKS", "1")
+        model, cfg = self._model()
+        cache = port_llama.init_decode_cache(cfg, 1)
+        toks = torch.zeros((1, 4), dtype=torch.long)
+        pos = torch.arange(2, 6)[None, :]
+        with pytest.raises(ValueError, match="prefill"):
+            port_llama.decode_forward(model, cache, toks, pos)
+        monkeypatch.setenv("TPUJOB_DEBUG_CHECKS", "0")
+        port_llama.decode_forward(model, cache, toks, pos)  # off: no check
+
+    def test_cache_mode_accepts_nonzero_prefill_start(self, monkeypatch):
+        monkeypatch.setenv("TPUJOB_DEBUG_CHECKS", "1")
+        model, cfg = self._model(prefill_mode="cache")
+        cache = port_llama.init_decode_cache(cfg, 1)
+        toks = torch.zeros((1, 4), dtype=torch.long)
+        pos = torch.arange(2, 6)[None, :]
+        out, _ = port_llama.decode_forward(model, cache, toks, pos)
+        assert out.shape == (1, 4, cfg.d_model)
