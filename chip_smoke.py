@@ -14,8 +14,9 @@ Phases, in order; any failure exits non-zero before the result line:
    whole tensor, its late half and per row; o and lse by their largest
    absolute error); kernel, plain-version and library
    (``scaled_dot_product_attention``, timed only) times at the generate
-   prefill's shape and at the training shape, with achieved TFLOP/s and the
-   wrapper's host time a call.
+   prefill's shape, at the training shape and at phase 7's 1b prefill shape
+   (B8 S128 H16 KH8 D128), with achieved TFLOP/s and the wrapper's host time
+   a call.
 3. The two backward kernels against their plain version
    (``flash_attention_backward_reference``) on the same padded inputs, in the
    listed cases, by ``grad_agreement`` (relative L2 error over the whole
@@ -29,7 +30,7 @@ Phases, in order; any failure exits non-zero before the result line:
    from a seed), launch counts set to 0 just before and read just after (the
    forward kernel once per layer per prefill); the flash prefill's logits
    against the dense model's; a profile of one generate call (run after
-   phase 6: no timed run follows a profiler session).
+   phase 7: no timed run follows a profiler session).
 5. The training path: ``workloads.llama_train.run`` at ``llama_0_3b`` full
    width and depth (batch 4 x 4096 tokens, 1 warmup + 5 steps, AdamW, random
    weights from a seed), launch counts set to 0 just before and read just
@@ -37,7 +38,7 @@ Phases, in order; any failure exits non-zero before the result line:
    the last below the first); one step of flash + chunked loss against dense
    attention + dense loss on the same weights (batch 4 x 1024: the loss, the
    global gradient norm and each layer's q/k/v projection gradients); a
-   profile of one training step (run after phase 6).
+   profile of one training step (run after phase 7).
 6. The serve path, at ``llama_0_3b`` full width and depth (random weights
    from a seed, bf16 weights and cache; 8 slots, chunk 128, block 64,
    ``max_decode_len`` 4096): (a) ``workloads.serve.run`` over the file
@@ -57,10 +58,35 @@ Phases, in order; any failure exits non-zero before the result line:
    chunk, one a token into a second chunk, one at the cache budget, a
    single-token request, more requests than slots), held the same way;
    (c) the admission of 8 prompts (prefill time a chunk), a decode block
-   timed, then profiled (the card's busy share, kernel launches per decode
-   step, host ops by host time), then timed again after the profiler
-   session.
-7. One ``{"kernels": [...]}`` line, the card's line, and as the last line
+   timed with its peak memory, then (after phase 7) profiled (the card's
+   busy share, kernel launches per decode step, device time by kernel, host
+   ops by host time) and timed again after the profiler session.
+7. The int8 serving stack (int8 weights, int8 KV cache) at ``llama_1b`` full
+   width and depth, random weights from seed 0: (a) bench.py's decode A/B,
+   ``generate.run(quantize="int8", kv_quantize="int8",
+   compare_unquantized=True)`` at batch 8, 128-token prompts, 128 new
+   tokens, ``max_decode_len`` 4096, launch counts set to 0 just before and
+   read just after (the forward kernel once per layer per prefill): int8 and
+   bf16-control tokens/s, ``int8_speedup``, ``weight_mb``, ``prefill_s``;
+   (b) the int8 model loaded alone with ``init_host``: every quantized tensor
+   int8 on the card, ``memory_allocated`` within ``AT_REST_MARGIN`` of
+   ``state_bytes``, and of ``state_bytes`` plus the cache once an engine
+   holds it; its state equal to the one quantized on the card from the same
+   seed; its logits within ``INT8_WEIGHT_TOL`` of a bf16 model on its
+   weights dequantized apart (no call of the port's dequantization); the kv8 cache
+   against references that do not run its code (layer 0's dequantized slabs
+   within half a scale of a bf16 cache's, its cache attention within
+   ``KV8_ATTN_RTOL`` of dequantize-then-attend); (c) ``serve.run`` with the
+   int8 stack on bench.py's engine stream, checked as phase 6(a); (d) every
+   stream token held at ``LOGITS_TOL`` and ``SERVE_EXACT_SHARE_MIN`` by a
+   kv8 teacher (a batch-1 ``prefill_mode="cache"`` model on the same int8
+   weights and an int8 cache, run over prompt and emitted tokens in one
+   chunk), and, without a gate, the same tokens against the bf16 dense model
+   on the unquantized weights; (e) a decode block of the int8 engine and of
+   a bf16 engine at 1b, each timed with its peak memory; the device time of
+   one step's dequantization and kv8 writes; the int8 block's profile (run
+   last).
+8. One ``{"kernels": [...]}`` line, the card's line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -110,9 +136,12 @@ EDGE_CASES = [
     ("causal_kv_len100", 2, 256, 8, 4, 128, True, 100, "bfloat16"),
     ("kv_len40_D64", 2, 192, 8, 4, 64, False, 40, "bfloat16"),
 ]
+# The 1b int8 generate's prefill (phase 7): batch 8, 128-token prompts.
+PREFILL_1B = ("prefill_1b", 8, 128, 16, 8, 128, True, None, "bfloat16")
 FLASH_CASES = [
     ("slice", 8, 512, 8, 4, 128, True, None, "bfloat16"),
     TRAIN_SHAPE,
+    PREFILL_1B,
     ("unaligned_S500", 8, 500, 8, 4, 128, True, None, "bfloat16"),
     ("kv_len_noncausal", 4, 512, 8, 4, 128, False, 300, "bfloat16"),
     ("G1", 4, 256, 8, 8, 128, True, None, "bfloat16"),
@@ -332,7 +361,7 @@ def phase_flash_vs_plain():
         )
         if not a["ok"]:
             _fail(f"flash_fwd disagrees with its plain version in case {name}")
-        if name in ("slice", "train"):
+        if name in ("slice", "train", "prefill_1b"):
             qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             call = functools.partial(fa.flash_attention_with_lse, q, k, v, causal=causal, kv_len=kv_len)
             ms = _time_ms(call)
@@ -351,27 +380,26 @@ def phase_flash_vs_plain():
                 f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
                 f"host {host_us:.1f} us a call"
             )
-            shape = f"B{B} S{S} H{H} KH{KH} D{D} {'causal' if causal else 'full'} {dtype}"
-            if name == "train":
-                entry.update(
-                    train_shape=shape, train_ms=ms, train_plain_ms=plain_ms,
-                    train_bound_ms=bound_ms, train_bound_by=bound_by,
-                    train_library_ms=library_ms, train_max_abs_err=err,
-                )
+            readings = {
+                "max_abs_err": err,
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "library_ms": library_ms,
+                "shape": f"B{B} S{S} H{H} KH{KH} D{D} {'causal' if causal else 'full'} {dtype}",
+            }
+            if name != "slice":
+                # The other timed shapes' readings, keyed by the case's name.
+                entry.update({f"{name}_{key}": value for key, value in readings.items()})
                 continue
             entry = {
                 "name": "flash_fwd",
                 "route": "cuda",
                 "source": "pytorch_operator_tpu_torch/ops/csrc/flash_fwd.cu",
                 "replaces": "pytorch_operator_tpu/ops/flash_attention.py:101",
-                "max_abs_err": err,
-                "ms": ms,
                 "kernel_ms": ms,
-                "plain_ms": plain_ms,
-                "bound_ms": bound_ms,
-                "bound_by": bound_by,
-                "library_ms": library_ms,
-                "shape": shape,
+                **readings,
             }
     return [entry]
 
@@ -845,24 +873,22 @@ def _hold_gaps(what: str, gaps: dict) -> None:
         _fail(f"{what}: the exact argmax share is below {SERVE_EXACT_SHARE_MIN}")
 
 
-def phase_serve(kernels):
-    """The serve main path at llama_0_3b through ``workloads.serve.run`` on
-    bench.py's engine stream, every emitted token held by teacher forcing;
-    then the engine on edge requests, held the same way; then a profile of
-    one decode block."""
+def _serve_stream(config: str, cfg, **run_kw):
+    """``workloads.serve.run`` over the file spool, fed by a client thread with
+    bench.py's engine stream (the warmup pair answered first, then the 24
+    requests sent at once), launch counts set to 0 just before and read just
+    after. Fails unless every response is whole and in the vocabulary, none
+    is rejected and no flash kernel ran (the engine prefills and decodes
+    through the cache attention, as the JAX engine does). Returns
+    ``(stats, responses by id as (prompt_len, new, response), stream ids,
+    launches)``."""
     import tempfile
     import threading
-    import zlib
 
-    import numpy as np
-    import torch
-
-    from pytorch_operator_tpu_torch.models import llama as llama_lib
     from pytorch_operator_tpu_torch.ops import flash_attention as fa
     from pytorch_operator_tpu_torch.serving import Spool
-    from pytorch_operator_tpu_torch.workloads import generate, serve
+    from pytorch_operator_tpu_torch.workloads import serve
 
-    cfg = llama_lib.llama_0_3b(decode=True, max_decode_len=SERVE_KNOBS["max_decode_len"])
     warmup, stream = _bench_stream(cfg.vocab_size)
     got, stream_ids, errors = {}, [], []
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as spool_dir:
@@ -885,14 +911,13 @@ def phase_serve(kernels):
         thread.start()
         fa.reset_launch_count()
         stats = serve.run(
-            config="0.3b", spool_dir=spool_dir, **SERVE_KNOBS,
+            config=config, spool_dir=spool_dir, **SERVE_KNOBS,
             max_requests=len(warmup) + len(stream), warmup=len(warmup), idle_timeout=300,
-            seed=0, device="cuda", log=_log,
+            seed=0, device="cuda", log=_log, **run_kw,
         )
         launches = fa.launch_counts()
         thread.join(timeout=120)
-    _log(f"serve path launches: {launches}")
-    _record_launches(kernels, "serve", launches)
+    _log(f"serve path launches ({config}, {run_kw or 'bf16'}): {launches}")
     if errors or thread.is_alive():
         _fail(f"serve client failed: {errors or 'still waiting'}")
     n_all = len(warmup) + len(stream)
@@ -913,29 +938,54 @@ def phase_serve(kernels):
         _fail("the serve path launched a flash kernel: the engine prefills through the cache")
     own = [got[rid][2]["ttft_ms"] - got[rid][2]["admit_wait_ms"] for rid in stream_ids]
     _log(
-        f"serve 0.3b, bench.py's engine stream ({len(stream)} requests after a warmup pair, sent "
-        f"at once into {SERVE_KNOBS['slots']} slots; prompts {min(p for p, _ in stream)}-"
-        f"{max(p for p, _ in stream)}, new {min(n for _, n in stream)}-{max(n for _, n in stream)}, "
-        f"{sum(n for _, n in stream)} tokens): decode {stats['decode_tokens_per_sec']} tok/s; "
-        f"TTFT from submit (queueing behind the slots included) p50 {stats['ttft_ms_p50']} ms "
-        f"p99 {stats['ttft_ms_p99']} ms; TTFT from admission (the request's own prefill and first "
-        f"token) p50 {_pct(own, 0.5)} ms p99 {_pct(own, 0.99)} ms; TPOT p50 {stats['tpot_ms_p50']} "
-        f"ms p99 {stats['tpot_ms_p99']} ms"
+        f"serve {config} {run_kw or 'bf16'}, bench.py's engine stream ({len(stream)} requests after "
+        f"a warmup pair, sent at once into {SERVE_KNOBS['slots']} slots; prompts "
+        f"{min(p for p, _ in stream)}-{max(p for p, _ in stream)}, new {min(n for _, n in stream)}-"
+        f"{max(n for _, n in stream)}, {sum(n for _, n in stream)} tokens): decode "
+        f"{stats['decode_tokens_per_sec']} tok/s; TTFT from submit (queueing behind the slots "
+        f"included) p50 {stats['ttft_ms_p50']} ms p99 {stats['ttft_ms_p99']} ms; TTFT from admission "
+        f"(the request's own prefill and first token) p50 {_pct(own, 0.5)} ms p99 {_pct(own, 0.99)} "
+        f"ms; TPOT p50 {stats['tpot_ms_p50']} ms p99 {stats['tpot_ms_p99']} ms"
     )
-    torch.cuda.empty_cache()
-    # serve.run's weights (the same seed), and every stream token held against
-    # the prompt serve.run synthesised for its id (crc32 of the id).
-    model, _ = generate.load_params(cfg, config="0.3b", device="cuda", seed=0, log=_log, tag="serve")
-    gaps = _teacher_gaps(model)
+    return stats, got, stream_ids, launches
+
+
+def _stream_gaps(gaps, vocab: int, got, stream_ids) -> dict:
+    """Teacher-forced gaps of every stream response, against the prompt
+    serve.run synthesised for its id (crc32 of the id)."""
+    import zlib
+
+    import numpy as np
+
     held = {}
     for rid in stream_ids:
         p, _, r = got[rid]
-        prompt = np.random.default_rng(zlib.crc32(rid.encode())).integers(0, cfg.vocab_size, (p,))
+        prompt = np.random.default_rng(zlib.crc32(rid.encode())).integers(0, vocab, (p,))
         held[rid] = gaps(prompt.astype(np.int32), r["tokens"])
-    _hold_gaps("serve stream", held)
+    return held
+
+
+def phase_serve(kernels):
+    """The serve main path at llama_0_3b through ``workloads.serve.run`` on
+    bench.py's engine stream, every emitted token held by teacher forcing;
+    then the engine on edge requests, held the same way; then a decode block
+    timed. Returns the decode block's profile, to run after every timed
+    run."""
+    import torch
+
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+    from pytorch_operator_tpu_torch.workloads import generate
+
+    cfg = llama_lib.llama_0_3b(decode=True, max_decode_len=SERVE_KNOBS["max_decode_len"])
+    _, got, stream_ids, launches = _serve_stream("0.3b", cfg)
+    _record_launches(kernels, "serve", launches)
+    torch.cuda.empty_cache()
+    # serve.run's weights (the same seed).
+    model, _ = generate.load_params(cfg, config="0.3b", device="cuda", seed=0, log=_log, tag="serve")
+    gaps = _teacher_gaps(model)
+    _hold_gaps("serve stream", _stream_gaps(gaps, cfg.vocab_size, got, stream_ids))
     engine = _serve_edges(model, gaps)
-    _profile_decode_block(engine)
-    return stats
+    return _time_decode_block(engine, "bf16 0.3b")[1]
 
 
 def _serve_edges(model, gaps):
@@ -985,18 +1035,20 @@ def _serve_edges(model, gaps):
     return engine
 
 
-def _profile_decode_block(engine):
-    """One decode block over all 8 slots: wall time with the profiler off,
-    then the card's busy share and kernel launches per decode step with
-    torch.profiler on, and the host ops that take the most host time, then
-    one more block timed after the profiler session. The first iteration's
-    wall less a block's is the admission of the 8 prompts (their prefill
-    chunks and first tokens): the TTFT of a request that finds a free
-    slot."""
+def _time_decode_block(engine, what: str):
+    """The admission of 8 prompts of 512 (the first iteration's wall less a
+    block's: prefill chunks and first tokens, the TTFT of a request that
+    finds a free slot), then one decode block over all 8 slots with the
+    profiler off: its wall time, and its peak device memory above what was
+    resident before it. Returns ``(readings, profile)``: ``profile()``
+    profiles one more block (the card's busy share, kernel launches a decode
+    step, device time by kernel, the host ops that take the most host time)
+    and times one after the profiler session; it is to run after every timed
+    run."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
+    from pytorch_operator_tpu_torch.ops.quantize import state_bytes
     from pytorch_operator_tpu_torch.serving import Request
 
     prompt_len = 512
@@ -1008,40 +1060,373 @@ def _profile_decode_block(engine):
     t0 = time.perf_counter()
     engine.step()  # admission and a first block
     first = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     engine.step()  # one block, no admission
     off = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
     chunks = engine.slots * -(-prompt_len // engine.chunk)
+    weights = state_bytes(engine._decode_model.state_dict())
+    cache = state_bytes({f"{n}.{k}": t for n, d in engine._cache.items() for k, t in d["attn"].items()})
+    readings = {"step_ms": 1e3 * off / engine.block, "peak_bytes": peak, "weights": weights, "cache": cache}
     _log(
-        f"serve admission of {engine.slots} prompts of {prompt_len} ({chunks} prefill chunks of "
-        f"{engine.chunk}): {1e3 * (first - off):.2f} ms (first iteration {1e3 * first:.2f} ms less "
-        f"a block), {1e3 * (first - off) / chunks:.3f} ms a chunk"
+        f"serve {what}: admission of {engine.slots} prompts of {prompt_len} ({chunks} prefill chunks "
+        f"of {engine.chunk}): {1e3 * (first - off):.2f} ms (first iteration {1e3 * first:.2f} ms less "
+        f"a block), {1e3 * (first - off) / chunks:.3f} ms a chunk; a decode block "
+        f"{1e3 * off:.2f} ms with the profiler off ({readings['step_ms']:.3f} ms a step); resident "
+        f"weights {weights / 2**30:.3f} GiB + cache {cache / 2**30:.3f} GiB, peak during the block "
+        f"{peak / 2**30:.3f} GiB above the resident"
     )
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def profile():
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine.step()
+            wall = time.perf_counter() - t0
+        busy_s, launches = _report_profile(
+            prof, wall, f"one {what} decode block ({engine.block} steps x {engine.slots} slots)", top=15
+        )
+        _log(
+            f"serve {what} decode block: {1e3 * off:.2f} ms with the profiler off "
+            f"({1e3 * off / engine.block:.3f} ms a step); device busy {1e3 * busy_s / engine.block:.3f} "
+            f"ms a step, {100 * busy_s / off:.1f}% of the unprofiled block; "
+            f"{launches / engine.block:.1f} kernel launches a decode step"
+        )
+        host = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU]
+        _log(f"host ops of the profiled {what} block by self host time (profiler on):")
+        for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
+            _log(f"  host {e.self_cpu_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:80]}")
         t0 = time.perf_counter()
         engine.step()
-        wall = time.perf_counter() - t0
-    busy_s, launches = _report_profile(
-        prof, wall, f"one decode block ({engine.block} steps x {engine.slots} slots)"
+        after = time.perf_counter() - t0
+        _log(
+            f"serve {what} decode block after the profiler session: {1e3 * after:.2f} ms "
+            f"({1e3 * after / engine.block:.3f} ms a step; before it {1e3 * off / engine.block:.3f})"
+        )
+        engine.abort_in_flight()
+
+    return readings, profile
+
+
+# The int8 serving stack (phase 7): bench.py's decode A/B point
+# (bench.py:481-489) and engine point (bench.py:535-549) at llama_1b.
+INT8 = dict(quantize="int8", kv_quantize="int8")
+# The int8 weights at rest: memory_allocated() above what was resident before
+# the load may exceed state_bytes (q, scales, norms) plus the cache by at most
+# this much (the allocator rounds each of ~300 tensors up to 512 bytes).
+AT_REST_MARGIN = 1 << 20
+# The int8 model's logits against a bf16 model on its weights dequantized
+# apart: the same kernels on the same values, so the sound reading is 0; a
+# weight rounded to a neighbouring bf16 value anywhere moves logits by more.
+INT8_WEIGHT_TOL = 1e-4
+# kv8 attention against dequantize-then-attend (a plain f32 attention over
+# f32(q) * scale): the layer rounds the probabilities to bf16 twice and its
+# output once, so the relative L2 error is a few bf16 ulps (2^-8 = 3.9e-3).
+KV8_ATTN_RTOL = 1e-2
+
+
+def phase_int8(kernels):
+    """Phase 7, the int8 serving stack at llama_1b, full width and depth:
+    (a) the generate A/B, (b) the int8 weights at rest and the kv8 cache
+    against independent references, (c) serve on bench.py's stream, (d)
+    every emitted token held by a kv8 teacher, (e) the decode block's time
+    and peak memory against the bf16 stack's, and the int8 work of a step.
+    Returns the int8 decode block's profile, to run after every timed run."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+    from pytorch_operator_tpu_torch.ops import flash_attention as fa
+    from pytorch_operator_tpu_torch.ops import quantize as quant
+    from pytorch_operator_tpu_torch.serving import ServingEngine
+    from pytorch_operator_tpu_torch.workloads import generate
+
+    n_layers = llama_lib.llama_1b().n_layers
+    # (a) bench.py's decode A/B: int8 + kv8 against the bf16 control, same call.
+    fa.reset_launch_count()
+    result = generate.run(
+        config="1b", batch_size=8, prompt_len=128, max_new_tokens=128, max_decode_len=4096,
+        compare_unquantized=True, device="cuda", log=_log, **INT8,
     )
+    launches = fa.launch_counts()
+    _log(f"int8 generate path launches: {launches}")
+    _record_launches(kernels, "generate_int8", launches)
+    if result["flash_launches_per_generate"] != n_layers:
+        _fail(f"flash kernel launched {result['flash_launches_per_generate']} times per int8 "
+              f"generate call, expected {n_layers} (one per layer)")
+    # run(): 1 + 3 int8 calls and 3 timed prefills, 1 + 3 control calls.
+    if launches["flash_fwd"] != 11 * n_layers:
+        _fail(f"flash kernel launched {launches['flash_fwd']} times, expected {11 * n_layers}")
     _log(
-        f"serve decode block: {1e3 * off:.2f} ms with the profiler off "
-        f"({1e3 * off / engine.block:.3f} ms a step); device busy {1e3 * busy_s / engine.block:.3f} "
-        f"ms a step, {100 * busy_s / off:.1f}% of the unprofiled block; "
-        f"{launches / engine.block:.1f} kernel launches a decode step"
+        f"generate 1b int8 + kv8 (B8, prompt 128, 128 new, L 4096): {result['value']} tok/s "
+        f"(generate {result['generate_s']:.4f} s), bf16 control {result['tokens_per_sec_per_chip_unquantized']} "
+        f"tok/s (generate {result['generate_s_unquantized']:.4f} s), int8_speedup "
+        f"{result['int8_speedup']}, weight_mb {result['weight_mb']}, prefill_s {result['prefill_s']:.5f}"
     )
-    host = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU]
-    _log("host ops of the profiled block by self host time (profiler on):")
-    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
-        _log(f"  host {e.self_cpu_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:80]}")
-    t0 = time.perf_counter()
-    engine.step()
-    after = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    # (b) The int8 model alone, serve.run's weights (seed 0), at rest:
+    # initialised and quantized on the host, as examples/serve.yaml loads it.
+    cfg = llama_lib.llama_1b(decode=True, max_decode_len=SERVE_KNOBS["max_decode_len"], **INT8)
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    model, _ = generate.load_params(cfg, config="1b", device="cuda", quantize="int8", init_host=True,
+                                    seed=0, log=_log, tag="serve")
+    sd = model.state_dict()
+    for name, t in sd.items():
+        held = quant.is_quantized(name)
+        if not t.is_cuda or (held and t.dtype != torch.int8) or (
+            not held and t.dtype != torch.float32
+        ):
+            _fail(f"int8 model entry {name}: {t.dtype} on {t.device}")
+    weights = quant.state_bytes(sd)
+    resident = torch.cuda.memory_allocated() - base
+    _log(f"int8 1b at rest: {resident} bytes allocated, state_bytes {weights} (margin "
+         f"{AT_REST_MARGIN}); the bf16 serving model's weights: {_bf16_bytes(sd)} bytes")
+    if resident > weights + AT_REST_MARGIN:
+        _fail("the int8 model holds more than its int8 state on the card")
+    direct, _ = generate.load_params(cfg, config="1b", device="cuda", quantize="int8", seed=0,
+                                     log=_log, tag="serve")
+    differ = [n for n, t in direct.state_dict().items() if not torch.equal(t, sd[n])]
+    _log(f"int8 1b state from --init-host against the one quantized on the card (seed 0): "
+         f"{len(differ)} of {len(sd)} entries differ")
+    if differ:
+        _fail(f"--init-host and the card's init give other int8 weights for one seed: {differ[:4]}")
+    del direct
+    _int8_weight_check(model)
+    _kv8_checks(model)
+    knobs = {k: SERVE_KNOBS[k] for k in ("slots", "chunk", "block")}
+    engine = ServingEngine(cfg, model, **knobs)
+    resident = torch.cuda.memory_allocated() - base
+    cache = sum(t.numel() * t.element_size() for d in engine._cache.values() for t in d["attn"].values())
+    _log(f"int8 1b engine resident: {resident} bytes allocated, state_bytes + cache {weights + cache}")
+    if resident > weights + cache + AT_REST_MARGIN:
+        _fail("the int8 engine holds more than its int8 state and its cache on the card")
+
+    # (c) bench.py's engine point.
+    _, got, stream_ids, launches = _serve_stream("1b", cfg, **INT8)
+    _record_launches(kernels, "serve_int8", launches)
+    torch.cuda.empty_cache()
+
+    # (d) Every stream token held by the kv8 teacher on the same int8
+    # weights; beside it (no gate) the bf16 dense model on the unquantized
+    # seed weights: the quantization's cost on random weights.
+    _hold_gaps("int8 serve stream (kv8 teacher)", _stream_gaps(_kv8_teacher_gaps(model), cfg.vocab_size,
+                                                              got, stream_ids))
+    fp_cfg = dataclasses.replace(cfg, quantize=None, kv_quantize=None)
+    fp, _ = generate.load_params(fp_cfg, config="1b", device="cuda", seed=0, log=_log, tag="serve")
+    fp_gaps = _stream_gaps(_teacher_gaps(fp), cfg.vocab_size, got, stream_ids)
+    every = torch.cat(list(fp_gaps.values()))
     _log(
-        f"serve decode block after the profiler session: {1e3 * after:.2f} ms "
-        f"({1e3 * after / engine.block:.3f} ms a step; before it {1e3 * off / engine.block:.3f})"
+        f"int8 serve stream against the bf16 dense model on the unquantized weights (no gate): "
+        f"{len(every)} tokens, exact argmax share {float((every == 0).float().mean()):.4f}, worst gap "
+        f"{float(every.max()):.4f}, mean gap {float(every.mean()):.4f}"
     )
-    engine.abort_in_flight()
+
+    # (e) The decode block, int8 + kv8 against bf16 at 1b, then the int8
+    # work of one decode step on its own.
+    int8_block, profile = _time_decode_block(engine, "int8 + kv8 1b")
+    bf16_engine = ServingEngine(fp_cfg, fp, **knobs)
+    bf16_block, _ = _time_decode_block(bf16_engine, "bf16 1b")
+    bf16_engine.abort_in_flight()
+    del bf16_engine, fp
+    _log(
+        f"decode block at 1b: int8 + kv8 {int8_block['step_ms']:.3f} ms a step, bf16 "
+        f"{bf16_block['step_ms']:.3f} ms; resident int8 {(int8_block['weights'] + int8_block['cache']) / 2**30:.3f} "
+        f"GiB, bf16 {(bf16_block['weights'] + bf16_block['cache']) / 2**30:.3f} GiB; peak above it "
+        f"int8 {int8_block['peak_bytes'] / 2**30:.3f} GiB, bf16 {bf16_block['peak_bytes'] / 2**30:.3f} GiB"
+    )
+    _time_int8_work(model, engine)
+    torch.cuda.empty_cache()
+    return profile
+
+
+def _bf16_bytes(sd) -> int:
+    """Bytes of the state dict's weights held in bf16 (norms and head f32),
+    the bf16 serving model's at rest."""
+    from pytorch_operator_tpu_torch.ops.quantize import is_quantized
+
+    return sum(
+        t.numel() * (2 if is_quantized(n) and n != "lm_head.weight" else 4)
+        for n, t in sd.items() if not n.endswith(".scale")
+    )
+
+
+def _int8_weight_check(model, B: int = 2, S: int = 256):
+    """The int8 weight path against a reference that does not run it: a
+    bf16 model on weights dequantized here, ``bf16(f32(q) * scale)`` (the
+    head ``f32(q) * scale``), and the int8 model, both dense full forwards
+    over the same B prompts of S. They run the same kernels on the same
+    values, so their logits must agree within INT8_WEIGHT_TOL."""
+    import dataclasses
+
+    import torch
+
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+
+    sd = model.state_dict()
+    ref_sd = {}
+    for name, t in sd.items():
+        scale = name[: -len("weight")] + "scale"
+        if name.endswith(".scale"):
+            continue
+        if scale in sd:
+            t = t.float() * sd[scale]
+            if name != "lm_head.weight":
+                t = t.to(model.cfg.dtype)
+        ref_sd[name] = t
+    cfg = dataclasses.replace(model.cfg, decode=False, decode_per_row=False, prefill_mode="self",
+                              attn_impl="dense", kv_quantize=None)
+    int8 = llama_lib.Llama(cfg, device="meta")
+    int8.load_state_dict(sd, assign=True)
+    ref = llama_lib.Llama(dataclasses.replace(cfg, quantize=None), device="meta")
+    ref.load_state_dict(ref_sd, assign=True)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(8))
+    with torch.no_grad():
+        got, want = int8(tokens), ref(tokens)
+    err = float((got - want).abs().max())
+    _log(f"int8 weight path, 1b full forward (B{B}, S{S}): logits within {err:.3e} of the bf16 model on "
+         f"weights dequantized apart (largest |logit| {float(want.abs().max()):.3f}; tol {INT8_WEIGHT_TOL:.0e})")
+    if not err <= INT8_WEIGHT_TOL:
+        _fail("the int8 weight path disagrees with the model on its dequantized weights")
+    del int8, ref, ref_sd, got, want
+    torch.cuda.empty_cache()
+
+
+def _kv8_checks(model, B: int = 8, S: int = 512):
+    """The kv8 cache against references that do not run its code: a
+    chunked prefill of B prompts of S through the int8 model with an int8
+    cache and with a bf16 one; layer 0's K/V inputs are the same in both, so
+    its dequantized int8 slabs must lie within scale/2 of the bf16 slabs;
+    then layer 0's cache attention of the last position over the int8 cache
+    against a plain f32 attention over the dequantized slabs."""
+    import dataclasses
+
+    import torch
+
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+
+    cfg = dataclasses.replace(model.cfg, prefill_mode="cache")
+    caches = {}
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(5))
+    for kv in ("int8", None):
+        m = llama_lib.Llama(dataclasses.replace(cfg, kv_quantize=kv), device="meta")
+        m.load_state_dict(model.state_dict(), assign=True)
+        caches[kv] = llama_lib.init_decode_cache(m.cfg, B, device="cuda")
+        with torch.no_grad():
+            llama_lib.decode_forward(m, caches[kv], prompt, torch.arange(S, device="cuda").expand(B, S))
+    c8, c16 = caches["int8"]["layer_0"]["attn"], caches[None]["layer_0"]["attn"]
+    worst = 0.0
+    for slab, scale in (("cached_key", "key_scale"), ("cached_value", "value_scale")):
+        deq = c8[slab][:, :, :S].float() * c8[scale][:, :, :S]
+        err = (deq - c16[slab][:, :, :S].float()).abs() / c8[scale][:, :, :S]
+        worst = max(worst, float(err.max()))
+    _log(f"kv8 write, layer 0 (B{B}, S{S}): |dequantized - bf16| at most {worst:.4f} of a scale (tol 0.5)")
+    if not worst <= 0.5 + 1e-3:
+        _fail("the kv8 cache does not hold its tokens' K/V within half a scale")
+    attn = model.layers[0].attn
+    H, D = cfg.n_heads, cfg.head_dim
+    q = torch.randn((B, 1, H, D), device="cuda", generator=torch.Generator("cuda").manual_seed(6))
+    q = q.to(cfg.dtype)
+    pos = torch.full((B, 1), S - 1, device="cuda")
+    with torch.no_grad():
+        got = attn._cache_attend(q, pos, c8).float()  # [B, 1, H, D]
+    K = cfg.n_kv_heads
+    kd = (c8["cached_key"][:, :, :S].float() * c8["key_scale"][:, :, :S])  # [B, K, S, D]
+    vd = (c8["cached_value"][:, :, :S].float() * c8["value_scale"][:, :, :S])
+    qg = q.float().view(B, 1, K, H // K, D)
+    probs = torch.softmax(torch.einsum("bskgd,bktd->bkgst", qg, kd) / math.sqrt(D), dim=-1)
+    ref = torch.einsum("bkgst,bktd->bskgd", probs, vd).reshape(B, 1, H, D)
+    rel = float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref))
+    _log(f"kv8 cache attention, layer 0 (B{B}, {S} cached tokens): relative L2 error "
+         f"{rel:.3e} against dequantize-then-attend (tol {KV8_ATTN_RTOL:.0e})")
+    if not rel <= KV8_ATTN_RTOL:
+        _fail("the kv8 cache attention disagrees with dequantize-then-attend")
+    del caches
+    torch.cuda.empty_cache()
+
+
+def _kv8_teacher_gaps(model):
+    """Teacher forcing on ``model``'s int8 weights with an int8 cache: a
+    batch-1 decode model with ``prefill_mode="cache"`` run over prompt and
+    emitted tokens in one chunk, which quantizes the cache per token and kv
+    head as the engine's writes do. Returns ``gaps(prompt, tokens)`` as
+    :func:`_teacher_gaps` does."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+
+    cfg = dataclasses.replace(model.cfg, decode=True, decode_per_row=False, prefill_mode="cache")
+    teacher = llama_lib.Llama(cfg, device="meta")
+    teacher.load_state_dict(model.state_dict(), assign=True)
+    head = teacher.head_kernel()
+    # One cache for every request: positions [0, n) are rewritten and the
+    # col <= row mask hides the rest.
+    cache = llama_lib.init_decode_cache(cfg, 1, device="cuda")
+
+    @torch.no_grad()
+    def gaps(prompt, toks):
+        p, n = len(prompt), len(toks)
+        seq = torch.from_numpy(np.concatenate([prompt, np.asarray(toks[:-1], np.int32)])).long().cuda()
+        hidden, _ = llama_lib.decode_forward(
+            teacher, cache, seq[None], torch.arange(len(seq), device="cuda")[None]
+        )
+        logits = hidden[0, p - 1 :].float() @ head  # [n, V]
+        chosen = logits[torch.arange(n), torch.tensor(toks, device="cuda")]
+        return (logits.max(-1).values - chosen).cpu()
+
+    return gaps
+
+
+def _time_int8_work(model, engine):
+    """Device time of one decode step's int8 work outside the matmuls, each
+    against the bytes it must move: the dequantization of every layer weight
+    (int8 and scale read, bf16 written) and of the head (f32 written), and
+    the kv8 write of one token a slot into every layer's cache (quantize,
+    then four per-row writes), on a scratch copy of one layer's cache."""
+    import torch
+
+    from pytorch_operator_tpu_torch.ops import quantize as quant
+
+    mods = [m for m in model.modules() if getattr(m, "scale", None) is not None]
+    layer = [(m.weight, m.scale) for m in mods if m is not model.embed and m is not model.lm_head]
+    head = model.lm_head
+    n_w = sum(w.numel() for w, _ in layer)
+    dq_ms = _time_ms(lambda: [quant.dequantize(w, s, torch.bfloat16) for w, s in layer], reps=5)
+    head_ms = _time_ms(lambda: quant.dequantize(head.weight, head.scale, torch.float32), reps=5)
+    dq_bytes = 3 * n_w + sum(4 * s.numel() for _, s in layer)
+    head_bytes = 5 * head.weight.numel() + 4 * head.scale.numel()
+    attn = engine._decode_model.layers[0].attn
+    cfg = attn.cfg
+    B, K, D = engine.slots, cfg.n_kv_heads, cfg.head_dim
+    scratch = {k: t.clone() for k, t in engine._cache["layer_0"]["attn"].items()}
+    gen = torch.Generator("cuda").manual_seed(7)
+    k, v = (torch.randn((B, 1, K, D), device="cuda", generator=gen).to(cfg.dtype) for _ in range(2))
+    pos = torch.arange(B, device="cuda")[:, None] + 600
+    # Two reps: ~370 small launches each, which the host enqueues within the
+    # sleep _time_ms puts ahead of them (more would time the host).
+    write_ms = _time_ms(
+        lambda: [attn.write_cache(k, v, pos, scratch) for _ in range(cfg.n_layers)], reps=2
+    )
+    del scratch
+    _log(
+        f"int8 work of one 1b decode step (device time, CUDA events): dequantize {len(layer)} layer "
+        f"weights ({n_w / 1e9:.3f} B) {dq_ms:.4f} ms, {dq_bytes / dq_ms / 1e6:.1f} GB/s (bound "
+        f"{1e3 * dq_bytes / HBM_BYTES_PER_S:.4f} ms); the head {head_ms:.4f} ms (bound "
+        f"{1e3 * head_bytes / HBM_BYTES_PER_S:.4f} ms); kv8 write of {B} tokens into "
+        f"{cfg.n_layers} layers {write_ms:.4f} ms"
+    )
 
 
 def main() -> int:
@@ -1049,8 +1434,7 @@ def main() -> int:
     kernels = phase_flash_vs_plain() + phase_backward_vs_plain()
     # Each path's profile runs after every timed run: no timed run follows
     # a profiler session.
-    profiles = [phase_generate(kernels), phase_train(kernels)]
-    phase_serve(kernels)
+    profiles = [phase_generate(kernels), phase_train(kernels), phase_serve(kernels), phase_int8(kernels)]
     for run_profile in profiles:
         run_profile()
     for k in kernels:

@@ -17,10 +17,17 @@ scales stay f32 and the LM head computes in f32. A serving model casts its
 matmul weights once at load (:meth:`Llama.cast_matmul_weights_`), after which
 the per-call cast is a no-op.
 
+The serving stack's int8 options (``ops/quantize.py``): ``quantize="int8"``
+holds each matmul weight, the embedding and the head as an int8 ``weight``
+plus an f32 per-row ``scale`` (frozen parameters, so ``state_dict`` and
+``load_state_dict(assign=True)`` carry both), dequantized at the use site one
+layer at a time to ``bf16(f32(q) * scale)``; ``kv_quantize="int8"`` stores the
+cache slabs int8 with per-(token, kv head) f32 scales, written at every cache
+write and folded into the scores and probabilities after the dots.
+
 Not in this port yet (each raises ``NotImplementedError`` from the config):
-MoE, ring/ulysses sequence parallelism, int8 weights (``quantize``), int8 KV
-(``kv_quantize``) and remat. Pipeline parallelism has no config field; the
-port has no pp forward. All are queued in ROADMAP.md.
+MoE, ring/ulysses sequence parallelism and remat. Pipeline parallelism has no
+config field; the port has no pp forward. All are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import flash_attention
+from ..ops.quantize import dequantize, quantize
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,8 +106,6 @@ class LlamaConfig:
                 "decode=True (prefill uses flash/dense self-attention)"
             )
         for field, off, item in (
-            ("quantize", self.quantize is None, "int8 weights"),
-            ("kv_quantize", self.kv_quantize is None, "int8 KV cache"),
             ("n_experts", self.n_experts == 0, "MoE"),
             ("remat", not self.remat, "remat"),
             (
@@ -187,18 +193,36 @@ CONFIGS = {
 }
 
 
+def _hold_int8(module: nn.Module) -> None:
+    """Hold ``module.weight`` ``[out, in]`` as int8 ``q`` plus an f32 per-row
+    ``scale`` ``[out, 1]`` (``ops/quantize.py``'s rule), both frozen
+    parameters."""
+    shape, dev = module.weight.shape, module.weight.device
+    module.weight = nn.Parameter(torch.zeros(shape, dtype=torch.int8, device=dev), requires_grad=False)
+    module.scale = nn.Parameter(torch.ones((shape[0], 1), device=dev), requires_grad=False)
+
+
 class _Linear(nn.Linear):
     """A bias-free ``nn.Linear`` whose weight is a ``cfg.param_dtype``
     parameter and whose product runs in ``cfg.dtype`` (flax
     ``DenseGeneral(dtype=..., param_dtype=...)``): input and weight are cast
-    at the call."""
+    at the call. Under ``cfg.quantize`` the weight is int8 with a per-row
+    scale, dequantized at the call (the reference's per-layer
+    ``dequantize_tree`` to f32, then the dense layer's cast)."""
 
     def __init__(self, n_in: int, n_out: int, cfg: LlamaConfig, device):
         super().__init__(n_in, n_out, bias=False, device=device, dtype=cfg.param_dtype)
         self.compute_dtype = cfg.dtype
+        self.quantized = bool(cfg.quantize)
+        if self.quantized:
+            _hold_int8(self)
 
     def forward(self, x):
-        return F.linear(x.to(self.compute_dtype), self.weight.to(self.compute_dtype))
+        if self.quantized:
+            w = dequantize(self.weight, self.scale, self.compute_dtype)
+        else:
+            w = self.weight.to(self.compute_dtype)
+        return F.linear(x.to(self.compute_dtype), w)
 
 
 class RMSNorm(nn.Module):
@@ -275,38 +299,60 @@ class Attention(nn.Module):
         """Write the incoming tokens' K/V into the layer's cache slabs
         ``[B, K, L, D]`` IN PLACE (the caller's tensors change; no copy of
         the slab is made), then attend: prefill (S > 1, ``prefill_mode="self"``)
-        over the incoming tokens, otherwise against the full cache."""
+        over the incoming tokens, otherwise against the full cache. Under
+        ``kv_quantize="int8"`` each token's K and V are quantized per kv head
+        over ``head_dim`` and written with their scales ``[B, K, L, 1]``."""
+        self.write_cache(k, v, positions, cache)
+        if q.shape[1] > 1 and self.cfg.prefill_mode == "self":
+            # Over the incoming, unquantized k and v.
+            return self._self_attend(q, k, v)
+        return self._cache_attend(q, positions, cache)
+
+    def write_cache(self, k, v, positions, cache) -> None:
+        """Write k and v ``[B, S, K, D]`` at ``positions`` into the layer's
+        slabs, in place."""
         cfg = self.cfg
-        B, S, H, D = q.shape
-        ck, cv = cache["cached_key"], cache["cached_value"]
         k_in = k.transpose(1, 2).to(cfg.dtype)  # [B, K, S, D]
         v_in = v.transpose(1, 2).to(cfg.dtype)
-        if cfg.decode_per_row:
-            # Each row writes at its own positions[b, :].
-            rows = torch.arange(B, device=q.device)[:, None]
-            ck[rows, :, positions] = k_in.transpose(1, 2)
-            cv[rows, :, positions] = v_in.transpose(1, 2)
+        if cfg.kv_quantize == "int8":
+            kq, vq = quantize(k_in, -1), quantize(v_in, -1)
+            writes = {
+                "cached_key": kq.q, "key_scale": kq.scale,
+                "cached_value": vq.q, "value_scale": vq.scale,
+            }
         else:
-            # Batch-uniform: every row at row 0's offsets (positions[0, 0] on).
-            ck.index_copy_(2, positions[0], k_in)
-            cv.index_copy_(2, positions[0], v_in)
-        if S > 1 and cfg.prefill_mode == "self":
-            return self._self_attend(q, k, v)
-        return self._cache_attend(q, positions, ck, cv)
+            writes = {"cached_key": k_in, "cached_value": v_in}
+        rows = torch.arange(k.shape[0], device=k.device)[:, None] if cfg.decode_per_row else None
+        for name, vals in writes.items():
+            if cfg.decode_per_row:
+                # Each row writes at its own positions[b, :].
+                cache[name][rows, :, positions] = vals.transpose(1, 2)
+            else:
+                # Batch-uniform: every row at row 0's offsets (positions[0, 0] on).
+                cache[name].index_copy_(2, positions[0], vals)
 
-    def _cache_attend(self, q, positions, ck, cv):
+    def _cache_attend(self, q, positions, cache):
         """q against the FULL cache with a per-(row, token) position-validity
-        mask col <= row. Returns [B,S,H,D]."""
+        mask col <= row. Returns [B,S,H,D]. An int8 cache is only converted;
+        its scales fold into the scores (K) and into the probabilities (V,
+        rounded to ``cfg.dtype`` again), in the reference's order."""
         cfg = self.cfg
+        ck, cv = cache["cached_key"], cache["cached_value"]
+        kv8 = cfg.kv_quantize == "int8"
         B, S, H, D = q.shape
         K, L = cfg.n_kv_heads, ck.shape[2]
         qg = q.view(B, S, K, H // K, D)
         scores = torch.einsum("bskgd,bktd->bkgst", qg.float(), ck.float()) / math.sqrt(D)
+        if kv8:
+            scores = scores * cache["key_scale"].squeeze(-1)[:, :, None, None, :]
         col = torch.arange(L, device=q.device)[None, None, :]  # [1,1,L]
         row = positions[:, :, None]  # [B,S,1]
         valid = (col <= row)[:, None, None, :, :]  # [B,1,1,S,L]
         scores = scores.masked_fill(~valid, torch.finfo(torch.float32).min)
         probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
+        if kv8:
+            probs = (probs * cache["value_scale"].squeeze(-1)[:, :, None, None, :]).to(cfg.dtype)
+            cv = cv.to(cfg.dtype)
         return torch.einsum("bkgst,bktd->bskgd", probs, cv).reshape(B, S, H, D)
 
 
@@ -357,17 +403,29 @@ class Llama(nn.Module):
         self.lm_head = nn.Linear(
             cfg.d_model, cfg.vocab_size, bias=False, device=device, dtype=cfg.param_dtype
         )
+        if cfg.quantize:
+            _hold_int8(self.embed)
+            _hold_int8(self.lm_head)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "Llama":
         """Random init with flax's distributions: lecun_normal (truncated
         normal, fan-in scaled) for matmul kernels, normal(1.0) for the
-        embedding, ones for the norms. Draws in f32, then casts."""
+        embedding, ones for the norms. Draws in f32 on ``generator``'s
+        device, one tensor at a time, then copies into the parameter: one
+        seed gives the same weights to a model on the host as on the card
+        when both draw with the card's generator."""
+        if self.cfg.quantize:
+            raise ValueError(
+                "a quantize-mode model cannot init: init the full-precision "
+                "model and quantize its state dict with "
+                "ops.quantize.quantize_state_dict"
+            )
         for name, p in self.named_parameters():
             if name.endswith("norm.weight"):
                 p.fill_(1.0)
                 continue
-            w = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+            w = torch.empty(p.shape, dtype=torch.float32, device=generator.device)
             if name == "embed.weight":
                 w.normal_(0.0, 1.0, generator=generator)
             else:
@@ -384,15 +442,19 @@ class Llama(nn.Module):
         from now on (in place): a serving model pays the cast once at load
         instead of at every call. Norm scales and the LM head keep their
         dtype. Not for training: the optimizer would then update bf16
-        weights."""
+        weights. int8 weights stay int8."""
         for name, p in self.named_parameters():
+            if p.dtype == torch.int8:
+                continue
             if name == "embed.weight" or name.endswith("_proj.weight"):
                 p.data = p.data.to(self.cfg.dtype)
         return self
 
     def head_kernel(self) -> torch.Tensor:
-        """The LM-head weight as [D, V] in its parameter dtype (the JAX
-        layout)."""
+        """The LM-head weight as [D, V] (the JAX layout): in its parameter
+        dtype, or dequantized to f32 from int8."""
+        if self.cfg.quantize:
+            return dequantize(self.lm_head.weight, self.lm_head.scale, torch.float32).t()
         return self.lm_head.weight.t()
 
     def forward(self, tokens, positions=None, *, cache=None, return_hidden: bool = False):
@@ -404,27 +466,46 @@ class Llama(nn.Module):
         # (nn.Embed(dtype=bf16) casts the whole table first). The backward
         # differs only in where it rounds: the rows of repeated tokens are
         # summed in the table's own dtype (f32 for training) and not in bf16.
-        x = F.embedding(tokens, self.embed.weight).to(self.cfg.dtype)
+        if self.cfg.quantize:
+            # Gather the int8 rows and their scales, then dequantize the rows.
+            x = dequantize(
+                F.embedding(tokens, self.embed.weight),
+                F.embedding(tokens, self.embed.scale),
+                self.cfg.dtype,
+            )
+        else:
+            x = F.embedding(tokens, self.embed.weight).to(self.cfg.dtype)
         for i, block in enumerate(self.layers):
             x = block(x, positions, None if cache is None else cache[f"layer_{i}"]["attn"])
         x = self.final_norm(x)
         if return_hidden:
             return x
-        return F.linear(x.float(), self.lm_head.weight.float())
+        if self.cfg.quantize:
+            head = dequantize(self.lm_head.weight, self.lm_head.scale, torch.float32)
+        else:
+            head = self.lm_head.weight.float()
+        return F.linear(x.float(), head)
 
 
 def init_decode_cache(cfg: LlamaConfig, batch: int, device=None):
     """Zero KV cache for :func:`decode_forward`: a flat per-layer dict
     (``layer_0`` .. ``layer_{n-1}``), each ``{"attn": {"cached_key",
     "cached_value"}}`` with slabs ``[B, K, max_decode_len, D]`` in
-    ``cfg.dtype``. The slabs are written in place by every forward."""
+    ``cfg.dtype``; under ``kv_quantize="int8"`` the slabs are int8 and each
+    layer adds ``key_scale``/``value_scale`` ``[B, K, max_decode_len, 1]`` in
+    f32. The slabs are written in place by every forward."""
     shape = (batch, cfg.n_kv_heads, cfg.max_decode_len, cfg.head_dim)
+    kv8 = cfg.kv_quantize == "int8"
 
     def slab():
-        return {
-            "cached_key": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "cached_value": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        s = {
+            name: torch.zeros(shape, dtype=torch.int8 if kv8 else cfg.dtype, device=device)
+            for name in ("cached_key", "cached_value")
         }
+        if kv8:
+            for name in ("key_scale", "value_scale"):
+                s[name] = torch.zeros(shape[:-1] + (1,), dtype=torch.float32, device=device)
+        return s
 
     return {f"layer_{i}": {"attn": slab()} for i in range(cfg.n_layers)}
 

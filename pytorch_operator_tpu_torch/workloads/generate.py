@@ -19,6 +19,7 @@ for the host; with neither and no GPU it raises.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -27,8 +28,9 @@ import numpy as np
 import torch
 
 from ..models import llama as llama_lib
-from ..models.convert import params_from_jax
+from ..models.convert import is_quantized_tree, params_from_jax
 from ..ops import flash_attention as flash_lib
+from ..ops import quantize as quant_lib
 from ..ops.sampling import make_sampler
 from ..runtime import rendezvous
 from ..runtime.device import device_name, resolve_device, synchronize
@@ -97,6 +99,9 @@ def load_params(
     config: str,
     device,
     jax_params=None,
+    quantize: str | None = None,
+    init_host: bool = False,
+    compare_unquantized: bool = False,
     seed: int = 0,
     log=print,
     tag: str = "generate",
@@ -105,18 +110,73 @@ def load_params(
     ``seed`` (flax's distributions), or the weights of a JAX param tree
     (``jax_params``, nested dicts of arrays) through ``params_from_jax``.
     The matmul weights and the embedding are then cast to ``cfg.dtype`` once,
-    so no decode step casts a weight. Returns ``(model, n_params)``."""
-    model = llama_lib.Llama(cfg, device=device)
-    if jax_params is not None:
-        model.load_state_dict(params_from_jax(jax_params, cfg))
-        src = "JAX param tree"
+    so no decode step casts a weight.
+
+    ``quantize="int8"`` (which ``cfg.quantize`` must equal) quantizes the
+    full-precision weights with ``ops.quantize`` and builds an int8 model; a
+    JAX tree already quantized by ``quantize_tree`` is carried across as it
+    is. ``init_host`` builds the full-precision model and quantizes it on
+    the CPU, so only the int8 state reaches ``device`` as a whole: each
+    weight is drawn with ``device``'s generator and moved to the host one at
+    a time, so one seed gives the same weights with and without the flag
+    (the reference's ``jax.random`` does the same). Otherwise the full-precision model is freed
+    once quantized, unless ``compare_unquantized`` keeps it as the control:
+    the bf16 serving model on the same weights, with ``cfg``'s
+    ``kv_quantize``.
+
+    Returns ``(model, n_params)``, and ``(model, n_params, control)`` with
+    ``compare_unquantized``."""
+    if init_host and not quantize:
+        # Host init exists for models whose full-precision weights do not
+        # fit the card; unquantized, they would not fit after the copy either.
+        raise ValueError("init_host requires quantize='int8'")
+    if cfg.quantize != quantize:
+        raise ValueError(f"cfg.quantize={cfg.quantize!r} but quantize={quantize!r}")
+    if compare_unquantized and (not quantize or init_host):
+        # The same-call A/B needs both models resident, which is what
+        # init_host exists to avoid.
+        raise ValueError("compare_unquantized requires quantize and not init_host")
+    device = torch.device(device)
+    fp_cfg = dataclasses.replace(cfg, quantize=None)
+    init_dev = torch.device("cpu") if init_host else device
+    control = None
+    t0 = time.perf_counter()
+    if jax_params is not None and quantize and is_quantized_tree(jax_params):
+        if compare_unquantized:
+            raise ValueError("compare_unquantized needs the full-precision JAX tree")
+        sd = params_from_jax(jax_params, cfg)
+        src = "JAX int8 param tree"
     else:
-        model.init_weights(torch.Generator(device=device).manual_seed(seed))
-        src = "random init — no tokenizer here"
+        fp = llama_lib.Llama(fp_cfg, device=init_dev)
+        if jax_params is not None:
+            fp.load_state_dict(params_from_jax(jax_params, fp_cfg))
+            src = "JAX param tree"
+        else:
+            fp.init_weights(torch.Generator(device=device).manual_seed(seed))
+            src = "random init — no tokenizer here"
+        if not quantize:
+            model = fp
+        else:
+            sd = quant_lib.quantize_state_dict(fp.state_dict())
+            control = fp if compare_unquantized else None
+            del fp
+    if quantize:
+        model = llama_lib.Llama(cfg, device="meta")
+        model.load_state_dict({k: v.to(device) for k, v in sd.items()}, assign=True)
+        del sd
     model.cast_matmul_weights_().requires_grad_(False).eval()
-    n_params = sum(p.numel() for p in model.parameters())
+    sd = model.state_dict()
+    n_params = sum(t.numel() for name, t in sd.items() if not name.endswith(".scale"))
     log(f"[{tag}] config={config}: {n_params / 1e6:.1f}M params ({src})")
-    return model, n_params
+    if quantize:
+        log(
+            f"[{tag}] int8 weight-only quantization: "
+            f"{quant_lib.state_bytes(sd) / 1e9:.2f} GB on {device_name(device)} "
+            f"(f32 would be {4 * n_params / 1e9:.2f} GB) +{time.perf_counter() - t0:.1f}s"
+        )
+    if not compare_unquantized:
+        return model, n_params
+    return model, n_params, control.cast_matmul_weights_().requires_grad_(False).eval()
 
 
 def run(
@@ -129,6 +189,10 @@ def run(
     temperature: float = 0.0,
     top_k: int = 0,
     top_p: float = 1.0,
+    quantize: str | None = None,
+    kv_quantize: str | None = None,
+    init_host: bool = False,
+    compare_unquantized: bool = False,
     seed: int = 0,
     device=None,
     log=print,
@@ -137,49 +201,59 @@ def run(
     cfg = getattr(llama_lib, llama_lib.CONFIGS[config])(
         decode=True,
         max_decode_len=max_decode_len or (prompt_len + max_new_tokens),
+        quantize=quantize,
+        kv_quantize=kv_quantize,
     )
     log(
         f"[generate] config={config} d_model={cfg.d_model} "
         f"layers={cfg.n_layers} batch={batch_size} prompt={prompt_len} "
         f"new={max_new_tokens} T={temperature} attn={cfg.attn_impl} "
-        f"({device_name(dev)})"
+        f"quantize={quantize} kv_quantize={kv_quantize} ({device_name(dev)})"
     )
-    model, n_params = load_params(cfg, config=config, device=dev, seed=seed, log=log)
+    model, n_params, *control = load_params(
+        cfg, config=config, device=dev, quantize=quantize, init_host=init_host,
+        compare_unquantized=compare_unquantized, seed=seed, log=log,
+    )
     prompt = torch.as_tensor(
         np.random.default_rng(seed).integers(0, cfg.vocab_size, (batch_size, prompt_len)),
         dtype=torch.long,
     ).to(dev)
-    gen = make_generate(
-        model, max_new_tokens=max_new_tokens, temperature=temperature,
-        top_k=top_k, top_p=top_p,
-    )
-    cache = init_cache(model, batch_size, prompt_len)
 
-    def generate_once(rep: int):
-        generator = torch.Generator(device=dev).manual_seed(seed + rep)
-        toks, _ = gen(cache, prompt, generator)
-        synchronize(dev)
-        return toks
-
-    t0 = time.perf_counter()
-    launches0 = flash_lib.launch_count
-    toks = generate_once(0)
-    flash_launches = flash_lib.launch_count - launches0
-    log(f"[generate] first generation (kernel build included) +{time.perf_counter() - t0:.1f}s")
-    if toks.shape != (batch_size, max_new_tokens) or not (
-        0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size
-    ):
-        raise RuntimeError(
-            f"generated tokens of shape {tuple(toks.shape)} outside [0, {cfg.vocab_size})"
+    def timed(run_model, label):
+        """First generation (kernel build included), then the best of 3.
+        Reps reuse the cache (every slot the mask reads is rewritten first).
+        Returns (seconds, flash launches of one call, cache)."""
+        gen = make_generate(
+            run_model, max_new_tokens=max_new_tokens, temperature=temperature,
+            top_k=top_k, top_p=top_p,
         )
+        cache = init_cache(run_model, batch_size, prompt_len)
 
-    # Best of 3; reps reuse the cache (every slot the mask reads is
-    # rewritten first).
-    dt = float("inf")
-    for rep in range(3):
+        def generate_once(rep: int):
+            generator = torch.Generator(device=dev).manual_seed(seed + rep)
+            toks, _ = gen(cache, prompt, generator)
+            synchronize(dev)
+            return toks
+
         t0 = time.perf_counter()
-        generate_once(rep + 1)
-        dt = min(dt, time.perf_counter() - t0)
+        launches0 = flash_lib.launch_count
+        toks = generate_once(0)
+        launches = flash_lib.launch_count - launches0
+        log(f"[generate] {label}: first generation (kernel build included) +{time.perf_counter() - t0:.1f}s")
+        if toks.shape != (batch_size, max_new_tokens) or not (
+            0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size
+        ):
+            raise RuntimeError(
+                f"generated tokens of shape {tuple(toks.shape)} outside [0, {cfg.vocab_size})"
+            )
+        best = float("inf")
+        for rep in range(3):
+            t0 = time.perf_counter()
+            generate_once(rep + 1)
+            best = min(best, time.perf_counter() - t0)
+        return best, launches, cache
+
+    dt, flash_launches, cache = timed(model, quantize or "full-precision")
     prefill_s = float("inf")
     with torch.no_grad():
         for _ in range(3):
@@ -187,6 +261,10 @@ def run(
             llama_lib.decode_forward(model, cache, prompt)
             synchronize(dev)
             prefill_s = min(prefill_s, time.perf_counter() - t0)
+    del cache
+    # Same-call A/B: the full-precision control over the same prompt, cache
+    # setting and loop.
+    dt_fp = timed(control[0], "full-precision control")[0] if control else None
 
     new_tokens = batch_size * max_new_tokens
     tps = new_tokens / dt
@@ -199,7 +277,7 @@ def run(
         f"({1000 * dt / max_new_tokens:.2f} ms/step at batch {batch_size}); "
         f"prefill {1000 * prefill_s:.2f} ms; {flash_launches} flash launches per call"
     )
-    return {
+    result = {
         "metric": "llama_decode_tokens_per_sec_per_chip",
         "value": round(tps, 1),
         "unit": "tokens/sec/chip",
@@ -215,6 +293,16 @@ def run(
         "prefill_s": prefill_s,
         "flash_launches_per_generate": flash_launches,
     }
+    if quantize:
+        result["quantize"] = quantize
+        result["weight_mb"] = round(quant_lib.state_bytes(model.state_dict()) / 1e6, 2)
+    if kv_quantize:
+        result["kv_quantize"] = kv_quantize
+    if dt_fp is not None:
+        result["generate_s_unquantized"] = dt_fp
+        result["tokens_per_sec_per_chip_unquantized"] = round(new_tokens / dt_fp, 1)
+        result["int8_speedup"] = round(dt_fp / dt, 3)
+    return result
 
 
 def main(argv=None) -> int:
@@ -239,6 +327,29 @@ def main(argv=None) -> int:
         help="nucleus sampling: smallest token set reaching this "
         "cumulative probability (1.0 = off; needs --temperature > 0)",
     )
+    p.add_argument(
+        "--quantize", choices=["int8"], default=None,
+        help="weight-only quantization: matmul weights, embedding and head "
+        "held int8 on the device with per-row scales, dequantized one layer "
+        "at a time at the use site (ops/quantize.py)",
+    )
+    p.add_argument(
+        "--kv-quantize", choices=["int8"], default=None,
+        help="store the KV cache int8 with per-(token, kv head) scales: "
+        "half the cache memory of bf16",
+    )
+    p.add_argument(
+        "--init-host", action="store_true",
+        help="initialize and quantize on the host CPU and copy only the int8 "
+        "state to the device (for models whose full-precision weights exceed "
+        "its memory); the weights are those of the same --seed without it; "
+        "requires --quantize",
+    )
+    p.add_argument(
+        "--compare-unquantized", action="store_true",
+        help="also time the full-precision (bf16) model on the same weights "
+        "in the same call (the int8 A/B); requires --quantize",
+    )
     p.add_argument("--seed", type=int, default=0)
     p.add_argument(
         "--device", default=None,
@@ -257,6 +368,10 @@ def main(argv=None) -> int:
         temperature=args.temperature,
         top_k=args.top_k,
         top_p=args.top_p,
+        quantize=args.quantize,
+        kv_quantize=args.kv_quantize,
+        init_host=args.init_host,
+        compare_unquantized=args.compare_unquantized,
         seed=args.seed,
         device=args.device,
         log=lambda msg: print(msg, flush=True),

@@ -16,10 +16,12 @@ describe`` and the router read a port replica like a JAX one.
 
 A client: ``Spool(dir).submit(prompt_len=64, max_new_tokens=128)`` then
 ``Spool(dir).wait_response(rid)``. Weights are random, from ``--seed`` (no
-tokenizer here). It runs on ``cuda`` unless ``--device cpu`` or
-``TPUJOB_PLATFORM=cpu`` asks for the host; with neither and no GPU it
-raises. Flags of the JAX workload that this slice does not port are refused
-with the ROADMAP item they wait for (:data:`REFUSED_FLAGS`).
+tokenizer here). ``--quantize int8 --kv-quantize int8`` serves the int8
+stack of ``examples/serve.yaml`` (int8 weights, int8 KV cache). It runs on
+``cuda`` unless ``--device cpu`` or ``TPUJOB_PLATFORM=cpu`` asks for the host;
+with neither and no GPU it raises. Flags of the JAX workload that the port
+does not have yet are refused with the ROADMAP item they wait for
+(:data:`REFUSED_FLAGS`).
 """
 
 from __future__ import annotations
@@ -36,15 +38,13 @@ import numpy as np
 from .. import faults
 from ..models import llama as llama_lib
 from ..obs.trace import serve_span, tracer as _span_tracer
+from ..ops.quantize import state_bytes
 from ..runtime import rendezvous
 from ..runtime.device import device_name, resolve_device
 
-# Flags of the JAX workload that this slice does not port, with the ROADMAP
+# Flags of the JAX workload that the port does not have yet, with the ROADMAP
 # item each waits for. main() accepts them so that it can refuse them by name.
 REFUSED_FLAGS = {
-    "--quantize": "ops/quantize.py: int8 weights and int8 KV",
-    "--kv-quantize": "ops/quantize.py: int8 weights and int8 KV",
-    "--init-host": "ops/quantize.py: int8 weights and int8 KV",
     "--restore": "checkpointing with --restore",
 }
 
@@ -61,6 +61,9 @@ def run(
     top_k: int = 0,
     top_p: float = 1.0,
     eos_token: int | None = None,
+    quantize: str | None = None,
+    kv_quantize: str | None = None,
+    init_host: bool = False,
     max_requests: int = 0,
     warmup: int = 0,
     idle_timeout: float = 0.0,
@@ -82,14 +85,17 @@ def run(
 
     dev = resolve_device(device)
     cfg = getattr(llama_lib, llama_lib.CONFIGS[config])(
-        decode=True, max_decode_len=max_decode_len
+        decode=True, max_decode_len=max_decode_len, quantize=quantize, kv_quantize=kv_quantize,
     )
     log(
         f"[serve] config={config} slots={slots} chunk={chunk} "
-        f"block={block} L={max_decode_len} spool={spool_dir} "
-        f"({device_name(dev)})"
+        f"block={block} L={max_decode_len} quantize={quantize} "
+        f"kv_quantize={kv_quantize} spool={spool_dir} ({device_name(dev)})"
     )
-    model, n_params = load_params(cfg, config=config, device=dev, seed=seed, log=log, tag="serve")
+    model, n_params = load_params(
+        cfg, config=config, device=dev, quantize=quantize, init_host=init_host,
+        seed=seed, log=log, tag="serve",
+    )
     engine = ServingEngine(
         cfg, model, slots=slots, chunk=chunk, block=block,
         temperature=temperature, top_k=top_k, top_p=top_p,
@@ -254,6 +260,8 @@ def run(
         ring_sends=spool.ring_sends,
         device=device_name(dev),
     )
+    if quantize:
+        stats["weight_mb"] = round(state_bytes(model.state_dict()) / 1e6, 2)
     spool.close()
     # One device per process (multi-GPU worlds are not ported yet).
     if stats["decode_tokens_per_sec"]:
@@ -334,6 +342,9 @@ def main(argv=None) -> int:
         top_k=args.top_k,
         top_p=args.top_p,
         eos_token=args.eos_token,
+        quantize=args.quantize,
+        kv_quantize=args.kv_quantize,
+        init_host=args.init_host,
         max_requests=args.max_requests,
         idle_timeout=args.idle_timeout,
         report_every=args.report_every,

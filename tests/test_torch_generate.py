@@ -6,10 +6,13 @@ Greedy rollouts from the same weights (a JAX param tree through
 mirror tests/test_generate.py on the port: the cache-overflow guard, top-k=1
 equals greedy, top-p and top-k keep draws inside their support, bad knobs are
 refused. Sampled tokens are not compared with JAX's: a ``torch.Generator``
-cannot reproduce ``jax.random``'s bits.
+cannot reproduce ``jax.random``'s bits. The int8 flags (``--quantize``,
+``--kv-quantize``, ``--init-host``, ``--compare-unquantized``) report JAX's
+result keys and are refused where JAX refuses them, with its messages.
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -143,3 +146,67 @@ def test_run_cpu_reports_result_keys():
         assert key in r
     assert r["prefill_s"] > 0 and r["flash_launches_per_generate"] == 0
     assert r["device"] == "cpu"
+
+
+def test_main_int8_flags_report_weight_mb_and_speedup(setup, capsys):
+    """The four int8 flags on the CLI: the JAX result keys, ``weight_mb`` the
+    JAX package's ``tree_bytes`` of the quantized tree, ``int8_speedup`` the
+    control's time over the int8 time of the same call."""
+    from pytorch_operator_tpu.ops.quantize import quantize_tree, tree_bytes
+
+    _, tree, _ = setup
+    args = ["--config", "tiny", "--device", "cpu", "--batch-size", "2", "--prompt-len", "8",
+            "--max-new-tokens", "4", "--json"]
+    assert port_generate.main(args + ["--quantize", "int8", "--kv-quantize", "int8",
+                                      "--compare-unquantized"]) == 0
+    r = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (r["quantize"], r["kv_quantize"]) == ("int8", "int8")
+    assert r["weight_mb"] == round(tree_bytes(quantize_tree(tree)) / 1e6, 2)
+    assert r["int8_speedup"] == round(r["generate_s_unquantized"] / r["generate_s"], 3)
+    assert r["tokens_per_sec_per_chip_unquantized"] > 0 and r["value"] > 0
+    assert port_generate.main(args + ["--quantize", "int8", "--init-host"]) == 0
+    r = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert r["quantize"] == "int8" and "int8_speedup" not in r and "kv_quantize" not in r
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [dict(init_host=True), dict(compare_unquantized=True),
+     dict(quantize="int8", init_host=True, compare_unquantized=True)],
+    ids=["init_host_alone", "compare_alone", "compare_with_init_host"],
+)
+def test_run_refuses_what_jax_refuses(kw):
+    with pytest.raises(ValueError) as want:
+        jax_generate.run(config="tiny", prompt_len=4, max_new_tokens=2, log=lambda m: None, **kw)
+    with pytest.raises(ValueError) as got:
+        port_generate.run(config="tiny", prompt_len=4, max_new_tokens=2, device="cpu",
+                          log=lambda m: None, **kw)
+    assert str(got.value) == str(want.value)
+    assert str(got.value) in ("init_host requires quantize='int8'",
+                              "compare_unquantized requires quantize and not init_host")
+
+
+def test_init_host_keeps_only_int8_state(setup):
+    """``init_host``: initialised and quantized on the CPU; the model holds
+    int8 weights and f32 scales (and f32 norms), the control is refused.
+    One seed gives the same int8 state with and without the flag, as
+    ``jax.random`` does for the reference."""
+    cfg = port_llama.llama_tiny(decode=True, max_decode_len=16, quantize="int8")
+    model, n_params = port_generate.load_params(
+        cfg, config="tiny", device="cpu", quantize="int8", init_host=True, seed=3, log=lambda m: None
+    )
+    dtypes = {t.dtype for n, t in model.state_dict().items() if not n.endswith("norm.weight")}
+    assert dtypes == {torch.int8, torch.float32}
+    assert model.layers[0].attn.q_proj.weight.dtype == torch.int8
+    fp, _ = port_generate.load_params(
+        dataclasses.replace(cfg, quantize=None), config="tiny", device="cpu", log=lambda m: None
+    )
+    assert n_params == sum(p.numel() for p in fp.parameters())
+    direct, _ = port_generate.load_params(
+        cfg, config="tiny", device="cpu", quantize="int8", seed=3, log=lambda m: None
+    )
+    want = direct.state_dict()
+    got = model.state_dict()
+    assert got.keys() == want.keys()
+    for name, t in got.items():
+        assert torch.equal(t, want[name]), name

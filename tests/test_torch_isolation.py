@@ -2,7 +2,8 @@
 
 - No module of pytorch_operator_tpu_torch/ (nor chip_smoke.py) imports jax,
   flax, optax, orbax or the JAX package — by AST scan, and by importing every
-  port module in a subprocess where those imports are poisoned.
+  port module in a subprocess where those imports are poisoned; the int8
+  module ``ops/quantize.py`` runs there too.
 - Entry points resolve to CUDA unless the caller asks for the CPU; without a
   GPU they raise. The kernel wrapper raises for tensors it cannot serve, and
   the build raises when nvcc is missing.
@@ -63,6 +64,29 @@ print(len(mods))
     assert int(out.stdout.split()[-1]) >= 12
 
 
+def test_quantize_module_stands_alone():
+    """``ops/quantize.py`` is among the scanned files, and imports, with the
+    model, converter and workloads that use it, where jax and the JAX
+    package are poisoned."""
+    assert PKG / "ops" / "quantize.py" in _port_files()
+    code = f"""
+import sys
+for name in {sorted(FORBIDDEN)!r}:
+    sys.modules[name] = None
+import torch
+from pytorch_operator_tpu_torch.ops import quantize
+from pytorch_operator_tpu_torch.models import convert, llama
+from pytorch_operator_tpu_torch.workloads import generate, serve
+qt = quantize.quantize(torch.ones(2, 3), -1)
+print(qt.q.dtype, convert.is_quantized_tree({{"lm_head": {{"kernel": qt}}}}))
+"""
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["torch.int8", "True"]
+
+
 def _no_gpu():
     if torch.cuda.is_available():
         pytest.skip("this box has a GPU: the no-fallback path is not reachable")
@@ -79,6 +103,20 @@ def test_generate_main_refuses_cpu_fallback(monkeypatch):
         generate.main(["--config", "tiny", "--max-new-tokens", "2", "--prompt-len", "4"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         generate.main(["--config", "tiny", "--device", "cuda"])
+
+
+def test_int8_entry_points_need_a_gpu(monkeypatch, tmp_path):
+    """The int8 stack falls back no more than the bf16 one: without a CPU
+    request its entry points raise on a GPU-less box."""
+    _no_gpu()
+    from pytorch_operator_tpu_torch.workloads import generate, serve
+
+    monkeypatch.delenv("TPUJOB_PLATFORM", raising=False)
+    int8 = ["--quantize", "int8", "--kv-quantize", "int8"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate.main(["--config", "tiny", "--compare-unquantized", *int8])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--spool", str(tmp_path), "--init-host", *int8])
 
 
 @pytest.mark.parametrize(

@@ -135,8 +135,7 @@ def test_config_validation():
     with pytest.raises(ValueError, match="require decode=True"):
         port_llama.llama_tiny(decode_per_row=True)
     for over in (
-        {"n_experts": 4}, {"quantize": "int8"}, {"kv_quantize": "int8"},
-        {"remat": True}, {"attn_impl": "ring"}, {"attn_impl": "ulysses"},
+        {"n_experts": 4}, {"remat": True}, {"attn_impl": "ring"}, {"attn_impl": "ulysses"},
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port_llama.llama_tiny(**over)

@@ -9,8 +9,10 @@ router side and supervisor, on the CPU.
 - ``serve.run`` with a client thread: responses, the status records the
   supervisor folds (``metrics`` and ``serve``, with the JAX field names).
 - A port serve job runs to success under the unchanged supervisor.
+- The int8 stack (``--quantize int8 --kv-quantize int8 --init-host``)
+  answers over the spool with the single-stream rollout's tokens.
 - An injected engine fault answers each in-flight request exactly once with
-  an error; the unported flags are refused by name; without a CPU request
+  an error; the unported flag (``--restore``) is refused by name; without a CPU request
   the entry point needs a GPU; the port's spans load through the JAX loader.
 """
 
@@ -282,12 +284,46 @@ def test_injected_engine_fault_answers_in_flight_once(tmp_path, monkeypatch):
     assert sp.pending_count() == 0 and list(sp.claimed.iterdir()) == []
 
 
-@pytest.mark.parametrize(
-    "flag", [["--quantize", "int8"], ["--kv-quantize", "int8"], ["--init-host"], ["--restore", "ckpt"]]
-)
+@pytest.mark.parametrize("flag", [["--restore", "ckpt"]])
 def test_main_refuses_unported_flags(tmp_path, flag):
     with pytest.raises(NotImplementedError, match=f"{flag[0]} is not ported yet"):
         serve.main(["--spool", str(tmp_path), "--device", "cpu", *flag])
+
+
+def test_main_serves_the_int8_stack_over_the_spool(tmp_path, capsys):
+    """``--quantize int8 --kv-quantize int8 --init-host`` (examples/serve.yaml's
+    int8 stack): every request answered over the spool, each one's tokens
+    those of the single-stream rollout on the same int8 weights and int8
+    cache, and ``weight_mb`` in the stats."""
+    import torch
+
+    from pytorch_operator_tpu_torch.models import llama as port_llama
+    from pytorch_operator_tpu_torch.workloads import generate
+
+    sp = Spool(tmp_path / "spool")
+    got = {}
+    plan = [dict(prompt=[5, 9, 2, 7, 1], max_new_tokens=6), dict(prompt=list(range(11)), max_new_tokens=9)]
+    t = _client(sp, plan, got)
+    assert serve.main([
+        "--config", "tiny", "--spool", str(sp.root), "--device", "cpu", "--slots", "2",
+        "--chunk", "8", "--block", "4", "--max-decode-len", "48", "--max-requests", "2",
+        "--idle-timeout", "60", "--quantize", "int8", "--kv-quantize", "int8", "--init-host",
+        "--json",
+    ]) == 0
+    t.join(timeout=120)
+    assert not t.is_alive() and len(got) == 2
+    stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert stats["served"] == 2 and stats["rejected"] == 0 and stats["weight_mb"] > 0
+    cfg = port_llama.llama_tiny(decode=True, max_decode_len=48, quantize="int8", kv_quantize="int8")
+    model, _ = generate.load_params(
+        cfg, config="tiny", device="cpu", quantize="int8", init_host=True, log=lambda m: None
+    )
+    want = {}
+    for kw in plan:
+        gen = generate.make_generate(model, max_new_tokens=kw["max_new_tokens"])
+        toks, _ = gen(generate.init_cache(model, 1), torch.tensor([kw["prompt"]]), torch.Generator())
+        want[len(kw["prompt"])] = toks[0].tolist()
+    assert {r["prompt_len"]: r["tokens"] for r in got.values()} == want
 
 
 def test_main_without_cpu_request_needs_a_gpu(tmp_path, monkeypatch):

@@ -5,7 +5,9 @@ against the JAX package's, on the CPU.
 with ``params_from_jax``. Greedy tokens of the port engine must equal the JAX
 ``ServingEngine``'s token for token (mixed prompt lengths through 3 slots,
 and 5 requests through 2 reused slots: chunk 8, block 4, max_decode_len 48),
-and each request's single-stream rollout (the port's ``make_generate``).
+and each request's single-stream rollout (the port's ``make_generate``), in
+full precision and with the int8 stack (int8 weights and int8 KV on one
+quantized tree).
 Validation messages and the ``stats()`` keys are the JAX engine's. Sampled
 tokens are not compared with JAX's: a ``torch.Generator`` cannot reproduce
 ``jax.random``'s bits.
@@ -291,3 +293,37 @@ def test_engine_positions_pass_the_debug_checks(model, monkeypatch):
     monkeypatch.setenv("TPUJOB_DEBUG_CHECKS", "1")
     got = {rid: r.tokens for rid, r in _serve(_engine(model, slots=2), reqs).items()}
     assert got == want
+
+
+def test_int8_stack_composes(tree):
+    """The serving stack's production config, int8 weights and int8 KV,
+    through the engine (tests/test_serving_engine.py's test of this name):
+    the port engine's tokens equal the JAX engine's and the single-stream
+    rollout's on the same quantized tree (``jax.jit(quantize_tree)``, as the
+    JAX load_params makes it, carried across bit for bit). The engine's two
+    variants share the int8 weights and their scales."""
+    import jax
+
+    from pytorch_operator_tpu.ops.quantize import quantize_tree
+
+    qtree = jax.device_get(jax.jit(quantize_tree)(tree))
+    over = dict(decode=True, max_decode_len=L, quantize="int8", kv_quantize="int8")
+    jcfg = jax_llama.llama_tiny(**over)
+    cfg = port_llama.llama_tiny(**over)
+    model, _ = port_generate.load_params(
+        cfg, config="tiny", device="cpu", jax_params=qtree, quantize="int8", log=lambda msg: None
+    )
+    reqs = _prompts([(7, 6), (12, 8), (5, 4)], seed=2)
+    want = _serve(JaxEngine(jcfg, qtree, slots=2, chunk=8, block=4), reqs, JaxRequest)
+    eng = _engine(model, slots=2)
+    got = _serve(eng, reqs)
+    assert sorted(got) == sorted(want) == ["r0", "r1", "r2"]
+    for i, (prompt, n) in enumerate(reqs):
+        rid = f"r{i}"
+        assert got[rid].tokens == want[rid].tokens, rid
+        assert got[rid].tokens == _rollout(model, prompt, n), rid
+    layer = eng._cache["layer_0"]["attn"]
+    assert layer["cached_key"].dtype == torch.int8 and layer["key_scale"].shape == (2, 2, L, 1)
+    for name, t in model.state_dict().items():
+        for variant in (eng._decode_model, eng._prefill_model):
+            assert variant.state_dict()[name].data_ptr() == t.data_ptr(), name
