@@ -14,23 +14,24 @@ Phases, in order; any failure exits non-zero before the result line:
    whole tensor, its late half and per row; o and lse by their largest
    absolute error); kernel, plain-version and library
    (``scaled_dot_product_attention``, timed only) times at the generate
-   prefill's shape, at the training shape and at phase 7's 1b prefill shape
-   (B8 S128 H16 KH8 D128), with achieved TFLOP/s and the wrapper's host time
-   a call.
+   prefill's shape, at the training shape, at phase 7's 1b prefill shape
+   (B8 S128 H16 KH8 D128) and at phase 8's training shape (B16 S1024), with
+   achieved TFLOP/s and the wrapper's host time a call.
 3. The two backward kernels against their plain version
    (``flash_attention_backward_reference``) on the same padded inputs, in the
    listed cases, by ``grad_agreement`` (relative L2 error over the whole
-   gradient, over its late half and per row); at the training shape each
-   kernel's time and host time a call, the plain backward's, SDPA's backward
-   (timed only) and each bound. Then the bf16 gradients of the public, differentiable
+   gradient, over its late half and per row); at the training shape and at
+   phase 8's each kernel's time, the plain backward's, SDPA's backward
+   (timed only) and each bound, and each kernel's host time a call. Then the bf16 gradients of the public, differentiable
    ``flash_attention`` on the card against the plain forward and backward, at
    the training shape and at a padded one.
 4. The generate path: ``workloads.generate.run`` at ``llama_0_3b`` full
    width and depth (batch 8, 512-token prompt, 32 new tokens, random weights
    from a seed), launch counts set to 0 just before and read just after (the
    forward kernel once per layer per prefill); the flash prefill's logits
-   against the dense model's; a profile of one generate call (run after
-   phase 7: no timed run follows a profiler session).
+   against the dense model's; a profile of one generate call of
+   ``PROFILE_STEPS`` decode steps (run after phase 8: no timed run follows
+   a profiler session).
 5. The training path: ``workloads.llama_train.run`` at ``llama_0_3b`` full
    width and depth (batch 4 x 4096 tokens, 1 warmup + 5 steps, AdamW, random
    weights from a seed), launch counts set to 0 just before and read just
@@ -38,7 +39,7 @@ Phases, in order; any failure exits non-zero before the result line:
    the last below the first); one step of flash + chunked loss against dense
    attention + dense loss on the same weights (batch 4 x 1024: the loss, the
    global gradient norm and each layer's q/k/v projection gradients); a
-   profile of one training step (run after phase 7).
+   profile of one training step (run after phase 8).
 6. The serve path, at ``llama_0_3b`` full width and depth (random weights
    from a seed, bf16 weights and cache; 8 slots, chunk 128, block 64,
    ``max_decode_len`` 4096): (a) ``workloads.serve.run`` over the file
@@ -58,7 +59,8 @@ Phases, in order; any failure exits non-zero before the result line:
    chunk, one a token into a second chunk, one at the cache budget, a
    single-token request, more requests than slots), held the same way;
    (c) the admission of 8 prompts (prefill time a chunk), a decode block
-   timed with its peak memory, then (after phase 7) profiled (the card's
+   timed with its peak memory, then (after phase 8) a block of
+   ``PROFILE_STEPS`` steps profiled (the card's
    busy share, kernel launches per decode step, device time by kernel, host
    ops by host time) and timed again after the profiler session.
 7. The int8 serving stack (int8 weights, int8 KV cache) at ``llama_1b`` full
@@ -86,7 +88,32 @@ Phases, in order; any failure exits non-zero before the result line:
    a bf16 engine at 1b, each timed with its peak memory; the device time of
    one step's dequantization and kv8 writes; the int8 block's profile (run
    last).
-8. One ``{"kernels": [...]}`` line, the card's line, and as the last line
+8. The journey, train -> checkpoint -> serve on the repo's own text, at
+   ``llama_0_3b`` full width and depth (bench.py:307-391 on the port): (a)
+   bench.py's corpus (the JAX package's sources and the root ``*.md`` files
+   as bytes, records of 1024, permuted with seed 0, split 90/10, packed);
+   (b) bench.py's training call, ``llama_train.run`` at batch 16 x 1024, 80
+   steps after 2 warmup, cosine schedule, remat ``dots``, checkpoints every
+   80 steps into ``TPUJOB_CHECKPOINT_DIR``, through the native loader,
+   launch counts set to 0 just before and read just after (the forward
+   kernel twice a layer a step under remat, the backward kernels once, the
+   forward once a layer a held-out batch), its held-out loss below chance
+   less one nat; (c) steps 80 and 82 committed with sidecars and verified,
+   82 restored into a fresh model and AdamW bit for bit with the run's
+   eval loss, a corrupt step 82 planted in a copy and caught (fallback to
+   80 with a ``checkpoint_corrupt`` record); one step's loss and gradient
+   norm with remat off, ``dots`` and ``full`` on the trained weights, and
+   each policy's tokens/s and peak memory over 3 timed steps; (d)
+   ``quality_eval.run`` on the checkpoint (bench.py:377-382): fp, int8 and
+   int8 + kv8 held-out losses through the serving path, argmax agreement
+   and drift over a 2,048-token greedy rollout, and the fp serving loss
+   against the training path's on the same rows; (e) ``generate.run``
+   with ``restore`` (bf16, then int8 + kv8) and each model's continuation
+   of a held-out prompt as bytes; ``serve.run`` with ``restore`` on
+   held-out prompts over the spool, every token held by teacher forcing,
+   with the teacher's top-2 margins; a profile of one remat training step
+   (run last).
+9. One ``{"kernels": [...]}`` line, the card's line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -128,6 +155,8 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 # heads; causal kv_len 100 ends inside a dkv CTA's second warpgroup; kv_len
 # 40 leaves that warpgroup wholly masked.
 TRAIN_SHAPE = ("train", 4, 4096, 8, 4, 128, True, None, "bfloat16")
+# The journey's training shape (phase 8): batch 16 x 1024-byte records.
+JOURNEY_SHAPE = ("journey", 16, 1024, 8, 4, 128, True, None, "bfloat16")
 EDGE_CASES = [
     ("S192_causal", 2, 192, 8, 4, 128, True, None, "bfloat16"),
     ("S64_one_tile", 2, 64, 8, 4, 128, True, None, "bfloat16"),
@@ -142,6 +171,7 @@ FLASH_CASES = [
     ("slice", 8, 512, 8, 4, 128, True, None, "bfloat16"),
     TRAIN_SHAPE,
     PREFILL_1B,
+    JOURNEY_SHAPE,
     ("unaligned_S500", 8, 500, 8, 4, 128, True, None, "bfloat16"),
     ("kv_len_noncausal", 4, 512, 8, 4, 128, False, 300, "bfloat16"),
     ("G1", 4, 256, 8, 8, 128, True, None, "bfloat16"),
@@ -165,6 +195,7 @@ FLASH_CASES = [
 # shows.
 BWD_CASES = [
     TRAIN_SHAPE,
+    JOURNEY_SHAPE,
     ("unaligned_S500", 2, 500, 8, 4, 128, True, None, "bfloat16"),
     ("kv_len_noncausal", 2, 512, 8, 4, 128, False, 300, "bfloat16"),
     ("G1", 2, 256, 8, 8, 128, True, None, "bfloat16"),
@@ -197,6 +228,10 @@ TRAIN_QKV_GRAD_RTOL = 5e-2  # readings: median 1.3e-2, worst layer 2.0e-2
 # divides after p·v; dense normalizes, then rounds), which 16 layers carry
 # into the f32 logits.
 LOGITS_TOL = 0.15
+# Decode steps under the profiler (a generate call's, a serve block's): the
+# profiler's post-processing takes about a millisecond an event, and a 1b
+# int8 step launches 1,845 kernels.
+PROFILE_STEPS = 16
 
 
 def _time_ms(fn, reps: int = 20) -> float:
@@ -361,7 +396,7 @@ def phase_flash_vs_plain():
         )
         if not a["ok"]:
             _fail(f"flash_fwd disagrees with its plain version in case {name}")
-        if name in ("slice", "train", "prefill_1b"):
+        if name in ("slice", "train", "prefill_1b", "journey"):
             qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             call = functools.partial(fa.flash_attention_with_lse, q, k, v, causal=causal, kv_len=kv_len)
             ms = _time_ms(call)
@@ -443,7 +478,7 @@ def phase_backward_vs_plain():
             for gname, g, r in zip(("dq", "dk", "dv"), grads, refs)
         }
         del refs
-        if name != "train":
+        if name not in ("train", "journey"):
             continue
         lse_c, delta = lse.contiguous(), fa.bwd_delta(o, do)
         kin = (q, k, v, do, lse_c, delta)
@@ -473,20 +508,27 @@ def phase_backward_vs_plain():
                 f"backward {plain_ms:.4f} ms, SDPA backward {library_ms:.4f} ms, bound "
                 f"{bound_ms:.4f} ms ({bound_by})"
             )
+            readings = {
+                "max_abs_err": err,
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "library_ms": library_ms,
+                "shape": shape,
+            }
+            if name != "train":
+                # The other timed shape's readings, keyed by the case's name.
+                entries[kname].update({f"{name}_{key}": value for key, value in readings.items()})
+                continue
             entries[kname] = {
                 "name": kname,
                 "route": "cuda",
                 "source": "pytorch_operator_tpu_torch/ops/csrc/flash_bwd.cu",
                 "replaces": "pytorch_operator_tpu/ops/flash_attention.py:"
                 + ("156" if kname == "flash_bwd_dq" else "197"),
-                "max_abs_err": err,
-                "ms": ms,
                 "kernel_ms": ms,
-                "plain_ms": plain_ms,
-                "bound_ms": bound_ms,
-                "bound_by": bound_by,
-                "library_ms": library_ms,
-                "shape": shape,
+                **readings,
             }
         _log(
             f"backward {name}: dq + dkv {dq_ms + dkv_ms:.4f} ms (SDPA backward "
@@ -608,7 +650,7 @@ def phase_generate(kernels):
     return _profile_generate
 
 
-def _profile_generate(new_tokens: int = 32):
+def _profile_generate(new_tokens: int = PROFILE_STEPS + 1):
     """Where one generate call's time goes: torch.profiler over one call
     (batch 8, 512-token prompt), device time by kernel and the card's busy
     share of the wall time."""
@@ -827,10 +869,12 @@ def _pct(xs, q: float) -> float:
     return round(xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))], 3)
 
 
-def _teacher_gaps(model):
+def _teacher_gaps(model, margins=None):
     """The dense non-decode model over ``model``'s tensors (no copy). Returns
     ``gaps(prompt, tokens)``: at each generated position, the largest logit
-    less the emitted token's, on the host."""
+    less the emitted token's, on the host. With ``margins`` (a list), each
+    call also appends the largest logit less the second at each position:
+    how far apart the model's choices lie."""
     import dataclasses
 
     import numpy as np
@@ -851,6 +895,9 @@ def _teacher_gaps(model):
         hidden = teacher(torch.from_numpy(seq).long().cuda()[None], return_hidden=True)
         logits = hidden[0, p - 1 :].float() @ head  # [n, V]: position p-1+i predicts token i
         chosen = logits[torch.arange(n), torch.tensor(toks, device="cuda")]
+        if margins is not None:
+            top2 = logits.topk(2, dim=-1).values
+            margins.append((top2[:, 0] - top2[:, 1]).cpu())
         return (logits.max(-1).values - chosen).cpu()
 
     return gaps
@@ -1041,7 +1088,8 @@ def _time_decode_block(engine, what: str):
     finds a free slot), then one decode block over all 8 slots with the
     profiler off: its wall time, and its peak device memory above what was
     resident before it. Returns ``(readings, profile)``: ``profile()``
-    profiles one more block (the card's busy share, kernel launches a decode
+    profiles a block of ``PROFILE_STEPS`` steps (the card's busy share a
+    step against an unprofiled step, kernel launches a decode
     step, device time by kernel, the host ops that take the most host time)
     and times one after the profiler session; it is to run after every timed
     run."""
@@ -1083,18 +1131,22 @@ def _time_decode_block(engine, what: str):
     def profile():
         from torch.profiler import ProfilerActivity, profile as torch_profile
 
+        # A block of PROFILE_STEPS: the readings a step are the same, and the
+        # profiler's post-processing grows with the events it holds.
+        block, engine.block = engine.block, PROFILE_STEPS
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             engine.step()
             wall = time.perf_counter() - t0
+        engine.block = block
         busy_s, launches = _report_profile(
-            prof, wall, f"one {what} decode block ({engine.block} steps x {engine.slots} slots)", top=15
+            prof, wall, f"one {what} decode block ({PROFILE_STEPS} steps x {engine.slots} slots)", top=15
         )
         _log(
             f"serve {what} decode block: {1e3 * off:.2f} ms with the profiler off "
-            f"({1e3 * off / engine.block:.3f} ms a step); device busy {1e3 * busy_s / engine.block:.3f} "
-            f"ms a step, {100 * busy_s / off:.1f}% of the unprofiled block; "
-            f"{launches / engine.block:.1f} kernel launches a decode step"
+            f"({1e3 * off / block:.3f} ms a step); device busy {1e3 * busy_s / PROFILE_STEPS:.3f} "
+            f"ms a step, {100 * busy_s / PROFILE_STEPS / (off / block):.1f}% of an unprofiled step; "
+            f"{launches / PROFILE_STEPS:.1f} kernel launches a decode step"
         )
         host = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU]
         _log(f"host ops of the profiled {what} block by self host time (profiler on):")
@@ -1429,14 +1481,574 @@ def _time_int8_work(model, engine):
     )
 
 
+# Phase 8, the journey: bench.py's real-data leg (bench.py:307-391) on the
+# port. The corpus is the repo's own bytes, byte-level (vocab 256 of the
+# 32,000-entry 0.3b vocabulary), records of 1024 tokens.
+JOURNEY_S = 1024
+JOURNEY_TRAIN = dict(
+    config="0.3b", batch_size=16, seq_len=JOURNEY_S, steps=80, warmup=2, eval_batches=4,
+    lr=3e-4, lr_schedule="cosine", lr_warmup_steps=8, grad_clip=1.0, remat=True,
+    remat_policy="dots", donate=True, checkpoint_every=80,
+)
+JOURNEY_QUALITY = dict(
+    config="0.3b", eval_batches=2, batch_size=8, chunk=128, drift_tokens=2048,
+    drift_window=256, drift_prompt=128,
+)
+# Held-out loss below chance (ln 256 = 5.545) less one nat: bench.py's
+# ``learned``.
+LEARNED_BELOW = math.log(256) - 1.0
+# One step with remat against one without, on the same weights and batch:
+# the forward is the same launches in the same order, and the backward
+# recomputes each block's forward from the same inputs with the same
+# kernels, so both should be exact; a reordered f32 sum would move the mean
+# loss by ~1e-7 and the global norm (0.3 B f32 squares) by far less than a
+# bf16 ulp (2^-8 = 3.9e-3), the bounds held here.
+REMAT_LOSS_RTOL = 1e-5
+REMAT_GRAD_NORM_RTOL = 1e-3
+# The fp serving path (bf16 cache attention, f32 logits, F.cross_entropy)
+# against the training path (flash kernel, chunked loss) on the same trained
+# weights and rows: both round bf16 at other points, which 16 layers carry
+# into each position's loss; the mean over 16 x 1023 positions is held here,
+# unrounded. On trained weights the two lie 2.8e-5 to 7.8e-5 apart, either
+# way (PERF.md); the limit is about four times that, and _serving_faults'
+# gated fault must fail it.
+SERVE_TRAIN_LOSS_TOL = 3e-4
+# Flash launches a step of the 0.3b model: each block once in the forward,
+# once more in the remat recompute; each backward kernel once a block.
+def _per_step(n_layers: int, remat: bool) -> dict:
+    return {"flash_fwd": (2 if remat else 1) * n_layers, "flash_bwd_dq": n_layers,
+            "flash_bwd_dkv": n_layers}
+
+
+def _journey_corpus(td):
+    """bench.py's corpus (bench.py:322-342): the bytes of the JAX package's
+    sources and the root ``*.md`` files, sorted, cut into records of
+    ``JOURNEY_S`` bytes, permuted with ``default_rng(0)``, split 90/10 and
+    packed with the port's ``pack_arrays``. Returns (train, eval) paths and
+    the held-out records."""
+    import glob
+    from pathlib import Path
+
+    import numpy as np
+
+    from pytorch_operator_tpu_torch.data import pack_arrays
+
+    root = Path(__file__).resolve().parent
+    paths = sorted(glob.glob(str(root / "pytorch_operator_tpu/**/*.py"), recursive=True)) + sorted(
+        glob.glob(str(root / "*.md"))
+    )
+    data = b"".join(Path(p).read_bytes() for p in paths)
+    n = len(data) // JOURNEY_S
+    arr = np.frombuffer(data[: n * JOURNEY_S], np.uint8).astype(np.int32).reshape(n, JOURNEY_S)
+    arr = arr[np.random.default_rng(0).permutation(n)]
+    split = max(16, int(n * 0.9))
+    train_f, eval_f = Path(td) / "train.bin", Path(td) / "eval.bin"
+    pack_arrays(train_f, {"tokens": arr[:split]})
+    pack_arrays(eval_f, {"tokens": arr[split:]})
+    _log(f"journey corpus: {len(paths)} files, {len(data):,} bytes, {n} records of {JOURNEY_S}: "
+         f"{split} for training, {n - split} held out")
+    return str(train_f), str(eval_f), arr[split:]
+
+
+def _eval_rows(eval_f: str, batch: int, batches: int):
+    """The held-out rows that a loader of ``eval_f`` with seed 1 yields first
+    (what llama_train's eval and quality_eval read), copied out of the slot."""
+    import numpy as np
+
+    from pytorch_operator_tpu_torch.data import open_loader
+
+    loader = open_loader(eval_f, batch, seed=1)
+    try:
+        return np.concatenate(
+            [np.array(loader.next_batch()[2]["tokens"], np.int32, copy=True) for _ in range(batches)]
+        )
+    finally:
+        loader.close()
+
+
+def phase_journey(kernels):
+    """Phase 8: train -> checkpoint -> serve on the repo's own text, at
+    llama_0_3b full width and depth. (a) the corpus; (b) bench.py's
+    training call through the native loader with remat ``dots``; (c) the
+    checkpoints 80 and 82, restored bit for bit, and a planted corrupt step
+    caught; the remat A/B; (d) quality_eval on the checkpoint; (e) generate
+    and serve on the restored weights, every served token teacher-forced.
+    Returns the profile of one remat training step, to run last."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pytorch_operator_tpu_torch.checkpoint import CheckpointManager, integrity
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+    from pytorch_operator_tpu_torch.ops import flash_attention as fa
+    from pytorch_operator_tpu_torch.workloads import llama_train, quality_eval
+
+    n_layers = llama_lib.llama_0_3b().n_layers
+    td = tempfile.mkdtemp(prefix="chip_smoke_journey_")
+    try:
+        train_f, eval_f, held_out = _journey_corpus(td)
+        ck = os.path.join(td, "ck")
+
+        # (b) Training, as bench.py calls it, with the supervisor's
+        # checkpoint directory set for the call only.
+        prev = os.environ.get("TPUJOB_CHECKPOINT_DIR")
+        os.environ["TPUJOB_CHECKPOINT_DIR"] = ck
+        resident = torch.cuda.memory_allocated()
+        fa.reset_launch_count()
+        t0 = time.perf_counter()
+        try:
+            r = llama_train.run(data_file=train_f, eval_file=eval_f, device="cuda", log=_log,
+                                **JOURNEY_TRAIN)
+        finally:
+            if prev is None:
+                os.environ.pop("TPUJOB_CHECKPOINT_DIR", None)
+            else:
+                os.environ["TPUJOB_CHECKPOINT_DIR"] = prev
+        wall = time.perf_counter() - t0
+        launches = fa.launch_counts()
+        _log(f"journey training path launches: {launches}")
+        _record_launches(kernels, "journey_train", launches)
+        steps = JOURNEY_TRAIN["warmup"] + JOURNEY_TRAIN["steps"]
+        want = _per_step(n_layers, remat=True)
+        eval_fwd = n_layers * JOURNEY_TRAIN["eval_batches"]
+        if r["flash_launches_per_step"] != want or launches != {
+            "flash_fwd": want["flash_fwd"] * steps + eval_fwd,
+            "flash_bwd_dq": want["flash_bwd_dq"] * steps,
+            "flash_bwd_dkv": want["flash_bwd_dkv"] * steps,
+        }:
+            _fail(f"journey training launched {launches} ({r['flash_launches_per_step']} a step), "
+                  f"expected {want} a step over {steps} steps and {eval_fwd} forwards of the eval")
+        learned = r.get("eval_loss") is not None and r["eval_loss"] < LEARNED_BELOW
+        _log(
+            f"journey train 0.3b (B16 x S1024, remat dots, {steps} steps, native loader): "
+            f"{r['value']} tokens/s, step {r['step_s']:.4f} s, peak memory "
+            f"{r['peak_mem_bytes'] / 2**30:.2f} GiB ({resident / 2**30:.2f} GiB of it resident "
+            f"before the call), final_loss {r['final_loss']}, eval_loss "
+            f"{r.get('eval_loss')} (ppl {r.get('eval_perplexity')}), loader {r.get('loader')}, learned "
+            f"{learned} (eval_loss < {LEARNED_BELOW:.3f}); the call's wall {wall:.1f} s; first "
+            f"losses {[round(x, 3) for x in r['losses'][:4]]}, last {round(r['losses'][-1], 4)}"
+        )
+        if r.get("loader") != "native":
+            _fail(f"journey training ran the {r.get('loader')} loader, not the native one")
+        if not learned or not all(math.isfinite(x) for x in r["losses"]):
+            _fail("journey training did not learn: eval_loss not below chance less one nat")
+        torch.cuda.empty_cache()
+
+        # (c) The checkpoints.
+        cfg = llama_lib.llama_0_3b()
+        fresh = llama_lib.Llama(cfg, device="cuda")
+        opt = _journey_restore(ck, fresh, eval_f, r)
+        _journey_planted_fault(ck, td, fresh, opt)
+        del opt
+        torch.cuda.empty_cache()
+        _journey_remat_step(fresh, held_out)
+        del fresh
+        torch.cuda.empty_cache()
+        _journey_remat_ab(train_f)
+
+        # (d) Quality through the serving path.
+        fa.reset_launch_count()
+        q = quality_eval.run(restore=ck, eval_file=eval_f, device="cuda", log=_log, **JOURNEY_QUALITY)
+        launches = fa.launch_counts()
+        _log(f"journey quality path launches: {launches}")
+        _record_launches(kernels, "journey_quality", launches)
+        if launches["flash_fwd"] != n_layers or launches["flash_bwd_dq"] or launches["flash_bwd_dkv"]:
+            _fail(f"quality_eval launched {launches}: expected the rollout's one prefill")
+        _log(
+            f"journey quality (restored step {q['restored_step']}, {q['eval_rows']} held-out rows of "
+            f"{q['eval_seq_len']}): fp {q['fp_eval_loss']}, int8 {q['int8_eval_loss']}, int8_kv8 "
+            f"{q['int8_kv8_eval_loss']}; int8_loss_delta {q['int8_loss_delta']}, int8_kv8_loss_delta "
+            f"{q['int8_kv8_loss_delta']}; argmax agreement int8 {q['int8_eval_argmax_agreement']}, "
+            f"int8_kv8 {q['int8_kv8_eval_argmax_agreement']}; drift {json.dumps(q['drift'])}; greedy fp "
+            f"rollout of {JOURNEY_QUALITY['drift_tokens']} tokens {q['drift_rollout_s']} s"
+        )
+        if not all(math.isfinite(q[f"{v}_eval_loss"]) for v in ("fp", "int8", "int8_kv8")):
+            _fail("quality_eval losses not finite")
+        _journey_serve_vs_train(ck, eval_f, q)
+        torch.cuda.empty_cache()
+
+        # (e) Serving the trained weights.
+        _journey_generate(kernels, ck, held_out)
+        _journey_serve(kernels, ck, held_out)
+    finally:
+        shutil.rmtree(td, ignore_errors=True)
+    return _profile_journey_step
+
+
+def _journey_restore(ck, fresh, eval_f, r):
+    """Steps 80 and 82 committed with their sidecars, the newest verified
+    82; step 82 restored into a fresh model and optimizer on the card equals
+    the checkpoint's tensors bit for bit, and evaluates to the run's
+    ``eval_loss`` on the same held-out batches. Returns the optimizer."""
+    import os
+
+    import torch
+
+    from pytorch_operator_tpu_torch.checkpoint import CheckpointManager, integrity
+    from pytorch_operator_tpu_torch.workloads import trainer
+
+    steps = integrity.list_steps(ck)
+    sidecars = sorted(n for n in os.listdir(ck) if n.endswith(".digest"))
+    mgr = CheckpointManager(ck, create=False)
+    verified = mgr.latest_verified_step()
+    sizes = {n: os.path.getsize(os.path.join(ck, "82", n)) for n in sorted(os.listdir(os.path.join(ck, "82")))}
+    _log(f"journey checkpoints: steps {steps}, sidecars {sidecars}, latest verified {verified}; "
+         f"step 82 files {sizes}")
+    if steps != [80, 82] or sidecars != ["80.digest", "82.digest"] or verified != 82:
+        _fail("the journey's checkpoints are not steps 80 and 82, both verified")
+    opt = trainer.make_optimizer(fresh.parameters(), 3e-4)
+    t0 = time.perf_counter()
+    step, state = mgr.restore_or_none({"params": fresh.state_dict(), "opt_state": opt.state_dict()})
+    fresh.load_state_dict(state["params"])
+    opt.load_state_dict(state["opt_state"])
+    restore_s = time.perf_counter() - t0
+    differ = [n for n, t in state["params"].items() if not torch.equal(fresh.state_dict()[n].cpu(), t)]
+    moments = opt.adamw.state_dict()["state"]
+    saved = state["opt_state"]["adamw"]["state"]
+    differ += [f"opt {i} {k}" for i, st in saved.items() for k, t in st.items()
+               if not torch.equal(moments[i][k].cpu(), t)]
+    rows = _eval_rows(eval_f, JOURNEY_TRAIN["batch_size"], JOURNEY_TRAIN["eval_batches"])
+    eval_step = trainer.make_lm_eval_step(fresh)
+    losses = [float(eval_step(torch.from_numpy(b).cuda().long()))
+              for b in rows.reshape(JOURNEY_TRAIN["eval_batches"], JOURNEY_TRAIN["batch_size"], -1)]
+    eval_loss = sum(losses) / len(losses)
+    _log(f"journey restore of step {step} into a fresh model and AdamW ({restore_s:.2f} s): count "
+         f"{opt.count}, {len(differ)} tensors differ from the checkpoint; eval loss of the restored "
+         f"model {eval_loss:.6f} against the run's {r['eval_loss']}")
+    if step != 82 or differ or opt.count != 82 or round(eval_loss, 4) != r["eval_loss"]:
+        _fail("the restored step 82 is not the trained model")
+    return opt
+
+
+def _journey_planted_fault(ck, td, fresh, opt):
+    """In a copy of the checkpoint directory, ``corrupt_step`` on 82: the
+    restore must fall back to 80 and report ``checkpoint_corrupt``; the
+    original 82 must still verify."""
+    import json as json_
+    import os
+    import shutil
+
+    from pytorch_operator_tpu_torch.checkpoint import CheckpointManager, integrity
+
+    copy = os.path.join(td, "ck_copy")
+    # Hard links for what corrupt_step leaves alone, a real copy of the file
+    # it damages (the largest of step 82: the AdamW moments).
+    shutil.copytree(ck, copy, copy_function=os.link)
+    victim = os.path.join(copy, "82", "opt_state.pt")
+    os.unlink(victim)
+    shutil.copyfile(os.path.join(ck, "82", "opt_state.pt"), victim)
+    damaged = integrity.corrupt_step(copy, 82)
+    status = os.path.join(td, "status")
+    os.makedirs(status)
+    env = {"TPUJOB_STATUS_DIR": status, "TPUJOB_REPLICA_TYPE": "Master", "TPUJOB_REPLICA_INDEX": "0"}
+    prev = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        got = CheckpointManager(copy, create=False).restore_or_none(
+            {"params": fresh.state_dict(), "opt_state": opt.state_dict()}
+        )
+    finally:
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    path = os.path.join(status, "master-0.jsonl")
+    recs = [json_.loads(x) for x in open(path).read().splitlines()] if os.path.exists(path) else []
+    corrupt = [(x["step"], x["fallback"]) for x in recs if x["event"] == "checkpoint_corrupt"]
+    original = integrity.verify_step(ck, 82)
+    _log(f"journey planted fault: corrupt_step(copy, 82) flipped a byte of {os.path.basename(str(damaged))}; "
+         f"restore_or_none fell back to step {None if got is None else got[0]}, checkpoint_corrupt "
+         f"records {corrupt}; the original step 82 verifies {original}")
+    if got is None or got[0] != 80 or corrupt != [(82, 80)] or original is not True:
+        _fail("the planted corrupt step was not caught")
+    shutil.rmtree(copy, ignore_errors=True)
+
+
+def _journey_remat_step(model, held_out):
+    """One step's loss and global gradient norm with remat off, ``dots``
+    and ``full``, on the trained weights and one held-out batch."""
+    import dataclasses
+
+    import torch
+
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+    from pytorch_operator_tpu_torch.workloads import trainer
+
+    toks = torch.from_numpy(held_out[:16]).cuda().long()
+    out = {}
+    for name, over in (("off", dict(remat=False)), ("dots", dict(remat=True, remat_policy="dots")),
+                       ("full", dict(remat=True, remat_policy="full"))):
+        view = llama_lib.Llama(dataclasses.replace(model.cfg, **over), device="meta")
+        view.load_state_dict(model.state_dict(), assign=True)
+        view.train()
+        loss = trainer.make_lm_loss_fn(view)(toks)
+        loss.backward()
+        norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(p.grad) for p in view.parameters()])
+        )
+        out[name] = (float(loss.detach()), float(norm))
+        view.zero_grad(set_to_none=True)
+        del view, loss
+    (l0, g0) = out["off"]
+    for name in ("dots", "full"):
+        l1, g1 = out[name]
+        dl, dg = abs(l1 - l0) / abs(l0), abs(g1 - g0) / g0
+        _log(f"journey remat {name} against off, one step on the trained weights (B16 x S1024): loss "
+             f"{l1:.6f} vs {l0:.6f} (rel {dl:.2e}, tol {REMAT_LOSS_RTOL:.0e}); grad norm {g1:.6f} vs "
+             f"{g0:.6f} (rel {dg:.2e}, tol {REMAT_GRAD_NORM_RTOL:.0e})")
+        if not (dl <= REMAT_LOSS_RTOL and dg <= REMAT_GRAD_NORM_RTOL):
+            _fail(f"remat {name} changes the training step")
+    torch.cuda.empty_cache()
+
+
+def _journey_remat_ab(train_f):
+    """What each remat policy costs on this card: llama_train.run at the
+    journey's shape, 2 warmup + 3 timed steps of the same data, with remat
+    off, ``full`` and ``dots``; flash launches a step checked for each."""
+    import torch
+
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+    from pytorch_operator_tpu_torch.workloads import llama_train
+
+    n_layers = llama_lib.llama_0_3b().n_layers
+    kw = {k: JOURNEY_TRAIN[k] for k in ("config", "batch_size", "seq_len", "lr")}
+    for name, over in (("off", {}), ("full", dict(remat=True, remat_policy="full")),
+                       ("dots", dict(remat=True, remat_policy="dots"))):
+        resident = torch.cuda.memory_allocated()
+        r = llama_train.run(steps=3, warmup=2, data_file=train_f, device="cuda", log=lambda m: None,
+                            **kw, **over)
+        _log(f"journey remat A/B {name}: {r['value']} tokens/s, step {r['step_s']:.4f} s, peak memory "
+             f"{r['peak_mem_bytes'] / 2**30:.2f} GiB ({resident / 2**30:.2f} GiB resident before), "
+             f"flash launches a step {r['flash_launches_per_step']}")
+        if r["flash_launches_per_step"] != _per_step(n_layers, remat=name != "off"):
+            _fail(f"remat {name}: flash launches a step {r['flash_launches_per_step']}")
+        torch.cuda.empty_cache()
+
+
+def _journey_serve_vs_train(ck, eval_f, q):
+    """The fp serving-path loss against the training path's forward (flash
+    kernel, chunked loss) on the same restored weights and held-out rows,
+    within SERVE_TRAIN_LOSS_TOL: the serving pass is quality_eval's fp one,
+    rerun for its unrounded loss. Then the serving pass under each planted
+    numerics fault of :func:`_serving_faults`: those marked so must fail
+    the check, the others show what it cannot see."""
+    import torch
+
+    from pytorch_operator_tpu_torch.checkpoint import CheckpointManager
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+    from pytorch_operator_tpu_torch.workloads import generate, quality_eval, trainer
+
+    rows = _eval_rows(eval_f, JOURNEY_QUALITY["batch_size"], JOURNEY_QUALITY["eval_batches"])
+    tokens = torch.from_numpy(rows).cuda().long()
+    _, params = CheckpointManager(ck, create=False).restore_subtree("params")
+    model = llama_lib.Llama(llama_lib.llama_0_3b(), device="cuda")
+    model.load_state_dict(params)
+    loss = float(trainer.make_lm_eval_step(model)(tokens))
+    del model, params
+    # quality_eval's cache length, so that its fp pass is the one rerun here.
+    L = max(rows.shape[1], JOURNEY_QUALITY["drift_prompt"] + JOURNEY_QUALITY["drift_tokens"])
+    cfg = llama_lib.llama_0_3b(decode=True, max_decode_len=L)
+    served, *_ = generate.load_params(cfg, config="0.3b", device="cuda", restore=ck, log=_log,
+                                      tag="quality")
+    sd = served.state_dict()
+
+    def serving_loss():
+        return quality_eval.eval_serving_stream(cfg, sd, tokens, chunk=JOURNEY_QUALITY["chunk"])[0]
+
+    sound = serving_loss()
+    diff = abs(sound - loss)
+    _log(f"journey serving path against training path, same weights and {len(rows)} rows: fp serving "
+         f"loss {sound:.7f} (quality_eval's {q['fp_eval_loss']}) vs training forward {loss:.7f} (diff "
+         f"{diff:.2e}, tol {SERVE_TRAIN_LOSS_TOL:.0e})")
+    if not abs(sound - q["fp_eval_loss"]) <= 5.1e-5:
+        _fail("the serving pass rerun disagrees with quality_eval's fp loss at its 4 decimals")
+    if not diff <= SERVE_TRAIN_LOSS_TOL:
+        _fail("the serving path's loss disagrees with the training path's on trained weights")
+    missed = []
+    for name, fault, must_fail in _serving_faults(quality_eval):
+        with fault:
+            d = abs(serving_loss() - loss)
+        _log(f"journey planted serving fault ({name}): diff {d:.2e} from the training path "
+             f"({'must exceed' if must_fail else 'ungated, against'} tol {SERVE_TRAIN_LOSS_TOL:.0e})")
+        if must_fail and not d > SERVE_TRAIN_LOSS_TOL:
+            missed.append(name)
+    del served, sd
+    if missed:
+        _fail(f"the serving-vs-training check misses planted faults: {missed}")
+
+
+def _serving_faults(quality_eval):
+    """Numerics faults planted in the serving pass, one at a time, as
+    ``(name, context manager, whether the check must catch it)``: each
+    rounds one f32 input of the fp serving path to bf16. On that pass the
+    rotary embedding alone calls ``torch.cos``/``sin`` and ``_cache_attend``
+    alone ``torch.softmax``. A single bf16 rounding of the logits or the
+    scores moves the loss by about as much as the two paths differ, so the
+    check cannot see those; rotary angles in bf16 (positions past 256 lose
+    their integer step) it must."""
+    import types
+    from unittest import mock
+
+    import torch
+    import torch.nn.functional as F
+
+    def bf16_in(fn):
+        return lambda t, *a, **kw: fn(t.to(torch.bfloat16).float(), *a, **kw)
+
+    return [
+        ("the rotary angles rounded to bf16", mock.patch.multiple(
+            torch, cos=bf16_in(torch.cos), sin=bf16_in(torch.sin)), True),
+        ("logits rounded to bf16 before the cross-entropy", mock.patch.object(
+            quality_eval, "F", types.SimpleNamespace(cross_entropy=bf16_in(F.cross_entropy))), False),
+        ("attention scores rounded to bf16 before the softmax",
+         mock.patch.object(torch, "softmax", bf16_in(torch.softmax)), False),
+    ]
+
+
+def _bytes_text(toks) -> str:
+    return bytes(int(t) for t in toks if 0 <= t < 256).decode("utf-8", "replace")
+
+
+def _journey_generate(kernels, ck, held_out):
+    """``generate.run(restore=...)`` bf16, then int8 + kv8 (the entry point
+    on its random prompts), then each model's greedy continuation of a
+    held-out prompt, printed as bytes."""
+    import torch
+
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+    from pytorch_operator_tpu_torch.ops import flash_attention as fa
+    from pytorch_operator_tpu_torch.workloads import generate
+
+    prompt = torch.from_numpy(held_out[0:1, :256]).cuda().long()
+    for name, kw in (("bf16", {}), ("int8 + kv8", INT8)):
+        fa.reset_launch_count()
+        r = generate.run(config="0.3b", batch_size=8, prompt_len=256, max_new_tokens=64, restore=ck,
+                         device="cuda", log=_log, **kw)
+        launches = fa.launch_counts()
+        _record_launches(kernels, f"journey_generate_{'bf16' if not kw else 'int8'}", launches)
+        _log(f"journey generate --restore {name}: restored_step {r['restored_step']}, {r['value']} tok/s, "
+             f"prefill_s {r['prefill_s']:.5f}, launches {launches}")
+        if r["restored_step"] != 82 or launches["flash_fwd"] != 7 * llama_lib.llama_0_3b().n_layers:
+            _fail(f"generate --restore {name}: restored_step {r['restored_step']}, launches {launches}")
+        cfg = llama_lib.llama_0_3b(decode=True, max_decode_len=256 + 192, **kw)
+        model, _, _ = generate.load_params(cfg, config="0.3b", device="cuda", restore=ck, log=_log, **(
+            {"quantize": "int8"} if kw else {}))
+        toks, _ = generate.make_generate(model, max_new_tokens=192)(
+            generate.init_cache(model, 1), prompt, torch.Generator("cuda")
+        )
+        _log(f"journey generate {name}, held-out prompt {_bytes_text(held_out[0, 192:256])!r} -> "
+             f"{_bytes_text(toks[0].tolist())!r}")
+        del model
+        torch.cuda.empty_cache()
+
+
+def _journey_serve(kernels, ck, held_out):
+    """``serve.run(restore=...)`` over the file spool on held-out prompts,
+    every emitted token teacher-forced on the restored weights (the dense
+    model), with the teacher's top-2 margin at each position."""
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+    from pytorch_operator_tpu_torch.ops import flash_attention as fa
+    from pytorch_operator_tpu_torch.serving import Spool
+    from pytorch_operator_tpu_torch.workloads import generate, serve
+
+    rng = np.random.default_rng(8)
+    shapes = [(int(rng.integers(96, 769)), int(rng.integers(64, 193))) for _ in range(12)]
+    prompts = [held_out[1 + i, :p].tolist() for i, (p, _) in enumerate(shapes)]
+    got, errors = {}, []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_journey_serve_") as spool_dir:
+        spool = Spool(spool_dir)
+
+        def client():
+            try:
+                ids = [spool.submit(prompt=pr, max_new_tokens=n) for pr, (_, n) in zip(prompts, shapes)]
+                for i, rid in enumerate(ids):
+                    got[i] = spool.wait_response(rid, timeout=900)
+            except Exception as e:  # reported below: the phase fails on it
+                errors.append(repr(e))
+
+        thread = threading.Thread(target=client, daemon=True)
+        thread.start()
+        fa.reset_launch_count()
+        stats = serve.run(config="0.3b", spool_dir=spool_dir, restore=ck, **SERVE_KNOBS,
+                          max_requests=len(shapes), idle_timeout=300, device="cuda", log=_log)
+        launches = fa.launch_counts()
+        thread.join(timeout=120)
+    _record_launches(kernels, "journey_serve", launches)
+    if errors or thread.is_alive() or len(got) != len(shapes):
+        _fail(f"journey serve client failed: {errors or 'still waiting'}")
+    if stats.get("restored_step") != 82 or stats["served"] != len(shapes) or stats["rejected"]:
+        _fail(f"journey serve: {stats}")
+    for i, (p, n) in enumerate(shapes):
+        if len(got[i].get("tokens") or []) != n:
+            _fail(f"journey serve request {i}: {got[i]}")
+    _log(f"journey serve --restore (restored_step {stats['restored_step']}, {len(shapes)} held-out "
+         f"prompts {min(p for p, _ in shapes)}-{max(p for p, _ in shapes)}, "
+         f"{sum(n for _, n in shapes)} new tokens): decode {stats['decode_tokens_per_sec']} tok/s, "
+         f"TTFT p50 {stats['ttft_ms_p50']} ms, TPOT p50 {stats['tpot_ms_p50']} ms; launches {launches}")
+    cfg = llama_lib.llama_0_3b(decode=True, max_decode_len=SERVE_KNOBS["max_decode_len"])
+    model, _, _ = generate.load_params(cfg, config="0.3b", device="cuda", restore=ck, log=_log, tag="serve")
+    margins = []
+    gaps = _teacher_gaps(model, margins)
+    held = {f"held_out{i}": gaps(np.asarray(prompts[i], np.int32), got[i]["tokens"]) for i in got}
+    margins = torch.cat(margins)
+    _log(f"journey teacher's top-2 margin over the served positions (trained weights): min "
+         f"{float(margins.min()):.4f}, 1st percentile {float(margins.quantile(0.01)):.4f}, median "
+         f"{float(margins.median()):.4f}")
+    _log(f"journey served continuation of held-out prompt 0: {_bytes_text(got[0]['tokens'])!r}")
+    _hold_gaps("journey serve --restore (trained weights)", held)
+    del model
+    torch.cuda.empty_cache()
+
+
+def _profile_journey_step(B: int = 16, S: int = JOURNEY_S):
+    """Where one remat ``dots`` training step's time goes at the journey's
+    shape."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+    from pytorch_operator_tpu_torch.workloads import llama_train, trainer
+
+    cfg = llama_lib.llama_0_3b(remat=True, remat_policy="dots")
+    model = _train_model(cfg, seed=4)
+    step = trainer.make_lm_train_step(model, trainer.make_optimizer(model.parameters(), 3e-4))
+    toks = torch.from_numpy(llama_train.synthetic_bigram_batch(B, S, 256, 0)).to("cuda", torch.long)
+    float(step(toks))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(step(toks))
+        wall = time.perf_counter() - t0
+    _report_profile(prof, wall, f"one remat dots training step (B{B} x S{S})", top=15)
+    del model, step
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     card = phase_identity_and_build()
     kernels = phase_flash_vs_plain() + phase_backward_vs_plain()
+    _log(f"phases 1-3: {time.perf_counter() - t_start:.1f} s")
     # Each path's profile runs after every timed run: no timed run follows
     # a profiler session.
-    profiles = [phase_generate(kernels), phase_train(kernels), phase_serve(kernels), phase_int8(kernels)]
+    profiles = []
+    for phase in (phase_generate, phase_train, phase_serve, phase_int8, phase_journey):
+        t0 = time.perf_counter()
+        profiles.append(phase(kernels))
+        _log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
     for run_profile in profiles:
+        t0 = time.perf_counter()
         run_profile()
+        _log(f"{run_profile.__qualname__}: {time.perf_counter() - t0:.1f} s")
     for k in kernels:
         k["launches"] = sum(k["launches_by_path"].values())
         if k["launches"] == 0:
@@ -1444,6 +2056,7 @@ def main() -> int:
 
     import torch
 
+    _log(f"whole run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(

@@ -1,6 +1,7 @@
-"""Jittered exponential backoff — the port's copy of ``Backoff`` from
-``pytorch_operator_tpu/backoff.py``, the schedule the spool's response wait
-and the ring transport's spool-scan gate poll on.
+"""Jittered exponential backoff — the port's copy of ``Backoff`` and
+``retry_call`` from ``pytorch_operator_tpu/backoff.py``: the schedule the
+spool's response wait and the ring transport's spool-scan gate poll on, and
+the checkpoint manager's retry of transient write failures.
 
 Exponential growth, a cap, and DETERMINISTIC jitter derived by hashing
 (seed, attempt), never from a PRNG or the clock, so both packages sleep the
@@ -11,7 +12,9 @@ from __future__ import annotations
 
 import hashlib
 import math
+import time
 from dataclasses import dataclass
+from typing import Callable, Optional, Tuple, Type
 
 
 @dataclass(frozen=True)
@@ -49,3 +52,28 @@ class Backoff:
 
     def delays(self, attempts: int):
         return [self.delay(a) for a in range(attempts)]
+
+
+def retry_call(
+    fn: Callable,
+    *,
+    backoff: Backoff,
+    attempts: int,
+    retry_on: Tuple[Type[BaseException], ...] = (Exception,),
+    on_retry: Optional[Callable[[BaseException, int], None]] = None,
+):
+    """Call ``fn`` until it returns, retrying ``retry_on`` failures on the
+    backoff schedule; after ``attempts`` calls re-raise the last failure.
+    ``on_retry(exc, attempt)`` runs before each sleep (e.g. removing a
+    partly written checkpoint step so that the retry starts clean)."""
+    attempt = 0
+    while True:
+        try:
+            return fn()
+        except retry_on as e:
+            attempt += 1
+            if attempt >= attempts:
+                raise
+            if on_retry is not None:
+                on_retry(e, attempt)
+            time.sleep(backoff.delay(attempt - 1))

@@ -1,6 +1,7 @@
-"""The serving engine's fault-injection site — the port's copy of the one
-site of ``pytorch_operator_tpu/faults/`` that a serve replica runs:
-:func:`engine_step_check` and :class:`InjectedFault`.
+"""The fault-injection sites of the port's workloads — its copy of the two
+sites of ``pytorch_operator_tpu/faults/`` that they run: the serving
+engine's :func:`engine_step_check` (with :class:`InjectedFault`) and the
+checkpoint manager's :func:`checkpoint_write_fault`.
 
 The plan is read from ``TPUJOB_FAULT_PLAN`` the way the JAX package's
 ``FaultPlan.from_env`` reads it: inline JSON, or ``@/path/to/plan`` (here a
@@ -9,13 +10,18 @@ them into replicas as inline JSON). Every fault is validated as there
 (known kind, no unknown fields, ``nth`` and ``times`` at least 1). A
 ``fail_engine_step`` fault fires on occurrences ``[nth, nth + times)`` of the
 ``engine_step`` site, counted per process; its target is ignored, as at the
-JAX site. Kinds whose sites the port does not have are ignored here, as a
-JAX replica ignores them at this site. No clock and no PRNG: the same plan
-replays the same failures.
+JAX site. The ``fail``/``torn``/``enospc_checkpoint_write`` faults share the
+``checkpoint_write`` site (one save, one occurrence) and, as there, match
+their target against this replica (``TPUJOB_REPLICA_TYPE``/``INDEX``) and
+their ``restart`` against ``TPUJOB_RESTART_COUNT``: a chaos plan fires the
+same saves in both packages. Kinds whose sites the port does not have are
+ignored here, as a JAX replica ignores them at these sites. No clock and no
+PRNG: the same plan replays the same failures.
 """
 
 from __future__ import annotations
 
+import fnmatch
 import json
 import os
 import threading
@@ -112,26 +118,69 @@ def plan_from_env(environ=None) -> Optional[List[Fault]]:
     return [Fault.from_dict(f) for f in d.get("faults", [])]
 
 
+def target_matches(pattern: str, rtype: Optional[str], index) -> bool:
+    """``worker-0`` / ``master-*`` / ``*`` against a replica id; a full
+    replica name (``ns/job-worker-0``) also matches by suffix."""
+    rid = f"{str(rtype or '*').lower()}-{index if index is not None else '*'}"
+    return fnmatch.fnmatch(rid, pattern) or pattern.endswith("-" + rid)
+
+
 class FaultInjector:
-    """Evaluates one plan's ``fail_engine_step`` faults. Thread-safe."""
+    """Evaluates one plan's ``fail_engine_step`` and checkpoint-write faults.
+    Thread-safe."""
 
     def __init__(self, faults: List[Fault]):
         self.faults = faults
         self._lock = threading.Lock()
-        self._occurrences = 0
+        self._occurrences: Dict[str, int] = {}
         self._remaining: Dict[int, int] = {i: f.times for i, f in enumerate(faults)}
+
+    def _occurrence(self, site: str) -> int:
+        """Bump and return the 1-based occurrence count of a site."""
+        n = self._occurrences.get(site, 0) + 1
+        self._occurrences[site] = n
+        return n
 
     def engine_step_fault(self) -> Optional[Fault]:
         """Count one ``engine_step`` occurrence; the fault due at it, if any."""
         with self._lock:
-            self._occurrences += 1
-            n = self._occurrences
+            n = self._occurrence("engine_step")
             for i, f in enumerate(self.faults):
                 if f.kind != "fail_engine_step" or self._remaining[i] <= 0:
                     continue
                 if f.nth <= n < f.nth + f.times:
                     self._remaining[i] -= 1
                     return f
+        return None
+
+    _CHECKPOINT_WRITE_MODES = {
+        "fail_checkpoint_write": "fail",
+        "torn_checkpoint_write": "torn",
+        "enospc_checkpoint_write": "enospc",
+    }
+
+    def checkpoint_write_fault(
+        self, rtype=None, index=None, restart: Optional[int] = None
+    ) -> Optional[str]:
+        """Count one save; the mode due at it: ``"fail"`` (raise once, a
+        retry recovers), ``"torn"`` (corrupt bytes under the fresh sidecar),
+        ``"enospc"`` (every attempt fails, the save is lost), or None. Kinds
+        are tried in that order, each fault's target matched against the
+        replica when there is one (``rtype`` not None)."""
+        with self._lock:
+            n = self._occurrence("checkpoint_write")
+            for kind, mode in self._CHECKPOINT_WRITE_MODES.items():
+                for i, f in enumerate(self.faults):
+                    if f.kind != kind or self._remaining[i] <= 0:
+                        continue
+                    if rtype is not None and not target_matches(f.target, rtype, index):
+                        continue
+                    if not (f.nth <= n < f.nth + f.times):
+                        continue
+                    if f.restart is not None and restart is not None and f.restart != restart:
+                        continue
+                    self._remaining[i] -= 1
+                    return mode
         return None
 
 
@@ -165,3 +214,19 @@ def engine_step_check() -> None:
     f = inj.engine_step_fault()
     if f is not None:
         raise InjectedFault(f"injected engine-step fault {f.label()}")
+
+
+def checkpoint_write_fault() -> Optional[str]:
+    """Checkpoint site: the write fault due at this save (one call is one
+    occurrence), for this replica's identity; None without a plan."""
+    inj = injector()
+    if inj is None:
+        return None
+    rtype = os.environ.get("TPUJOB_REPLICA_TYPE")
+    if rtype is None:
+        return inj.checkpoint_write_fault()
+    return inj.checkpoint_write_fault(
+        rtype,
+        int(os.environ.get("TPUJOB_REPLICA_INDEX", "0")),
+        int(os.environ.get("TPUJOB_RESTART_COUNT", "0")),
+    )

@@ -25,9 +25,13 @@ layer at a time to ``bf16(f32(q) * scale)``; ``kv_quantize="int8"`` stores the
 cache slabs int8 with per-(token, kv head) f32 scales, written at every cache
 write and folded into the scores and probabilities after the dots.
 
+``remat=True`` runs each block under ``torch.utils.checkpoint`` (the JAX
+``nn.remat`` of the block): ``remat_policy="full"`` keeps only the block's
+input, ``"dots"`` also keeps the outputs of its GEMMs (``models/common.py``).
+
 Not in this port yet (each raises ``NotImplementedError`` from the config):
-MoE, ring/ulysses sequence parallelism and remat. Pipeline parallelism has no
-config field; the port has no pp forward. All are queued in ROADMAP.md.
+MoE and ring/ulysses sequence parallelism. Pipeline parallelism has no config
+field; the port has no pp forward. All are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -40,9 +44,11 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from ..ops.flash_attention import flash_attention
 from ..ops.quantize import dequantize, quantize
+from .common import remat_policy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,7 +113,6 @@ class LlamaConfig:
             )
         for field, off, item in (
             ("n_experts", self.n_experts == 0, "MoE"),
-            ("remat", not self.remat, "remat"),
             (
                 "attn_impl",
                 self.attn_impl not in ("ring", "ulysses"),
@@ -121,6 +126,8 @@ class LlamaConfig:
                 )
         if self.attn_impl not in ("dense", "flash"):
             raise ValueError(f"attn_impl={self.attn_impl!r} not in ('dense', 'flash')")
+        if self.remat:
+            remat_policy(self)  # an unknown policy raises here, as in JAX
         if self.n_heads % self.n_kv_heads:
             raise ValueError(
                 f"n_heads={self.n_heads} not a multiple of n_kv_heads={self.n_kv_heads}"
@@ -475,8 +482,13 @@ class Llama(nn.Module):
             )
         else:
             x = F.embedding(tokens, self.embed.weight).to(self.cfg.dtype)
-        for i, block in enumerate(self.layers):
-            x = block(x, positions, None if cache is None else cache[f"layer_{i}"]["attn"])
+        if self.cfg.remat and cache is None and torch.is_grad_enabled():
+            context_fn = remat_policy(self.cfg) or noop_context_fn
+            for block in self.layers:
+                x = checkpoint(block, x, positions, use_reentrant=False, context_fn=context_fn)
+        else:
+            for i, block in enumerate(self.layers):
+                x = block(x, positions, None if cache is None else cache[f"layer_{i}"]["attn"])
         x = self.final_norm(x)
         if return_hidden:
             return x

@@ -27,6 +27,7 @@ import time
 import numpy as np
 import torch
 
+from ..checkpoint import CheckpointManager
 from ..models import llama as llama_lib
 from ..models.convert import is_quantized_tree, params_from_jax
 from ..ops import flash_attention as flash_lib
@@ -98,6 +99,7 @@ def load_params(
     *,
     config: str,
     device,
+    restore: str | None = None,
     jax_params=None,
     quantize: str | None = None,
     init_host: bool = False,
@@ -107,10 +109,13 @@ def load_params(
     tag: str = "generate",
 ):
     """Build the serving model for ``cfg`` on ``device``: random init from
-    ``seed`` (flax's distributions), or the weights of a JAX param tree
-    (``jax_params``, nested dicts of arrays) through ``params_from_jax``.
-    The matmul weights and the embedding are then cast to ``cfg.dtype`` once,
-    so no decode step casts a weight.
+    ``seed`` (flax's distributions), the ``params`` of the newest checkpoint
+    under ``restore`` (a trained run's ``TPUJOB_CHECKPOINT_DIR``; only
+    ``params.pt`` is read, and every name and shape must be ``cfg``'s), or
+    the weights of a JAX param tree (``jax_params``, nested dicts of arrays)
+    through ``params_from_jax``. The matmul weights and the embedding are
+    then cast to ``cfg.dtype`` once, so no decode step casts a weight: a
+    restored model is cast or quantized exactly as a fresh one.
 
     ``quantize="int8"`` (which ``cfg.quantize`` must equal) quantizes the
     full-precision weights with ``ops.quantize`` and builds an int8 model; a
@@ -124,8 +129,8 @@ def load_params(
     the bf16 serving model on the same weights, with ``cfg``'s
     ``kv_quantize``.
 
-    Returns ``(model, n_params)``, and ``(model, n_params, control)`` with
-    ``compare_unquantized``."""
+    Returns ``(model, n_params)``, followed by the control with
+    ``compare_unquantized`` and then the restored step with ``restore``."""
     if init_host and not quantize:
         # Host init exists for models whose full-precision weights do not
         # fit the card; unquantized, they would not fit after the copy either.
@@ -136,10 +141,13 @@ def load_params(
         # The same-call A/B needs both models resident, which is what
         # init_host exists to avoid.
         raise ValueError("compare_unquantized requires quantize and not init_host")
+    if restore is not None and jax_params is not None:
+        raise ValueError("restore and jax_params are exclusive")
     device = torch.device(device)
     fp_cfg = dataclasses.replace(cfg, quantize=None)
     init_dev = torch.device("cpu") if init_host else device
     control = None
+    restored_step = None
     t0 = time.perf_counter()
     if jax_params is not None and quantize and is_quantized_tree(jax_params):
         if compare_unquantized:
@@ -148,7 +156,13 @@ def load_params(
         src = "JAX int8 param tree"
     else:
         fp = llama_lib.Llama(fp_cfg, device=init_dev)
-        if jax_params is not None:
+        if restore is not None:
+            restored_step, params = _restore_params(restore, fp, config)
+            fp.load_state_dict(params)
+            del params
+            src = f"trained checkpoint, step {restored_step}"
+            log(f"[{tag}] restored params from {restore} (step {restored_step})")
+        elif jax_params is not None:
             fp.load_state_dict(params_from_jax(jax_params, fp_cfg))
             src = "JAX param tree"
         else:
@@ -174,9 +188,34 @@ def load_params(
             f"{quant_lib.state_bytes(sd) / 1e9:.2f} GB on {device_name(device)} "
             f"(f32 would be {4 * n_params / 1e9:.2f} GB) +{time.perf_counter() - t0:.1f}s"
         )
-    if not compare_unquantized:
-        return model, n_params
-    return model, n_params, control.cast_matmul_weights_().requires_grad_(False).eval()
+    out = (model, n_params)
+    if compare_unquantized:
+        out += (control.cast_matmul_weights_().requires_grad_(False).eval(),)
+    if restore is not None:
+        out += (restored_step,)
+    return out
+
+
+def _restore_params(restore: str, like, config: str):
+    """``(step, params)`` of the newest checkpoint under ``restore``: the
+    ``params`` alone (the optimizer's moments, twice their bytes, are never
+    read), checked name by name and shape by shape against ``like``'s state
+    dict. Shapes only: a checkpoint trained with bf16 parameters serves too."""
+    with CheckpointManager(restore, create=False) as mgr:
+        try:
+            step, params = mgr.restore_subtree("params")
+        except KeyError as e:
+            raise ValueError(f"checkpoint under {restore} has no 'params': {e}") from None
+    expected = {k: tuple(v.shape) for k, v in like.state_dict().items()}
+    got = {k: tuple(v.shape) for k, v in params.items()}
+    for name in sorted(expected.keys() | got.keys()):
+        if expected.get(name) != got.get(name):
+            raise ValueError(
+                f"checkpoint params don't match --config {config}: first mismatch at "
+                f"{name}: checkpoint has {got.get(name, 'nothing')}, config expects "
+                f"{expected.get(name, 'nothing')}"
+            )
+    return step, params
 
 
 def run(
@@ -193,6 +232,7 @@ def run(
     kv_quantize: str | None = None,
     init_host: bool = False,
     compare_unquantized: bool = False,
+    restore: str | None = None,
     seed: int = 0,
     device=None,
     log=print,
@@ -210,10 +250,12 @@ def run(
         f"new={max_new_tokens} T={temperature} attn={cfg.attn_impl} "
         f"quantize={quantize} kv_quantize={kv_quantize} ({device_name(dev)})"
     )
-    model, n_params, *control = load_params(
-        cfg, config=config, device=dev, quantize=quantize, init_host=init_host,
-        compare_unquantized=compare_unquantized, seed=seed, log=log,
+    model, n_params, *extra = load_params(
+        cfg, config=config, device=dev, restore=restore, quantize=quantize,
+        init_host=init_host, compare_unquantized=compare_unquantized, seed=seed, log=log,
     )
+    control = extra[0] if compare_unquantized else None
+    restored_step = extra[-1] if restore is not None else None
     prompt = torch.as_tensor(
         np.random.default_rng(seed).integers(0, cfg.vocab_size, (batch_size, prompt_len)),
         dtype=torch.long,
@@ -264,7 +306,7 @@ def run(
     del cache
     # Same-call A/B: the full-precision control over the same prompt, cache
     # setting and loop.
-    dt_fp = timed(control[0], "full-precision control")[0] if control else None
+    dt_fp = timed(control, "full-precision control")[0] if control is not None else None
 
     new_tokens = batch_size * max_new_tokens
     tps = new_tokens / dt
@@ -298,6 +340,8 @@ def run(
         result["weight_mb"] = round(quant_lib.state_bytes(model.state_dict()) / 1e6, 2)
     if kv_quantize:
         result["kv_quantize"] = kv_quantize
+    if restored_step is not None:
+        result["restored_step"] = restored_step
     if dt_fp is not None:
         result["generate_s_unquantized"] = dt_fp
         result["tokens_per_sec_per_chip_unquantized"] = round(new_tokens / dt_fp, 1)
@@ -350,6 +394,11 @@ def main(argv=None) -> int:
         help="also time the full-precision (bf16) model on the same weights "
         "in the same call (the int8 A/B); requires --quantize",
     )
+    p.add_argument(
+        "--restore", default=None, metavar="CKPT_DIR",
+        help="serve a trained checkpoint: restore params from the newest step "
+        "under this directory (a llama_train run's TPUJOB_CHECKPOINT_DIR)",
+    )
     p.add_argument("--seed", type=int, default=0)
     p.add_argument(
         "--device", default=None,
@@ -372,6 +421,7 @@ def main(argv=None) -> int:
         kv_quantize=args.kv_quantize,
         init_host=args.init_host,
         compare_unquantized=args.compare_unquantized,
+        restore=args.restore,
         seed=args.seed,
         device=args.device,
         log=lambda msg: print(msg, flush=True),

@@ -16,12 +16,13 @@ describe`` and the router read a port replica like a JAX one.
 
 A client: ``Spool(dir).submit(prompt_len=64, max_new_tokens=128)`` then
 ``Spool(dir).wait_response(rid)``. Weights are random, from ``--seed`` (no
-tokenizer here). ``--quantize int8 --kv-quantize int8`` serves the int8
-stack of ``examples/serve.yaml`` (int8 weights, int8 KV cache). It runs on
-``cuda`` unless ``--device cpu`` or ``TPUJOB_PLATFORM=cpu`` asks for the host;
-with neither and no GPU it raises. Flags of the JAX workload that the port
-does not have yet are refused with the ROADMAP item they wait for
-(:data:`REFUSED_FLAGS`).
+tokenizer here), or a trained run's: ``--restore`` points at a training
+job's checkpoint directory and loads the newest step's params alone (the
+train -> checkpoint -> serve journey). ``--quantize int8 --kv-quantize int8``
+serves the int8 stack of ``examples/serve.yaml`` (int8 weights, int8 KV
+cache), on random or restored weights alike. It runs on ``cuda`` unless
+``--device cpu`` or ``TPUJOB_PLATFORM=cpu`` asks for the host; with neither
+and no GPU it raises.
 """
 
 from __future__ import annotations
@@ -42,13 +43,6 @@ from ..ops.quantize import state_bytes
 from ..runtime import rendezvous
 from ..runtime.device import device_name, resolve_device
 
-# Flags of the JAX workload that the port does not have yet, with the ROADMAP
-# item each waits for. main() accepts them so that it can refuse them by name.
-REFUSED_FLAGS = {
-    "--restore": "checkpointing with --restore",
-}
-
-
 def run(
     *,
     config: str = "tiny",
@@ -64,6 +58,7 @@ def run(
     quantize: str | None = None,
     kv_quantize: str | None = None,
     init_host: bool = False,
+    restore: str | None = None,
     max_requests: int = 0,
     warmup: int = 0,
     idle_timeout: float = 0.0,
@@ -92,9 +87,9 @@ def run(
         f"block={block} L={max_decode_len} quantize={quantize} "
         f"kv_quantize={kv_quantize} spool={spool_dir} ({device_name(dev)})"
     )
-    model, n_params = load_params(
-        cfg, config=config, device=dev, quantize=quantize, init_host=init_host,
-        seed=seed, log=log, tag="serve",
+    model, n_params, *restored = load_params(
+        cfg, config=config, device=dev, restore=restore, quantize=quantize,
+        init_host=init_host, seed=seed, log=log, tag="serve",
     )
     engine = ServingEngine(
         cfg, model, slots=slots, chunk=chunk, block=block,
@@ -262,6 +257,8 @@ def run(
     )
     if quantize:
         stats["weight_mb"] = round(state_bytes(model.state_dict()) / 1e6, 2)
+    if restored:
+        stats["restored_step"] = restored[0]
     spool.close()
     # One device per process (multi-GPU worlds are not ported yet).
     if stats["decode_tokens_per_sec"]:
@@ -297,7 +294,11 @@ def main(argv=None) -> int:
     p.add_argument("--quantize", choices=["int8"], default=None)
     p.add_argument("--kv-quantize", choices=["int8"], default=None)
     p.add_argument("--init-host", action="store_true")
-    p.add_argument("--restore", default=None, metavar="CKPT_DIR")
+    p.add_argument(
+        "--restore", default=None, metavar="CKPT_DIR",
+        help="serve a trained checkpoint: params of the newest step under this "
+        "directory (a llama_train job's TPUJOB_CHECKPOINT_DIR)",
+    )
     p.add_argument(
         "--max-requests", type=int, default=0,
         help="exit after serving N requests (0 = serve forever)",
@@ -324,9 +325,6 @@ def main(argv=None) -> int:
     )
     p.add_argument("--json", action="store_true")
     args = p.parse_args(argv)
-    for flag, item in REFUSED_FLAGS.items():
-        if getattr(args, flag[2:].replace("-", "_")) not in (None, False):
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md: {item})")
     if not args.spool:
         p.error("--spool is required (no TPUJOB_SPOOL_DIR in the environment)")
 
@@ -345,6 +343,7 @@ def main(argv=None) -> int:
         quantize=args.quantize,
         kv_quantize=args.kv_quantize,
         init_host=args.init_host,
+        restore=args.restore,
         max_requests=args.max_requests,
         idle_timeout=args.idle_timeout,
         report_every=args.report_every,

@@ -5,17 +5,19 @@
   eps 1e-8, decoupled weight decay on every parameter), an optional linear
   warmup + cosine decay read at the step count before the update, and an
   optional global-norm clip written as optax's ``clip_by_global_norm``.
-- :func:`make_lm_loss_fn` / :func:`make_lm_train_step`: next-token
-  cross-entropy (dense f32 logits, or the chunked-vocab loss) and one step of
-  it with optional gradient accumulation summed in f32.
+- :func:`make_lm_loss_fn` / :func:`make_lm_train_step` /
+  :func:`make_lm_eval_step`: next-token cross-entropy (dense f32 logits, or
+  the chunked-vocab loss), one step of it with optional gradient
+  accumulation summed in f32, and the held-out loss without gradients.
 - :class:`ProgressHeartbeat`, :func:`heartbeat_reporter` and
-  :func:`throughput_loop`: the timed loop and its live heartbeat.
+  :func:`throughput_loop`: the timed loop, its checkpoint saves and its live
+  heartbeat.
 
 PyTorch runs eagerly, so there is no jit: the model and the optimizer hold
 the state, and ``train_step(tokens)`` updates both in place and returns the
 loss as a device tensor. Not ported here: adafactor (raises), pipeline
-parallelism and MoE aux losses, checkpoint saves inside the loop, profiling,
-and the flight recorder's step spans.
+parallelism and MoE aux losses, profiling, and the flight recorder's step
+spans.
 """
 
 from __future__ import annotations
@@ -91,6 +93,16 @@ class Optimizer:
         self.adamw.zero_grad(set_to_none=True)
         self.count += 1
 
+    def state_dict(self) -> dict:
+        """The optimizer state a checkpoint carries: the update count (the
+        schedule's step, optax's ``count``) and AdamW's moments and
+        bias-correction steps."""
+        return {"count": self.count, "adamw": self.adamw.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.count = int(state["count"])
+        self.adamw.load_state_dict(state["adamw"])
+
 
 def make_optimizer(
     params,
@@ -141,6 +153,19 @@ def make_lm_loss_fn(model) -> Callable[[torch.Tensor], torch.Tensor]:
     return loss_fn
 
 
+def make_lm_eval_step(model) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``eval_step(tokens) -> loss``: the training cross-entropy of
+    :func:`make_lm_loss_fn` without gradients and without an update (the
+    model has no MoE aux term to drop), so ``exp`` of it is a perplexity."""
+    loss_fn = make_lm_loss_fn(model)
+
+    @torch.no_grad()
+    def eval_step(tokens):
+        return loss_fn(tokens)
+
+    return eval_step
+
+
 def make_lm_train_step(model, optimizer: Optimizer, grad_accum: int = 1):
     """``train_step(tokens) -> loss``: gradients of :func:`make_lm_loss_fn`
     and one optimizer update, in place.
@@ -184,23 +209,30 @@ class ProgressHeartbeat:
     """The throttled steps/sec meter behind the live heartbeat:
     ``tick(step, loss_fn)`` fires at most every ``every_s`` seconds, calls
     ``loss_fn()`` (a real device fence), reports the rolling steps/sec over
-    the interval, and returns the time spent reporting so the caller can
-    exclude it. With ``report=None`` every call is a free no-op."""
+    the interval less the time flagged by ``exclude()`` (checkpoint saves,
+    which the final throughput excludes too), and returns the time spent
+    reporting so the caller can exclude it. With ``report=None`` every call
+    is a free no-op."""
 
     def __init__(self, report, every_s: float = 10.0, start_step: int = 0):
         self.report = report
         self.every_s = every_s
         self._t = time.time()
         self._step = start_step
+        self._excl = 0.0
+
+    def exclude(self, dt: float) -> None:
+        self._excl += dt
 
     def tick(self, step: int, loss_fn) -> float:
         if self.report is None or time.time() - self._t < self.every_s:
             return 0.0
         loss = loss_fn()  # fences: all work queued through `step` is done
         now = time.time()
-        self.report(step, loss, (step - self._step) / max(now - self._t, 1e-9))
+        interval = max((now - self._t) - self._excl, 1e-9)
+        self.report(step, loss, (step - self._step) / interval)
         done = time.time()
-        self._t, self._step = done, step
+        self._t, self._step, self._excl = done, step, 0.0
         return done - now  # report time only; the fence was real compute
 
 
@@ -229,6 +261,8 @@ def throughput_loop(
     steps: int,
     warmup: int,
     on_first_step: Optional[Callable[[], None]] = None,
+    checkpoint_every: int = 0,
+    save: Optional[Callable[[int], None]] = None,
     start_step: int = 0,
     log=print,
     progress=None,
@@ -241,9 +275,12 @@ def throughput_loop(
     The first step includes the kernels' build. The warmup steps are outside
     the timed window, which opens after a fence and closes on
     ``float(loss)`` of the last step — a real device-to-host copy, so all
-    queued work is inside it. ``progress(step, loss, steps_per_sec)`` is the
-    live heartbeat (see :class:`ProgressHeartbeat`); its report time is
-    excluded from the window, its fence is not."""
+    queued work is inside it. In the timed loop, ``save(step)`` runs after
+    every step whose count ``step`` is a multiple of ``checkpoint_every``,
+    behind a fence; its time is excluded from the window and from the
+    heartbeat. ``progress(step, loss, steps_per_sec)`` is the live heartbeat
+    (see :class:`ProgressHeartbeat`); its report time is excluded from the
+    window, its fence is not."""
     step = start_step
     losses = []
     t0 = time.time()
@@ -263,6 +300,13 @@ def throughput_loop(
     for _ in range(steps):
         losses.append(train_step(batches(step)))
         step += 1
+        if checkpoint_every and save is not None and step % checkpoint_every == 0:
+            float(losses[-1])  # fence before leaving the hot loop
+            t_save = time.time()
+            save(step)
+            dt_save = time.time() - t_save
+            t_excluded += dt_save
+            hb.exclude(dt_save)
         t_excluded += hb.tick(step, lambda: float(losses[-1]))
     float(losses[-1])
     dt = time.time() - t0 - t_excluded

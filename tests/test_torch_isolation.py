@@ -87,6 +87,36 @@ print(qt.q.dtype, convert.is_quantized_tree({{"lm_head": {{"kernel": qt}}}}))
     assert out.stdout.split() == ["torch.int8", "True"]
 
 
+def test_slice7_modules_stand_alone(tmp_path):
+    """The data layer, the checkpoint manager, remat and quality_eval are
+    among the scanned files, and import and run (a pack, a save and a
+    params-only restore) where jax and the JAX package are poisoned."""
+    for rel in ("data/array_file.py", "data/native_loader.py", "data/pack.py",
+                "checkpoint/integrity.py", "checkpoint/manager.py", "models/common.py",
+                "workloads/quality_eval.py"):
+        assert PKG / rel in _port_files()
+    code = f"""
+import sys
+for name in {sorted(FORBIDDEN)!r}:
+    sys.modules[name] = None
+import numpy as np, torch
+from pytorch_operator_tpu_torch.checkpoint import CheckpointManager
+from pytorch_operator_tpu_torch.data import pack_arrays, read_meta
+from pytorch_operator_tpu_torch.models import common, llama
+from pytorch_operator_tpu_torch.workloads import quality_eval
+pack_arrays({str(tmp_path / "t.bin")!r}, {{"tokens": np.zeros((3, 4), np.int32)}})
+mgr = CheckpointManager({str(tmp_path / "ck")!r})
+mgr.save(5, {{"params": {{"w": torch.ones(2)}}}})
+print(read_meta({str(tmp_path / "t.bin")!r}).n_records, mgr.restore_subtree("params")[0],
+      common.remat_policy(llama.llama_tiny(remat=True)))
+"""
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["3", "5", "None"]
+
+
 def _no_gpu():
     if torch.cuda.is_available():
         pytest.skip("this box has a GPU: the no-fallback path is not reachable")
@@ -117,6 +147,22 @@ def test_int8_entry_points_need_a_gpu(monkeypatch, tmp_path):
         generate.main(["--config", "tiny", "--compare-unquantized", *int8])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--spool", str(tmp_path), "--init-host", *int8])
+
+
+def test_journey_entry_points_need_a_gpu(monkeypatch, tmp_path):
+    """quality_eval, and generate/serve with --restore, fall back no more
+    than the rest: without a CPU request they raise on a GPU-less box."""
+    _no_gpu()
+    from pytorch_operator_tpu_torch.workloads import generate, quality_eval, serve
+
+    monkeypatch.delenv("TPUJOB_PLATFORM", raising=False)
+    ck = str(tmp_path / "ck")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        quality_eval.main(["--restore", ck, "--eval-file", str(tmp_path / "e.bin")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate.main(["--config", "tiny", "--restore", ck])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--spool", str(tmp_path), "--restore", ck])
 
 
 @pytest.mark.parametrize(

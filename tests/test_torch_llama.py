@@ -134,11 +134,12 @@ def test_config_validation():
         port_llama.llama_tiny(prefill_mode="bogus")
     with pytest.raises(ValueError, match="require decode=True"):
         port_llama.llama_tiny(decode_per_row=True)
-    for over in (
-        {"n_experts": 4}, {"remat": True}, {"attn_impl": "ring"}, {"attn_impl": "ulysses"},
-    ):
+    for over in ({"n_experts": 4}, {"attn_impl": "ring"}, {"attn_impl": "ulysses"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port_llama.llama_tiny(**over)
+    # remat is ported; an unknown policy raises, as in JAX.
+    with pytest.raises(ValueError, match="remat_policy"):
+        port_llama.llama_tiny(remat=True, remat_policy="bogus")
     cfg = port_llama.llama_0_3b()
     assert (cfg.d_model, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim) == (
         1024, 16, 8, 4, 128,

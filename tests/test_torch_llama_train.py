@@ -14,6 +14,8 @@ Adam's first update (about lr·sign(g)) has not yet amplified rounding in the
 tiny second moments.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -196,9 +198,9 @@ def test_run_cpu_flash_chunked_and_bf16_params():
 @pytest.mark.parametrize(
     "argv",
     [
-        ["--remat"],
-        ["--checkpoint-every", "5"],
-        ["--data-file", "x.bin"],
+        ["--async-checkpoint"],
+        ["--prefetch", "2"],
+        ["--experts", "4"],
         ["--mesh", "fsdp=2"],
         ["--profile-dir", "p"],
         ["--preempt-at", "3"],
@@ -221,3 +223,212 @@ def test_main_without_cpu_request_needs_a_gpu(monkeypatch, capsys):
     monkeypatch.setenv("TPUJOB_PLATFORM", "cpu")
     assert llama_train.main(["--steps", "1", "--warmup", "1", "--seq-len", "8", "--json"]) == 0
     assert '"metric": "llama_train_tokens_per_sec_per_chip"' in capsys.readouterr().out
+
+
+# ---- slice 7: remat, data and eval files, checkpoint and resume ----
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+@pytest.mark.parametrize("impl", ["flash_chunked", "dense"])
+def test_remat_loss_and_gradients_equal_no_remat(policy, impl):
+    """Each block under torch.utils.checkpoint recomputes the same
+    arithmetic in the same order on the CPU: the loss and every gradient
+    are bit-equal to the run without remat."""
+    attn, xent = ("flash", "chunked") if impl == "flash_chunked" else ("dense", "dense")
+    toks = torch.from_numpy(_batch(0)).long()
+    out = []
+    for remat in (False, True):
+        cfg = port_llama.llama_tiny(remat=remat, remat_policy=policy, attn_impl=attn, xent_impl=xent)
+        model = port_llama.Llama(cfg).init_weights(torch.Generator().manual_seed(0))
+        loss = trainer.make_lm_loss_fn(model)(toks)
+        loss.backward()
+        out.append((loss.detach(), {n: p.grad for n, p in model.named_parameters()}))
+    (l0, g0), (l1, g1) = out
+    assert torch.equal(l0, l1)
+    assert g0.keys() == g1.keys() and all(torch.equal(g0[n], g1[n]) for n in g0)
+
+
+def test_dots_policy_saves_gemm_outputs_only():
+    """The ``dots`` policy keeps ``aten.mm``/``addmm`` outputs and nothing
+    else; ``full`` has no context; an unknown policy raises."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    from pytorch_operator_tpu_torch.models import common
+
+    assert common.remat_policy(port_llama.llama_tiny(remat=True)) is None
+    aten = torch.ops.aten
+    assert common._save_dots(None, aten.mm.default) == CheckpointPolicy.MUST_SAVE
+    assert common._save_dots(None, aten.addmm.default) == CheckpointPolicy.MUST_SAVE
+    for op in (aten.bmm.default, aten.mul.Tensor, aten.silu.default, aten._to_copy.default):
+        assert common._save_dots(None, op) == CheckpointPolicy.PREFER_RECOMPUTE
+    with pytest.raises(ValueError, match="remat_policy"):
+        port_llama.llama_tiny(remat=True, remat_policy="attn")
+
+
+def _pack_tokens(path, toks):
+    from pytorch_operator_tpu_torch.data import pack_arrays
+
+    pack_arrays(path, {"tokens": toks})
+    return str(path)
+
+
+@pytest.fixture
+def token_files(tmp_path):
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, 256, (40, 32)).astype(np.int32)
+    return _pack_tokens(tmp_path / "train.bin", toks), _pack_tokens(tmp_path / "eval.bin", toks[:16])
+
+
+def test_data_and_eval_files_match_jax_run(tmp_path):
+    """``llama_train.run`` on a packed file with a held-out file, from the
+    JAX run's own init (key 0) carried across: the same batches (both
+    packages' native loaders, seed 0 and 1) give the same final loss and
+    eval loss, within the tolerance of the three-step case."""
+    import flax.linen as nn
+    import jax
+
+    from pytorch_operator_tpu.workloads import llama_train as jax_llama_train
+
+    # Records one token wider than seq_len, so that the JAX loop copies each
+    # batch out of the loader's slot: at full width its slice is a view,
+    # which jax.device_put on the CPU aliases while the loader's thread
+    # refills the slot, and its losses then depend on timing.
+    toks = np.random.default_rng(0).integers(0, 256, (40, 33)).astype(np.int32)
+    train_f = _pack_tokens(tmp_path / "train.bin", toks)
+    eval_f = _pack_tokens(tmp_path / "eval.bin", toks[:16])
+    kw = dict(
+        config="tiny", batch_size=8, seq_len=32, steps=3, warmup=1, lr=1e-3,
+        lr_schedule="cosine", lr_warmup_steps=1, grad_clip=1.0, data_file=train_f,
+        eval_file=eval_f, eval_batches=2, log=lambda m: None,
+    )
+    want = jax_llama_train.run(**kw)
+    init = nn.meta.unbox(
+        jax_llama.Llama(jax_llama.llama_tiny()).init(jax.random.key(0), np.zeros((1, 32), np.int32))
+    )["params"]
+    got = llama_train.run(device="cpu", init_params=jax.device_get(init), **kw)
+    assert got["loader"] == "native" and got["end_step"] == want["end_step"] == 4
+    np.testing.assert_allclose(
+        [got["final_loss"], got["eval_loss"], got["eval_perplexity"]],
+        [want["final_loss"], want["eval_loss"], want["eval_perplexity"]], rtol=1e-4,
+    )
+    assert got["eval_loss"] < got["losses"][0]
+
+
+def test_resume_after_max_steps_is_bit_equal_to_an_uninterrupted_run(token_files, tmp_path, monkeypatch):
+    """Stopped by ``max_steps`` at a checkpoint, then resumed (weights, AdamW
+    moments and count restored, the data stream fast-forwarded): the second
+    life's losses and the final checkpoint equal an uninterrupted run's bit
+    for bit."""
+    from pytorch_operator_tpu_torch.checkpoint import CheckpointManager
+
+    train_f, _ = token_files
+    kw = dict(
+        config="tiny", batch_size=8, seq_len=32, warmup=1, steps=5, lr=1e-3,
+        lr_schedule="cosine", lr_warmup_steps=1, lr_decay_steps=6, grad_clip=1.0,
+        data_file=train_f, checkpoint_every=3, device="cpu", log=lambda m: None,
+    )
+    monkeypatch.setenv("TPUJOB_CHECKPOINT_DIR", str(tmp_path / "whole"))
+    whole = llama_train.run(max_steps=6, **kw)
+    monkeypatch.setenv("TPUJOB_CHECKPOINT_DIR", str(tmp_path / "split"))
+    first = llama_train.run(max_steps=3, **kw)
+    logs = []
+    second = llama_train.run(max_steps=6, **{**kw, "log": logs.append})
+    assert (whole["end_step"], first["end_step"], second["end_step"]) == (6, 3, 6)
+    assert any("resumed from checkpoint at step 3" in m for m in logs)
+    assert any("fast-forwarded 3 batches" in m for m in logs)
+    assert first["losses"] == whole["losses"][:3] and second["losses"] == whole["losses"][3:]
+    a = CheckpointManager(tmp_path / "whole", create=False)
+    b = CheckpointManager(tmp_path / "split", create=False)
+    assert a.all_steps() == b.all_steps() == [3, 6]
+    like = {"params": {}, "opt_state": {}}
+    sa, sb = a.restore(like), b.restore(like)
+    for name, t in sa["params"].items():
+        assert torch.equal(sb["params"][name], t), name
+    assert sa["opt_state"]["count"] == sb["opt_state"]["count"] == 6
+    for i, st in sa["opt_state"]["adamw"]["state"].items():
+        for key, t in st.items():
+            assert torch.equal(sb["opt_state"]["adamw"]["state"][i][key], t), (i, key)
+
+
+@pytest.mark.parametrize("bad", [256, -1])
+@pytest.mark.parametrize("flag", ["data_file", "eval_file"])
+def test_out_of_range_token_ids_are_refused_before_training(tmp_path, monkeypatch, bad, flag):
+    toks = np.random.default_rng(0).integers(0, 256, (16, 16)).astype(np.int32)
+    good = _pack_tokens(tmp_path / "good.bin", toks)
+    toks[11, 5] = bad  # one id outside [0, 256), deep in the file
+    wrong = _pack_tokens(tmp_path / "bad.bin", toks)
+    monkeypatch.setattr(
+        llama_train, "throughput_loop", lambda *a, **k: pytest.fail("training ran")
+    )
+    files = {"data_file": good, "eval_file": good, flag: wrong}
+    with pytest.raises(ValueError, match=r"outside the model vocab \[0, 256\)"):
+        llama_train.run(
+            config="tiny", batch_size=4, seq_len=16, steps=1, device="cpu",
+            log=lambda m: None, **files,
+        )
+
+
+def test_main_accepts_the_ported_flags(token_files, tmp_path, monkeypatch, capsys):
+    import json
+
+    train_f, eval_f = token_files
+    monkeypatch.setenv("TPUJOB_CHECKPOINT_DIR", str(tmp_path / "ck"))
+    assert llama_train.main([
+        "--device", "cpu", "--batch-size", "8", "--seq-len", "32", "--steps", "2",
+        "--warmup", "1", "--data-file", train_f, "--eval-file", eval_f, "--eval-batches", "1",
+        "--checkpoint-every", "2", "--max-steps", "3", "--remat", "--remat-policy", "dots",
+        "--donate", "--json",
+    ]) == 0
+    r = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert r["end_step"] == 3 and r["loader"] == "native" and "eval_loss" in r
+    assert r["donate"] == "no-op (torch has no buffer donation)"
+    assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == ["2", "2.digest", "3", "3.digest"]
+    with pytest.raises(ValueError, match="no effect without --remat"):
+        llama_train.main(["--device", "cpu", "--steps", "1", "--remat-policy", "dots"])
+
+
+def test_port_training_job_resumes_under_the_supervisor(token_files, tmp_path):
+    """A port llama_train job under the unchanged supervisor: with
+    ``--checkpoint-every`` it saves into the directory the supervisor
+    injects, the reconciler's own probe (``_latest_verified_step``, the JAX
+    package's ``integrity.latest_verified_step``) reads the port's steps, and
+    the job deleted and submitted again resumes from them."""
+    from pytorch_operator_tpu.api import ProcessTemplate, ReplicaType, Resources
+    from pytorch_operator_tpu.controller import Supervisor
+    from pytorch_operator_tpu.controller.store import job_key
+    from tests.testutil import new_job
+
+    train_f, eval_f = token_files
+    sup = Supervisor(state_dir=tmp_path / "state", poll_interval=0.1)
+    log_path = tmp_path / "state" / "logs" / "default_llama-data-torch-master-0.log"
+    ends = []
+    try:
+        for max_steps in (4, 6):
+            job = new_job(name="llama-data-torch", workers=0)
+            job.spec.port = None
+            job.spec.replica_specs[ReplicaType.MASTER].template = ProcessTemplate(
+                module="pytorch_operator_tpu_torch.workloads.llama_train",
+                args=[
+                    "--config", "tiny", "--batch-size", "8", "--seq-len", "32", "--steps", "10",
+                    "--warmup", "1", "--data-file", train_f, "--eval-file", eval_f,
+                    "--eval-batches", "1", "--checkpoint-every", "2", "--max-steps",
+                    str(max_steps), "--remat", "--json",
+                ],
+                resources=Resources(cpu_devices=1),
+            )
+            done = sup.run(job, timeout=240)
+            log = log_path.read_text()
+            assert done.is_succeeded(), f"log:\n{log[-3000:]}"
+            key = job_key(done)
+            ends.append(sup.reconciler._latest_verified_step(key))
+            # Job-level resume: delete the job (its checkpoints stay) and
+            # submit the spec again.
+            sup.delete_job(key)
+        ckpt = Path(sup.reconciler._checkpoint_dir(key))
+    finally:
+        sup.shutdown()
+    assert ends == [4, 6]
+    assert "resumed from checkpoint at step 4" in log and "(cpu)" in log
+    assert sorted(p.name for p in ckpt.iterdir()) == [
+        "2", "2.digest", "4", "4.digest", "6", "6.digest",
+    ]

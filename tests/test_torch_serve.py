@@ -11,9 +11,11 @@ router side and supervisor, on the CPU.
 - A port serve job runs to success under the unchanged supervisor.
 - The int8 stack (``--quantize int8 --kv-quantize int8 --init-host``)
   answers over the spool with the single-stream rollout's tokens.
+- ``--restore`` serves the params of a checkpoint that the port's
+  llama_train wrote, with the single-stream rollout's tokens.
 - An injected engine fault answers each in-flight request exactly once with
-  an error; the unported flag (``--restore``) is refused by name; without a CPU request
-  the entry point needs a GPU; the port's spans load through the JAX loader.
+  an error; without a CPU request the entry point needs a GPU; the port's
+  spans load through the JAX loader.
 """
 
 import collections
@@ -284,10 +286,53 @@ def test_injected_engine_fault_answers_in_flight_once(tmp_path, monkeypatch):
     assert sp.pending_count() == 0 and list(sp.claimed.iterdir()) == []
 
 
-@pytest.mark.parametrize("flag", [["--restore", "ckpt"]])
-def test_main_refuses_unported_flags(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match=f"{flag[0]} is not ported yet"):
-        serve.main(["--spool", str(tmp_path), "--device", "cpu", *flag])
+def test_main_serves_restored_weights_over_the_spool(tmp_path, capsys, monkeypatch):
+    """``--restore``: a tiny run trained by the port's llama_train with
+    ``--checkpoint-every`` is served over the spool; every answer equals
+    the single-stream rollout on the checkpoint's params, the stats name the
+    step, and the served weights are the checkpoint's (not the seed's)."""
+    import torch
+
+    from pytorch_operator_tpu_torch.checkpoint import CheckpointManager
+    from pytorch_operator_tpu_torch.models import llama as port_llama
+    from pytorch_operator_tpu_torch.workloads import generate, llama_train
+
+    ck = tmp_path / "ck"
+    monkeypatch.setenv("TPUJOB_CHECKPOINT_DIR", str(ck))
+    trained = llama_train.run(
+        config="tiny", batch_size=4, seq_len=16, steps=3, warmup=1, lr=1e-2,
+        checkpoint_every=2, device="cpu", log=lambda m: None,
+    )
+    monkeypatch.delenv("TPUJOB_CHECKPOINT_DIR")
+    assert CheckpointManager(ck, create=False).all_steps() == [2, 4]
+    sp = Spool(tmp_path / "spool")
+    got = {}
+    plan = [dict(prompt=[5, 9, 2, 7, 1], max_new_tokens=6), dict(prompt=list(range(11)), max_new_tokens=9)]
+    t = _client(sp, plan, got)
+    assert serve.main([
+        "--config", "tiny", "--spool", str(sp.root), "--device", "cpu", "--slots", "2",
+        "--chunk", "8", "--block", "4", "--max-decode-len", "48", "--max-requests", "2",
+        "--idle-timeout", "60", "--restore", str(ck), "--json",
+    ]) == 0
+    t.join(timeout=120)
+    assert not t.is_alive() and len(got) == 2
+    stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert stats["served"] == 2 and stats["rejected"] == 0
+    assert stats["restored_step"] == trained["end_step"] == 4
+    cfg = port_llama.llama_tiny(decode=True, max_decode_len=48)
+    model, _, step = generate.load_params(
+        cfg, config="tiny", device="cpu", restore=str(ck), log=lambda m: None
+    )
+    _, params = CheckpointManager(ck, create=False).restore_subtree("params")
+    assert step == 4 and all(torch.equal(model.state_dict()[k], v) for k, v in params.items())
+    fresh, _ = generate.load_params(cfg, config="tiny", device="cpu", log=lambda m: None)
+    assert not torch.equal(fresh.embed.weight, model.embed.weight)
+    want = {}
+    for kw in plan:
+        gen = generate.make_generate(model, max_new_tokens=kw["max_new_tokens"])
+        toks, _ = gen(generate.init_cache(model, 1), torch.tensor([kw["prompt"]]), torch.Generator())
+        want[len(kw["prompt"])] = toks[0].tolist()
+    assert {r["prompt_len"]: r["tokens"] for r in got.values()} == want
 
 
 def test_main_serves_the_int8_stack_over_the_spool(tmp_path, capsys):
