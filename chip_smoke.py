@@ -113,7 +113,35 @@ Phases, in order; any failure exits non-zero before the result line:
    held-out prompts over the spool, every token held by teacher forcing,
    with the teacher's top-2 margins; a profile of one remat training step
    (run last).
-9. One ``{"kernels": [...]}`` line, the card's line, and as the last line
+9. The rest of the training path at ``llama_0_3b`` full width and depth,
+   random weights from a seed, each ``llama_train.run`` with the launch
+   counts set to 0 just before and read just after (each kernel once a layer
+   a step): (a) adafactor (lr ``ADAFACTOR_LR``) and AdamW runs at phase 5's
+   B4 x 4096, 1 warmup + 3 steps (adafactor's losses finite and falling),
+   tokens/s, peak memory and optimizer state bytes of each; one adafactor
+   update on the card held against the same update on the CPU
+   (``ADAFACTOR_CARD_CPU_RTOL``), and each optimizer step's device time by
+   CUDA events; (b) on phase 8's corpus at B16 x 1024 without remat, 2
+   warmup + 20 steps inline, with ``prefetch=2``, and with ``prefetch=2``,
+   autotune, ``prefetch_depth_max=8`` and 2 workers: equal losses step for
+   step, tokens/s and the feed's stall and depth; (c) the inline run, 1 + 9
+   steps, with ``checkpoint_every=5`` into ``TPUJOB_CHECKPOINT_DIR`` and
+   ``TPUJOB_STATUS_DIR`` set, blocking and then async: steps 5 and 10
+   committed with sidecars and verified, one ``checkpoint_committed`` record
+   an async save, each save's return time, the async step 10 restored equal
+   bit for bit to the blocking run's (the same training, saved before its
+   next step); then async under an ``enospc_checkpoint_write`` plan (the
+   save at 10 lost): the run finishes, a ``checkpoint_save_failed`` record,
+   and without the run's final save the restore falls back to step 5; (d)
+   ``python -m ...llama_train`` subprocesses at B4 x 1024, checkpoints every
+   4, ``--preempt-at 6 --max-steps 10``: exit 138 with "injected
+   preemption", then with ``TPUJOB_RESTART_COUNT=1`` a resume at step 4 to
+   10, its losses equal an uninterrupted run's bit for bit; (e) (run last)
+   ``llama_train.run`` with ``profile_dir`` at phase 5's shape and
+   ``profiling.device_report`` on its trace: the three kernels among its
+   ops, its busy time a step within ``PROFILE_BUSY_RTOL`` of phase 5's
+   profile, its top 12 printed.
+10. One ``{"kernels": [...]}`` line, the card's line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -232,6 +260,9 @@ LOGITS_TOL = 0.15
 # profiler's post-processing takes about a millisecond an event, and a 1b
 # int8 step launches 1,845 kernels.
 PROFILE_STEPS = 16
+# Readings of the profiles that a later one is held against (phase 9(e)
+# against phase 5's training step).
+PROFILE_READINGS: dict = {}
 
 
 def _time_ms(fn, reps: int = 20) -> float:
@@ -678,15 +709,19 @@ def _profile_generate(new_tokens: int = PROFILE_STEPS + 1):
 
 
 def _report_profile(prof, wall: float, what: str, top: int = 12) -> tuple:
-    """Device time by kernel from a torch.profiler run, the card's busy
-    share of the wall time, and the number of kernel launches. Returns
+    """Device time by kernel from a torch.profiler run (user annotations'
+    ranges left out: their kernels are counted as themselves), the card's
+    busy share of the wall time, and the number of kernel launches. Returns
     (busy seconds, launches)."""
     import torch
 
+    # A user annotation's range on the card (``Optimizer.step#AdamW.step``)
+    # spans kernels that are rows of their own: not counted twice.
     rows = [
         (e.key, e.device_time_total, e.count)
         for e in prof.key_averages()
         if e.device_time_total > 0 and e.device_type == torch.autograd.DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False)
     ]
     busy_us = sum(t for _, t, _ in rows)
     launches = sum(n for _, _, n in rows)
@@ -826,7 +861,8 @@ def _profile_train(B: int = 4, S: int = 4096):
         t0 = time.perf_counter()
         float(step(toks))
         wall = time.perf_counter() - t0
-    _report_profile(prof, wall, f"one training step (B{B} x S{S})", top=15)
+    busy, _ = _report_profile(prof, wall, f"one training step (B{B} x S{S})", top=15)
+    PROFILE_READINGS["train_busy_s"] = busy
     del model, step
     torch.cuda.empty_cache()
 
@@ -2033,6 +2069,394 @@ def _profile_journey_step(B: int = 16, S: int = JOURNEY_S):
     torch.cuda.empty_cache()
 
 
+# Phase 9, the rest of the training path: adafactor, the device feed, async
+# checkpoints, preemption and profiling, at llama_0_3b full width and depth.
+REST_SHAPE = dict(config="0.3b", batch_size=4, seq_len=4096, warmup=1, steps=3)
+# Adafactor's natural step is larger than AdamW's (optax's note on
+# adafactor's learning rate): an update is about lr times the leaf's RMS.
+ADAFACTOR_LR = 1e-2
+# The journey's shape (B16 x S1024) without remat, on phase 8's corpus.
+FEED_RUN = dict(config="0.3b", batch_size=16, seq_len=JOURNEY_S, warmup=2, steps=20)
+CKPT_RUN = dict(config="0.3b", batch_size=16, seq_len=JOURNEY_S, warmup=1, steps=9,
+                checkpoint_every=5)
+PREEMPT_ARGV = ["--config", "0.3b", "--batch-size", "4", "--seq-len", "1024",
+                "--checkpoint-every", "4", "--max-steps", "10", "--json"]
+# One adafactor update on the card against the same update on the CPU, from
+# the same parameters, statistics and gradients, in f32: each tensor's
+# update within this share of its largest element (means over up to 32,000
+# elements summed in other orders, and pow, differ by ulps).
+ADAFACTOR_CARD_CPU_RTOL = 1e-4
+# The profiled run's device busy time a step against phase 5's profile of
+# one step of the same shape.
+PROFILE_BUSY_RTOL = 0.05
+
+
+def _counted_run(kernels, path: str, total_steps: int, n_layers: int, **kw):
+    """llama_train.run on the card with the launch counts set to 0 just
+    before and read just after; each kernel once a layer a step, over
+    ``total_steps`` (warmup included)."""
+    from pytorch_operator_tpu_torch.ops import flash_attention as fa
+    from pytorch_operator_tpu_torch.workloads import llama_train
+
+    fa.reset_launch_count()
+    r = llama_train.run(device="cuda", log=_log, **kw)
+    launches = fa.launch_counts()
+    _record_launches(kernels, path, launches)
+    want = _per_step(n_layers, remat=False)
+    if launches != {k: v * total_steps for k, v in want.items()}:
+        _fail(f"{path} launched {launches}, expected {want} a step over {total_steps} steps")
+    if not all(math.isfinite(x) for x in r["losses"]):
+        _fail(f"{path} losses not finite: {r['losses']}")
+    return r
+
+
+def phase_rest(kernels):
+    """Phase 9: (a) adafactor beside AdamW; (b) the device feed; (c)
+    asynchronous checkpoints; (d) preemption and resume in subprocesses.
+    Returns (e), the profiled run, to run with the other profiles."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+
+    n_layers = llama_lib.llama_0_3b().n_layers
+    t0 = time.perf_counter()
+    _rest_adafactor(kernels, n_layers)
+    torch.cuda.empty_cache()
+    _log(f"rest (a): {time.perf_counter() - t0:.1f} s")
+    td = tempfile.mkdtemp(prefix="chip_smoke_rest_")
+    try:
+        train_f, _, _ = _journey_corpus(td)
+        for part, run in (
+            ("(b)", lambda: _rest_feed(kernels, n_layers, train_f)),
+            ("(c)", lambda: _rest_async_checkpoint(kernels, n_layers, train_f, td)),
+            ("(d)", lambda: _rest_preemption(td)),
+        ):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.empty_cache()
+            _log(f"rest {part}: {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(td, ignore_errors=True)
+
+    def profile_rest():
+        _profile_rest(kernels, n_layers)
+
+    return profile_rest
+
+
+def _rest_adafactor(kernels, n_layers):
+    """(a) adafactor and AdamW runs of the same length at phase 5's shape:
+    tokens/s, peak memory, optimizer state bytes; one update on the card
+    against the CPU; each optimizer step's device time."""
+    steps = REST_SHAPE["warmup"] + REST_SHAPE["steps"]
+    runs = {}
+    for opt, lr in (("adafactor", ADAFACTOR_LR), ("adamw", 3e-4)):
+        r = _counted_run(kernels, f"rest_{opt}", steps, n_layers, optimizer=opt, lr=lr, **REST_SHAPE)
+        runs[opt] = r
+        _log(
+            f"rest (a) {opt} 0.3b (B4 x S4096, lr {lr}): {r['value']} tokens/s, step "
+            f"{r['step_s']:.4f} s, peak memory {r['peak_mem_bytes'] / 2**30:.2f} GiB, optimizer "
+            f"state {r['optimizer_state_bytes']:,} bytes, losses {[round(x, 4) for x in r['losses']]}"
+        )
+    losses = runs["adafactor"]["losses"]
+    if not losses[-1] < losses[0]:
+        _fail(f"adafactor training loss did not fall: {losses}")
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+
+    a, w = runs["adafactor"]["optimizer_state_bytes"], runs["adamw"]["optimizer_state_bytes"]
+    n = sum(p.numel() for p in llama_lib.Llama(llama_lib.llama_0_3b(), device="meta").parameters())
+    _log(f"rest (a) optimizer state: adafactor {a:,} bytes, AdamW {w:,} bytes "
+         f"(2N f32 = {8 * n:,}); ratio {a / w:.5f}")
+    if not a < w:
+        _fail("adafactor's state is not smaller than AdamW's")
+    _adafactor_card_vs_cpu()
+
+
+def _adafactor_card_vs_cpu(reps: int = 5):
+    """One adafactor update on the card against the same update on the CPU
+    (f32 parameters, statistics after one step, new gradients), and the
+    device time of each optimizer's step on the 0.3b parameters (CUDA events
+    around ``step()``; the gradients are set before each)."""
+    import torch
+
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+    from pytorch_operator_tpu_torch.workloads import trainer
+
+    cfg = llama_lib.llama_0_3b()
+    model = _train_model(cfg, seed=5)
+    params = dict(model.named_parameters())
+    dev = next(iter(params.values())).device
+    gen = torch.Generator(dev).manual_seed(6)
+    grads = [{n: 1e-3 * torch.randn(p.shape, generator=gen, device=dev) for n, p in params.items()}
+             for _ in range(2)]
+    opt = trainer.make_optimizer(model, ADAFACTOR_LR, optimizer="adafactor")
+
+    def set_grads(named, g):
+        for n, p in named.items():
+            p.grad = g[n].to(p.device)
+
+    set_grads(params, grads[0])
+    opt.step()
+    cpu_model = llama_lib.Llama(cfg, device="meta")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()}, assign=True)
+    cpu_opt = trainer.make_optimizer(cpu_model, ADAFACTOR_LR, optimizer="adafactor")
+    state = opt.state_dict()
+    cpu_opt.load_state_dict({"count": state["count"], "adafactor": {
+        path: {k: t.cpu() for k, t in st.items()} for path, st in state["adafactor"].items()}})
+    before = {k: v.detach().clone() for k, v in cpu_model.state_dict().items()}
+    cpu_params = dict(cpu_model.named_parameters())
+    set_grads(params, grads[1])
+    set_grads(cpu_params, grads[1])
+    opt.step()
+    cpu_opt.step()
+    worst, where = 0.0, None
+    for name, p in params.items():
+        d_card = p.detach().cpu() - before[name]
+        d_cpu = cpu_params[name].detach() - before[name]
+        err = (d_card - d_cpu).abs().max().item() / max(d_cpu.abs().max().item(), 1e-30)
+        if err > worst:
+            worst, where = err, name
+    _log(f"rest (a) one adafactor update, card vs CPU (f32, 0.3b): worst tensor {where} "
+         f"max |diff| / max |update| {worst:.3e} (tol {ADAFACTOR_CARD_CPU_RTOL:.0e})")
+    if not worst <= ADAFACTOR_CARD_CPU_RTOL:
+        _fail("adafactor's update on the card disagrees with the CPU's")
+    del cpu_model, cpu_opt, cpu_params, before
+    times = {}
+    for name, o in (("adafactor", opt), ("adamw", trainer.make_optimizer(model, 3e-4))):
+        set_grads(params, grads[0])
+        o.step()  # AdamW makes its state at its first step
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        total = 0.0
+        for _ in range(reps):
+            set_grads(params, grads[1])
+            start.record()
+            o.step()
+            end.record()
+            torch.cuda.synchronize()
+            total += start.elapsed_time(end)
+        times[name] = total / reps
+    _log(f"rest (a) optimizer step on the card, 0.3b (CUDA events, mean of {reps}): adafactor "
+         f"{times['adafactor']:.3f} ms, AdamW {times['adamw']:.3f} ms")
+    del model, opt, grads
+    torch.cuda.empty_cache()
+
+
+def _rest_feed(kernels, n_layers, train_f):
+    """(b) inline, prefetch=2, and prefetch=2 with autotune (depth_max 8, 2
+    workers) on phase 8's corpus: the same losses step for step."""
+    steps = FEED_RUN["warmup"] + FEED_RUN["steps"]
+    runs = {}
+    for name, kw in (
+        ("inline", {}),
+        ("prefetch", dict(prefetch=2)),
+        ("prefetch_autotune", dict(prefetch=2, feed_autotune=True, prefetch_depth_max=8,
+                                   prefetch_workers=2)),
+    ):
+        r = _counted_run(kernels, f"rest_{name}", steps, n_layers, data_file=train_f, **FEED_RUN, **kw)
+        runs[name] = r
+        feed = r.get("feed")
+        _log(
+            f"rest (b) {name} (B16 x S1024): {r['value']} tokens/s, step {r['step_s']:.4f} s"
+            + (f", feed stall avg {feed['feed_stall_ms_avg']:.4f} ms recent "
+               f"{feed['feed_stall_ms_recent']:.4f} ms, final depth {feed['depth']}, "
+               f"workers {feed['workers']}" if feed else "")
+        )
+    for name in ("prefetch", "prefetch_autotune"):
+        if runs[name]["losses"] != runs["inline"]["losses"]:
+            diff = [i for i, (a, b) in enumerate(zip(runs[name]["losses"], runs["inline"]["losses"])) if a != b]
+            _fail(f"{name} losses differ from the inline run's at steps {diff}")
+    _log(f"rest (b) losses equal step for step over {steps} steps: last {runs['inline']['losses'][-1]}")
+
+
+def _rest_async_checkpoint(kernels, n_layers, train_f, td):
+    """(c) blocking and async checkpoints every 5 steps into
+    TPUJOB_CHECKPOINT_DIR with TPUJOB_STATUS_DIR set: every step committed
+    with its sidecar and verified, one checkpoint_committed record an async
+    save, each save's return time, the async step 10 restored equal to the
+    blocking run's bit for bit; then a lost save under an
+    enospc_checkpoint_write plan."""
+    import json as _json
+    import os
+    import shutil
+    from pathlib import Path
+
+    import torch
+
+    from pytorch_operator_tpu_torch import faults
+    from pytorch_operator_tpu_torch.checkpoint import CheckpointManager, integrity
+
+    steps = CKPT_RUN["warmup"] + CKPT_RUN["steps"]
+    committed_by_mode = {}
+    runs = {}
+    status = Path(td) / "status"
+    status.mkdir()
+
+    def records():
+        path = status / "master-0.jsonl"
+        return [_json.loads(x) for x in path.read_text().splitlines()] if path.exists() else []
+
+    saved = {k: os.environ.get(k) for k in ("TPUJOB_CHECKPOINT_DIR", "TPUJOB_STATUS_DIR",
+                                            "TPUJOB_FAULT_PLAN")}
+    try:
+        os.environ["TPUJOB_STATUS_DIR"] = str(status)
+        for mode, kw in (("blocking", {}), ("async", dict(async_checkpoint=True)),
+                         ("enospc", dict(async_checkpoint=True))):
+            ck = Path(td) / f"ck_{mode}"
+            os.environ["TPUJOB_CHECKPOINT_DIR"] = str(ck)
+            if mode == "enospc":
+                os.environ["TPUJOB_FAULT_PLAN"] = _json.dumps(
+                    {"faults": [{"kind": "enospc_checkpoint_write", "nth": 2}]})
+            faults.reset()
+            n_before = len(records())
+            r = _counted_run(kernels, f"rest_ckpt_{mode}", steps, n_layers, data_file=train_f,
+                             **CKPT_RUN, **kw)
+            recs = records()[n_before:]
+            runs[mode] = (r, ck, recs)
+            committed = [x for x in recs if x["event"] == "checkpoint_committed"]
+            _log(f"rest (c) {mode}: {r['value']} tokens/s, save() returned in "
+                 f"{[round(s, 4) for s in r['save_s']]} s, steps {integrity.list_steps(ck)}, "
+                 f"checkpoint_committed {[(x['step'], x['commit_ms']) for x in committed]}")
+            committed_by_mode[mode] = committed
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        faults.reset()
+    for mode in ("blocking", "async"):
+        r, ck, recs = runs[mode]
+        if integrity.list_steps(ck) != [5, 10] or not all(
+            integrity.verify_step(ck, s) is True for s in (5, 10)
+        ):
+            _fail(f"{mode} run's steps {integrity.list_steps(ck)} not [5, 10] all verified")
+    committed = committed_by_mode["async"]
+    if [x["step"] for x in committed] != [5, 10] or not all(x["commit_ms"] > 0 for x in committed):
+        _fail(f"async run's checkpoint_committed records {committed}, expected one for 5 and 10")
+    if runs["async"][0]["losses"] != runs["blocking"][0]["losses"]:
+        _fail("async and blocking runs trained differently")
+    like = {"params": {}, "opt_state": {}}
+    a = CheckpointManager(runs["async"][1], create=False).restore(like, 10)
+    b = CheckpointManager(runs["blocking"][1], create=False).restore(like, 10)
+    differ = [n for n, t in b["params"].items() if not torch.equal(a["params"][n], t)]
+    for i, st in b["opt_state"]["adamw"]["state"].items():
+        differ += [f"{i}.{k}" for k, t in st.items()
+                   if not torch.equal(a["opt_state"]["adamw"]["state"][i][k], t)]
+    _log(f"rest (c) async step 10 restored against the blocking run's (the live state at 10): "
+         f"{len(differ)} of {len(b['params'])} params + AdamW tensors differ")
+    if differ or a["opt_state"]["count"] != b["opt_state"]["count"] != 10:
+        _fail(f"async step 10 differs from the live state: {differ[:5]}")
+    del a, b
+    r, ck, recs = runs["enospc"]
+    failed = [x for x in recs if x["event"] == "checkpoint_save_failed"]
+    if [x["step"] for x in failed] != [10] or integrity.inflight_path(ck, 10).exists():
+        _fail(f"enospc run: checkpoint_save_failed records {failed}, expected one for step 10")
+    # The lost save at 10 was re-saved by the run's final blocking save.
+    # Without that save (a life ended right after the loss) the restore
+    # falls back past the lost step to the previous verified one.
+    mgr = CheckpointManager(ck, create=False)
+    ends_at = integrity.list_steps(ck)
+    shutil.rmtree(ck / "10")
+    integrity.sidecar_path(ck, 10).unlink()
+    fallback = mgr.latest_verified_step()
+    _log(f"rest (c) enospc: the run finished at {r['end_step']} with steps {ends_at}, "
+         f"checkpoint_save_failed {[(x['step'], x['error'][:40]) for x in failed]}; without the "
+         f"final save the restore falls back to step {fallback}")
+    if ends_at != [5, 10] or fallback != 5:
+        _fail("enospc run did not fall back to the previous verified step")
+
+
+def _rest_preemption(td):
+    """(d) llama_train as a subprocess on the card: 0.3b, B4 x S1024,
+    checkpoints every 4 steps, preempted at 6 on the first life (exit 138),
+    resumed at 4 on the second, ending at 10 with the losses of an
+    uninterrupted run bit for bit."""
+    import os
+    from pathlib import Path
+
+    args = [sys.executable, "-m", "pytorch_operator_tpu_torch.workloads.llama_train", *PREEMPT_ARGV]
+    root = str(Path(__file__).resolve().parent)
+    base = {k: v for k, v in os.environ.items() if not k.startswith("TPUJOB_")}
+    base["PYTHONPATH"] = root + os.pathsep + base.get("PYTHONPATH", "")
+    ck = str(Path(td) / "ck_preempt")
+
+    def start(extra, **env):
+        return subprocess.Popen(args + extra, cwd=root, env={**base, **env}, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+    def finish(proc):
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        return subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
+
+    # The uninterrupted run shares the card with the first life: neither is
+    # timed, and their losses do not depend on it.
+    t0 = time.perf_counter()
+    whole_proc = start([])
+    first = finish(start(["--preempt-at", "6"], TPUJOB_CHECKPOINT_DIR=ck, TPUJOB_RESTART_COUNT="0"))
+    t1 = time.perf_counter() - t0
+    second = finish(start(["--preempt-at", "6"], TPUJOB_CHECKPOINT_DIR=ck, TPUJOB_RESTART_COUNT="1"))
+    t2 = time.perf_counter() - t0 - t1
+    whole = finish(whole_proc)
+    t3 = time.perf_counter() - t0
+    _log(f"rest (d) preemption: first life exit {first.returncode} ({t1:.1f} s), second life exit "
+         f"{second.returncode} ({t2:.1f} s), uninterrupted exit {whole.returncode} (done by "
+         f"{t3:.1f} s)")
+    if first.returncode != 138 or "injected preemption at step 6" not in first.stdout:
+        _fail(f"first life did not preempt with 138: {first.returncode}\n{first.stdout[-2000:]}"
+              f"\n{first.stderr[-2000:]}")
+    for name, out in (("second life", second), ("uninterrupted run", whole)):
+        if out.returncode != 0:
+            _fail(f"{name} exited {out.returncode}\n{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
+    if "resumed from checkpoint at step 4" not in second.stdout:
+        _fail(f"second life did not resume at step 4:\n{second.stdout[-2000:]}")
+    r2 = json.loads(second.stdout.strip().splitlines()[-1])
+    rw = json.loads(whole.stdout.strip().splitlines()[-1])
+    _log(f"rest (d) resumed life: end_step {r2['end_step']}, losses {r2['losses']}; uninterrupted "
+         f"steps 4-9 {rw['losses'][4:]}")
+    if r2["end_step"] != 10 or rw["end_step"] != 10 or r2["losses"] != rw["losses"][4:]:
+        _fail("the resumed life's losses differ from the uninterrupted run's")
+
+
+def _profile_rest(kernels, n_layers):
+    """(e) llama_train.run with profile_dir at phase 5's shape, then
+    profiling.device_report on the trace: the three kernels among its ops,
+    its busy time a step within PROFILE_BUSY_RTOL of phase 5's profile."""
+    import os
+    import shutil
+    import tempfile
+
+    from pytorch_operator_tpu_torch import profiling
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    try:
+        kw = dict(REST_SHAPE, steps=2)
+        _counted_run(kernels, "rest_profile", kw["warmup"] + kw["steps"], n_layers,
+                     profile_dir=d, **kw)
+        trace = profiling.find_trace(d)
+        report = profiling.device_report(d, "cuda")
+        if report is None:
+            _fail("the profile holds no cuda plane")
+        _log(f"rest (e) profile {trace.name} ({os.path.getsize(trace) / 2**20:.1f} MiB):\n"
+             + profiling.format_report(report, top=12))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    ops = " ".join(r["op"] for r in report.get("top_ops", []))
+    missing = [k for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") if k not in ops]
+    busy = report["busy_s"] / report["steps"]
+    ref = PROFILE_READINGS.get("train_busy_s")
+    _log(f"rest (e) device busy {1e3 * busy:.2f} ms a step over {report['steps']} steps, phase 5's "
+         f"profile {1e3 * ref:.2f} ms (tol {PROFILE_BUSY_RTOL:.0%}); kernels missing: {missing}")
+    if missing or report["steps"] != 2 or abs(busy - ref) > PROFILE_BUSY_RTOL * ref:
+        _fail("the port profile report disagrees with phase 5's profile")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = phase_identity_and_build()
@@ -2041,7 +2465,7 @@ def main() -> int:
     # Each path's profile runs after every timed run: no timed run follows
     # a profiler session.
     profiles = []
-    for phase in (phase_generate, phase_train, phase_serve, phase_int8, phase_journey):
+    for phase in (phase_generate, phase_train, phase_serve, phase_int8, phase_journey, phase_rest):
         t0 = time.perf_counter()
         profiles.append(phase(kernels))
         _log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")

@@ -20,9 +20,12 @@ reconciler (``controller/reconciler.py``) judges a port checkpoint as it
 judges its own; the files inside a step are this package's own format, which
 the JAX package cannot restore, nor the port an orbax step.
 
-Not ported yet (ROADMAP.md, the rest of slice 2's left-outs): asynchronous
-saves (``save(block=False)``, ``async_writer.py``) and with them the
-``checkpoint_committed`` record.
+``save(block=False)`` commits on the background pipeline of
+``async_writer.py`` — every step still verified, a ``checkpoint_committed``
+record a commit, a ``checkpoint_save_failed`` record (never an exception
+into the step loop) for a save lost after its retries. Every read and every
+blocking save drains that pipeline first, so no caller sees a half-committed
+step and the step files are touched by one thread at a time.
 """
 
 from __future__ import annotations
@@ -35,10 +38,11 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from .. import faults
+from .. import faults, obs
 from ..backoff import Backoff, retry_call
-from ..runtime.rendezvous import report
+from ..runtime.rendezvous import report, report_checkpoint_committed
 from . import integrity
+from .async_writer import AsyncCheckpointWriter, snapshot_to_host, stage_mutable_leaves
 
 FORMAT = "torch.save"
 
@@ -50,8 +54,9 @@ def job_checkpoint_dir() -> Optional[Path]:
 
 
 def _to_cpu(tree):
-    """A copy of ``tree`` (nested dicts, lists, tuples) with every tensor
-    detached on the CPU."""
+    """``tree`` (nested dicts, lists, tuples) with every tensor detached on
+    the CPU. A CPU tensor comes back as itself, not a copy: only a save that
+    writes before returning may pass live tensors."""
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu()
     if isinstance(tree, dict):
@@ -79,11 +84,21 @@ def _check_like(key: str, got, like) -> None:
 class CheckpointManager:
     """Step-keyed checkpoints of a train state: a dict whose top-level
     values (``params``: a model's ``state_dict``; ``opt_state``: the
-    optimizer's) are each saved with ``torch.save``."""
+    optimizer's) are each saved with ``torch.save``.
 
-    def __init__(self, directory: Path | str, max_to_keep: int = 3, create: bool = True):
+    ``staged`` is the default flavour of an asynchronous save (see
+    :meth:`save`)."""
+
+    def __init__(
+        self, directory: Path | str, max_to_keep: int = 3, create: bool = True, *,
+        staged: bool = False,
+    ):
         self.directory = Path(directory).absolute()
         self.max_to_keep = max_to_keep
+        self._staged = staged
+        # Made at the first asynchronous save: one commit thread, so
+        # asynchronous saves commit in submission order.
+        self._writer: Optional[AsyncCheckpointWriter] = None
         if create:
             # parents=True: the supervisor nests checkpoint directories
             # several levels under its state directory.
@@ -93,18 +108,32 @@ class CheckpointManager:
             # directory behind a mistyped path.
             raise FileNotFoundError(f"no checkpoint under {self.directory}")
 
+    def _drain(self) -> None:
+        """Barrier: every asynchronous save submitted so far has committed
+        or failed (and been reported)."""
+        if self._writer is not None:
+            self._writer.wait()
+
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
     def all_steps(self) -> list:
+        self._drain()
         return integrity.list_steps(self.directory)
+
+    def last_committed_step(self) -> Optional[int]:
+        """Newest step whose asynchronous commit (sidecar included)
+        finished, without draining: the live-telemetry peek."""
+        return None if self._writer is None else self._writer.last_committed_step()
 
     def _step_dir(self, step: int) -> Path:
         return self.directory / str(int(step))
 
     def _commit_step(self, step: int, state: Dict[str, Any], fault) -> None:
-        """One durable, verified step commit.
+        """One durable, verified step commit: the shared tail of a blocking
+        save (on the caller's thread) and an asynchronous one (on the
+        writer's commit thread).
 
         Transient I/O failures are retried on the shared backoff schedule;
         each retry first clears the partial step so the next attempt starts
@@ -159,25 +188,78 @@ class CheckpointManager:
             # stand-in for a torn write that the verified restore must skip.
             integrity.corrupt_step(self.directory, step)
         if self.max_to_keep:
-            for old in self.all_steps()[: -self.max_to_keep]:
+            # Not all_steps(): this may run on the commit thread, which
+            # must not wait for itself.
+            for old in integrity.list_steps(self.directory)[: -self.max_to_keep]:
                 shutil.rmtree(self._step_dir(old), ignore_errors=True)
         integrity.prune_stale_sidecars(self.directory)
 
-    def save(self, step: int, state: Dict[str, Any], *, block: bool = True) -> None:
-        """Save ``state`` at ``step`` and wait for the commit (checksum
-        sidecar included). The ``checkpoint_write`` fault decision is made
-        here, one occurrence a call, as in the JAX package."""
-        if not block:
-            raise NotImplementedError(
-                "save(block=False) is not ported yet (ROADMAP.md: the rest of slice 2's "
-                "left-outs, --async-checkpoint)"
+    def _report_save_failed(self, step: int, err) -> None:
+        print(
+            f"[tpujob] warning: checkpoint save of step {step} failed after retries ({err}); "
+            "training continues, recovery will fall back to the last verified step",
+            flush=True,
+        )
+        report("checkpoint_save_failed", step=step, error=str(err))
+
+    def save(
+        self, step: int, state: Dict[str, Any], *, block: bool = True,
+        staged: Optional[bool] = None,
+    ) -> None:
+        """Save ``state`` at ``step``. ``block=True`` commits before returning
+        (checksum sidecar included). ``block=False`` takes a snapshot that
+        owns its bytes and commits it on the asynchronous writer; the caller
+        may update the state in place as soon as this returns. Two flavours
+        (``staged`` defaults to the manager's):
+
+        - eager (``staged=False``): the whole copy to host memory happens
+          here, on the caller's thread;
+        - staged (``staged=True``): the copies are issued here (CUDA tensors:
+          into pinned host buffers on the current stream, ordered before the
+          caller's next update) and the writer's snapshot thread waits for
+          them.
+
+        The ``checkpoint_write`` fault decision is made here, one occurrence
+        a call, as in the JAX package; its effect lands inside the commit. An
+        asynchronous commit that exhausts its retries is reported
+        (``checkpoint_save_failed``) and recorded on the writer, never raised
+        into the step loop."""
+        fault = faults.checkpoint_write_fault()
+        if block:
+            self._drain()  # commits stay in submission order
+            with obs.span("ckpt_blocking_save", cat="ckpt", step=step):
+                self._commit_step(step, state, fault)
+            return
+        if self._writer is None:
+            self._writer = AsyncCheckpointWriter(
+                self._commit_step,
+                root=self.directory,
+                on_error=self._report_save_failed,
+                on_commit=report_checkpoint_committed,
             )
-        self._commit_step(step, state, faults.checkpoint_write_fault())
+        if self._staged if staged is None else staged:
+            with obs.span("ckpt_stage_submit", cat="ckpt", step=step):
+                snapshot = stage_mutable_leaves(state)
+            self._writer.submit_staged(step, snapshot, fault)
+            return
+        with obs.span("ckpt_snapshot", cat="ckpt", step=step):
+            snap = snapshot_to_host(state)
+        self._writer.submit(step, snap, fault)
 
     def wait(self, timeout: Optional[float] = None) -> bool:
-        """Barrier over pending saves: every save here is blocking, so
-        there is never one pending."""
-        return True
+        """Drain pending asynchronous saves. True when drained; False, after
+        a warning, when ``timeout`` expired with saves still pending."""
+        if self._writer is None:
+            return True
+        drained = self._writer.wait(timeout)
+        if not drained:
+            print(
+                f"[tpujob] warning: checkpoint drain timed out after {timeout}s with commits "
+                f"still pending ({self._writer.stats()}); proceeding — the newest saves may "
+                "not be durable yet",
+                flush=True,
+            )
+        return drained
 
     def _resolve_step(self, step: Optional[int]) -> int:
         step = self.latest_step() if step is None else step
@@ -200,6 +282,7 @@ class CheckpointManager:
         its model and optimizer (``load_state_dict``), which places them. A
         flat tensor dict (a model's ``state_dict``) must have the names and
         shapes of ``state_like``'s, or this raises ValueError."""
+        self._drain()
         step = self._resolve_step(step)
         out = {}
         for key, like in state_like.items():
@@ -263,7 +346,10 @@ class CheckpointManager:
         return None
 
     def close(self) -> None:
-        """Nothing is pending at close: every save blocks."""
+        """Drain the asynchronous writer: every save submitted before close
+        is durable, or reported failed, when this returns."""
+        if self._writer is not None:
+            self._writer.close()
 
     def __enter__(self) -> "CheckpointManager":
         return self

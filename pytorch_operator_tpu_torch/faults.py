@@ -1,7 +1,8 @@
-"""The fault-injection sites of the port's workloads — its copy of the two
+"""The fault-injection sites of the port's workloads — its copy of the four
 sites of ``pytorch_operator_tpu/faults/`` that they run: the serving
-engine's :func:`engine_step_check` (with :class:`InjectedFault`) and the
-checkpoint manager's :func:`checkpoint_write_fault`.
+engine's :func:`engine_step_check` (with :class:`InjectedFault`), the
+checkpoint manager's :func:`checkpoint_write_fault`, and the rendezvous's
+:func:`rendezvous_stall_seconds` and :func:`heartbeat_dropped`.
 
 The plan is read from ``TPUJOB_FAULT_PLAN`` the way the JAX package's
 ``FaultPlan.from_env`` reads it: inline JSON, or ``@/path/to/plan`` (here a
@@ -14,7 +15,10 @@ JAX site. The ``fail``/``torn``/``enospc_checkpoint_write`` faults share the
 ``checkpoint_write`` site (one save, one occurrence) and, as there, match
 their target against this replica (``TPUJOB_REPLICA_TYPE``/``INDEX``) and
 their ``restart`` against ``TPUJOB_RESTART_COUNT``: a chaos plan fires the
-same saves in both packages. Kinds whose sites the port does not have are
+same saves in both packages. So do ``stall_rendezvous`` (every matching
+fault fires once, its ``seconds`` summed, at the join) and
+``drop_heartbeat`` (occurrences ``[nth, nth + times)`` of this replica's
+``progress`` reports are dropped). Kinds whose sites the port does not have are
 ignored here, as a JAX replica ignores them at these sites. No clock and no
 PRNG: the same plan replays the same failures.
 """
@@ -126,8 +130,8 @@ def target_matches(pattern: str, rtype: Optional[str], index) -> bool:
 
 
 class FaultInjector:
-    """Evaluates one plan's ``fail_engine_step`` and checkpoint-write faults.
-    Thread-safe."""
+    """Evaluates one plan's ``fail_engine_step``, checkpoint-write,
+    ``stall_rendezvous`` and ``drop_heartbeat`` faults. Thread-safe."""
 
     def __init__(self, faults: List[Fault]):
         self.faults = faults
@@ -153,6 +157,40 @@ class FaultInjector:
                     return f
         return None
 
+    def _matches(self, i: int, f: Fault, kind: str, rtype, index, restart) -> bool:
+        """Whether fault ``i`` is of ``kind``, has firings left, targets this
+        replica (when there is one: ``rtype`` not None) and this life."""
+        if f.kind != kind or self._remaining[i] <= 0:
+            return False
+        if rtype is not None and not target_matches(f.target, rtype, index):
+            return False
+        return f.restart is None or restart is None or f.restart == restart
+
+    def stall_seconds(self, rtype=None, index=None, restart: Optional[int] = None) -> float:
+        """``stall_rendezvous``: the seconds to sleep before joining (every
+        matching fault fires, once), or 0."""
+        total = 0.0
+        with self._lock:
+            for i, f in enumerate(self.faults):
+                if self._matches(i, f, "stall_rendezvous", rtype, index, restart):
+                    self._remaining[i] -= 1
+                    total += f.seconds
+        return total
+
+    def drop_heartbeat(self, rtype=None, index=None, restart: Optional[int] = None) -> bool:
+        """``drop_heartbeat``: count one ``progress`` report of this replica;
+        whether a fault drops it (occurrences ``[nth, nth + times)``)."""
+        rid = f"{str(rtype or '*').lower()}-{index if index is not None else '*'}"
+        with self._lock:
+            n = self._occurrence(f"heartbeat:{rid}")
+            for i, f in enumerate(self.faults):
+                if self._matches(i, f, "drop_heartbeat", rtype, index, restart) and (
+                    f.nth <= n < f.nth + f.times
+                ):
+                    self._remaining[i] -= 1
+                    return True
+        return False
+
     _CHECKPOINT_WRITE_MODES = {
         "fail_checkpoint_write": "fail",
         "torn_checkpoint_write": "torn",
@@ -171,16 +209,11 @@ class FaultInjector:
             n = self._occurrence("checkpoint_write")
             for kind, mode in self._CHECKPOINT_WRITE_MODES.items():
                 for i, f in enumerate(self.faults):
-                    if f.kind != kind or self._remaining[i] <= 0:
-                        continue
-                    if rtype is not None and not target_matches(f.target, rtype, index):
-                        continue
-                    if not (f.nth <= n < f.nth + f.times):
-                        continue
-                    if f.restart is not None and restart is not None and f.restart != restart:
-                        continue
-                    self._remaining[i] -= 1
-                    return mode
+                    if self._matches(i, f, kind, rtype, index, restart) and (
+                        f.nth <= n < f.nth + f.times
+                    ):
+                        self._remaining[i] -= 1
+                        return mode
         return None
 
 
@@ -216,17 +249,41 @@ def engine_step_check() -> None:
         raise InjectedFault(f"injected engine-step fault {f.label()}")
 
 
+def _replica_identity():
+    """``(type, index, restart count)`` of this replica from the supervisor's
+    env; ``(None, None, None)`` outside a replica."""
+    rtype = os.environ.get("TPUJOB_REPLICA_TYPE")
+    if rtype is None:
+        return None, None, None
+    return (
+        rtype,
+        int(os.environ.get("TPUJOB_REPLICA_INDEX", "0")),
+        int(os.environ.get("TPUJOB_RESTART_COUNT", "0")),
+    )
+
+
 def checkpoint_write_fault() -> Optional[str]:
     """Checkpoint site: the write fault due at this save (one call is one
     occurrence), for this replica's identity; None without a plan."""
     inj = injector()
     if inj is None:
         return None
-    rtype = os.environ.get("TPUJOB_REPLICA_TYPE")
-    if rtype is None:
-        return inj.checkpoint_write_fault()
-    return inj.checkpoint_write_fault(
-        rtype,
-        int(os.environ.get("TPUJOB_REPLICA_INDEX", "0")),
-        int(os.environ.get("TPUJOB_RESTART_COUNT", "0")),
-    )
+    return inj.checkpoint_write_fault(*_replica_identity())
+
+
+def rendezvous_stall_seconds() -> float:
+    """Rendezvous site: the seconds a ``stall_rendezvous`` fault asks this
+    replica to sleep before joining; 0.0 without a plan."""
+    inj = injector()
+    if inj is None:
+        return 0.0
+    return inj.stall_seconds(*_replica_identity())
+
+
+def heartbeat_dropped() -> bool:
+    """Heartbeat site: whether a ``drop_heartbeat`` fault suppresses this
+    ``progress`` report (one call is one occurrence); False without a plan."""
+    inj = injector()
+    if inj is None:
+        return False
+    return inj.drop_heartbeat(*_replica_identity())

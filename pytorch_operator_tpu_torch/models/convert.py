@@ -18,11 +18,19 @@ cannot import that class and recognises such a leaf by its ``q`` and
 same transposes and reshapes, ``<module>.weight`` holding ``q`` and
 ``<module>.scale`` the scale (e.g. q/k/v ``q`` ``[L, M, H, D]`` with scale
 ``[L, 1, H, D]`` become ``[H·D, M]`` and ``[H·D, 1]``).
+
+The mapping between the two layouts lives in one place, :func:`jax_leaves`:
+one :class:`JaxLeaf` a JAX param leaf, with the port tensors it holds and the
+two directions between them. :func:`params_from_jax` reads it one way; the
+port's adafactor (``workloads/trainer.py``) reads it both ways, since optax
+picks the factored axes and takes the block RMS on the JAX leaf, not on the
+port's per-layer tensors.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from dataclasses import dataclass
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,14 +39,83 @@ from ..ops.quantize import scale_name
 from .llama import LlamaConfig
 
 
-def params_from_jax(tree, cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
-    """The port's state dict for the JAX param ``tree`` of config ``cfg``.
-    Raises ``ValueError`` naming the first leaf whose shape disagrees, or
-    whose quantization disagrees with ``cfg.quantize``."""
+@dataclass(frozen=True)
+class JaxLeaf:
+    """One JAX param leaf and the port tensors it holds.
+
+    ``shape`` is the JAX leaf's; ``names`` the port's state-dict names, one a
+    layer for a leaf stacked over layers (``nn.scan``), else one. ``layout``
+    maps a JAX slice onto a port tensor: ``"same"``; ``"t"``, the transpose
+    (``DenseGeneral``'s ``[in, out]`` to ``nn.Linear``'s ``[out, in]``); or
+    ``"heads"``, ``[M, heads, D]`` to ``[heads·D, M]`` (q, k and v)."""
+
+    path: str
+    shape: Tuple[int, ...]
+    names: Tuple[str, ...]
+    layout: str
+    stacked: bool
+    norm: bool = False
+
+    def to_port(self, a: torch.Tensor, i: int = 0) -> torch.Tensor:
+        """The port tensor ``names[i]`` of the JAX-layout ``a`` (a view where
+        possible). Also maps a quantized leaf's scale, whose reduced axis has
+        extent 1."""
+        x = a[i] if self.stacked else a
+        if self.layout == "t":
+            return x.t()
+        if self.layout == "heads":
+            return x.reshape(x.shape[0], -1).t()
+        return x
+
+    def from_port(self, tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The JAX-layout leaf of the port tensors ``tensors`` (one a name),
+        stacked over layers where the leaf is."""
+
+        def one(t):
+            if self.layout == "t":
+                return t.t()
+            if self.layout == "heads":
+                return t.t().reshape(t.shape[1], *self.shape[-2:])
+            return t
+
+        if self.stacked:
+            return torch.stack([one(t) for t in tensors])
+        (t,) = tensors
+        return one(t).contiguous()
+
+
+def jax_leaves(cfg: LlamaConfig) -> List[JaxLeaf]:
+    """The JAX param leaves of a dense Llama of config ``cfg``, each with
+    the port tensors it holds (the order in which :func:`params_from_jax`
+    checks them)."""
     H, K, D, M, Fd, V, L = (
         cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model, cfg.d_ff,
         cfg.vocab_size, cfg.n_layers,
     )
+
+    def layers(name):
+        return tuple(f"layers.{i}.{name}" for i in range(L))
+
+    return [
+        JaxLeaf("embed/embedding", (V, M), ("embed.weight",), "same", False),
+        JaxLeaf("final_norm/scale", (M,), ("final_norm.weight",), "same", False, norm=True),
+        JaxLeaf("lm_head/kernel", (M, V), ("lm_head.weight",), "t", False),
+        JaxLeaf("layers/attn_norm/scale", (L, M), layers("attn_norm.weight"), "same", True, norm=True),
+        JaxLeaf("layers/mlp_norm/scale", (L, M), layers("mlp_norm.weight"), "same", True, norm=True),
+        JaxLeaf("layers/attn/q_proj/kernel", (L, M, H, D), layers("attn.q_proj.weight"), "heads", True),
+        JaxLeaf("layers/attn/k_proj/kernel", (L, M, K, D), layers("attn.k_proj.weight"), "heads", True),
+        JaxLeaf("layers/attn/v_proj/kernel", (L, M, K, D), layers("attn.v_proj.weight"), "heads", True),
+        JaxLeaf("layers/attn/o_proj/kernel", (L, H * D, M), layers("attn.o_proj.weight"), "t", True),
+        JaxLeaf("layers/mlp/gate_proj/kernel", (L, M, Fd), layers("mlp.gate_proj.weight"), "t", True),
+        JaxLeaf("layers/mlp/up_proj/kernel", (L, M, Fd), layers("mlp.up_proj.weight"), "t", True),
+        JaxLeaf("layers/mlp/down_proj/kernel", (L, Fd, M), layers("mlp.down_proj.weight"), "t", True),
+    ]
+
+
+def params_from_jax(tree, cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
+    """The port's state dict for the JAX param ``tree`` of config ``cfg``.
+    Raises ``ValueError`` naming the first leaf whose shape disagrees, or
+    whose quantization disagrees with ``cfg.quantize``."""
     sd: Dict[str, torch.Tensor] = {}
 
     def node(path: str):
@@ -47,63 +124,31 @@ def params_from_jax(tree, cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
             n = n[part]
         return n
 
-    def norm(path: str, shape) -> torch.Tensor:
-        a = np.array(node(path), dtype=np.float32)  # a writable copy
-        _check(path, a.shape, shape)
-        return torch.from_numpy(a)
-
-    def weight(path: str, shape) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """The leaf at ``path`` as ``(weight or q, scale or None)``."""
-        leaf = node(path)
-        quantized = _is_quantized(leaf)
-        if quantized != (cfg.quantize == "int8"):
-            raise ValueError(
-                f"JAX param {path} is {'' if quantized else 'not '}quantized, "
-                f"config has quantize={cfg.quantize!r}"
-            )
-        if not quantized:
-            a = np.array(leaf, dtype=np.float32)
-            _check(path, a.shape, shape)
-            return torch.from_numpy(a), None
-        q = np.array(leaf.q, dtype=np.int8)
-        _check(path, q.shape, shape)
-        return torch.from_numpy(q), torch.from_numpy(np.array(leaf.scale, dtype=np.float32))
-
-    def put(name: str, leaf, to_port: Callable[[torch.Tensor], torch.Tensor]) -> None:
-        """``to_port`` maps the JAX layout onto ``[out, in]``: applied to
-        ``q`` and to its scale alike."""
-        w, scale = leaf
-        if scale is None:
-            sd[name] = to_port(w).to(cfg.param_dtype).contiguous()
+    for leaf in jax_leaves(cfg):
+        raw = node(leaf.path)
+        if leaf.norm:
+            w, scale = torch.from_numpy(np.array(raw, dtype=np.float32)), None
         else:
-            sd[name] = to_port(w).contiguous()
-            sd[scale_name(name)] = to_port(scale).contiguous()
-
-    put("embed.weight", weight("embed/embedding", (V, M)), lambda a: a)
-    sd["final_norm.weight"] = norm("final_norm/scale", (M,))
-    put("lm_head.weight", weight("lm_head/kernel", (M, V)), lambda a: a.t())
-    attn_norm = norm("layers/attn_norm/scale", (L, M))
-    mlp_norm = norm("layers/mlp_norm/scale", (L, M))
-    stacked = {
-        "attn.q_proj": weight("layers/attn/q_proj/kernel", (L, M, H, D)),
-        "attn.k_proj": weight("layers/attn/k_proj/kernel", (L, M, K, D)),
-        "attn.v_proj": weight("layers/attn/v_proj/kernel", (L, M, K, D)),
-        "attn.o_proj": weight("layers/attn/o_proj/kernel", (L, H * D, M)),
-        "mlp.gate_proj": weight("layers/mlp/gate_proj/kernel", (L, M, Fd)),
-        "mlp.up_proj": weight("layers/mlp/up_proj/kernel", (L, M, Fd)),
-        "mlp.down_proj": weight("layers/mlp/down_proj/kernel", (L, Fd, M)),
-    }
-    for i in range(L):
-        p = f"layers.{i}."
-        sd[p + "attn_norm.weight"] = attn_norm[i].clone()
-        sd[p + "mlp_norm.weight"] = mlp_norm[i].clone()
-        for name, leaf in stacked.items():
-            if name in ("attn.q_proj", "attn.k_proj", "attn.v_proj"):
-                # [M, heads, D] (scale [1, heads, D]) -> [heads * D, M].
-                to_port = lambda a, i=i: a[i].reshape(a.shape[1], -1).t()  # noqa: E731
+            quantized = _is_quantized(raw)
+            if quantized != (cfg.quantize == "int8"):
+                raise ValueError(
+                    f"JAX param {leaf.path} is {'' if quantized else 'not '}quantized, "
+                    f"config has quantize={cfg.quantize!r}"
+                )
+            if quantized:
+                w = torch.from_numpy(np.array(raw.q, dtype=np.int8))
+                scale = torch.from_numpy(np.array(raw.scale, dtype=np.float32))
             else:
-                to_port = lambda a, i=i: a[i].t()  # noqa: E731
-            put(p + name + ".weight", leaf, to_port)
+                w, scale = torch.from_numpy(np.array(raw, dtype=np.float32)), None
+        _check(leaf.path, w.shape, leaf.shape)
+        for i, name in enumerate(leaf.names):
+            if leaf.norm:
+                sd[name] = leaf.to_port(w, i).clone()
+            elif scale is None:
+                sd[name] = leaf.to_port(w, i).to(cfg.param_dtype).contiguous()
+            else:
+                sd[name] = leaf.to_port(w, i).contiguous()
+                sd[scale_name(name)] = leaf.to_port(scale, i).contiguous()
     return sd
 
 

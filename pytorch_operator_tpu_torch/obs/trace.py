@@ -10,14 +10,21 @@ record format, so the supervisor's loaders and mergers (``load_span_file``,
 package, read a port replica's spans unchanged. The file is a ring: past
 ``max_bytes`` it rotates once (``.1`` generation kept, older dropped).
 
+Two ways to record: :func:`span`, a context manager that times the block
+it wraps (the training loop's ``step`` and ``save``, the checkpoint
+manager's and the async writer's ``ckpt_*`` spans), and :func:`serve_span`,
+a span with explicit endpoints (the serve path's hops).
+
 Enablement is the ``TPUJOB_TRACE_DIR`` env knob, read once per process: with
-it unset, :func:`tracer` caches None and :func:`serve_span` does nothing —
-no I/O, no allocation, one attribute check.
+it unset, :func:`tracer` caches None, :func:`span` returns a shared
+``nullcontext`` and :func:`serve_span` does nothing — no I/O, no
+allocation, one attribute check.
 """
 
 from __future__ import annotations
 
 import atexit
+import contextlib
 import json
 import os
 import threading
@@ -52,6 +59,8 @@ def _env_int(name: str, default: int) -> int:
         return default
     return v if v > 0 else default
 
+
+_NULL = contextlib.nullcontext()
 
 # Process-global recorder, resolved lazily from the env once.
 _TRACER: Optional["SpanRecorder"] = None
@@ -98,6 +107,15 @@ def reset_tracer() -> None:
         if _TRACER is not None:
             _TRACER.close()
         _TRACER, _RESOLVED = None, False
+
+
+def span(name: str, cat: str = "span", **args):
+    """Context manager recording one complete span of the block it wraps.
+    Disabled: the shared ``nullcontext`` (no allocation)."""
+    rec = tracer()
+    if rec is None:
+        return _NULL
+    return rec.span(name, cat, **args)
 
 
 def serve_span(name: str, ts: float, dur_s: float, **args) -> None:
@@ -192,6 +210,17 @@ class SpanRecorder:
             if self._since_flush >= self.flush_every:
                 self._f.flush()
                 self._since_flush = 0
+
+    @contextlib.contextmanager
+    def span(self, name: str, cat: str = "span", **args):
+        """Time the wrapped block (wall-clock start, ``perf_counter``
+        duration) and emit it, also when the block raises."""
+        t_wall = time.time()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.emit(name, cat, t_wall, time.perf_counter() - t0, **args)
 
     def _maybe_rotate(self, incoming: int) -> None:
         """Ring rotation under the held lock: the current generation moves

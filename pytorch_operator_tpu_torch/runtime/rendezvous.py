@@ -5,10 +5,12 @@ The port's own copy of what a single-process workload needs from
 world (``WorldInfo``/``world_from_env``) and the JSONL status channel
 (``report``/``report_first_step``/``report_metrics``, and the training
 heartbeat ``progress_enabled``/``report_progress`` with its echo of the
-supervisor's clock probe, and the serve-plane load beat ``report_serve``),
-written in the same record format so a port job
-reports to the unchanged supervisor. The fault-injection hook of the JAX
-``report_progress`` (``drop_heartbeat``) is not ported.
+supervisor's clock probe, the serve-plane load beat ``report_serve``, and
+the async checkpoint's ``report_checkpoint_committed``), written in the same
+record format so a port job reports to the unchanged supervisor. Two fault
+sites of the JAX module come with it: ``stall_rendezvous``
+(:func:`fault_stall_if_armed`, the first thing :func:`initialize_from_env`
+does) and ``drop_heartbeat`` (in :func:`report_progress`).
 
 Multi-process worlds (``torch.distributed`` over the injected c10d
 variables) are a later slice: ``initialize_from_env`` raises
@@ -23,6 +25,8 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional
+
+from .. import faults
 
 
 @dataclass
@@ -55,13 +59,26 @@ def world_from_env() -> WorldInfo:
     )
 
 
+def fault_stall_if_armed() -> float:
+    """The ``stall_rendezvous`` injection site: sleep (and report, as a
+    ``fault_stall`` record) the seconds an armed fault plan asks for, and
+    return them; 0.0 without a plan."""
+    seconds = faults.rendezvous_stall_seconds()
+    if seconds > 0:
+        report("fault_stall", seconds=seconds, site="rendezvous")
+        time.sleep(seconds)
+    return seconds
+
+
 def initialize_from_env() -> WorldInfo:
-    """Describe the world this process belongs to.
+    """Describe the world this process belongs to, after the
+    ``stall_rendezvous`` fault site.
 
     A single-process world needs no process group and returns at once. A
     multi-process world raises: joining one (``torch.distributed`` with
     nccl on CUDA, gloo on the CPU) is the ROADMAP's multi-GPU item.
     """
+    fault_stall_if_armed()
     world = world_from_env()
     if world.num_processes > 1:
         raise NotImplementedError(
@@ -147,7 +164,11 @@ def report_progress(
 ) -> None:
     """Live training heartbeat (step/loss/throughput), the record the
     supervisor folds into its per-job gauges. Emit every ~10 s, not every
-    step: the caller pays a device fence to know the loss."""
+    step: the caller pays a device fence to know the loss. A
+    ``drop_heartbeat`` fault suppresses the record (the hung-world
+    detector's chaos scenario)."""
+    if faults.heartbeat_dropped():
+        return
     fields = {}
     for name, value, digits in (
         ("loss", loss, 6),
@@ -199,3 +220,25 @@ def report_serve(
         if v is not None:
             fields[k] = round(float(v), 3)
     report("serve", requests=int(requests), **fields)
+
+
+def report_checkpoint_committed(
+    step: int,
+    commit_s: float,
+    queue_depth: int = 0,
+    oldest_age_s: float = 0.0,
+    stage_depth: int = 0,
+) -> None:
+    """Async-checkpoint commit telemetry, the JAX package's record: the
+    supervisor folds the newest into its checkpoint-step, queue-depth,
+    oldest-inflight-age and stage-depth gauges and observes ``commit_ms``
+    into its commit-time histogram. ``stage_depth`` counts submitted saves
+    whose snapshot has not finished."""
+    report(
+        "checkpoint_committed",
+        step=step,
+        commit_ms=round(1000.0 * commit_s, 3),
+        queue_depth=int(queue_depth),
+        oldest_age_s=round(oldest_age_s, 3),
+        stage_depth=int(stage_depth),
+    )

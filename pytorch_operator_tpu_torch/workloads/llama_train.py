@@ -5,27 +5,34 @@ The llama presets default to ``attn_impl="flash"`` and ``xent_impl="chunked"``,
 so every step runs the flash forward kernel and both backward kernels once per
 layer (ops/flash_attention.py) and the chunked-vocab loss (ops/chunked_xent.py),
 with f32 master weights and bf16 compute, AdamW and an optional cosine schedule
-(workloads/trainer.py), optionally with each block rematerialised
-(``--remat``, ``--remat-policy``). Data is the JAX workload's synthetic
-affine-bigram stream (token[t+1] = (5·token[t] + 3) mod V), or packed token
-records (``--data-file``, ``--eval-file``) read by the native loader. With
+or optax's adafactor (``--optimizer adafactor``) (workloads/trainer.py),
+optionally with each block rematerialised (``--remat``, ``--remat-policy``).
+Data is the JAX workload's synthetic affine-bigram stream (token[t+1] =
+(5·token[t] + 3) mod V), or packed token records (``--data-file``,
+``--eval-file``) read by the native loader, inline or through a device feed
+that runs ahead of the step loop (``--prefetch`` and its tuning flags). With
 ``--checkpoint-every`` it saves into the supervisor-injected checkpoint
-directory and resumes from it after a restart.
+directory, blocking or off the step loop (``--async-checkpoint``), and
+resumes from it after a restart. ``--preempt-at`` dies with the retryable
+exit code 138 on a replica's first life (a simulated preemption);
+``--profile-dir`` writes a ``torch.profiler`` trace of the timed window.
 
     python -m pytorch_operator_tpu_torch.workloads.llama_train --config 0.3b \\
         --batch-size 4 --seq-len 4096 --steps 5 --json
 
 It runs on ``cuda`` unless ``--device cpu`` or ``TPUJOB_PLATFORM=cpu`` asks
 for the host; with neither and no GPU it raises. Flags of the JAX workload
-that this slice does not port are refused with the ROADMAP item they wait
-for (:data:`REFUSED_FLAGS`).
+that need several GPUs are refused with the ROADMAP item they wait for
+(:data:`REFUSED_FLAGS`).
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
+import os
 import sys
 import time
 
@@ -34,16 +41,20 @@ import torch
 
 from ..checkpoint import CheckpointManager, job_checkpoint_dir
 from ..data import field_range, open_loader, read_meta
+from ..data.device_prefetch import DevicePrefetcher, to_device
 from ..models import llama as llama_lib
 from ..models.convert import params_from_jax
 from ..ops import flash_attention as flash_lib
 from ..runtime import rendezvous
 from ..runtime.device import device_name, resolve_device
 from .trainer import (
+    add_feed_tuning_args,
+    data_plane_env_defaults,
     heartbeat_reporter,
     make_lm_eval_step,
     make_lm_train_step,
     make_optimizer,
+    resolve_feed_tuning,
     throughput_loop,
 )
 
@@ -80,6 +91,11 @@ def run(
     eval_file: str | None = None,
     eval_batches: int = 8,
     checkpoint_every: int = 0,
+    async_checkpoint: bool = False,
+    prefetch: int = 0,
+    prefetch_depth_max: int = 0,
+    feed_autotune: bool = False,
+    prefetch_workers: int = 0,
     max_steps: int | None = None,
     remat: bool | None = None,
     remat_policy: str | None = None,
@@ -89,6 +105,8 @@ def run(
     param_dtype: str | None = None,
     attn_impl: str | None = None,
     xent_impl: str | None = None,
+    preempt_at: int | None = None,
+    profile_dir: str | None = None,
     device=None,
     seed: int = 0,
     init_params=None,
@@ -97,9 +115,13 @@ def run(
     """Train ``config`` for ``warmup`` + ``steps`` steps and return the JAX
     workload's result keys plus ``step_s``, ``losses`` (every step, warmup
     included), ``peak_mem_bytes`` (the card's, None on the CPU),
-    ``flash_launches_per_step`` and ``device``; with ``data_file`` also
-    ``loader`` (``"native"`` or ``"python"``, the loader that ran), with
-    ``donate`` given ``donate`` (a no-op here). Weights are a random init
+    ``flash_launches_per_step``, ``optimizer``, ``optimizer_state_bytes``
+    (the optimizer's state tensors at the end) and ``device``; with
+    ``data_file`` also ``loader`` (``"native"`` or ``"python"``, the loader
+    that ran), with ``prefetch`` also ``feed`` (the prefetcher's
+    ``stats()``), with saves in the loop ``save_s`` (each in-loop save's
+    return time: the step loop's stall), with ``donate`` given ``donate`` (a
+    no-op here). Weights are a random init
     from ``seed`` (a ``torch.Generator``), or ``init_params``, a JAX param
     tree (nested dicts of arrays) loaded with ``params_from_jax`` in
     ``param_dtype``.
@@ -113,10 +135,22 @@ def run(
     device-side assert in the embedding, not XLA's silent clamp.
 
     With ``checkpoint_every`` and the supervisor's ``TPUJOB_CHECKPOINT_DIR``
-    the run resumes from the newest verified checkpoint there (weights,
-    AdamW moments and count, the data stream fast-forwarded), saves every
+    the run resumes from the newest verified checkpoint there (weights, the
+    optimizer's state and count, the data stream fast-forwarded), saves every
     ``checkpoint_every`` steps and at its end; ``max_steps`` is the global
-    step budget across such lives."""
+    step budget across such lives. ``async_checkpoint`` commits the in-loop
+    saves off the step loop (a staged snapshot: copies issued before
+    ``save()`` returns, waited for on the writer's thread); the manager's
+    close commits the last one before the run returns.
+
+    ``prefetch`` > 0 builds a :class:`DevicePrefetcher` of that depth after
+    the resume and the data fast-forward: ``prefetch_workers`` producer
+    threads (at least 1), ``feed_autotune`` within ``prefetch_depth_max``.
+    The batches and their order are the inline path's. ``preempt_at``: on
+    the first life (``TPUJOB_RESTART_COUNT`` 0), exit 138 through
+    ``os._exit`` when the step about to run reaches it, after flushing the
+    output; nothing else runs (no in-flight save commits). ``profile_dir``
+    profiles the timed window (:func:`trainer.maybe_profile`)."""
     dev = resolve_device(device)
     over = {}
     if remat is not None:
@@ -178,12 +212,14 @@ def run(
             return None, meta
         return open_loader(path, batch_size, seed=seed), meta
 
-    def next_tokens(ldr):
+    def host_tokens(ldr):
         # A copy out of the loader's slot: the native loader recycles it at
         # the next next_batch(), and nothing here may outlive it.
         _, _, fields = ldr.next_batch()
-        toks = np.array(fields["tokens"][:, :seq_len], np.int32, copy=True)
-        return torch.from_numpy(toks).to(dev, torch.long)
+        return np.array(fields["tokens"][:, :seq_len], np.int32, copy=True)
+
+    def next_tokens(ldr):
+        return torch.from_numpy(host_tokens(ldr)).to(dev, torch.long)
 
     if eval_file:
         # Before any training compute: a bad eval file must not cost a
@@ -205,7 +241,7 @@ def run(
     # The cosine horizon defaults to --max-steps, the global budget across
     # resumed lives (the restored count is global), else this life's length.
     opt = make_optimizer(
-        model.parameters(), lr, optimizer=optimizer, schedule=lr_schedule,
+        model, lr, optimizer=optimizer, schedule=lr_schedule,
         warmup_steps=lr_warmup_steps,
         decay_steps=lr_decay_steps or max_steps or (steps + max(warmup, 1)),
         grad_clip=grad_clip, weight_decay=0.1,
@@ -215,28 +251,45 @@ def run(
     def train_state():
         return {"params": model.state_dict(), "opt_state": opt.state_dict()}
 
+    # A simulated preemption on the first life of this replica: die with a
+    # retryable code (138 = 128 + SIGUSR1) so that the supervisor's
+    # ExitCode policy restarts the gang and the next life resumes.
+    restart_count = int(os.environ.get("TPUJOB_RESTART_COUNT", "0"))
+
+    def maybe_preempt(step: int):
+        if preempt_at is not None and restart_count == 0 and step >= preempt_at:
+            log(f"[llama] injected preemption at step {step} (exit 138)")
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os._exit(138)
+
     loader = None
     mgr = None
+    prefetcher = None
     start_step = 0
+    save_s = []
     # From here on, a failure (a corrupt checkpoint, a bad argument) must
-    # not leak the native loader's prefetch thread and mapping.
+    # not leak the native loader's prefetch thread and mapping, the feed's
+    # threads, or a pending asynchronous save.
     try:
         if data_file:
             loader, _ = open_token_file(data_file, "--data-file", seed=0)
             log(f"[llama] data {data_file}: {loader.kind} loader")
 
-            def batches(step: int):
-                return next_tokens(loader)
+            def host_batch(step: int):
+                return host_tokens(loader)
 
         else:
 
-            def batches(step: int):
-                toks = synthetic_bigram_batch(batch_size, seq_len, cfg.vocab_size, step)
-                return torch.from_numpy(toks).to(dev, torch.long)
+            def host_batch(step: int):
+                return synthetic_bigram_batch(batch_size, seq_len, cfg.vocab_size, step)
 
         ckpt_dir = job_checkpoint_dir()
         if checkpoint_every and ckpt_dir is not None:
-            mgr = CheckpointManager(ckpt_dir)
+            # The port's staged snapshot owns its bytes before save()
+            # returns (async_writer.py), so it is safe beside the in-place
+            # step; --donate is a no-op here.
+            mgr = CheckpointManager(ckpt_dir, staged=async_checkpoint)
             resumed = mgr.restore_or_none(train_state())
             if resumed is not None:
                 start_step, restored = resumed
@@ -261,6 +314,35 @@ def run(
         if max_steps is not None:
             steps = max(min(steps, max_steps - start_step - max(warmup, 1)), 0)
 
+        # The feed is built after the resume: its step counter starts where
+        # the loop will, and the fast-forward above is done before a thread
+        # pulls the loader.
+        if prefetch > 0:
+            feed_steps = itertools.count(start_step)
+            prefetcher = DevicePrefetcher(
+                lambda: host_batch(next(feed_steps)),
+                put=lambda toks: to_device(toks.astype(np.int64), dev),
+                depth=prefetch,
+                depth_max=prefetch_depth_max or None,
+                workers=max(prefetch_workers, 1),
+                autotune=feed_autotune,
+            )
+
+            def batches(step: int):
+                maybe_preempt(step)
+                return prefetcher.get()
+
+        else:
+
+            def batches(step: int):
+                maybe_preempt(step)
+                return torch.from_numpy(host_batch(step)).to(dev, torch.long)
+
+        def save(step: int):
+            t0 = time.perf_counter()
+            mgr.save(step, train_state(), block=not async_checkpoint)
+            save_s.append(time.perf_counter() - t0)
+
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         counts = {}
@@ -273,25 +355,29 @@ def run(
         losses, steps_per_sec, end_step = throughput_loop(
             train_step, batches, steps=steps, warmup=warmup, on_first_step=on_first,
             checkpoint_every=checkpoint_every,
-            save=(lambda s: mgr.save(s, train_state())) if mgr is not None else None,
+            save=save if mgr is not None else None,
             start_step=start_step,
             log=lambda m: log(f"[llama] {m}"),
+            profile_dir=profile_dir,
             progress=(
                 heartbeat_reporter(
-                    rendezvous.report_progress, batch=tokens_per_step, unit="tokens/sec/chip"
+                    rendezvous.report_progress, batch=tokens_per_step, unit="tokens/sec/chip",
+                    feed=prefetcher,
                 )
                 if rendezvous.progress_enabled()
                 else None
             ),
         )
         done = flash_lib.launch_counts()
+        if mgr is not None and mgr.latest_step() != end_step:
+            mgr.save(end_step, train_state())
     finally:
+        if prefetcher is not None:
+            prefetcher.close()
         if loader is not None:
             loader.close()
-    if mgr is not None:
-        if mgr.latest_step() != end_step:
-            mgr.save(end_step, train_state())
-        mgr.close()
+        if mgr is not None:
+            mgr.close()  # commits the pending asynchronous saves
     steps_after_first = end_step - start_step - 1
     per_step = {
         k: (done[k] - counts["start"][k]) // max(steps_after_first, 1) for k in done
@@ -325,10 +411,16 @@ def run(
         "losses": losses,
         "peak_mem_bytes": peak,
         "flash_launches_per_step": per_step,
+        "optimizer": optimizer,
+        "optimizer_state_bytes": opt.state_nbytes(),
         "device": device_name(dev),
     }
     if loader is not None:
         result["loader"] = loader.kind
+    if prefetcher is not None:
+        result["feed"] = prefetcher.stats()
+    if save_s:
+        result["save_s"] = save_s
     if donate is not None:
         result["donate"] = "no-op (torch has no buffer donation)"
 
@@ -351,12 +443,10 @@ def run(
     return result
 
 
-# Flags of the JAX workload that this slice does not port, with the ROADMAP
-# item each waits for. main() accepts them so that it can refuse them by name.
+# Flags of the JAX workload that need several GPUs, with the ROADMAP item
+# they wait for. main() accepts them so that it can refuse them by name.
 REFUSED_FLAGS = {
     "--mesh": "multi-GPU, ring/ulysses, MoE, pp",
-    "--async-checkpoint": "the rest of slice 2's left-outs, async checkpoint",
-    "--prefetch": "the rest of slice 2's left-outs, prefetch",
     "--experts": "multi-GPU, ring/ulysses, MoE, pp",
     "--moe-top-k": "multi-GPU, ring/ulysses, MoE, pp",
     "--moe-dispatch": "multi-GPU, ring/ulysses, MoE, pp",
@@ -364,11 +454,16 @@ REFUSED_FLAGS = {
     "--moe-aux-weight": "multi-GPU, ring/ulysses, MoE, pp",
     "--pp-microbatches": "multi-GPU, ring/ulysses, MoE, pp",
     "--pp-schedule": "multi-GPU, ring/ulysses, MoE, pp",
-    "--preempt-at": "the rest of slice 2's left-outs, preemption",
-    "--preempt-index": "the rest of slice 2's left-outs, preemption",
-    "--profile-dir": "the rest of slice 2's left-outs, profiling",
 }
-_BOOLEAN_REFUSED = {"--async-checkpoint"}
+
+
+def _preempt_at(args):
+    """``--preempt-at``, or None when ``--preempt-index`` is given and this
+    replica's ``TPUJOB_REPLICA_INDEX`` is not in its comma-separated list."""
+    if args.preempt_index is None:
+        return args.preempt_at
+    chosen = {int(s) for s in str(args.preempt_index).split(",") if s.strip()}
+    return args.preempt_at if int(os.environ.get("TPUJOB_REPLICA_INDEX", "0")) in chosen else None
 
 
 def main(argv=None) -> int:
@@ -392,7 +487,8 @@ def main(argv=None) -> int:
     )
     p.add_argument(
         "--optimizer", choices=("adamw", "adafactor"), default="adamw",
-        help="adafactor is not ported yet and is refused",
+        help="adafactor: factored second moments — optimizer state ~N/k floats "
+        "instead of AdamW's 2N",
     )
     p.add_argument(
         "--grad-accum", type=int, default=1,
@@ -421,6 +517,20 @@ def main(argv=None) -> int:
         "--checkpoint-every", type=int, default=0,
         help="save every N steps into TPUJOB_CHECKPOINT_DIR and resume from it",
     )
+    p.add_argument(
+        "--async-checkpoint", action="store_true",
+        help="commit checkpoints off the step loop: save() issues the copies to host "
+        "and returns; the write and its checksum sidecar land on a background "
+        "thread, verified. Committed by the run's end; a preemption may lose the "
+        "in-flight save and resume one interval earlier. Default: spec.data_plane / "
+        "TPUJOB_ASYNC_CHECKPOINT",
+    )
+    p.add_argument(
+        "--prefetch", type=int, default=None, metavar="DEPTH",
+        help="device feed: keep DEPTH batches on the card ahead of the step loop "
+        "(host work and host-to-device copy on feed threads; 0 = inline). Default: "
+        "spec.data_plane / TPUJOB_PREFETCH",
+    )
     p.add_argument("--max-steps", type=int, default=None, help="global step budget across resumes")
     p.add_argument("--remat", action="store_true", help="recompute each block in the backward")
     p.add_argument(
@@ -438,18 +548,31 @@ def main(argv=None) -> int:
         "--param-dtype", choices=tuple(_DTYPES), default=None, dest="param_dtype",
         help="parameter storage dtype (default float32)",
     )
+    p.add_argument(
+        "--preempt-at", type=int, default=None,
+        help="fault injection: die with the retryable exit code 138 at this step "
+        "on the replica's first life (a simulated preemption)",
+    )
+    p.add_argument(
+        "--preempt-index", default=None,
+        help="restrict --preempt-at to the replicas whose TPUJOB_REPLICA_INDEX is in "
+        "this comma-separated list",
+    )
+    p.add_argument(
+        "--profile-dir", default=None,
+        help="write a torch.profiler trace of the timed window here (read it with "
+        "python -m pytorch_operator_tpu_torch.profiling)",
+    )
     p.add_argument("--seed", type=int, default=0, help="seed of the random init")
     p.add_argument(
         "--device", default=None,
         help="cuda (default) or cpu; TPUJOB_PLATFORM=cpu also selects the CPU",
     )
     p.add_argument("--json", action="store_true")
-    refused = p.add_argument_group("not ported yet (refused)")
+    add_feed_tuning_args(p)
+    refused = p.add_argument_group("need several GPUs (refused)")
     for flag in REFUSED_FLAGS:
-        if flag in _BOOLEAN_REFUSED:
-            refused.add_argument(flag, action="store_true")
-        else:
-            refused.add_argument(flag, default=None)
+        refused.add_argument(flag, default=None)
     args = p.parse_args(argv)
     for flag, item in REFUSED_FLAGS.items():
         if getattr(args, flag[2:].replace("-", "_")) not in (None, False):
@@ -457,6 +580,8 @@ def main(argv=None) -> int:
                 f"{flag} is not ported yet (ROADMAP.md: {item})"
             )
 
+    env_async, env_prefetch = data_plane_env_defaults()
+    feed_tuning = resolve_feed_tuning(args)
     world = rendezvous.initialize_from_env()
     result = run(
         config=args.config,
@@ -474,6 +599,11 @@ def main(argv=None) -> int:
         eval_file=args.eval_file,
         eval_batches=args.eval_batches,
         checkpoint_every=args.checkpoint_every,
+        async_checkpoint=args.async_checkpoint or env_async,
+        prefetch=args.prefetch if args.prefetch is not None else env_prefetch,
+        prefetch_depth_max=feed_tuning["prefetch_depth_max"],
+        feed_autotune=feed_tuning["autotune"],
+        prefetch_workers=feed_tuning["prefetch_workers"],
         max_steps=args.max_steps,
         remat=True if args.remat else None,
         remat_policy=args.remat_policy,
@@ -483,6 +613,8 @@ def main(argv=None) -> int:
         param_dtype=args.param_dtype,
         attn_impl=args.attn_impl,
         xent_impl=args.xent_impl,
+        preempt_at=_preempt_at(args),
+        profile_dir=args.profile_dir,
         device=args.device,
         seed=args.seed,
         log=lambda msg: print(msg, flush=True),

@@ -110,8 +110,12 @@ def test_restore_checks_names_and_shapes(tmp_path):
     with pytest.raises(FileNotFoundError):
         CheckpointManager(tmp_path / "missing", create=False)
     assert not (tmp_path / "missing").exists()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mgr.save(2, _small(2.0), block=False)
+    # An asynchronous save (ported in slice 8) restores under the same check.
+    mgr.save(2, _small(2.0), block=False)
+    assert mgr.latest_verified_step() == 2
+    with pytest.raises(ValueError, match="first mismatch at w"):
+        mgr.restore({"params": {"w": torch.zeros(8, 5), "b": torch.zeros(4)}})
+    mgr.close()
 
 
 def test_retention_keeps_max_to_keep_with_their_sidecars(tmp_path):

@@ -117,6 +117,45 @@ print(read_meta({str(tmp_path / "t.bin")!r}).n_records, mgr.restore_subtree("par
     assert out.stdout.split() == ["3", "5", "None"]
 
 
+def test_slice8_modules_stand_alone(tmp_path):
+    """The async writer, the device feed and its autotuner, the profile
+    report and adafactor are among the scanned files, and import and run (an
+    async save and restore, a prefetched batch, an adafactor step, a
+    profile's report) where jax and the JAX package are poisoned."""
+    for rel in ("checkpoint/async_writer.py", "data/device_prefetch.py", "data/feed_autotune.py",
+                "profiling.py"):
+        assert PKG / rel in _port_files()
+    code = f"""
+import sys
+for name in {sorted(FORBIDDEN)!r}:
+    sys.modules[name] = None
+import numpy as np, torch
+from pytorch_operator_tpu_torch import profiling
+from pytorch_operator_tpu_torch.checkpoint import CheckpointManager
+from pytorch_operator_tpu_torch.data.device_prefetch import DevicePrefetcher
+from pytorch_operator_tpu_torch.models import llama
+from pytorch_operator_tpu_torch.workloads import trainer
+mgr = CheckpointManager({str(tmp_path / "ck")!r})
+mgr.save(5, {{"params": {{"w": torch.ones(2)}}}}, block=False)
+step = mgr.restore_or_none({{"params": {{}}}})[0]
+pf = DevicePrefetcher(lambda: np.arange(3), device="cpu")
+got = pf.get().tolist()
+pf.close()
+model = llama.Llama(llama.llama_tiny())
+opt = trainer.make_optimizer(model, 1e-2, optimizer="adafactor")
+trainer.make_lm_train_step(model, opt)(torch.zeros(2, 8, dtype=torch.long))
+with trainer.maybe_profile({str(tmp_path / "prof")!r}, log=lambda m: None):
+    torch.ones(4) @ torch.ones(4)
+report = profiling.device_report({str(tmp_path / "prof")!r}, "cpu")
+print(step, got, opt.count, report["device"])
+"""
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["5", "[0,", "1,", "2]", "1", "cpu"]
+
+
 def _no_gpu():
     if torch.cuda.is_available():
         pytest.skip("this box has a GPU: the no-fallback path is not reachable")
@@ -276,3 +315,37 @@ def test_status_channel_and_world(monkeypatch, tmp_path):
     monkeypatch.setenv("TPUJOB_NUM_PROCESSES", "2")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rendezvous.initialize_from_env()
+
+
+@pytest.mark.parametrize(
+    "argv",
+    [["--optimizer", "adafactor"], ["--prefetch", "2", "--feed-autotune"], ["--async-checkpoint"],
+     ["--profile-dir", "prof"], ["--preempt-at", "5"]],
+    ids=["adafactor", "prefetch", "async-checkpoint", "profile-dir", "preempt-at"],
+)
+def test_slice8_entry_points_need_a_gpu(monkeypatch, tmp_path, argv):
+    """llama_train with the slice's flags falls back no more than without
+    them: without a CPU request it raises on a GPU-less box."""
+    _no_gpu()
+    from pytorch_operator_tpu_torch.workloads import llama_train
+
+    monkeypatch.delenv("TPUJOB_PLATFORM", raising=False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        llama_train.main(["--steps", "1", "--seq-len", "8", *argv])
+
+
+def test_device_feed_never_falls_back_to_the_cpu():
+    """The feed's default put targets the card: without one, the failure
+    reaches the consumer's get() instead of a CPU batch."""
+    _no_gpu()
+    import numpy as np
+
+    from pytorch_operator_tpu_torch.data.device_prefetch import DevicePrefetcher
+
+    pf = DevicePrefetcher(lambda: np.zeros(2))
+    try:
+        with pytest.raises((RuntimeError, AssertionError)):
+            pf.get()
+    finally:
+        pf.close()

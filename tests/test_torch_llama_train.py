@@ -173,7 +173,8 @@ def test_run_cpu_result_keys_and_loss_falls():
     )
     jax_keys = {"metric", "value", "unit", "config", "params_m", "final_loss",
                 "end_step", "devices", "n_layers", "d_model"}
-    new_keys = {"step_s", "losses", "peak_mem_bytes", "flash_launches_per_step", "device"}
+    new_keys = {"step_s", "losses", "peak_mem_bytes", "flash_launches_per_step", "device",
+                "optimizer", "optimizer_state_bytes"}
     assert set(r) == jax_keys | new_keys
     assert r["metric"] == "llama_train_tokens_per_sec_per_chip" and r["end_step"] == 21
     assert len(r["losses"]) == 21 and all(np.isfinite(r["losses"]))
@@ -181,6 +182,10 @@ def test_run_cpu_result_keys_and_loss_falls():
     assert r["final_loss"] < 5.0 and r["losses"][-1] < r["losses"][0]
     assert r["peak_mem_bytes"] is None and r["device"] == "cpu"
     assert r["flash_launches_per_step"] == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    # AdamW's state: two f32 moments and a step scalar a parameter.
+    n = sum(p.numel() for p in port_llama.Llama(port_llama.llama_tiny()).parameters())
+    n_tensors = len(list(port_llama.Llama(port_llama.llama_tiny()).parameters()))
+    assert r["optimizer"] == "adamw" and r["optimizer_state_bytes"] == 8 * n + 4 * n_tensors
 
 
 def test_run_cpu_flash_chunked_and_bf16_params():
@@ -198,20 +203,65 @@ def test_run_cpu_flash_chunked_and_bf16_params():
 @pytest.mark.parametrize(
     "argv",
     [
-        ["--async-checkpoint"],
-        ["--prefetch", "2"],
         ["--experts", "4"],
         ["--mesh", "fsdp=2"],
-        ["--profile-dir", "p"],
-        ["--preempt-at", "3"],
         ["--attn-impl", "ring"],
-        ["--optimizer", "adafactor"],
     ],
     ids=lambda a: a[0].lstrip("-"),
 )
 def test_main_refuses_unported_flags(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         llama_train.main(["--device", "cpu", "--steps", "1", "--seq-len", "8", *argv])
+
+
+def test_only_multi_gpu_flags_are_refused():
+    assert set(llama_train.REFUSED_FLAGS) == {
+        "--mesh", "--experts", "--moe-top-k", "--moe-dispatch", "--moe-capacity-factor",
+        "--moe-aux-weight", "--pp-microbatches", "--pp-schedule",
+    }
+
+
+@pytest.mark.parametrize(
+    "argv,check",
+    [
+        (["--async-checkpoint", "--checkpoint-every", "1"], "async"),
+        (["--prefetch", "2"], "prefetch"),
+        (["--prefetch", "2", "--prefetch-depth-max", "6", "--feed-autotune",
+          "--prefetch-workers", "2"], "prefetch"),
+        (["--profile-dir", "prof"], "profile"),
+        (["--preempt-at", "100"], "preempt"),
+        (["--preempt-at", "1", "--preempt-index", "3"], "preempt"),
+        (["--optimizer", "adafactor"], "adafactor"),
+    ],
+    ids=["async-checkpoint", "prefetch", "prefetch-tuned", "profile-dir", "preempt-at",
+         "preempt-index", "optimizer"],
+)
+def test_main_accepts_the_slice8_flags(argv, check, tmp_path, monkeypatch, capsys):
+    """The flags this package used to refuse by name run the tiny config for
+    2 steps on the CPU (the preemption cases on a replica it spares: a step
+    past the run, or another replica index)."""
+    import json
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("TPUJOB_CHECKPOINT_DIR", str(tmp_path / "ck"))
+    monkeypatch.setenv("TPUJOB_REPLICA_INDEX", "0")
+    assert llama_train.main([
+        "--device", "cpu", "--batch-size", "4", "--seq-len", "16", "--steps", "2",
+        "--warmup", "1", "--json", *argv,
+    ]) == 0
+    r = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert r["end_step"] == 3 and len(r["losses"]) == 3
+    if check == "async":
+        assert len(r["save_s"]) == 2
+        assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == [
+            "2", "2.digest", "3", "3.digest",
+        ]
+    elif check == "prefetch":
+        assert r["feed"]["gets"] == 3
+    elif check == "profile":
+        assert list((tmp_path / "prof").glob("*.pt.trace.json"))
+    elif check == "adafactor":
+        assert r["optimizer"] == "adafactor" and r["optimizer_state_bytes"] > 0
 
 
 def test_main_without_cpu_request_needs_a_gpu(monkeypatch, capsys):
