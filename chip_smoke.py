@@ -15,13 +15,14 @@ Phases, in order; any failure exits non-zero before the result line:
    absolute error); kernel, plain-version and library
    (``scaled_dot_product_attention``, timed only) times at the generate
    prefill's shape, at the training shape, at phase 7's 1b prefill shape
-   (B8 S128 H16 KH8 D128) and at phase 8's training shape (B16 S1024), with
-   achieved TFLOP/s and the wrapper's host time a call.
+   (B8 S128 H16 KH8 D128), at phase 8's training shape (B16 S1024) and at
+   phase 10's (B8 S2048), with achieved TFLOP/s and the wrapper's host time
+   a call.
 3. The two backward kernels against their plain version
    (``flash_attention_backward_reference``) on the same padded inputs, in the
    listed cases, by ``grad_agreement`` (relative L2 error over the whole
-   gradient, over its late half and per row); at the training shape and at
-   phase 8's each kernel's time, the plain backward's, SDPA's backward
+   gradient, over its late half and per row); at the training shape, at
+   phase 8's and at phase 10's each kernel's time, the plain backward's, SDPA's backward
    (timed only) and each bound, and each kernel's host time a call. Then the bf16 gradients of the public, differentiable
    ``flash_attention`` on the card against the plain forward and backward, at
    the training shape and at a padded one.
@@ -141,7 +142,31 @@ Phases, in order; any failure exits non-zero before the result line:
    ``profiling.device_report`` on its trace: the three kernels among its
    ops, its busy time a step within ``PROFILE_BUSY_RTOL`` of phase 5's
    profile, its top 12 printed.
-10. One ``{"kernels": [...]}`` line, the card's line, and as the last line
+10. The mixture-of-experts Llama (``parallel/moe.py``), with TF32 off: (a)
+   the layer at bench.py's moe width (4,096 tokens of bf16 x, D 1024, F 4096,
+   8 experts, top 2), one forward and backward of each dispatch on the card
+   against the plain f32 run on the CPU on the same values: top-k indices
+   equal for at least ``MOE_INDEX_AGREE_MIN`` of the tokens, the output and
+   the gradients of x, gate, w_in and w_out within ``MOE_REL_TOL`` by
+   relative L2 (output and x's gradient over the tokens routed alike), and
+   two planted router faults (top-k weights from the full softmax; the
+   second choice dropped) read above it; (b) sparse dispatch at capacity
+   factor E/top_k against dense on the card within the same tolerance, and
+   the share of (token, choice) pairs dropped at 1.25; (c) bench.py:438-467's
+   ``moe`` block through ``llama_train.run`` (0.3b width at 8 layers, 8
+   experts, top 2, sparse, capacity 1.25, aux 1e-2, bf16 parameters,
+   adafactor, remat ``dots``, B8 x 2048, 3 warmup + 12 steps), then its
+   dense twin, each with the launch counts set to 0 just before and read
+   just after (the forward kernel twice a layer a step, each backward kernel
+   once): tokens/s, step time, peak memory, launches a step, first and last
+   losses and aux values; ``params_m`` 627.7 and sparse
+   ``active_params_m`` 225.0 held, the first-step losses within
+   ``MOE_FIRST_LOSS_TOL``; (d) (run last) one profiled step, sparse and then
+   dense: the card's busy time split into the router, the one-hot slot building, the
+   dispatch and combine products, the expert products (the layer's
+   ``record_function`` ranges, a backward op charged to its forward op's
+   range), the flash kernels and the rest.
+11. One ``{"kernels": [...]}`` line, the card's line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -185,6 +210,8 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 TRAIN_SHAPE = ("train", 4, 4096, 8, 4, 128, True, None, "bfloat16")
 # The journey's training shape (phase 8): batch 16 x 1024-byte records.
 JOURNEY_SHAPE = ("journey", 16, 1024, 8, 4, 128, True, None, "bfloat16")
+# bench.py's moe block (phase 10): batch 8 x 2048.
+MOE_SHAPE = ("moe", 8, 2048, 8, 4, 128, True, None, "bfloat16")
 EDGE_CASES = [
     ("S192_causal", 2, 192, 8, 4, 128, True, None, "bfloat16"),
     ("S64_one_tile", 2, 64, 8, 4, 128, True, None, "bfloat16"),
@@ -200,6 +227,7 @@ FLASH_CASES = [
     TRAIN_SHAPE,
     PREFILL_1B,
     JOURNEY_SHAPE,
+    MOE_SHAPE,
     ("unaligned_S500", 8, 500, 8, 4, 128, True, None, "bfloat16"),
     ("kv_len_noncausal", 4, 512, 8, 4, 128, False, 300, "bfloat16"),
     ("G1", 4, 256, 8, 8, 128, True, None, "bfloat16"),
@@ -224,6 +252,7 @@ FLASH_CASES = [
 BWD_CASES = [
     TRAIN_SHAPE,
     JOURNEY_SHAPE,
+    MOE_SHAPE,
     ("unaligned_S500", 2, 500, 8, 4, 128, True, None, "bfloat16"),
     ("kv_len_noncausal", 2, 512, 8, 4, 128, False, 300, "bfloat16"),
     ("G1", 2, 256, 8, 8, 128, True, None, "bfloat16"),
@@ -427,7 +456,7 @@ def phase_flash_vs_plain():
         )
         if not a["ok"]:
             _fail(f"flash_fwd disagrees with its plain version in case {name}")
-        if name in ("slice", "train", "prefill_1b", "journey"):
+        if name in ("slice", "train", "prefill_1b", "journey", "moe"):
             qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             call = functools.partial(fa.flash_attention_with_lse, q, k, v, causal=causal, kv_len=kv_len)
             ms = _time_ms(call)
@@ -509,7 +538,7 @@ def phase_backward_vs_plain():
             for gname, g, r in zip(("dq", "dk", "dv"), grads, refs)
         }
         del refs
-        if name not in ("train", "journey"):
+        if name not in ("train", "journey", "moe"):
             continue
         lse_c, delta = lse.contiguous(), fa.bwd_delta(o, do)
         kin = (q, k, v, do, lse_c, delta)
@@ -2457,6 +2486,319 @@ def _profile_rest(kernels, n_layers):
         _fail("the port profile report disagrees with phase 5's profile")
 
 
+# Phase 10, the mixture-of-experts Llama: bench.py:438-467's ``moe`` block
+# (0.3b width at 8 layers, 8 experts, top 2, capacity 1.25, aux 1e-2, bf16
+# parameters, adafactor, remat ``dots``, B8 x 2048, 3 warmup + 12 steps),
+# unchanged (sparse dispatch), and its dense twin.
+MOE_RUN = dict(config="0.3b", batch_size=8, seq_len=2048, steps=12, warmup=3, n_layers=8,
+               param_dtype="bfloat16", optimizer="adafactor", n_experts=8, moe_top_k=2,
+               moe_dispatch="sparse", moe_aux_weight=1e-2, remat=True, remat_policy="dots")
+# The JAX run's own counts of that block (BASELINE.md:250-253), which the
+# shapes give too: 8 x (3.15M attention + 2 x 33.55M expert banks + 8,192
+# router + 2,048 norm) + 2 x 32.77M embedding and head + 1,024 = 627.7M; the
+# banks at top_k/E = 2/8 leave 225.0M active.
+MOE_PARAMS_M, MOE_ACTIVE_M = 627.7, 225.0
+# The layer at that width: 4,096 tokens of bf16 x, the weights at the
+# model's init scale.
+MOE_LAYER = dict(n_tokens=4096, d_model=1024, d_ff=4096, n_experts=8, top_k=2)
+# The card's bf16 layer against the CPU's f32 run of the same inputs, by
+# relative L2 (output, and the gradients of x, gate, w_in and w_out; output
+# and x's gradient over the tokens routed alike on both). bf16 rounding of
+# the same computation reads 3.8e-3 to 4.5e-3, both dispatches; the planted
+# faults (top-k weights from the full softmax; the second choice dropped)
+# read 0.44 and 0.51 (NVIDIA H100 80GB HBM3 at 700 W). Routing itself (f32
+# logits, TF32 off) is held by the share of tokens with equal top-k indices
+# (read: all of them).
+MOE_REL_TOL = 2e-2
+MOE_INDEX_AGREE_MIN = 0.999
+# First-step losses of the sparse run and its dense twin (same seed, same
+# weights, same batch): only the tokens that sparse dispatch drops differ.
+MOE_FIRST_LOSS_TOL = 0.02
+
+
+def _moe_layer_inputs(gen, device):
+    """bf16 x [N, D], the upstream gradient, and the layer's parameters
+    (bf16, lecun-scaled as the model's init)."""
+    import torch
+
+    L = MOE_LAYER
+    N, D, Fd, E = L["n_tokens"], L["d_model"], L["d_ff"], L["n_experts"]
+
+    def draw(shape, fan_in=1):
+        return (torch.randn(shape, generator=gen, device=device) / math.sqrt(fan_in)).bfloat16()
+
+    params = {"gate": draw((D, E), D), "w_in": draw((E, D, Fd), E * D), "w_out": draw((E, Fd, D), E * Fd)}
+    return params, draw((N, D)), draw((N, D))
+
+
+def _moe_layer(params, x, dout, fn):
+    """``fn``'s output and the gradients of x, gate, w_in and w_out under
+    ``dout``."""
+    import torch
+
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    xin = x.detach().requires_grad_()
+    out = fn(leaves, xin)
+    grads = torch.autograd.grad(out, [xin, leaves["gate"], leaves["w_in"], leaves["w_out"]],
+                                dout.to(out.dtype))
+    return out.detach(), dict(zip(("x", "gate", "w_in", "w_out"), grads))
+
+
+def _rel_l2(a, b) -> float:
+    import torch
+
+    a, b = a.float().cpu(), b.float().cpu()
+    return (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
+
+
+def _moe_fns(cf: float = 1.25):
+    from pytorch_operator_tpu_torch.parallel import moe
+
+    k = MOE_LAYER["top_k"]
+    return {
+        "dense": lambda p, x: moe.moe_mlp_reference(p, x, top_k=k),
+        "sparse": lambda p, x: moe.moe_mlp_sparse(p, x, top_k=k, capacity_factor=cf),
+    }
+
+
+def _moe_routes(params, x, dispatch: str):
+    """Per token, what routing decided: the top-k indices (dense), or the
+    experts that kept the token (sparse at capacity 1.25)."""
+    from pytorch_operator_tpu_torch.parallel import moe
+
+    k = MOE_LAYER["top_k"]
+    _, idx, _ = moe._router_topk(params, x, k)
+    if dispatch == "dense":
+        return idx.cpu()
+    N, E = x.shape[0], MOE_LAYER["n_experts"]
+    g = min(1024, N)
+    d, _ = moe._dispatch_tensors(params, x.reshape(N // g, g, -1), k, math.ceil(g * 1.25 * k / E))
+    return d.sum(-1).reshape(N, E).cpu()
+
+
+def phase_moe(kernels):
+    """Phase 10: (a) the layer on the card against the CPU, with planted
+    faults; (b) sparse against dense on the card; (c) bench.py's moe block
+    and its dense twin through llama_train.run. Returns (d), the profiled
+    sparse step, to run with the other profiles."""
+    import torch
+
+    if torch.get_float32_matmul_precision() != "highest" or torch.backends.cuda.matmul.allow_tf32:
+        _fail("TF32 is on: the router's f32 product would not be f32")
+    t0 = time.perf_counter()
+    _moe_layer_vs_cpu()
+    torch.cuda.empty_cache()
+    _log(f"moe (a), (b): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _moe_runs(kernels)
+    torch.cuda.empty_cache()
+    _log(f"moe (c): {time.perf_counter() - t0:.1f} s")
+    return _profile_moe_step
+
+
+def _moe_layer_vs_cpu():
+    """(a) one forward and backward of each dispatch on the card against the
+    plain f32 run on the CPU (the same bf16 values), planted faults read
+    against the same reference; (b) sparse at capacity E/top_k against
+    dense on the card, and the drop share at 1.25."""
+    import torch
+
+    from pytorch_operator_tpu_torch.parallel import moe
+
+    L = MOE_LAYER
+    params, x, dout = _moe_layer_inputs(torch.Generator(device="cuda").manual_seed(10), "cuda")
+    cpu = ({k: v.cpu().float() for k, v in params.items()}, x.cpu().float(), dout.cpu().float())
+    shape = f"N{L['n_tokens']} D{L['d_model']} F{L['d_ff']} E{L['n_experts']} top{L['top_k']}"
+    refs = {}
+    for dispatch, fn in _moe_fns().items():
+        routes = _moe_routes(params, x, dispatch)
+        ref_routes = _moe_routes(cpu[0], cpu[1], dispatch)
+        alike = (routes == ref_routes).all(-1)
+        _, idx, _ = moe._router_topk(params, x, L["top_k"])
+        _, ref_idx, _ = moe._router_topk(cpu[0], cpu[1], L["top_k"])
+        agree = (idx.cpu() == ref_idx).all(-1).float().mean().item()
+        out, grads = _moe_layer(params, x, dout, fn)
+        ref_out, ref_grads = _moe_layer(*cpu, fn)
+        refs[dispatch] = (ref_out, ref_grads, alike)
+        if not (torch.isfinite(out.float()).all() and out.shape == x.shape):
+            _fail(f"moe {dispatch}: non-finite output or shape {tuple(out.shape)}")
+        errs = {"out": _rel_l2(out.cpu()[alike], ref_out[alike]),
+                "x": _rel_l2(grads["x"].cpu()[alike], ref_grads["x"][alike])}
+        errs.update({k: _rel_l2(grads[k], ref_grads[k]) for k in ("gate", "w_in", "w_out")})
+        worst = max(errs, key=errs.get)
+        _log(f"moe (a) {dispatch} {shape} bf16 card vs f32 CPU: top-k indices equal for "
+             f"{agree:.5f} of tokens (min {MOE_INDEX_AGREE_MIN}), routed alike {alike.float().mean():.5f}; "
+             "rel L2 " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+             + f" (tol {MOE_REL_TOL:.0e})")
+        if agree < MOE_INDEX_AGREE_MIN or errs[worst] > MOE_REL_TOL:
+            _fail(f"the moe layer ({dispatch}) on the card disagrees with the CPU")
+        del out, grads
+    # Planted faults, forward only, against the sound CPU outputs: each must
+    # read above the tolerance.
+    route = moe._router_topk
+
+    def full_softmax(p, xx, k):
+        logits, idx, _ = route(p, xx, k)
+        return logits, idx, torch.softmax(logits, -1).gather(-1, idx)
+
+    def first_only(p, xx, k):
+        logits, idx, probs = route(p, xx, k)
+        keep = torch.zeros(k, device=probs.device)
+        keep[0] = 1.0
+        return logits, idx, probs * keep
+
+    for fault, fake in (("top-k weights from the full softmax", full_softmax),
+                        ("second choice dropped", first_only)):
+        moe._router_topk = fake
+        try:
+            with torch.no_grad():
+                reads = {d: _rel_l2(fn(params, x), refs[d][0]) for d, fn in _moe_fns().items()}
+        finally:
+            moe._router_topk = route
+        _log(f"moe (a) planted fault, {fault}: output rel L2 "
+             + ", ".join(f"{d} {v:.3e}" for d, v in reads.items()) + f" (must exceed {MOE_REL_TOL:.0e})")
+        if min(reads.values()) <= MOE_REL_TOL:
+            _fail(f"the tolerance does not catch the planted fault: {fault}")
+    # (b) No token can drop at capacity factor E / top_k.
+    ample = MOE_LAYER["n_experts"] / MOE_LAYER["top_k"]
+    d_out, d_grads = _moe_layer(params, x, dout, _moe_fns()["dense"])
+    s_out, s_grads = _moe_layer(params, x, dout, _moe_fns(ample)["sparse"])
+    errs = {"out": _rel_l2(s_out, d_out), **{k: _rel_l2(s_grads[k], d_grads[k]) for k in d_grads}}
+    N, k, E = MOE_LAYER["n_tokens"], MOE_LAYER["top_k"], MOE_LAYER["n_experts"]
+    kept = _moe_routes(params, x, "sparse").sum().item()
+    _log(f"moe (b) sparse (capacity factor {ample:g}) vs dense on the card: rel L2 "
+         + ", ".join(f"{n} {v:.3e}" for n, v in errs.items()) + f" (tol {MOE_REL_TOL:.0e}); at "
+         f"capacity 1.25 (C {math.ceil(1024 * 1.25 * k / E)} a group of 1024) "
+         f"{1 - kept / (N * k):.4%} of (token, choice) pairs dropped")
+    if max(errs.values()) > MOE_REL_TOL:
+        _fail("sparse dispatch at ample capacity disagrees with dense dispatch")
+
+
+def _moe_runs(kernels):
+    """(c) bench.py's moe block through llama_train.run, then its dense twin;
+    each with the launch counts set to 0 just before and read just after."""
+    from pytorch_operator_tpu_torch.ops import flash_attention as fa
+    from pytorch_operator_tpu_torch.workloads import llama_train
+
+    total = MOE_RUN["warmup"] + MOE_RUN["steps"]
+    want = _per_step(MOE_RUN["n_layers"], remat=True)
+    first = {}
+    for dispatch in ("sparse", "dense"):
+        fa.reset_launch_count()
+        r = llama_train.run(device="cuda", log=_log, **dict(MOE_RUN, moe_dispatch=dispatch))
+        launches = fa.launch_counts()
+        _record_launches(kernels, f"moe_{dispatch}", launches)
+        losses, aux = r["losses"], r["aux_losses"]
+        active = MOE_ACTIVE_M if dispatch == "sparse" else MOE_PARAMS_M
+        _log(
+            f"moe (c) {dispatch} (bench.py:438-467{'' if dispatch == 'sparse' else ', dense twin'}; "
+            f"B8 x S2048, 8 layers): {r['value']} tokens/s, step {r['step_s']:.4f} s, peak memory "
+            f"{r['peak_mem_bytes'] / 2**30:.2f} GiB, params_m {r['params_m']}, active_params_m "
+            f"{r['active_params_m']}, losses {losses[0]:.4f} -> {losses[-1]:.4f}, aux "
+            f"{aux[0]:.4f} -> {aux[-1]:.4f}, launches a step {r['flash_launches_per_step']}"
+        )
+        if launches != {name: n * total for name, n in want.items()}:
+            _fail(f"moe {dispatch} launched {launches}, expected {want} a step over {total} steps")
+        if (r["params_m"], r["active_params_m"], r["n_experts"], r["moe_dispatch"]) != (
+            MOE_PARAMS_M, active, 8, dispatch
+        ):
+            _fail(f"moe {dispatch}: parameter counts or keys differ from the JAX run's")
+        if len(losses) != total or not all(math.isfinite(v) for v in losses + aux):
+            _fail(f"moe {dispatch}: losses or aux values not finite: {losses}, {aux}")
+        first[dispatch] = losses[0]
+    gap = abs(first["sparse"] - first["dense"])
+    _log(f"moe (c) first-step losses sparse {first['sparse']:.5f}, dense {first['dense']:.5f}: "
+         f"{gap:.5f} apart (tol {MOE_FIRST_LOSS_TOL})")
+    if gap > MOE_FIRST_LOSS_TOL:
+        _fail("the first steps of sparse and dense dispatch disagree")
+
+
+# Where the profiled step's kernels go: the MoE layer's record_function
+# ranges (parallel/moe.py), the flash kernels by name, the rest "other".
+MOE_PARTS = ("moe.router", "moe.slots", "moe.dispatch", "moe.experts", "flash", "other")
+
+
+def _moe_split(events, weight) -> dict:
+    """Charge each event's ``weight`` (its kernels' time on the card) to a
+    part of :data:`MOE_PARTS`: the innermost ``moe.*`` range around it; for a
+    backward op, the range of the forward op whose autograd node it runs
+    (same thread and sequence number); a flash kernel to ``flash``."""
+    def label(e):
+        while e is not None:
+            if e.name in MOE_PARTS:
+                return e.name, None
+            if e.name.startswith("autograd::engine::evaluate_function") and e.sequence_nr >= 0:
+                return None, (e.fwd_thread, e.sequence_nr)
+            e = e.cpu_parent
+        return None, None
+
+    forward = {}
+    for e in events:
+        name, _ = label(e)
+        if name is not None and e.sequence_nr >= 0:
+            forward.setdefault((e.thread, e.sequence_nr), name)
+    split = dict.fromkeys(MOE_PARTS, 0.0)
+    for e in events:
+        w = weight(e)
+        if not w:
+            continue
+        name, node = label(e)
+        if name is None and node is not None:
+            name = forward.get(node)
+        split[name or "other"] += w
+    return split
+
+
+def _kernel_ms(e) -> tuple:
+    """(flash ms, other ms) of the kernels an event launched itself. A
+    ``record_function`` range's projection on the card is listed among its
+    kernels: left out, its kernels count as themselves."""
+    if getattr(e, "is_user_annotation", False) or e.name in MOE_PARTS:
+        return 0.0, 0.0
+    flash = sum(k.duration for k in e.kernels if "flash_" in k.name) / 1e3
+    return flash, sum(k.duration for k in e.kernels) / 1e3 - flash
+
+
+def _profile_moe_step():
+    """(d) Where one step of bench.py's moe block goes, sparse and then its
+    dense twin: the card's busy time, split by MOE_PARTS."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+    from pytorch_operator_tpu_torch.workloads import llama_train, trainer
+
+    r = MOE_RUN
+    toks = torch.from_numpy(llama_train.synthetic_bigram_batch(r["batch_size"], r["seq_len"], 32000, 0))
+    toks = toks.to("cuda", torch.long)
+    for dispatch in ("sparse", "dense"):
+        cfg = llama_lib.llama_0_3b(
+            n_layers=r["n_layers"], param_dtype=torch.bfloat16, n_experts=r["n_experts"],
+            moe_top_k=r["moe_top_k"], moe_dispatch=dispatch, moe_aux_weight=r["moe_aux_weight"],
+            remat=True, remat_policy="dots",
+        )
+        model = _train_model(cfg, seed=0)
+        step = trainer.make_lm_train_step(model, trainer.make_optimizer(model, 3e-4, optimizer="adafactor"))
+        float(step(toks))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            float(step(toks))
+            wall = time.perf_counter() - t0
+        busy, _ = _report_profile(prof, wall, f"one {dispatch} moe step (B8 x S2048, 8 layers)", top=15)
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+        split = _moe_split(events, lambda e: _kernel_ms(e)[1])
+        split["flash"] += sum(_kernel_ms(e)[0] for e in events)
+        charged, busy_ms = sum(split.values()), 1e3 * busy
+        moe_ms = sum(split[k] for k in MOE_PARTS if k.startswith("moe."))
+        _log(f"moe (d) {dispatch}: the step's kernels by part (ms, share of busy {busy_ms:.2f} ms): "
+             + ", ".join(f"{k} {v:.2f} ({100 * v / busy_ms:.1f}%)" for k, v in split.items())
+             + f"; charged {charged:.2f} ms; the MoE layer {100 * moe_ms / busy_ms:.1f}% of the busy time")
+        if not (moe_ms > 0 and split["flash"] > 0 and charged <= 1.02 * busy_ms):
+            _fail(f"the {dispatch} moe step's split does not add up")
+        del model, step, prof
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = phase_identity_and_build()
@@ -2465,7 +2807,8 @@ def main() -> int:
     # Each path's profile runs after every timed run: no timed run follows
     # a profiler session.
     profiles = []
-    for phase in (phase_generate, phase_train, phase_serve, phase_int8, phase_journey, phase_rest):
+    for phase in (phase_generate, phase_train, phase_serve, phase_int8, phase_journey, phase_rest,
+                  phase_moe):
         t0 = time.perf_counter()
         profiles.append(phase(kernels))
         _log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")

@@ -16,6 +16,7 @@ module there it keeps as its own copy.
   chunked-vocab loss, and token sampling.
 - ``models``  — the Llama decoder with its KV-cache decode path, and the
   loader that turns a JAX param tree into this package's state dict.
+- ``parallel`` — the mixture-of-experts layer on one device (``moe.py``).
 - ``workloads`` — runnable entry points (``generate``, ``llama_train``) and
   the training loop they share (``trainer``).
 

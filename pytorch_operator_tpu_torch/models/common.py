@@ -12,9 +12,12 @@ from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint
 def _save_dots(ctx, op, *args, **kwargs):
     """``dots_with_no_batch_dims_saveable`` in PyTorch's terms: keep the
     outputs of the 2-D GEMMs (``aten.mm``, ``aten.addmm``: the projections
-    and the MLP, whose 3-D inputs ``F.linear`` folds to 2-D), recompute
-    everything else (norms, rotary, activations, batched attention
-    products)."""
+    and the MLP, whose 3-D inputs ``F.linear`` folds to 2-D; in a MoE block
+    the router's product and dense dispatch's first expert product, which
+    ``parallel/moe.py`` writes as ``mm``), recompute everything else (norms,
+    rotary, activations, batched attention products, the MoE layer's
+    batched ``bmm`` products, as JAX's policy recomputes its batched
+    einsums)."""
     if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE

@@ -17,7 +17,10 @@ cannot import that class and recognises such a leaf by its ``q`` and
 ``quantize="int8"`` model, bit for bit: ``q`` and ``scale`` go through the
 same transposes and reshapes, ``<module>.weight`` holding ``q`` and
 ``<module>.scale`` the scale (e.g. q/k/v ``q`` ``[L, M, H, D]`` with scale
-``[L, 1, H, D]`` become ``[H·D, M]`` and ``[H·D, 1]``).
+``[L, 1, H, D]`` become ``[H·D, M]`` and ``[H·D, 1]``). A MoE model's expert
+banks keep the reference's layout (``w_in`` ``q`` ``[L, E, D, F]`` with
+scale ``[L, E, 1, F]`` become ``[E, D, F]`` and ``w_in_scale`` ``[E, 1,
+F]``); its router ``gate`` is never quantized.
 
 The mapping between the two layouts lives in one place, :func:`jax_leaves`:
 one :class:`JaxLeaf` a JAX param leaf, with the port tensors it holds and the
@@ -35,7 +38,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..ops.quantize import scale_name
+from ..ops.quantize import is_quantized, scale_name
 from .llama import LlamaConfig
 
 
@@ -85,17 +88,31 @@ class JaxLeaf:
 
 
 def jax_leaves(cfg: LlamaConfig) -> List[JaxLeaf]:
-    """The JAX param leaves of a dense Llama of config ``cfg``, each with
-    the port tensors it holds (the order in which :func:`params_from_jax`
-    checks them)."""
-    H, K, D, M, Fd, V, L = (
+    """The JAX param leaves of a Llama of config ``cfg``, each with the port
+    tensors it holds (the order in which :func:`params_from_jax` checks
+    them). With ``cfg.n_experts > 0`` the MoE leaves (router ``gate``
+    ``[L, M, E]``, banks ``w_in`` ``[L, E, M, F]`` and ``w_out``
+    ``[L, E, F, M]``, all in the port's layout) take the place of the MLP's."""
+    H, K, D, M, Fd, V, L, E = (
         cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model, cfg.d_ff,
-        cfg.vocab_size, cfg.n_layers,
+        cfg.vocab_size, cfg.n_layers, cfg.n_experts,
     )
 
     def layers(name):
         return tuple(f"layers.{i}.{name}" for i in range(L))
 
+    if E > 0:
+        mlp = [
+            JaxLeaf("layers/moe_mlp/gate", (L, M, E), layers("moe_mlp.gate"), "same", True),
+            JaxLeaf("layers/moe_mlp/w_in", (L, E, M, Fd), layers("moe_mlp.w_in"), "same", True),
+            JaxLeaf("layers/moe_mlp/w_out", (L, E, Fd, M), layers("moe_mlp.w_out"), "same", True),
+        ]
+    else:
+        mlp = [
+            JaxLeaf("layers/mlp/gate_proj/kernel", (L, M, Fd), layers("mlp.gate_proj.weight"), "t", True),
+            JaxLeaf("layers/mlp/up_proj/kernel", (L, M, Fd), layers("mlp.up_proj.weight"), "t", True),
+            JaxLeaf("layers/mlp/down_proj/kernel", (L, Fd, M), layers("mlp.down_proj.weight"), "t", True),
+        ]
     return [
         JaxLeaf("embed/embedding", (V, M), ("embed.weight",), "same", False),
         JaxLeaf("final_norm/scale", (M,), ("final_norm.weight",), "same", False, norm=True),
@@ -106,9 +123,7 @@ def jax_leaves(cfg: LlamaConfig) -> List[JaxLeaf]:
         JaxLeaf("layers/attn/k_proj/kernel", (L, M, K, D), layers("attn.k_proj.weight"), "heads", True),
         JaxLeaf("layers/attn/v_proj/kernel", (L, M, K, D), layers("attn.v_proj.weight"), "heads", True),
         JaxLeaf("layers/attn/o_proj/kernel", (L, H * D, M), layers("attn.o_proj.weight"), "t", True),
-        JaxLeaf("layers/mlp/gate_proj/kernel", (L, M, Fd), layers("mlp.gate_proj.weight"), "t", True),
-        JaxLeaf("layers/mlp/up_proj/kernel", (L, M, Fd), layers("mlp.up_proj.weight"), "t", True),
-        JaxLeaf("layers/mlp/down_proj/kernel", (L, Fd, M), layers("mlp.down_proj.weight"), "t", True),
+        *mlp,
     ]
 
 
@@ -126,20 +141,18 @@ def params_from_jax(tree, cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
 
     for leaf in jax_leaves(cfg):
         raw = node(leaf.path)
-        if leaf.norm:
-            w, scale = torch.from_numpy(np.array(raw, dtype=np.float32)), None
+        quantized = _is_quantized(raw)
+        # The rule decides which leaves a quantized tree holds in int8.
+        if quantized != (cfg.quantize == "int8" and is_quantized(leaf.names[0])):
+            raise ValueError(
+                f"JAX param {leaf.path} is {'' if quantized else 'not '}quantized, "
+                f"config has quantize={cfg.quantize!r}"
+            )
+        if quantized:
+            w = torch.from_numpy(np.array(raw.q, dtype=np.int8))
+            scale = torch.from_numpy(np.array(raw.scale, dtype=np.float32))
         else:
-            quantized = _is_quantized(raw)
-            if quantized != (cfg.quantize == "int8"):
-                raise ValueError(
-                    f"JAX param {leaf.path} is {'' if quantized else 'not '}quantized, "
-                    f"config has quantize={cfg.quantize!r}"
-                )
-            if quantized:
-                w = torch.from_numpy(np.array(raw.q, dtype=np.int8))
-                scale = torch.from_numpy(np.array(raw.scale, dtype=np.float32))
-            else:
-                w, scale = torch.from_numpy(np.array(raw, dtype=np.float32)), None
+            w, scale = torch.from_numpy(np.array(raw, dtype=np.float32)), None
         _check(leaf.path, w.shape, leaf.shape)
         for i, name in enumerate(leaf.names):
             if leaf.norm:

@@ -29,9 +29,17 @@ write and folded into the scores and probabilities after the dots.
 ``nn.remat`` of the block): ``remat_policy="full"`` keeps only the block's
 input, ``"dots"`` also keeps the outputs of its GEMMs (``models/common.py``).
 
-Not in this port yet (each raises ``NotImplementedError`` from the config):
-MoE and ring/ulysses sequence parallelism. Pipeline parallelism has no config
-field; the port has no pp forward. All are queued in ROADMAP.md.
+``n_experts > 0`` replaces each block's MLP with ``moe_mlp``, the top-k
+mixture of experts of ``parallel/moe.py`` on this one device (dense or
+capacity-factor sparse dispatch); with ``moe_aux_weight > 0`` and
+``return_aux=True`` the forward also returns the mean over layers of the
+load-balance loss, which each block hands back through its return value (a
+rematerialised block runs twice, so no side channel would count once).
+
+Not in this port yet (raises ``NotImplementedError`` from the config): ring
+and ulysses sequence parallelism. Expert parallelism and pipeline
+parallelism have no config field; the port has no ep or pp forward. All are
+ROADMAP.md item 3b.
 """
 
 from __future__ import annotations
@@ -47,7 +55,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from ..ops.flash_attention import flash_attention
-from ..ops.quantize import dequantize, quantize
+from ..ops.quantize import dequantize, quantize, scale_name
+from ..parallel.moe import load_balance_loss, moe_mlp_reference, moe_mlp_sparse
 from .common import remat_policy
 
 
@@ -111,18 +120,28 @@ class LlamaConfig:
                 f"attn_impl={self.attn_impl!r} is not supported with "
                 "decode=True (prefill uses flash/dense self-attention)"
             )
-        for field, off, item in (
-            ("n_experts", self.n_experts == 0, "MoE"),
-            (
-                "attn_impl",
-                self.attn_impl not in ("ring", "ulysses"),
-                "multi-GPU, ring/ulysses, MoE, pp",
-            ),
-        ):
-            if not off:
-                raise NotImplementedError(
-                    f"{field}={getattr(self, field)!r} is not ported yet "
-                    f"(ROADMAP.md: {item})"
+        if self.attn_impl in ("ring", "ulysses"):
+            raise NotImplementedError(
+                f"attn_impl={self.attn_impl!r} is not ported yet "
+                "(ROADMAP.md item 3b: multi-GPU, ring/ulysses, pp)"
+            )
+        if self.n_experts > 0:
+            if self.moe_dispatch not in ("dense", "sparse"):
+                raise ValueError(
+                    f"moe_dispatch={self.moe_dispatch!r} not in ('dense', 'sparse')"
+                )
+            if self.moe_dispatch == "sparse" and not self.moe_aux_weight:
+                # Capacity-factor dispatch drops over-capacity tokens, so a
+                # router that collapses without the load-balance loss also
+                # drops most of the batch.
+                import warnings
+
+                warnings.warn(
+                    "moe_dispatch='sparse' with moe_aux_weight=0: without the "
+                    "load-balance loss the router can collapse onto a few "
+                    "experts and capacity-factor dispatch then drops most "
+                    "tokens. Set moe_aux_weight~1e-2.",
+                    stacklevel=2,
                 )
         if self.attn_impl not in ("dense", "flash"):
             raise ValueError(f"attn_impl={self.attn_impl!r} not in ('dense', 'flash')")
@@ -376,19 +395,83 @@ class MLP(nn.Module):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
+class MoEMLP(nn.Module):
+    """Top-k mixture-of-experts feed-forward (``parallel/moe.py``) on this
+    one device: dense dispatch (``moe_mlp_reference``) or capacity-factor
+    sparse dispatch (``moe_mlp_sparse``).
+
+    Parameters in the reference's layout and names, in ``cfg.param_dtype``:
+    the router ``gate`` [D, E], used as stored (the router computes in f32),
+    and the expert banks ``w_in`` [E, D, F] and ``w_out`` [E, F, D], cast to
+    ``cfg.dtype`` at the call. Under ``cfg.quantize`` each bank is an int8
+    tensor with an f32 scale a column (``w_in_scale`` [E, 1, F],
+    ``w_out_scale`` [E, 1, D]), dequantized at the call; the router stays
+    full precision."""
+
+    def __init__(self, cfg: LlamaConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        E, D, Fd = cfg.n_experts, cfg.d_model, cfg.d_ff
+        self.gate = nn.Parameter(torch.empty((D, E), dtype=cfg.param_dtype, device=device))
+        for name, shape in (("w_in", (E, D, Fd)), ("w_out", (E, Fd, D))):
+            if cfg.quantize:
+                q = torch.zeros(shape, dtype=torch.int8, device=device)
+                scale = torch.ones(shape[:-2] + (1, shape[-1]), device=device)
+                self.register_parameter(name, nn.Parameter(q, requires_grad=False))
+                self.register_parameter(scale_name(name), nn.Parameter(scale, requires_grad=False))
+            else:
+                w = torch.empty(shape, dtype=cfg.param_dtype, device=device)
+                self.register_parameter(name, nn.Parameter(w))
+
+    def _bank(self, name: str) -> torch.Tensor:
+        w = getattr(self, name)
+        if self.cfg.quantize:
+            return dequantize(w, getattr(self, scale_name(name)), self.cfg.dtype)
+        return w.to(self.cfg.dtype)
+
+    def forward(self, x, want_aux: bool = False):
+        """``(out, aux)``: the layer's output in ``x``'s shape and dtype, and
+        its load-balance loss when ``want_aux`` and ``cfg.moe_aux_weight > 0``
+        (else None)."""
+        cfg = self.cfg
+        params = {"gate": self.gate, "w_in": self._bank("w_in"), "w_out": self._bank("w_out")}
+        x2d = x.reshape(-1, cfg.d_model)
+        aux = None
+        if want_aux and cfg.moe_aux_weight > 0:
+            aux = load_balance_loss(params, x2d, cfg.moe_top_k)
+        if cfg.moe_dispatch == "sparse":
+            out = moe_mlp_sparse(
+                params, x2d, top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor
+            )
+        else:
+            out = moe_mlp_reference(params, x2d, top_k=cfg.moe_top_k)
+        return out.reshape(x.shape).to(x.dtype), aux
+
+
 class Block(nn.Module):
-    """Pre-norm decoder block."""
+    """Pre-norm decoder block: attention, then the MLP (``mlp``) or, with
+    ``cfg.n_experts > 0``, the mixture of experts (``moe_mlp``). Returns
+    ``(x, aux)``, aux the MoE layer's load-balance loss when asked for
+    (``want_aux``), else None."""
 
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         self.attn_norm = RMSNorm(cfg.d_model, cfg.rms_eps, device)
         self.attn = Attention(cfg, device)
         self.mlp_norm = RMSNorm(cfg.d_model, cfg.rms_eps, device)
-        self.mlp = MLP(cfg, device)
+        self.moe = cfg.n_experts > 0
+        if self.moe:
+            self.moe_mlp = MoEMLP(cfg, device)
+        else:
+            self.mlp = MLP(cfg, device)
 
-    def forward(self, x, positions, cache=None):
+    def forward(self, x, positions, cache=None, want_aux: bool = False):
         x = x + self.attn(self.attn_norm(x), positions, cache)
-        return x + self.mlp(self.mlp_norm(x))
+        h = self.mlp_norm(x)
+        if self.moe:
+            out, aux = self.moe_mlp(h, want_aux)
+            return x + out, aux
+        return x + self.mlp(h), None
 
 
 class Llama(nn.Module):
@@ -437,8 +520,12 @@ class Llama(nn.Module):
                 w.normal_(0.0, 1.0, generator=generator)
             else:
                 # flax lecun_normal: variance 1/fan_in, truncated at 2 std,
-                # std corrected for the truncation.
-                std = math.sqrt(1.0 / p.shape[1]) / 0.87962566103423978
+                # std corrected for the truncation. The MoE parameters keep
+                # the reference's [..., in, out] layout, whose fan-in counts
+                # every axis but the last (the expert axis of a bank too);
+                # an nn.Linear weight is [out, in].
+                fan_in = p.numel() // p.shape[-1] if ".moe_mlp." in name else p.shape[1]
+                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
                 nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
             p.copy_(w)
         return self
@@ -447,13 +534,15 @@ class Llama(nn.Module):
     def cast_matmul_weights_(self) -> "Llama":
         """Hold the matmul weights and the embedding table in ``cfg.dtype``
         from now on (in place): a serving model pays the cast once at load
-        instead of at every call. Norm scales and the LM head keep their
-        dtype. Not for training: the optimizer would then update bf16
-        weights. int8 weights stay int8."""
+        instead of at every call. Norm scales, the MoE router and the LM head
+        keep their dtype. Not for training: the optimizer would then update
+        bf16 weights. int8 weights stay int8."""
         for name, p in self.named_parameters():
             if p.dtype == torch.int8:
                 continue
-            if name == "embed.weight" or name.endswith("_proj.weight"):
+            if name == "embed.weight" or name.endswith(
+                ("_proj.weight", "moe_mlp.w_in", "moe_mlp.w_out")
+            ):
                 p.data = p.data.to(self.cfg.dtype)
         return self
 
@@ -464,7 +553,16 @@ class Llama(nn.Module):
             return dequantize(self.lm_head.weight, self.lm_head.scale, torch.float32).t()
         return self.lm_head.weight.t()
 
-    def forward(self, tokens, positions=None, *, cache=None, return_hidden: bool = False):
+    def forward(
+        self, tokens, positions=None, *, cache=None, return_hidden: bool = False,
+        return_aux: bool = False,
+    ):
+        """Logits (or hidden states), and with ``return_aux`` the pair
+        ``(out, aux)``: aux the mean over layers of the MoE load-balance loss
+        when the model has experts and ``cfg.moe_aux_weight > 0``, else None
+        (the reference's ``losses`` collection, collected only when the loss
+        asks for it)."""
+        want_aux = return_aux and self.cfg.n_experts > 0 and self.cfg.moe_aux_weight > 0
         if positions is None:
             S = tokens.shape[-1]
             positions = torch.arange(S, device=tokens.device).expand(tokens.shape)
@@ -482,21 +580,31 @@ class Llama(nn.Module):
             )
         else:
             x = F.embedding(tokens, self.embed.weight).to(self.cfg.dtype)
+        auxes = []
         if self.cfg.remat and cache is None and torch.is_grad_enabled():
             context_fn = remat_policy(self.cfg) or noop_context_fn
             for block in self.layers:
-                x = checkpoint(block, x, positions, use_reentrant=False, context_fn=context_fn)
+                x, aux = checkpoint(
+                    block, x, positions, None, want_aux, use_reentrant=False, context_fn=context_fn
+                )
+                auxes.append(aux)
         else:
             for i, block in enumerate(self.layers):
-                x = block(x, positions, None if cache is None else cache[f"layer_{i}"]["attn"])
+                layer_cache = None if cache is None else cache[f"layer_{i}"]["attn"]
+                x, aux = block(x, positions, layer_cache, want_aux)
+                auxes.append(aux)
         x = self.final_norm(x)
         if return_hidden:
-            return x
-        if self.cfg.quantize:
-            head = dequantize(self.lm_head.weight, self.lm_head.scale, torch.float32)
+            out = x
         else:
-            head = self.lm_head.weight.float()
-        return F.linear(x.float(), head)
+            if self.cfg.quantize:
+                head = dequantize(self.lm_head.weight, self.lm_head.scale, torch.float32)
+            else:
+                head = self.lm_head.weight.float()
+            out = F.linear(x.float(), head)
+        if return_aux:
+            return out, torch.stack(auxes).mean() if want_aux else None
+        return out
 
 
 def init_decode_cache(cfg: LlamaConfig, batch: int, device=None):

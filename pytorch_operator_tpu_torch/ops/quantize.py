@@ -6,13 +6,16 @@ max|w| / 127`` over the channel, ``q`` rounded half to even and clipped to
 ±127. The same function quantizes the int8 KV cache per (token, kv head)
 over ``head_dim`` (``models/llama.py``).
 
-The port holds its weights ``[out, in]`` (``nn.Linear``), so the JAX rule
-(``contract_axis``: one scale per output channel, over the axis the matmul
-reduces) is one scale per row, over ``dim=-1``, for every ``*_proj.weight``
-and ``lm_head.weight``; the embedding keeps one scale per vocabulary row,
-also over ``dim=-1``; norm weights stay full precision. A quantized state
-dict holds each such ``<module>.weight`` as int8 ``q`` and adds
-``<module>.scale`` (f32, ``[out, 1]``).
+The port holds its dense weights ``[out, in]`` (``nn.Linear``), so the JAX
+rule (``contract_axis``: one scale per output channel, over the axis the
+matmul reduces) is one scale per row, over ``dim=-1``, for every
+``*_proj.weight`` and ``lm_head.weight``; the embedding keeps one scale per
+vocabulary row, also over ``dim=-1``. The MoE expert banks keep the
+reference's ``[E, in, out]`` layout and its rule: over ``dim=-2``, one scale
+per output column (``[E, 1, out]``). Norm weights and the MoE router stay
+full precision. A quantized state dict holds each such weight as int8 ``q``
+and adds its scale (f32): ``<module>.scale`` ``[out, 1]`` beside a
+``<module>.weight``, ``<bank>_scale`` beside a bank.
 
 The reference dequantizes inside its compiled program, where XLA fuses the
 ``convert(s8) * scale`` into the matmul's operand read. Eager PyTorch has no
@@ -24,7 +27,7 @@ full-precision copy of the model stays on the device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import torch
 
@@ -60,15 +63,27 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype = torch.
     return torch.mul(q, scale, out=torch.empty(q.shape, dtype=dtype, device=q.device))
 
 
+def quant_dim(name: str) -> Optional[int]:
+    """The dim over which the rule quantizes a state-dict entry, or None to
+    keep it in full precision: ``contract_axis`` on the port's names."""
+    if name in ("embed.weight", "lm_head.weight") or name.endswith("_proj.weight"):
+        return -1
+    if name.endswith(("moe_mlp.w_in", "moe_mlp.w_out")):
+        return -2
+    return None
+
+
 def is_quantized(name: str) -> bool:
-    """Whether the rule quantizes a state-dict entry (over ``dim=-1``, one
-    scale per row): ``contract_axis`` on the port's names."""
-    return name in ("embed.weight", "lm_head.weight") or name.endswith("_proj.weight")
+    """Whether the rule quantizes a state-dict entry."""
+    return quant_dim(name) is not None
 
 
 def scale_name(name: str) -> str:
-    """``<module>.weight`` -> ``<module>.scale``."""
-    return name[: -len("weight")] + "scale"
+    """``<module>.weight`` -> ``<module>.scale``; a bank ``<...>.w_in`` ->
+    ``<...>.w_in_scale``."""
+    if name.endswith("weight"):
+        return name[: -len("weight")] + "scale"
+    return name + "_scale"
 
 
 def quantize_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -77,10 +92,11 @@ def quantize_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tenso
     entries pass through. Quantizes on the tensors' own device."""
     out = {}
     for name, w in sd.items():
-        if not is_quantized(name):
+        dim = quant_dim(name)
+        if dim is None:
             out[name] = w
             continue
-        qt = quantize(w, -1)
+        qt = quantize(w, dim)
         out[name], out[scale_name(name)] = qt.q, qt.scale
     return out
 

@@ -16,6 +16,9 @@ directory, blocking or off the step loop (``--async-checkpoint``), and
 resumes from it after a restart. ``--preempt-at`` dies with the retryable
 exit code 138 on a replica's first life (a simulated preemption);
 ``--profile-dir`` writes a ``torch.profiler`` trace of the timed window.
+``--experts N`` trains the mixture-of-experts Llama (``--moe-top-k``,
+``--moe-dispatch dense|sparse``, ``--moe-capacity-factor``,
+``--moe-aux-weight``) with every expert on this one card.
 
     python -m pytorch_operator_tpu_torch.workloads.llama_train --config 0.3b \\
         --batch-size 4 --seq-len 4096 --steps 5 --json
@@ -103,6 +106,11 @@ def run(
     grad_accum: int = 1,
     n_layers: int | None = None,
     param_dtype: str | None = None,
+    n_experts: int | None = None,
+    moe_top_k: int | None = None,
+    moe_dispatch: str | None = None,
+    moe_capacity_factor: float | None = None,
+    moe_aux_weight: float | None = None,
     attn_impl: str | None = None,
     xent_impl: str | None = None,
     preempt_at: int | None = None,
@@ -121,7 +129,11 @@ def run(
     that ran), with ``prefetch`` also ``feed`` (the prefetcher's
     ``stats()``), with saves in the loop ``save_s`` (each in-loop save's
     return time: the step loop's stall), with ``donate`` given ``donate`` (a
-    no-op here). Weights are a random init
+    no-op here), with ``n_experts`` > 1 also ``n_experts``, ``moe_dispatch``
+    and ``active_params_m`` (the non-expert parameters plus top_k/E of the
+    expert banks for sparse dispatch, all of them for dense), with
+    ``moe_aux_weight`` > 0 also ``aux_losses`` (the load-balance loss of
+    every step, a mean over layers and microbatches). Weights are a random init
     from ``seed`` (a ``torch.Generator``), or ``init_params``, a JAX param
     tree (nested dicts of arrays) loaded with ``params_from_jax`` in
     ``param_dtype``.
@@ -167,12 +179,45 @@ def run(
         if param_dtype not in _DTYPES:
             raise ValueError(f"param_dtype={param_dtype!r} not in {sorted(_DTYPES)}")
         over["param_dtype"] = _DTYPES[param_dtype]
+    if moe_dispatch is not None and moe_dispatch not in ("dense", "sparse"):
+        raise ValueError(f"moe_dispatch={moe_dispatch!r} not in ('dense', 'sparse')")
+    for key, value in (
+        ("n_experts", n_experts), ("moe_top_k", moe_top_k), ("moe_dispatch", moe_dispatch),
+        ("moe_capacity_factor", moe_capacity_factor), ("moe_aux_weight", moe_aux_weight),
+    ):
+        if value is not None:
+            over[key] = value
     cfg = getattr(llama_lib, CONFIGS[config])(**over)
     if remat_policy not in (None, "full") and not cfg.remat:
         # Measuring the no-remat path while the caller believes the
         # selective policy is on would mislead ('full' without remat is
         # inert and allowed, as in JAX).
         raise ValueError(f"--remat-policy {remat_policy} has no effect without --remat")
+    # The routing, checked up front (else a bad top_k surfaces deep in the
+    # first forward).
+    if cfg.n_experts > 0 and not (1 <= cfg.moe_top_k <= cfg.n_experts):
+        raise ValueError(
+            f"moe_top_k={cfg.moe_top_k} must lie in [1, n_experts={cfg.n_experts}] — pass "
+            "--moe-top-k to adjust the routing"
+        )
+    if cfg.moe_aux_weight > 0 and cfg.n_experts == 0:
+        raise ValueError(
+            "--moe-aux-weight needs a MoE model (pass --experts N); without experts no "
+            "router exists, so the aux loss would be silently inert"
+        )
+    if cfg.n_experts > 0:
+        if cfg.moe_dispatch == "sparse" and not cfg.moe_aux_weight:
+            # LlamaConfig warns library users; repeat it in the job log.
+            log(
+                "[llama] WARNING: --moe-dispatch sparse with no --moe-aux-weight: an "
+                "unbalanced router collapses onto a few experts and capacity-factor "
+                "dispatch then DROPS most tokens. Pass --moe-aux-weight 1e-2."
+            )
+        log(
+            f"[llama] n_experts={cfg.n_experts} top_k={cfg.moe_top_k} "
+            f"dispatch={cfg.moe_dispatch}: every expert runs on this one card (no ep axis; "
+            "expert parallelism is ROADMAP.md item 3b)"
+        )
     if grad_accum > 1 and batch_size % grad_accum:
         raise ValueError(f"--grad-accum {grad_accum} must divide the global batch {batch_size}")
     log(
@@ -246,7 +291,8 @@ def run(
         decay_steps=lr_decay_steps or max_steps or (steps + max(warmup, 1)),
         grad_clip=grad_clip, weight_decay=0.1,
     )
-    train_step = make_lm_train_step(model, opt, grad_accum=grad_accum)
+    aux_values = []  # one device scalar a loss_fn call
+    train_step = make_lm_train_step(model, opt, grad_accum=grad_accum, on_aux=aux_values.append)
 
     def train_state():
         return {"params": model.state_dict(), "opt_state": opt.state_dict()}
@@ -423,6 +469,19 @@ def run(
         result["save_s"] = save_s
     if donate is not None:
         result["donate"] = "no-op (torch has no buffer donation)"
+    if cfg.n_experts > 1:
+        # FLOPs-active parameters: sparse dispatch computes about top_k/E of
+        # the expert banks a token (capacity padding excluded), dense all.
+        expert = sum(
+            p.numel() for n, p in model.named_parameters()
+            if n.endswith(("moe_mlp.w_in", "moe_mlp.w_out"))
+        )
+        frac = cfg.moe_top_k / cfg.n_experts if cfg.moe_dispatch == "sparse" else 1.0
+        result["n_experts"] = cfg.n_experts
+        result["moe_dispatch"] = cfg.moe_dispatch
+        result["active_params_m"] = round((n_params - expert + expert * frac) / 1e6, 1)
+    if aux_values:
+        result["aux_losses"] = torch.stack(aux_values).view(-1, grad_accum).mean(1).tolist()
 
     if eval_file:
         # Held-out loss: the training objective, a fixed batch order, no
@@ -446,14 +505,9 @@ def run(
 # Flags of the JAX workload that need several GPUs, with the ROADMAP item
 # they wait for. main() accepts them so that it can refuse them by name.
 REFUSED_FLAGS = {
-    "--mesh": "multi-GPU, ring/ulysses, MoE, pp",
-    "--experts": "multi-GPU, ring/ulysses, MoE, pp",
-    "--moe-top-k": "multi-GPU, ring/ulysses, MoE, pp",
-    "--moe-dispatch": "multi-GPU, ring/ulysses, MoE, pp",
-    "--moe-capacity-factor": "multi-GPU, ring/ulysses, MoE, pp",
-    "--moe-aux-weight": "multi-GPU, ring/ulysses, MoE, pp",
-    "--pp-microbatches": "multi-GPU, ring/ulysses, MoE, pp",
-    "--pp-schedule": "multi-GPU, ring/ulysses, MoE, pp",
+    "--mesh": "item 3b, multi-GPU, ring/ulysses, pp",
+    "--pp-microbatches": "item 3b, multi-GPU, ring/ulysses, pp",
+    "--pp-schedule": "item 3b, multi-GPU, ring/ulysses, pp",
 }
 
 
@@ -549,6 +603,29 @@ def main(argv=None) -> int:
         help="parameter storage dtype (default float32)",
     )
     p.add_argument(
+        "--experts", type=int, default=None, dest="n_experts",
+        help="mixture-of-experts MLP with this many experts, all on this card",
+    )
+    p.add_argument(
+        "--moe-top-k", type=int, default=None, dest="moe_top_k",
+        help="experts routed per token (default 2); must be <= --experts",
+    )
+    p.add_argument(
+        "--moe-dispatch", choices=("dense", "sparse"), default=None, dest="moe_dispatch",
+        help="expert dispatch: dense (exact, FLOPs scale with experts) or sparse "
+        "(capacity-factor: FLOPs scale with top-k, over-capacity tokens dropped)",
+    )
+    p.add_argument(
+        "--moe-capacity-factor", type=float, default=None, dest="moe_capacity_factor",
+        help="sparse dispatch per-expert capacity multiplier (default 1.25); higher "
+        "drops fewer tokens, costs more FLOPs",
+    )
+    p.add_argument(
+        "--moe-aux-weight", type=float, default=None, dest="moe_aux_weight",
+        help="weight of the Switch-Transformer load-balance loss (typical 1e-2; "
+        "default 0 = off); spreads the router across experts",
+    )
+    p.add_argument(
         "--preempt-at", type=int, default=None,
         help="fault injection: die with the retryable exit code 138 at this step "
         "on the replica's first life (a simulated preemption)",
@@ -611,6 +688,11 @@ def main(argv=None) -> int:
         grad_accum=args.grad_accum,
         n_layers=args.n_layers,
         param_dtype=args.param_dtype,
+        n_experts=args.n_experts,
+        moe_top_k=args.moe_top_k,
+        moe_dispatch=args.moe_dispatch,
+        moe_capacity_factor=args.moe_capacity_factor,
+        moe_aux_weight=args.moe_aux_weight,
         attn_impl=args.attn_impl,
         xent_impl=args.xent_impl,
         preempt_at=_preempt_at(args),

@@ -9,8 +9,10 @@
   ``clip_by_global_norm``.
 - :func:`make_lm_loss_fn` / :func:`make_lm_train_step` /
   :func:`make_lm_eval_step`: next-token cross-entropy (dense f32 logits, or
-  the chunked-vocab loss), one step of it with optional gradient
-  accumulation summed in f32, and the held-out loss without gradients.
+  the chunked-vocab loss) plus ``moe_aux_weight`` times a MoE model's
+  load-balance loss, one step of it with optional gradient accumulation
+  summed in f32, and the held-out cross-entropy without gradients (and
+  without the aux term).
 - :class:`ProgressHeartbeat`, :func:`heartbeat_reporter` and
   :func:`throughput_loop`: the timed loop, its checkpoint saves, its live
   heartbeat, the flight recorder's ``step`` and ``save`` spans, and
@@ -21,8 +23,8 @@
 
 PyTorch runs eagerly, so there is no jit: the model and the optimizer hold
 the state, and ``train_step(tokens)`` updates both in place and returns the
-loss as a device tensor. Not ported here: pipeline parallelism and MoE aux
-losses (ROADMAP.md: multi-GPU).
+loss as a device tensor. Not ported here: pipeline parallelism (ROADMAP.md
+item 3b, multi-GPU).
 """
 
 from __future__ import annotations
@@ -270,7 +272,7 @@ class Adafactor:
             self.leaves.append((leaf, params, _factored_dims(leaf.shape)))
         missing = sorted(n for n, q in named.items() if q.requires_grad and n not in covered)
         if missing:
-            raise ValueError(f"adafactor maps the dense Llama's leaves only; not covered: {missing}")
+            raise ValueError(f"adafactor maps the Llama's JAX leaves only; not covered: {missing}")
         self.params = [q for _, ps, _ in self.leaves for q in ps]
         self.lr = lr
         self.schedule = dict(schedule=schedule, warmup_steps=warmup_steps, decay_steps=decay_steps)
@@ -381,33 +383,50 @@ def make_optimizer(
     return Optimizer(params, lr, weight_decay=weight_decay, **sched)
 
 
-def make_lm_loss_fn(model) -> Callable[[torch.Tensor], torch.Tensor]:
+def make_lm_loss_fn(
+    model, *, include_aux: bool = True, on_aux: Optional[Callable[[torch.Tensor], None]] = None,
+) -> Callable[[torch.Tensor], torch.Tensor]:
     """Next-token cross-entropy ``loss_fn(tokens [B,S] int64) -> scalar``:
     ``logits[:, :-1]`` against ``tokens[:, 1:]``, mean over tokens. With
     ``cfg.xent_impl="chunked"`` the model returns hidden states and the LM
     head is fused into the loss (ops/chunked_xent.py): no [B,S,V] logits
-    tensor exists."""
+    tensor exists.
+
+    A MoE model with ``cfg.moe_aux_weight > 0`` adds that weight times the
+    mean over layers of its load-balance loss, unless ``include_aux`` is
+    False (the held-out loss); ``on_aux`` then receives each call's aux value
+    (detached, on the device)."""
     chunked = model.cfg.xent_impl == "chunked"
+    aux_w = model.cfg.moe_aux_weight if include_aux else 0.0
 
     def loss_fn(tokens):
         labels = tokens[:, 1:].reshape(-1)
+        if aux_w > 0:
+            out, aux = model(tokens, return_hidden=chunked, return_aux=True)
+        else:
+            out, aux = model(tokens, return_hidden=chunked), None
         if chunked:
             from ..ops.chunked_xent import chunked_softmax_xent
 
-            hidden = model(tokens, return_hidden=True)
-            h = hidden[:, :-1].reshape(-1, hidden.shape[-1])
-            return chunked_softmax_xent(h, model.head_kernel(), labels).mean()
-        logits = model(tokens)
-        return F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]), labels)
+            h = out[:, :-1].reshape(-1, out.shape[-1])
+            xent = chunked_softmax_xent(h, model.head_kernel(), labels).mean()
+        else:
+            xent = F.cross_entropy(out[:, :-1].reshape(-1, out.shape[-1]), labels)
+        if aux is None:
+            return xent
+        if on_aux is not None:
+            on_aux(aux.detach())
+        return xent + aux_w * aux
 
     return loss_fn
 
 
 def make_lm_eval_step(model) -> Callable[[torch.Tensor], torch.Tensor]:
     """``eval_step(tokens) -> loss``: the training cross-entropy of
-    :func:`make_lm_loss_fn` without gradients and without an update (the
-    model has no MoE aux term to drop), so ``exp`` of it is a perplexity."""
-    loss_fn = make_lm_loss_fn(model)
+    :func:`make_lm_loss_fn` without gradients, without an update and without
+    a MoE model's aux term (the reference's ``include_aux=False``), so
+    ``exp`` of it is a perplexity."""
+    loss_fn = make_lm_loss_fn(model, include_aux=False)
 
     @torch.no_grad()
     def eval_step(tokens):
@@ -416,9 +435,10 @@ def make_lm_eval_step(model) -> Callable[[torch.Tensor], torch.Tensor]:
     return eval_step
 
 
-def make_lm_train_step(model, optimizer, grad_accum: int = 1):
+def make_lm_train_step(model, optimizer, grad_accum: int = 1, on_aux=None):
     """``train_step(tokens) -> loss``: gradients of :func:`make_lm_loss_fn`
-    and one optimizer update, in place.
+    and one optimizer update, in place (``on_aux`` as there, once a
+    microbatch).
 
     ``grad_accum=N`` splits the batch into N sequential microbatches: their
     gradients are summed in f32 buffers (whatever the parameter dtype),
@@ -426,7 +446,7 @@ def make_lm_train_step(model, optimizer, grad_accum: int = 1):
     the loss is the mean of the microbatch losses."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
-    loss_fn = make_lm_loss_fn(model)
+    loss_fn = make_lm_loss_fn(model, on_aux=on_aux)
     params = optimizer.params
 
     def train_step(tokens):

@@ -47,26 +47,26 @@ B, S, LR = 4, 32, 1e-2
 WIDE = dict(d_model=256, n_heads=4, n_kv_heads=2, head_dim=128, d_ff=512)
 
 
-def _configs(param_dtype):
+def _configs(param_dtype, **extra):
     import jax.numpy as jnp
 
-    jover, pover = dict(WIDE), dict(WIDE)
+    jover, pover = dict(WIDE, **extra), dict(WIDE, **extra)
     if param_dtype == "bfloat16":
         jover["param_dtype"] = jnp.bfloat16
         pover["param_dtype"] = torch.bfloat16
     return jax_llama.llama_tiny(**jover), port_llama.llama_tiny(**pover)
 
 
-def _setup(param_dtype, opt_over, layer1_scale: float = 1.0):
+def _setup(param_dtype, opt_over, layer1_scale: float = 1.0, **extra):
     """Both sides from one JAX init; ``layer1_scale`` multiplies layer 1's
     slice of every stacked leaf (both sides), so that a layer's RMS differs
-    from its leaf's."""
+    from its leaf's; ``extra`` overrides the config (MoE)."""
     import flax.linen as nn
     import jax
 
     from pytorch_operator_tpu.parallel import make_mesh
 
-    jcfg, pcfg = _configs(param_dtype)
+    jcfg, pcfg = _configs(param_dtype, **extra)
     jmodel = jax_llama.Llama(jcfg)
     params = jax.device_get(
         nn.meta.unbox(jmodel.init(jax.random.key(0), np.zeros((1, S), np.int32))["params"])
@@ -119,14 +119,14 @@ def _port_state(opt_state) -> dict:
     return {"count": int(fs.count), "adafactor": stats}
 
 
-def _run_both(param_dtype, opt_over, n_steps=3, teacher=False):
+def _run_both(param_dtype, opt_over, n_steps=3, teacher=False, **extra):
     """Per step: both losses, the port's state dict and JAX's through
     params_from_jax; JAX's initial params likewise; both optimizers at the
     end. With ``teacher``, each port step starts from JAX's parameters and
     optimizer state before that step."""
     import jax
 
-    jstep, state, mesh, model, opt = _setup(param_dtype, opt_over)
+    jstep, state, mesh, model, opt = _setup(param_dtype, opt_over, **extra)
     step = trainer.make_lm_train_step(model, opt)
     out = [(None, None, None, params_from_jax(state["params"], model.cfg))]
     for i in range(n_steps):
@@ -218,6 +218,37 @@ def test_state_shapes_follow_optax_leaves(param_dtype):
     n_params = sum(p.numel() for p in model.parameters())
     assert opt.state_nbytes() < 0.2 * 2 * 4 * n_params
     del jax
+
+
+@pytest.mark.parametrize("dispatch", ["dense", "sparse"])
+def test_moe_adafactor_steps_and_state_match_optax(dispatch):
+    """The MoE Llama (4 experts, top 2, aux 1e-2) under adafactor in f32:
+    three steps' losses and parameters and the final statistics as in the
+    float32 case above. optax factors each bank over its D and F axes (the
+    row statistics drop the larger, F: ``[L, E, D]`` for ``w_in`` ``[L, E,
+    D, F]`` and ``w_out`` ``[L, E, F, D]``) and leaves the router ``[L, D,
+    E]`` unfactored (its second-largest axis is below 128)."""
+    moe = dict(n_experts=4, moe_top_k=2, moe_dispatch=dispatch, moe_aux_weight=1e-2)
+    steps, _, opt, jopt = _run_both("float32", {}, **moe)
+    for i, (jl, pl, port, jsd) in enumerate(steps):
+        np.testing.assert_allclose(pl, jl, rtol=1e-4, err_msg=f"loss, step {i}")
+        assert port.keys() == jsd.keys() and "layers.0.moe_mlp.w_in" in port
+        for name, p in port.items():
+            np.testing.assert_allclose(p.numpy(), jsd[name].numpy(), atol=1e-6, rtol=0,
+                                       err_msg=f"{name}, step {i}")
+    fs = _factored_state(jopt)
+    mine = opt.state_dict()["adafactor"]
+    for key in ("v_row", "v_col", "v"):
+        for path, want in _by_path(getattr(fs, key)).items():
+            got = mine[path][key].numpy()
+            assert got.shape == want.shape, (path, key)
+            np.testing.assert_allclose(got, want, rtol=5e-5, atol=1e-30, err_msg=f"{path}/{key}")
+    L, M, Fd, E = 2, WIDE["d_model"], WIDE["d_ff"], 4
+    w_in = mine["layers/moe_mlp/w_in"]
+    assert tuple(w_in["v_row"].shape) == (L, E, M) and tuple(w_in["v_col"].shape) == (L, E, Fd)
+    w_out = mine["layers/moe_mlp/w_out"]
+    assert tuple(w_out["v_row"].shape) == (L, E, M) and tuple(w_out["v_col"].shape) == (L, E, Fd)
+    assert tuple(mine["layers/moe_mlp/gate"]["v"].shape) == (L, M, E)
 
 
 def test_factoring_and_block_rms_follow_the_jax_leaves(monkeypatch):

@@ -156,6 +156,38 @@ print(step, got, opt.count, report["device"])
     assert out.stdout.split() == ["5", "[0,", "1,", "2]", "1", "cpu"]
 
 
+def test_slice9_moe_stands_alone():
+    """``parallel/`` (the MoE layer) is among the scanned files, and the MoE
+    Llama imports and trains a step, and its layer runs both dispatches,
+    where jax and the JAX package are poisoned."""
+    for rel in ("parallel/__init__.py", "parallel/moe.py"):
+        assert PKG / rel in _port_files()
+    code = f"""
+import sys
+for name in {sorted(FORBIDDEN)!r}:
+    sys.modules[name] = None
+import torch
+from pytorch_operator_tpu_torch import parallel
+from pytorch_operator_tpu_torch.models import llama
+from pytorch_operator_tpu_torch.workloads import trainer
+cfg = llama.llama_tiny(n_experts=4, moe_aux_weight=1e-2, moe_dispatch="sparse")
+model = llama.Llama(cfg).init_weights(torch.Generator().manual_seed(0))
+aux = []
+step = trainer.make_lm_train_step(model, trainer.make_optimizer(model, 1e-2, optimizer="adafactor"),
+                                  on_aux=aux.append)
+step(torch.zeros(2, 8, dtype=torch.long))
+p = {{k: getattr(model.layers[0].moe_mlp, k) for k in ("gate", "w_in", "w_out")}}
+x = torch.randn(6, cfg.d_model)
+print(parallel.moe_mlp_sparse(p, x, capacity_factor=2.0).shape[0],
+      parallel.moe_mlp_reference(p, x).shape[0], len(aux))
+"""
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["6", "6", "1"]
+
+
 def _no_gpu():
     if torch.cuda.is_available():
         pytest.skip("this box has a GPU: the no-fallback path is not reachable")

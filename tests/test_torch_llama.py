@@ -11,6 +11,12 @@ returned cache slabs.
 
 Tolerance 1e-4: both sides compute in f32 and differ only in the order of
 their sums (matmuls, softmax, rotary), over two layers at unit scale.
+
+The mixture-of-experts Llama (4 experts, top 2, dense and sparse dispatch,
+aux weight 1e-2): logits within 1e-4 and the aux value (the mean over layers
+of the load-balance loss) within rtol 1e-5; ``decode_forward`` over a prefill
+and three greedy steps, hidden states within 1e-4 and the greedy tokens
+equal; the banks' init against flax's ``lecun_normal``.
 """
 
 import dataclasses
@@ -134,9 +140,16 @@ def test_config_validation():
         port_llama.llama_tiny(prefill_mode="bogus")
     with pytest.raises(ValueError, match="require decode=True"):
         port_llama.llama_tiny(decode_per_row=True)
-    for over in ({"n_experts": 4}, {"attn_impl": "ring"}, {"attn_impl": "ulysses"}):
+    for over in ({"attn_impl": "ring"}, {"attn_impl": "ulysses"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port_llama.llama_tiny(**over)
+    # MoE is ported: the reference's warning for sparse dispatch without the
+    # aux loss, and a dispatch name check.
+    assert port_llama.llama_tiny(n_experts=4).n_experts == 4
+    with pytest.warns(UserWarning, match="moe_aux_weight=0"):
+        port_llama.llama_tiny(n_experts=4, moe_dispatch="sparse")
+    with pytest.raises(ValueError, match="moe_dispatch"):
+        port_llama.llama_tiny(n_experts=4, moe_dispatch="bogus")
     # remat is ported; an unknown policy raises, as in JAX.
     with pytest.raises(ValueError, match="remat_policy"):
         port_llama.llama_tiny(remat=True, remat_policy="bogus")
@@ -259,3 +272,84 @@ class TestDebugChecks:
         pos = torch.arange(2, 6)[None, :]
         out, _ = port_llama.decode_forward(model, cache, toks, pos)
         assert out.shape == (1, 4, cfg.d_model)
+
+
+MOE = dict(n_experts=4, moe_top_k=2, moe_aux_weight=1e-2)
+
+
+@pytest.mark.parametrize("dispatch", ["dense", "sparse"])
+def test_moe_logits_and_aux_match_jax(dispatch):
+    import jax
+
+    jcfg = jax_llama.llama_tiny(attn_impl="flash", moe_dispatch=dispatch, **MOE)
+    tree = _jax_params(jcfg)
+    assert set(tree["layers"]["moe_mlp"]) == {"gate", "w_in", "w_out"}
+    toks = _tokens(2, 16)
+    ref, mods = jax_llama.Llama(jcfg).apply({"params": tree}, toks, mutable=["losses"])
+    (leaf,) = [np.asarray(a) for a in jax.tree.leaves(mods["losses"])]
+    model = _port_model(tree, moe_dispatch=dispatch, **MOE)
+    out, aux = model(torch.from_numpy(toks).long(), return_aux=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=TOL)
+    assert leaf.shape == (model.cfg.n_layers,)
+    np.testing.assert_allclose(float(aux), leaf.mean(), rtol=1e-5)
+    # Without return_aux: the logits alone, no aux computed.
+    assert torch.equal(model(torch.from_numpy(toks).long()), out)
+
+
+@pytest.mark.parametrize("dispatch", ["dense", "sparse"])
+def test_moe_decode_forward_greedy_matches_jax(dispatch):
+    """A prefill and three greedy steps through both decode_forwards: the
+    hidden states within TOL, the tokens equal."""
+    B, new = 2, 3
+    over = dict(decode=True, max_decode_len=PROMPT + new + 1, moe_dispatch=dispatch, **MOE)
+    jcfg = jax_llama.llama_tiny(attn_impl="flash", **over)
+    tree = _jax_params(jcfg)
+    jmodel = jax_llama.Llama(jcfg)
+    model = _port_model(tree, **over)
+    jcache = jax_llama.init_decode_cache(jcfg, B)
+    pcache = port_llama.init_decode_cache(model.cfg, B)
+    toks, pos = _tokens(B, PROMPT), None
+    head = model.head_kernel()
+    chosen = []
+    for i in range(new + 1):
+        jh, jcache = jax_llama.decode_forward(jmodel, tree, jcache, toks, pos)
+        ph, _ = port_llama.decode_forward(
+            model, pcache, torch.from_numpy(toks).long(),
+            None if pos is None else torch.from_numpy(pos).long(),
+        )
+        np.testing.assert_allclose(ph.numpy(), np.asarray(jh), atol=TOL)
+        jtok = np.asarray(jh)[:, -1] @ np.asarray(jax_llama.Llama.head_kernel(tree))
+        ptok = (ph[:, -1] @ head).argmax(-1).numpy()
+        np.testing.assert_array_equal(ptok, jtok.argmax(-1))
+        chosen.append(ptok)
+        toks = ptok[:, None].astype(np.int32)
+        pos = np.full((B, 1), PROMPT + i, np.int32)
+    assert len({tuple(c) for c in chosen}) > 1  # not one token repeated
+
+
+def test_moe_init_follows_lecun_normal_and_cast_keeps_the_router():
+    """flax's lecun_normal counts a bank's expert axis in its fan-in: w_in
+    [E, D, F] has std 1/sqrt(E·D) (0.02210 at [8, 256, 1024]), w_out
+    1/sqrt(E·F), the router [D, E] 1/sqrt(D). The port's init and flax's
+    draws hold those within 2%. cast_matmul_weights_ casts the banks and
+    leaves the router in its dtype."""
+    import jax
+
+    E, D, Fd = 8, 256, 1024
+    cfg = port_llama.llama_tiny(n_experts=E, d_model=D, d_ff=Fd, n_layers=1, n_heads=2,
+                                n_kv_heads=1, head_dim=128, dtype=torch.bfloat16)
+    model = port_llama.Llama(cfg).init_weights(torch.Generator().manual_seed(0))
+    mlp = model.layers[0].moe_mlp
+    init = jax.nn.initializers.lecun_normal()
+    for name, shape, fan_in in (("w_in", (E, D, Fd), E * D), ("w_out", (E, Fd, D), E * Fd),
+                                ("gate", (D, E), D)):
+        want = 1 / np.sqrt(fan_in)
+        got = getattr(mlp, name).detach()
+        assert tuple(got.shape) == shape
+        ref = np.asarray(init(jax.random.key(1), shape, np.float32))
+        for std in (float(got.float().std()), float(ref.std())):
+            assert abs(std / want - 1) < 0.02, (name, std, want)
+    assert abs(want - 1 / 16) < 1e-9 and abs(1 / np.sqrt(E * D) - 0.02210) < 1e-5
+    model.cast_matmul_weights_()
+    assert mlp.w_in.dtype == mlp.w_out.dtype == torch.bfloat16
+    assert mlp.gate.dtype == torch.float32

@@ -14,6 +14,7 @@ Adam's first update (about lr·sign(g)) has not yet amplified rounding in the
 tiny second moments.
 """
 
+import json
 from pathlib import Path
 
 import numpy as np
@@ -203,22 +204,19 @@ def test_run_cpu_flash_chunked_and_bf16_params():
 @pytest.mark.parametrize(
     "argv",
     [
-        ["--experts", "4"],
+        ["--pp-schedule", "1f1b"],
         ["--mesh", "fsdp=2"],
         ["--attn-impl", "ring"],
     ],
     ids=lambda a: a[0].lstrip("-"),
 )
 def test_main_refuses_unported_flags(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*3b"):
         llama_train.main(["--device", "cpu", "--steps", "1", "--seq-len", "8", *argv])
 
 
 def test_only_multi_gpu_flags_are_refused():
-    assert set(llama_train.REFUSED_FLAGS) == {
-        "--mesh", "--experts", "--moe-top-k", "--moe-dispatch", "--moe-capacity-factor",
-        "--moe-aux-weight", "--pp-microbatches", "--pp-schedule",
-    }
+    assert set(llama_train.REFUSED_FLAGS) == {"--mesh", "--pp-microbatches", "--pp-schedule"}
 
 
 @pytest.mark.parametrize(
@@ -278,17 +276,26 @@ def test_main_without_cpu_request_needs_a_gpu(monkeypatch, capsys):
 # ---- slice 7: remat, data and eval files, checkpoint and resume ----
 
 
+IMPLS = {
+    "flash_chunked": dict(attn_impl="flash", xent_impl="chunked"),
+    "dense": dict(attn_impl="dense", xent_impl="dense"),
+    "moe_dense": dict(attn_impl="flash", xent_impl="chunked", n_experts=4, moe_aux_weight=1e-2),
+    "moe_sparse": dict(attn_impl="flash", xent_impl="chunked", n_experts=4, moe_aux_weight=1e-2,
+                       moe_dispatch="sparse"),
+}
+
+
 @pytest.mark.parametrize("policy", ["full", "dots"])
-@pytest.mark.parametrize("impl", ["flash_chunked", "dense"])
+@pytest.mark.parametrize("impl", sorted(IMPLS))
 def test_remat_loss_and_gradients_equal_no_remat(policy, impl):
     """Each block under torch.utils.checkpoint recomputes the same
     arithmetic in the same order on the CPU: the loss and every gradient
-    are bit-equal to the run without remat."""
-    attn, xent = ("flash", "chunked") if impl == "flash_chunked" else ("dense", "dense")
+    are bit-equal to the run without remat. With MoE the loss includes the
+    aux term, which leaves each block through its return value."""
     toks = torch.from_numpy(_batch(0)).long()
     out = []
     for remat in (False, True):
-        cfg = port_llama.llama_tiny(remat=remat, remat_policy=policy, attn_impl=attn, xent_impl=xent)
+        cfg = port_llama.llama_tiny(remat=remat, remat_policy=policy, **IMPLS[impl])
         model = port_llama.Llama(cfg).init_weights(torch.Generator().manual_seed(0))
         loss = trainer.make_lm_loss_fn(model)(toks)
         loss.backward()
@@ -313,6 +320,46 @@ def test_dots_policy_saves_gemm_outputs_only():
         assert common._save_dots(None, op) == CheckpointPolicy.PREFER_RECOMPUTE
     with pytest.raises(ValueError, match="remat_policy"):
         port_llama.llama_tiny(remat=True, remat_policy="attn")
+
+
+def test_dots_saves_the_moe_products_jax_saves():
+    """JAX's ``dots_with_no_batch_dims_saveable`` saves the router's product
+    and the dense dispatch's ``nd,edf->enf`` (no batch dims) and recomputes
+    the batched ones (``enf,efd->end``, ``end,ne->nd``, the sparse path's
+    four). The port writes the first kind as ``mm`` and the rest as ``bmm``,
+    so its ``dots`` policy saves the same products. The dense layer runs two
+    router products (the aux loss's and the gates'), then the expert GEMM."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from pytorch_operator_tpu_torch.models import common
+
+    class Products(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default):
+                saved = common._save_dots(None, func) == common.CheckpointPolicy.MUST_SAVE
+                self.seen.append((func.__name__.split(".")[0], tuple(args[1].shape), saved))
+            return func(*args, **(kwargs or {}))
+
+    E, D, Fd = 4, 64, 128
+    for dispatch, want in (
+        ("dense", [("mm", (D, E), True), ("mm", (D, E), True), ("mm", (D, E * Fd), True),
+                   ("bmm", (E, Fd, D), False), ("bmm", (8, E, D), False)]),
+        ("sparse", [("mm", (D, E), True), ("mm", (D, E), True), ("bmm", (1, 8, D), False),
+                    ("bmm", (E, D, Fd), False), ("bmm", (E, Fd, D), False),
+                    ("bmm", (1, E * 5, D), False)]),
+    ):
+        cfg = port_llama.llama_tiny(n_experts=E, moe_aux_weight=1e-2, moe_dispatch=dispatch)
+        mlp = port_llama.MoEMLP(cfg)
+        with torch.no_grad():
+            for w in (mlp.gate, mlp.w_in, mlp.w_out):
+                w.normal_()
+        with Products() as prods:
+            mlp(torch.randn(1, 8, D), want_aux=True)
+        assert prods.seen == want, (dispatch, prods.seen)
 
 
 def _pack_tokens(path, toks):
@@ -482,3 +529,74 @@ def test_port_training_job_resumes_under_the_supervisor(token_files, tmp_path):
     assert sorted(p.name for p in ckpt.iterdir()) == [
         "2", "2.digest", "4", "4.digest", "6", "6.digest",
     ]
+
+
+# ---- slice 9: the mixture-of-experts Llama ----
+
+
+@pytest.mark.parametrize("dispatch", ["dense", "sparse"])
+def test_moe_run_matches_jax_run(dispatch):
+    """``llama_train.run --experts 4`` (top 2, aux 1e-2, AdamW) from the JAX
+    run's own init (key 0): the same final loss after three steps within
+    rtol 1e-4, and the same parameter counts (``active_params_m``: the
+    non-expert parameters plus top_k/E of the banks for sparse, all of them
+    for dense)."""
+    import flax.linen as nn
+    import jax
+
+    from pytorch_operator_tpu.workloads import llama_train as jax_llama_train
+
+    moe = dict(n_experts=4, moe_top_k=2, moe_dispatch=dispatch, moe_aux_weight=1e-2)
+    kw = dict(config="tiny", batch_size=8, seq_len=32, steps=2, warmup=1, lr=1e-3,
+              log=lambda m: None, **moe)
+    want = jax_llama_train.run(**kw)
+    init = nn.meta.unbox(
+        jax_llama.Llama(jax_llama.llama_tiny(**moe)).init(jax.random.key(0), np.zeros((1, 32), np.int32))
+    )["params"]
+    got = llama_train.run(device="cpu", init_params=jax.device_get(init), **kw)
+    np.testing.assert_allclose(got["final_loss"], want["final_loss"], rtol=1e-4)
+    for key in ("params_m", "active_params_m", "n_experts", "moe_dispatch", "end_step"):
+        assert got[key] == want[key], key
+    if dispatch == "sparse":
+        assert got["active_params_m"] < got["params_m"]
+    else:
+        assert got["active_params_m"] == got["params_m"]
+    aux = got["aux_losses"]
+    assert len(aux) == len(got["losses"]) == 3 and all(1.0 <= a < 1.5 for a in aux)
+
+
+@pytest.mark.parametrize("dispatch", ["dense", "sparse"])
+def test_moe_aux_gradient_matches_jax(dispatch):
+    """At aux weight 1.0 the load-balance term is a fifth of the loss and
+    its gradient moves the router: two AdamW steps' losses within rtol 1e-4
+    and every parameter after the first within atol 3e-5, as in the dense
+    three-step case."""
+    over = dict(attn_impl="flash", xent_impl="chunked", n_experts=4, moe_dispatch=dispatch,
+                moe_aux_weight=1.0)
+    jl, pl, after1 = _run_both(over, {}, 2)
+    np.testing.assert_allclose(pl, jl, rtol=1e-4)
+    _assert_params_close(after1)
+
+
+def test_main_moe_flags_and_checks(monkeypatch, capsys):
+    """The MoE flags reach run(): the result carries the MoE keys; the
+    reference's checks raise (top-k outside [1, E], aux weight without
+    experts) and its warning for sparse dispatch without aux is logged."""
+    monkeypatch.setenv("TPUJOB_PLATFORM", "cpu")
+    base = ["--steps", "1", "--warmup", "1", "--seq-len", "16", "--batch-size", "2"]
+    with pytest.warns(UserWarning, match="moe_aux_weight=0"):
+        assert llama_train.main([*base, "--experts", "4", "--moe-dispatch", "sparse",
+                                 "--moe-capacity-factor", "2", "--moe-top-k", "1", "--json"]) == 0
+    out = capsys.readouterr().out
+    assert "WARNING: --moe-dispatch sparse with no --moe-aux-weight" in out
+    assert "every expert runs on this one card" in out
+    result = json.loads(out.strip().splitlines()[-1])
+    assert result["n_experts"] == 4 and result["moe_dispatch"] == "sparse"
+    assert "aux_losses" not in result
+    for argv, match in (
+        (["--experts", "4", "--moe-top-k", "5"], "moe_top_k=5 must lie in"),
+        (["--experts", "4", "--moe-top-k", "0"], "moe_top_k=0 must lie in"),
+        (["--moe-aux-weight", "1e-2"], "needs a MoE model"),
+    ):
+        with pytest.raises(ValueError, match=match):
+            llama_train.main([*base, *argv])

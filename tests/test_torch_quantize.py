@@ -15,6 +15,9 @@ workloads/generate.py) against the JAX package's, on the CPU.
   within 1e-4 (f32 ``llama_tiny``), its int8 + int8-KV serving forward JAX's
   hidden states within 1e-4 (uniform, per-row, chunked prefill) and its cache
   slabs, and JAX's greedy tokens.
+- A MoE tree (4 experts): the banks int8 with one scale a column over their
+  input axis (``[L, E, 1, ·]``), the router untouched, carried bit for bit;
+  the int8 MoE model's logits within 1e-4 of JAX's.
 """
 
 import dataclasses
@@ -332,3 +335,59 @@ def test_int8_model_holds_no_full_precision_weight(trees):
         model.init_weights(torch.Generator())
     with pytest.raises(ValueError, match="quantize"):
         port_generate.load_params(cfg, config="tiny", device="cpu", quantize=None, log=lambda m: None)
+
+
+MOE = dict(n_experts=4, moe_top_k=2, moe_aux_weight=1e-2)
+
+
+@pytest.fixture(scope="module")
+def moe_trees():
+    """The MoE llama_tiny tree (sparse dispatch) and its quantize_tree."""
+    import flax.linen as nn
+    import jax
+
+    jcfg = jax_llama.llama_tiny(moe_dispatch="sparse", **MOE)
+    fp = nn.meta.unbox(jax_llama.Llama(jcfg).init(jax.random.key(0), np.zeros((1, PROMPT), np.int32))["params"])
+    return jax.device_get(fp), jax.device_get(jax.jit(jax_quant.quantize_tree)(fp))
+
+
+def test_moe_quantized_tree_carried_bit_for_bit(moe_trees):
+    fp, qt = moe_trees
+    cfg = port_llama.llama_tiny(quantize="int8", moe_dispatch="sparse", **MOE)
+    sd = params_from_jax(qt, cfg)
+    E, M, Fd = 4, cfg.d_model, cfg.d_ff
+    moe = qt["layers"]["moe_mlp"]
+    assert not hasattr(moe["gate"], "q")  # the router stays full precision
+    for i in range(cfg.n_layers):
+        p = f"layers.{i}.moe_mlp."
+        for bank, out in (("w_in", Fd), ("w_out", M)):
+            np.testing.assert_array_equal(sd[p + bank].numpy(), np.asarray(moe[bank].q)[i])
+            np.testing.assert_array_equal(sd[p + bank + "_scale"].numpy(), np.asarray(moe[bank].scale)[i])
+            assert sd[p + bank].dtype == torch.int8 and moe[bank].scale.shape == (cfg.n_layers, E, 1, out)
+        np.testing.assert_array_equal(sd[p + "gate"].numpy(), np.asarray(moe["gate"])[i])
+        assert sd[p + "gate"].dtype == torch.float32
+    assert quant.state_bytes(sd) == jax_quant.tree_bytes(qt)
+    # The port's rule on the full-precision tree gives the same entries,
+    # shapes and dtypes; its values within the jitted quantizer's one ulp a
+    # scale and one level a q (test_quantize_within_one_ulp_of_jitted_quantize).
+    mine = quant.quantize_state_dict(params_from_jax(fp, dataclasses.replace(cfg, quantize=None)))
+    assert mine.keys() == sd.keys()
+    for name, t in sd.items():
+        assert mine[name].shape == t.shape and mine[name].dtype == t.dtype, name
+        if t.dtype == torch.int8:
+            assert (mine[name].int() - t.int()).abs().max() <= 1, name
+        else:
+            torch.testing.assert_close(mine[name], t, rtol=2e-7, atol=0)
+    int8 = port_llama.Llama(cfg)
+    int8.load_state_dict(sd)
+    assert int8.layers[0].moe_mlp.w_in.dtype == torch.int8
+
+
+def test_moe_int8_logits_match_jax_int8(moe_trees):
+    _, qt = moe_trees
+    jcfg = jax_llama.llama_tiny(attn_impl="flash", quantize="int8", moe_dispatch="sparse", **MOE)
+    toks = _tokens(2, 16)
+    ref = np.asarray(jax_llama.Llama(jcfg).apply({"params": qt}, toks))
+    model = _int8_model(qt, moe_dispatch="sparse", **MOE)
+    out = model(torch.from_numpy(toks).long())
+    np.testing.assert_allclose(out.numpy(), ref, atol=TOL)
