@@ -15,14 +15,14 @@ Phases, in order; any failure exits non-zero before the result line:
    absolute error); kernel, plain-version and library
    (``scaled_dot_product_attention``, timed only) times at the generate
    prefill's shape, at the training shape, at phase 7's 1b prefill shape
-   (B8 S128 H16 KH8 D128), at phase 8's training shape (B16 S1024) and at
-   phase 10's (B8 S2048), with achieved TFLOP/s and the wrapper's host time
-   a call.
+   (B8 S128 H16 KH8 D128), at phase 8's training shape (B16 S1024), at
+   phase 10's (B8 S2048) and at phase 11's per-rank shape (B2 S4096), with
+   achieved TFLOP/s and the wrapper's host time a call.
 3. The two backward kernels against their plain version
    (``flash_attention_backward_reference``) on the same padded inputs, in the
    listed cases, by ``grad_agreement`` (relative L2 error over the whole
    gradient, over its late half and per row); at the training shape, at
-   phase 8's and at phase 10's each kernel's time, the plain backward's, SDPA's backward
+   phase 8's, at phase 10's and at phase 11's each kernel's time, the plain backward's, SDPA's backward
    (timed only) and each bound, and each kernel's host time a call. Then the bf16 gradients of the public, differentiable
    ``flash_attention`` on the card against the plain forward and backward, at
    the training shape and at a padded one.
@@ -166,7 +166,27 @@ Phases, in order; any failure exits non-zero before the result line:
    dispatch and combine products, the expert products (the layer's
    ``record_function`` ranges, a backward op charged to its forward op's
    range), the flash kernels and the rest.
-11. One ``{"kernels": [...]}`` line, the card's line, and as the last line
+11. Worlds of two processes on the one card, each rank started as a
+   subprocess with the environment the supervisor injects (the ``TPUJOB_*``
+   world, ``MASTER_*``, ``WORLD_SIZE``, ``RANK``) and joined by
+   ``rendezvous.initialize_from_env``; the two ranks share ``cuda:0``, so
+   the backend is gloo (NCCL refuses two ranks on one GPU). (a) Each rank's
+   backend and card, and each collective of ``parallel/collectives.py`` on
+   CUDA tensors against its value; (b) ``workloads.smoke_dist`` in both
+   ranks, both exit 0; (c) ``llama_train.run`` at ``llama_0_3b`` full width
+   and depth, global batch 4 x 4096, AdamW, clip 1.0, 1 warmup + 5 steps:
+   one process in this one, then two ranks with ``mesh_spec="fsdp=2"`` and
+   ``"dp=2"``, each rank's flash launches read from its result (each kernel
+   once a layer a step): the two-rank losses within ``DIST_LOSS_ATOL`` of the
+   one process's, each rank's parameter and AdamW bytes (about half of the
+   one process's under fsdp=2, within ``DIST_HALF_RTOL``; all of them under
+   dp=2), its peak memory, step time and tokens/s of two ranks sharing one
+   card; (d) the fsdp=2 run saved step 4 asynchronously and step 6 blocking
+   into ``TPUJOB_CHECKPOINT_DIR``: both verified, a one-process
+   ``restore_subtree`` of step 6 equal bit for bit (a digest) to the ranks'
+   gathered parameters, and a two-rank resume from step 4 with the
+   uninterrupted run's losses for steps 5-6 bit for bit.
+12. One ``{"kernels": [...]}`` line, the card's line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -212,6 +232,8 @@ TRAIN_SHAPE = ("train", 4, 4096, 8, 4, 128, True, None, "bfloat16")
 JOURNEY_SHAPE = ("journey", 16, 1024, 8, 4, 128, True, None, "bfloat16")
 # bench.py's moe block (phase 10): batch 8 x 2048.
 MOE_SHAPE = ("moe", 8, 2048, 8, 4, 128, True, None, "bfloat16")
+# One rank's half of phase 5's global batch (phase 11): batch 2 x 4096.
+DIST_SHAPE = ("dist", 2, 4096, 8, 4, 128, True, None, "bfloat16")
 EDGE_CASES = [
     ("S192_causal", 2, 192, 8, 4, 128, True, None, "bfloat16"),
     ("S64_one_tile", 2, 64, 8, 4, 128, True, None, "bfloat16"),
@@ -228,6 +250,7 @@ FLASH_CASES = [
     PREFILL_1B,
     JOURNEY_SHAPE,
     MOE_SHAPE,
+    DIST_SHAPE,
     ("unaligned_S500", 8, 500, 8, 4, 128, True, None, "bfloat16"),
     ("kv_len_noncausal", 4, 512, 8, 4, 128, False, 300, "bfloat16"),
     ("G1", 4, 256, 8, 8, 128, True, None, "bfloat16"),
@@ -253,6 +276,7 @@ BWD_CASES = [
     TRAIN_SHAPE,
     JOURNEY_SHAPE,
     MOE_SHAPE,
+    DIST_SHAPE,
     ("unaligned_S500", 2, 500, 8, 4, 128, True, None, "bfloat16"),
     ("kv_len_noncausal", 2, 512, 8, 4, 128, False, 300, "bfloat16"),
     ("G1", 2, 256, 8, 8, 128, True, None, "bfloat16"),
@@ -456,7 +480,7 @@ def phase_flash_vs_plain():
         )
         if not a["ok"]:
             _fail(f"flash_fwd disagrees with its plain version in case {name}")
-        if name in ("slice", "train", "prefill_1b", "journey", "moe"):
+        if name in ("slice", "train", "prefill_1b", "journey", "moe", "dist"):
             qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             call = functools.partial(fa.flash_attention_with_lse, q, k, v, causal=causal, kv_len=kv_len)
             ms = _time_ms(call)
@@ -538,7 +562,7 @@ def phase_backward_vs_plain():
             for gname, g, r in zip(("dq", "dk", "dv"), grads, refs)
         }
         del refs
-        if name not in ("train", "journey", "moe"):
+        if name not in ("train", "journey", "moe", "dist"):
             continue
         lse_c, delta = lse.contiguous(), fa.bwd_delta(o, do)
         kin = (q, k, v, do, lse_c, delta)
@@ -2799,6 +2823,310 @@ def _profile_moe_step():
         torch.cuda.empty_cache()
 
 
+# Phase 11: worlds of two processes on the one card. NCCL refuses two ranks
+# of one communicator on one GPU, so the ranks share cuda:0 over gloo
+# (runtime/rendezvous.choose_backend): this proves the multi-process path
+# with the real kernels in every rank, and measures no scaling.
+DIST_RUN = dict(config="0.3b", batch_size=4, seq_len=4096, warmup=1, steps=5, grad_clip=1.0)
+# The fsdp=2 run saves asynchronously at step 4 and blocking at its end (6).
+DIST_CKPT_EVERY = 4
+# The two-rank runs' losses against the one-process run of the same global
+# batch: the largest absolute difference over the 6 steps, in nats (the
+# losses fall from 10.85 to 0.015, so a relative limit would be set by the
+# last, smallest ones). Readings on the NVIDIA H100 80GB HBM3 at 700 W: fsdp=2 3.6e-04 (bf16
+# GEMMs over half the rows, another reduction order, carried through steps
+# of large updates); a planted fault, every rank training on rank 0's rows,
+# 0.362 (6.2e-03 at the first step).
+DIST_LOSS_ATOL = 5e-3
+# fsdp=2: each rank's parameter and AdamW bytes within this share of half
+# the one-process run's (FSDP2's dim-0 chunks are ceil-sized).
+DIST_HALF_RTOL = 0.01
+# Timeout of one world's ranks, in seconds.
+DIST_WORLD_TIMEOUT = 420
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _run_world(argv, tag: str, n: int = 2, env=None) -> list:
+    """Start ``n`` ranks of ``argv`` with the environment the supervisor
+    injects (runtime/env.py of the JAX package: the TPUJOB_* world, the c10d
+    MASTER_*/WORLD_SIZE/RANK) plus ``env``, wait for all, kill any left at
+    the timeout; their (exit code, stdout, stderr). Fails unless every rank
+    exits 0."""
+    import os
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parent)
+    base = {k: v for k, v in os.environ.items() if not k.startswith("TPUJOB_")}
+    base["PYTHONPATH"] = root + os.pathsep + base.get("PYTHONPATH", "")
+    # A rank that crashes prints its Python stack (faulthandler).
+    base["PYTHONFAULTHANDLER"] = "1"
+    base.update(env or {})
+    port = _free_port()
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(n):
+            env = dict(base, TPUJOB_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                       TPUJOB_NUM_PROCESSES=str(n), TPUJOB_PROCESS_ID=str(rank),
+                       TPUJOB_REPLICA_TYPE="Master" if rank == 0 else "Worker",
+                       TPUJOB_REPLICA_INDEX=str(0 if rank == 0 else rank - 1),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE=str(n),
+                       RANK=str(rank))
+            procs.append(subprocess.Popen(argv, cwd=root, env=env, stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE, text=True))
+        outs = []
+        for proc in procs:
+            left = max(DIST_WORLD_TIMEOUT - (time.perf_counter() - t0), 1)
+            try:
+                out, err = proc.communicate(timeout=left)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, err = proc.communicate()
+            outs.append((proc.returncode, out, err))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    _log(f"dist {tag}: {n} ranks, exit codes {[o[0] for o in outs]}, "
+         f"{time.perf_counter() - t0:.1f} s")
+    for rank, (code, out, err) in enumerate(outs):
+        if code != 0:
+            _fail(f"dist {tag}: rank {rank} exited {code}\n{out[-3000:]}\n{err[-4000:]}")
+    return outs
+
+
+def _rank_world(task: str, tag: str, env=None, **kw) -> list:
+    """A world of two ranks of this script (``--rank task``), each writing
+    its output as JSON; the outputs in rank order."""
+    import tempfile
+    from pathlib import Path
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rank_") as td:
+        argv = [sys.executable, __file__, "--rank", task, json.dumps(dict(kw, out=td))]
+        _run_world(argv, tag, env=env)
+        return [json.loads((Path(td) / f"r{r}.json").read_text()) for r in range(2)]
+
+
+def _rank_main(task: str, kw: dict) -> int:
+    """One rank of a phase-11 world: join from the env, run ``task``, write
+    this rank's output, leave through ``rendezvous.finalize``."""
+    from pathlib import Path
+
+    import torch
+
+    from pytorch_operator_tpu_torch.runtime import rendezvous
+    from pytorch_operator_tpu_torch.runtime.device import device_name
+
+    world = rendezvous.initialize_from_env()
+    dev = torch.device(world.device)
+    out = {"rank": world.process_id, "backend": world.backend, "device": world.device,
+           "device_name": device_name(dev)}
+    if task == "probe":
+        out.update(_rank_probe(world, dev))
+    else:
+        out.update(_rank_train(kw))
+    (Path(kw["out"]) / f"r{world.process_id}.json").write_text(json.dumps(out))
+    rendezvous.finalize(world, 0)
+    return 0
+
+
+def _rank_probe(world, dev) -> dict:
+    """Each collective of parallel/collectives.py on CUDA tensors, over a
+    dp mesh of the world, against its value computed here."""
+    import torch
+
+    from pytorch_operator_tpu_torch.parallel import collectives as c
+    from pytorch_operator_tpu_torch.parallel.mesh import make_mesh
+
+    n, r = world.num_processes, world.process_id
+    mesh = make_mesh({"dp": n}, dev.type)
+    xs = [torch.arange(8.0, device=dev).view(2, 4) + 100 * i for i in range(n)]
+    total = sum(xs)
+    want = {
+        "psum": total, "pmean": total / n, "all_gather": torch.cat(xs),
+        "all_gather_stacked": torch.stack(xs), "reduce_scatter": total.chunk(n)[r],
+        "ring_shift": xs[(r - 1) % n],
+    }
+    got = {
+        "psum": c.psum(xs[r], "dp", mesh), "pmean": c.pmean(xs[r], "dp", mesh),
+        "all_gather": c.all_gather(xs[r], "dp", mesh),
+        "all_gather_stacked": c.all_gather(xs[r], "dp", mesh, tiled=False),
+        "reduce_scatter": c.reduce_scatter(xs[r], "dp", mesh),
+        "ring_shift": c.ring_shift(xs[r], "dp", mesh),
+    }
+    return {"collectives": {
+        k: bool(torch.equal(got[k], want[k]) and got[k].device == dev) for k in want
+    }}
+
+
+def _rank_train(kw: dict) -> dict:
+    """``llama_train.run`` on the card (this rank's device); with
+    ``digest`` a blake2b of the trained parameters gathered from the shards
+    (``sharding.full_tensor``), in state-dict order."""
+    from pytorch_operator_tpu_torch.workloads import llama_train
+
+    kw = {k: v for k, v in kw.items() if k != "out"}
+    want_digest = kw.pop("digest", False)
+    r = llama_train.run(log=_log, keep_params=want_digest, **kw)
+    return {"result": r, **({"params": _params_digest(r.pop("params").items())} if want_digest else {})}
+
+
+def _params_digest(named) -> str:
+    """blake2b over (name, bytes) of each tensor, in the given order."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.blake2b(digest_size=16)
+    for name, t in named:
+        h.update(name.encode())
+        h.update(t.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dist_launches(kernels, path: str, results, total_steps: int, n_layers: int) -> dict:
+    """Sum the ranks' flash launches into the kernels line under ``path``;
+    each rank must have launched each kernel once a layer a step."""
+    want = _per_step(n_layers, remat=False)
+    summed = {}
+    for r in results:
+        got = r["flash_launches"]
+        if got != {k: v * total_steps for k, v in want.items()}:
+            _fail(f"dist {path}: rank {r['rank']} launched {got}, expected {want} a step over "
+                  f"{total_steps} steps")
+        for k, v in got.items():
+            summed[k] = summed.get(k, 0) + v
+    _record_launches(kernels, path, summed)
+    return summed
+
+
+def phase_dist(kernels):
+    """Phase 11: (a) two ranks on the card, each collective on CUDA tensors;
+    (b) smoke_dist; (c) llama_train at 0.3b, one process and two ranks
+    (fsdp=2, dp=2), losses held against the one process's; (d) the fsdp=2
+    run's checkpoints restored by one process and resumed by two ranks. The
+    kernels at the per-rank shape (B2 S4096) are timed in phases 2-3."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from pytorch_operator_tpu_torch.checkpoint import CheckpointManager, integrity
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+    from pytorch_operator_tpu_torch.ops import flash_attention as fa
+    from pytorch_operator_tpu_torch.workloads import llama_train
+
+    torch.cuda.empty_cache()
+    n_layers = llama_lib.llama_0_3b().n_layers
+    total = DIST_RUN["warmup"] + DIST_RUN["steps"]
+    t0 = time.perf_counter()
+    for out in _rank_world("probe", "(a) collectives"):
+        _log(f"dist (a) rank {out['rank']}: backend {out['backend']}, device {out['device']} "
+             f"({out['device_name']}), collectives on CUDA tensors {out['collectives']}")
+        if out["backend"] != "gloo" or not all(out["collectives"].values()):
+            _fail(f"dist (a): rank {out['rank']}: backend {out['backend']}, or a collective is wrong")
+    outs = _run_world([sys.executable, "-m", "pytorch_operator_tpu_torch.workloads.smoke_dist"],
+                      "(b) smoke_dist")
+    for rank, (_, out, _) in enumerate(outs):
+        if f"rank {rank}: OK" not in out or "backend gloo" not in out:
+            _fail(f"dist (b): smoke_dist rank {rank} did not pass:\n{out[-2000:]}")
+    _log(f"dist (a), (b): {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    fa.reset_launch_count()
+    one = llama_train.run(device="cuda", log=_log, **DIST_RUN)
+    _record_launches(kernels, "dist_one_process", fa.launch_counts())
+    torch.cuda.empty_cache()
+    td = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        ck = Path(td) / "ck"
+        fsdp = _rank_world(
+            "train", "(c) fsdp=2", env={"TPUJOB_CHECKPOINT_DIR": str(ck)}, mesh_spec="fsdp=2",
+            digest=True, checkpoint_every=DIST_CKPT_EVERY, async_checkpoint=True, **DIST_RUN,
+        )
+        dp = _rank_world("train", "(c) dp=2", mesh_spec="dp=2", **DIST_RUN)
+        _log(f"dist (c): {time.perf_counter() - t0:.1f} s")
+        runs = {"fsdp=2": fsdp, "dp=2": dp}
+        for mesh, outs in runs.items():
+            r = outs[0]["result"]
+            per = r["per_rank"]
+            _dist_launches(kernels, f"dist_{mesh}", per, total, n_layers)
+            gap = max(abs(a - b) for a, b in zip(r["losses"], one["losses"]))
+            _log(
+                f"dist (c) {mesh} (two ranks sharing one card): {r['value'] * 2:.1f} tokens/s, step "
+                f"{r['step_s']:.4f} s, losses {[round(x, 5) for x in r['losses']]} against one "
+                f"process's {[round(x, 5) for x in one['losses']]}: largest difference "
+                f"{gap:.3e} (limit {DIST_LOSS_ATOL:.0e}); per rank: param bytes "
+                f"{[q['param_bytes'] for q in per]}, AdamW bytes "
+                f"{[q['optimizer_state_bytes'] for q in per]}, peak memory GiB "
+                f"{[round((q['peak_mem_bytes'] or 0) / 2**30, 2) for q in per]}, launches a step "
+                f"{r['flash_launches_per_step']}; backend {r['backend']}, mesh {r['mesh']}"
+            )
+            if (r["world"], r["backend"], len(r["losses"])) != (2, "gloo", total):
+                _fail(f"dist (c) {mesh}: world, backend or step count wrong: {r['world']}, "
+                      f"{r['backend']}, {len(r['losses'])}")
+            if gap > DIST_LOSS_ATOL:
+                _fail(f"dist (c) {mesh}: losses differ from the one-process run's by {gap:.3e}")
+        _log(f"dist (c) one process (B4 x S4096): {one['value']} tokens/s, step {one['step_s']:.4f} s, "
+             f"param bytes {one['param_bytes']}, AdamW bytes {one['optimizer_state_bytes']}, peak "
+             f"memory {(one['peak_mem_bytes'] or 0) / 2**30:.2f} GiB")
+        for q in fsdp[0]["result"]["per_rank"]:
+            for key in ("param_bytes", "optimizer_state_bytes"):
+                if abs(q[key] - one[key] / 2) > DIST_HALF_RTOL * one[key] / 2:
+                    _fail(f"dist (c) fsdp=2: rank {q['rank']} holds {q[key]} {key}, not about half "
+                          f"of {one[key]}")
+        for q in dp[0]["result"]["per_rank"]:
+            if (q["param_bytes"], q["optimizer_state_bytes"]) != (
+                one["param_bytes"], one["optimizer_state_bytes"]
+            ):
+                _fail(f"dist (c) dp=2: rank {q['rank']} does not hold the whole state")
+
+        # (d) the fsdp=2 run's steps: 4 (async) and 6 (blocking, the end)
+        t0 = time.perf_counter()
+        saved = fsdp[0]["result"]
+        steps = integrity.list_steps(ck)
+        verified = [integrity.verify_step(ck, x) for x in steps]
+        files = sorted(p.name for p in (ck / "6").iterdir())
+        _log(f"dist (d) fsdp=2 saves: steps {steps}, verified {verified}, save_s "
+             f"{[round(x, 3) for x in saved.get('save_s', [])]}, step 6 files {files}")
+        if steps != [4, 6] or verified != [True, True] or len(saved.get("save_s", [])) != 1:
+            _fail("dist (d): the fsdp=2 run did not commit steps 4 (async) and 6 (blocking)")
+        t1 = time.perf_counter()
+        step, params = CheckpointManager(ck, create=False).restore_subtree("params")
+        restored = _params_digest(params.items())
+        del params
+        ranks_digest = {out["params"] for out in fsdp}
+        _log(f"dist (d) one-process restore of step {step}: {time.perf_counter() - t1:.1f} s, "
+             f"digest {restored}; the two ranks' gathered parameters {sorted(ranks_digest)}")
+        if step != 6 or ranks_digest != {restored}:
+            _fail("dist (d): the one-process restore differs from the ranks' gathered parameters")
+        shutil.rmtree(ck / "6")
+        integrity.sidecar_path(ck, 6).unlink()
+        resumed = _rank_world(
+            "train", "(d) fsdp=2 resume", env={"TPUJOB_CHECKPOINT_DIR": str(ck)},
+            mesh_spec="fsdp=2", max_steps=total, **DIST_RUN,
+            checkpoint_every=DIST_CKPT_EVERY,
+        )[0]["result"]
+        _dist_launches(kernels, "dist_resume", resumed["per_rank"], total - 4, n_layers)
+        want = saved["losses"][4:]
+        _log(f"dist (d) two-rank resume at step 4: losses {resumed['losses']}, the uninterrupted "
+             f"run's steps 5-6 {want}: {'bit-equal' if resumed['losses'] == want else 'DIFFER'}; "
+             f"{time.perf_counter() - t0:.1f} s")
+        if resumed["end_step"] != total or resumed["losses"] != want:
+            _fail("dist (d): the two-rank resume's losses differ from the uninterrupted run's")
+    finally:
+        shutil.rmtree(td, ignore_errors=True)
+    return None
+
 def main() -> int:
     t_start = time.perf_counter()
     card = phase_identity_and_build()
@@ -2808,11 +3136,11 @@ def main() -> int:
     # a profiler session.
     profiles = []
     for phase in (phase_generate, phase_train, phase_serve, phase_int8, phase_journey, phase_rest,
-                  phase_moe):
+                  phase_moe, phase_dist):
         t0 = time.perf_counter()
         profiles.append(phase(kernels))
         _log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
-    for run_profile in profiles:
+    for run_profile in filter(None, profiles):
         t0 = time.perf_counter()
         run_profile()
         _log(f"{run_profile.__qualname__}: {time.perf_counter() - t0:.1f} s")
@@ -2843,4 +3171,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        # One rank of a phase-11 world, started by _rank_world.
+        sys.exit(_rank_main(sys.argv[2], json.loads(sys.argv[3])))
     sys.exit(main())

@@ -1,7 +1,8 @@
 """Jittered exponential backoff — the port's copy of ``Backoff`` and
 ``retry_call`` from ``pytorch_operator_tpu/backoff.py``: the schedule the
-spool's response wait and the ring transport's spool-scan gate poll on, and
-the checkpoint manager's retry of transient write failures.
+spool's response wait and the ring transport's spool-scan gate poll on, the
+checkpoint manager's retry of transient write failures, and the rendezvous
+join's retry of a coordinator that is not listening yet.
 
 Exponential growth, a cap, and DETERMINISTIC jitter derived by hashing
 (seed, attempt), never from a PRNG or the clock, so both packages sleep the
@@ -58,22 +59,34 @@ def retry_call(
     fn: Callable,
     *,
     backoff: Backoff,
-    attempts: int,
+    attempts: Optional[int] = None,
+    timeout_s: Optional[float] = None,
     retry_on: Tuple[Type[BaseException], ...] = (Exception,),
     on_retry: Optional[Callable[[BaseException, int], None]] = None,
 ):
     """Call ``fn`` until it returns, retrying ``retry_on`` failures on the
-    backoff schedule; after ``attempts`` calls re-raise the last failure.
-    ``on_retry(exc, attempt)`` runs before each sleep (e.g. removing a
-    partly written checkpoint step so that the retry starts clean)."""
+    backoff schedule. Stops at ``attempts`` calls and/or when the next sleep
+    would cross ``timeout_s`` (from the first call), whichever comes first,
+    then re-raises the last failure. ``on_retry(exc, attempt)`` runs before
+    each sleep (e.g. removing a partly written checkpoint step so that the
+    retry starts clean)."""
+    if attempts is None and timeout_s is None:
+        raise ValueError("retry_call needs attempts and/or timeout_s")
+    deadline = None if timeout_s is None else time.monotonic() + timeout_s
     attempt = 0
     while True:
         try:
             return fn()
         except retry_on as e:
             attempt += 1
-            if attempt >= attempts:
+            if attempts is not None and attempt >= attempts:
                 raise
+            d = backoff.delay(attempt - 1)
+            if deadline is not None:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise
+                d = min(d, remaining)
             if on_retry is not None:
                 on_retry(e, attempt)
-            time.sleep(backoff.delay(attempt - 1))
+            time.sleep(d)

@@ -136,11 +136,17 @@ class AsyncCheckpointWriter:
         max_pending: int = 2,
         on_error: Optional[Callable[[int, BaseException], None]] = None,
         on_commit: Optional[Callable[..., None]] = None,
+        clear_fence_on_error: bool = True,
     ):
         if max_pending < 1:
             raise ValueError(f"max_pending must be >= 1, got {max_pending}")
         self._commit = commit
         self._root = root
+        # A single-process commit cleans its partial step on failure, so
+        # clearing the fence is safe; a multi-process commit
+        # (checkpoint/multihost.py) keeps it: shards of peers this process
+        # cannot see may exist, and "fenced, not torn" is the invariant.
+        self._clear_fence_on_error = clear_fence_on_error
         self._on_error = on_error
         self._on_commit = on_commit
         # step -> submit wall time of submitted, undecided commits (the
@@ -218,13 +224,14 @@ class AsyncCheckpointWriter:
     # ---- both stages (background threads) ----
 
     def _fail(self, step: int, e: BaseException) -> None:
-        """Record, unfence, report: the step loop never sees the exception.
-        A failed commit has cleaned its partial step, so clearing the fence
-        cannot expose a torn one."""
+        """Record, unfence (unless ``clear_fence_on_error`` is off), report:
+        the step loop never sees the exception. A failed single-process
+        commit has cleaned its partial step, so clearing the fence cannot
+        expose a torn one."""
         with self._lock:
             self.errors.append((step, e))
             self._inflight_ts.pop(step, None)
-        if self._root is not None:
+        if self._root is not None and self._clear_fence_on_error:
             from . import integrity
 
             integrity.clear_inflight(self._root, step)

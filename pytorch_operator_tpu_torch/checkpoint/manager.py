@@ -20,6 +20,22 @@ reconciler (``controller/reconciler.py``) judges a port checkpoint as it
 judges its own; the files inside a step are this package's own format, which
 the JAX package cannot restore, nor the port an orbax step.
 
+**A world of more than one process** (``num_processes`` > 1): every rank
+writes its own part of a step into the shared directory,
+``<root>/<step>/<key>.r<rank>.pt``, where each DTensor (an FSDP2 shard) is
+a record of its local rows, their offset along dim 0 and the global shape;
+a shard replicated over ``dp`` is written by the rank at coordinate 0 of
+that axis only. The step is fenced (``<step>.inflight``) by every rank
+before its first byte, and the primary (rank 0) writes ``meta.json`` (with
+the world size) and, only after the ``written`` barrier of
+:func:`~.multihost.make_multihost_commit` (every rank's files durable), the
+sidecar, which clears the fence: blocking or asynchronous alike. Restore
+memory-maps the ranks' files and, for a DTensor in the caller's
+``state_like``, copies only the rows this rank holds in the new layout out
+of the records that overlap them (a rank reads its share of the step, not
+the whole of it); elsewhere it assembles the whole tensor. A step restores
+at any world size, a single process included.
+
 ``save(block=False)`` commits on the background pipeline of
 ``async_writer.py`` — every step still verified, a ``checkpoint_committed``
 record a commit, a ``checkpoint_save_failed`` record (never an exception
@@ -43,8 +59,15 @@ from ..backoff import Backoff, retry_call
 from ..runtime.rendezvous import report, report_checkpoint_committed
 from . import integrity
 from .async_writer import AsyncCheckpointWriter, snapshot_to_host, stage_mutable_leaves
+from .multihost import make_multihost_commit
 
 FORMAT = "torch.save"
+# The key of a DTensor's record in a rank's file: its local rows (or None
+# where another rank writes the same rows), "offset" and "shape".
+SHARD = "__shard__"
+# Each wait of a multi-process commit's barrier: a step whose ranks have
+# not all written their files by then is not committed.
+BARRIER_TIMEOUT_S = 300.0
 
 
 def job_checkpoint_dir() -> Optional[Path]:
@@ -66,19 +89,132 @@ def _to_cpu(tree):
     return tree
 
 
+def _shape(v) -> tuple:
+    """The (global) shape of a saved tensor or of a :data:`SHARD` record."""
+    return tuple(v["shape"]) if isinstance(v, dict) else tuple(v.shape)
+
+
 def _check_like(key: str, got, like) -> None:
-    """Raise ValueError when a restored flat tensor dict does not have the
-    names and shapes of ``like`` (what the caller will load it into)."""
+    """Raise ValueError when a restored flat tensor dict (or one rank's
+    records of it) does not have the names and shapes of ``like`` (what the
+    caller will load it into)."""
     if not (isinstance(like, dict) and like and all(isinstance(v, torch.Tensor) for v in like.values())):
         return
     for name in sorted(set(like) | set(got)):
         a, b = got.get(name), like.get(name)
-        if a is None or b is None or tuple(a.shape) != tuple(b.shape):
+        if a is None or b is None or _shape(a) != tuple(b.shape):
             raise ValueError(
                 f"checkpoint {key!r} does not match: first mismatch at {name}: checkpoint has "
-                f"{'nothing' if a is None else tuple(a.shape)}, expected "
+                f"{'nothing' if a is None else _shape(a)}, expected "
                 f"{'nothing' if b is None else tuple(b.shape)}"
             )
+
+
+def _shard_rows(shape, mesh, placements) -> tuple:
+    """``(offset, rows)``: the rows of dim 0 this rank holds of a DTensor of
+    global ``shape`` laid out as ``placements`` on ``mesh``: FSDP2's
+    ``Shard(0)`` takes ``torch.chunk``'s blocks (ceil-sized, the last ones
+    short or empty), a ``Replicate`` dimension takes them all."""
+    offset, rows = 0, int(shape[0])
+    for i, pl in enumerate(placements):
+        if pl.is_shard():
+            if pl.dim != 0:
+                raise NotImplementedError(f"checkpointing a Shard({pl.dim}) layout (only dim 0)")
+            chunk = -(-rows // mesh.size(i))
+            start = min(mesh.get_local_rank(i) * chunk, rows)
+            offset, rows = offset + start, min(start + chunk, rows) - start
+    return offset, rows
+
+
+def _rank_part(tree):
+    """The tree this rank writes: each DTensor becomes a :data:`SHARD`
+    record of its local rows (a view: the snapshot copies it), or of None
+    where a rank at a lower coordinate of a replicated mesh dimension holds
+    the same rows."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree, DTensor):
+        mesh, placements = tree.device_mesh, tree.placements
+        offset, rows = _shard_rows(tree.shape, mesh, placements)
+        local = tree.to_local()
+        if local.shape[0] != rows:
+            raise ValueError(f"a DTensor's local rows {local.shape[0]} are not its layout's {rows}")
+        writes = all(
+            mesh.get_local_rank(i) == 0 for i, pl in enumerate(placements) if pl.is_replicate()
+        )
+        return {SHARD: local if writes else None, "offset": offset, "shape": list(tree.shape)}
+    if isinstance(tree, dict):
+        return {k: _rank_part(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rank_part(v) for v in tree)
+    return tree
+
+
+def _rows(trees, like):
+    """The value of one tensor from the ranks' trees of a step: each a
+    :data:`SHARD` record, or (a single-process step) the whole tensor. For a
+    DTensor ``like``, this rank's rows of its layout as a DTensor on
+    ``like``'s device; else the whole tensor. Only the records that overlap
+    those rows are read, and every row must be covered by one (or
+    ValueError)."""
+    from torch.distributed.tensor import DTensor
+
+    recs = [t if isinstance(t, dict) else {SHARD: t, "offset": 0, "shape": list(t.shape)} for t in trees]
+    shape = recs[0]["shape"]
+    sharded = isinstance(like, DTensor)
+    start, rows = (
+        _shard_rows(like.shape, like.device_mesh, like.placements) if sharded else (0, shape[0])
+    )
+    out, spans = None, []
+    for rec in recs:
+        local = rec[SHARD]
+        if local is None:
+            continue
+        if out is None:
+            out = torch.empty([rows, *shape[1:]], dtype=local.dtype)
+        a = rec["offset"]
+        lo, hi = max(a, start), min(a + local.shape[0], start + rows)
+        if lo < hi:
+            out[lo - start : hi - start] = local[lo - a : hi - a]
+            spans.append((lo, hi))
+    covered = start
+    for lo, hi in sorted(spans):
+        if lo > covered:
+            break
+        covered = max(covered, hi)
+    if out is None or covered < start + rows:
+        raise ValueError(
+            f"the ranks' shards cover rows [{start}, {covered}) of the rows "
+            f"[{start}, {start + rows}) to restore of {shape}"
+        )
+    if not sharded:
+        return out
+    return DTensor.from_local(
+        out.to(like.to_local().device), like.device_mesh, like.placements, run_check=False,
+        shape=like.shape, stride=like.stride(),
+    )
+
+
+def _fit(trees, like):
+    """One tree from the ranks' trees of a step (a single-process step: its
+    one tree), shaped for ``like`` (the caller's tree, or None): each
+    :data:`SHARD` record, and a whole tensor where ``like`` holds a DTensor,
+    through :func:`_rows`; any other leaf is the same on every rank and
+    taken from the first."""
+    from torch.distributed.tensor import DTensor
+
+    first = trees[0]
+    if (isinstance(first, dict) and SHARD in first) or (
+        isinstance(first, torch.Tensor) and isinstance(like, DTensor)
+    ):
+        return _rows(trees, like)
+    if isinstance(first, dict):
+        sub = like if isinstance(like, dict) else {}
+        return {k: _fit([t[k] for t in trees], sub.get(k)) for k in first}
+    if isinstance(first, (list, tuple)):
+        sub = like if isinstance(like, (list, tuple)) and len(like) == len(first) else [None] * len(first)
+        return type(first)(_fit([t[i] for t in trees], lk) for i, lk in enumerate(sub))
+    return first
 
 
 class CheckpointManager:
@@ -87,15 +223,26 @@ class CheckpointManager:
     optimizer's) are each saved with ``torch.save``.
 
     ``staged`` is the default flavour of an asynchronous save (see
-    :meth:`save`)."""
+    :meth:`save`). ``process_id``/``num_processes`` place this manager in a
+    world of several processes sharing ``directory`` (the module
+    docstring)."""
 
     def __init__(
         self, directory: Path | str, max_to_keep: int = 3, create: bool = True, *,
-        staged: bool = False,
+        staged: bool = False, process_id: int = 0, num_processes: int = 1,
     ):
         self.directory = Path(directory).absolute()
         self.max_to_keep = max_to_keep
         self._staged = staged
+        self.process_id, self.num_processes = int(process_id), int(num_processes)
+        self._commit = self._commit_step
+        if self.num_processes > 1:
+            self._multihost = make_multihost_commit(
+                self.directory, self._write_shard, process_id=self.process_id,
+                num_processes=self.num_processes, barrier_timeout=BARRIER_TIMEOUT_S,
+                report=report, on_abort=self._abort_shard,
+            )
+            self._commit = self._commit_multi
         # Made at the first asynchronous save: one commit thread, so
         # asynchronous saves commit in submission order.
         self._writer: Optional[AsyncCheckpointWriter] = None
@@ -120,7 +267,13 @@ class CheckpointManager:
 
     def all_steps(self) -> list:
         self._drain()
-        return integrity.list_steps(self.directory)
+        steps = integrity.list_steps(self.directory)
+        if self.num_processes > 1:
+            # A step another rank is still writing is fenced until the
+            # primary's sidecar: not a step of this world yet, so that every
+            # rank sees the same steps (and decides alike whether to save).
+            steps = [s for s in steps if not integrity.inflight_path(self.directory, s).exists()]
+        return steps
 
     def last_committed_step(self) -> Optional[int]:
         """Newest step whose asynchronous commit (sidecar included)
@@ -194,6 +347,72 @@ class CheckpointManager:
                 shutil.rmtree(self._step_dir(old), ignore_errors=True)
         integrity.prune_stale_sidecars(self.directory)
 
+    def _rank_file(self, step: int, key: str, rank: int) -> Path:
+        return self._step_dir(step) / f"{key}.r{rank}.pt"
+
+    def _write_shard(self, step: int, state: Dict[str, Any], fault) -> None:
+        """This rank's half of a multi-process commit: its files of
+        ``step``, each written under a temporary name and renamed (the step
+        is fenced meanwhile); the primary also writes ``meta.json`` and
+        drops files of this step that no rank of this world writes (a
+        previous life's, of another world size). Transient I/O failures are
+        retried as in a single-process commit."""
+        d = self._step_dir(step)
+        host = {key: _to_cpu(value) for key, value in state.items()}
+
+        def put(path: Path, write) -> None:
+            tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+            write(tmp)
+            tmp.replace(path)
+
+        def attempt():
+            nonlocal fault
+            if fault == "fail":
+                fault = None
+                raise OSError("injected transient checkpoint write failure")
+            if fault == "enospc":
+                import errno
+
+                raise OSError(errno.ENOSPC, "injected: no space left on device")
+            d.mkdir(parents=True, exist_ok=True)
+            for key, value in host.items():
+                put(self._rank_file(step, key, self.process_id), lambda p: torch.save(value, p))
+            if self.process_id == 0:
+                mine = {f"{k}.r{r}.pt" for k in host for r in range(self.num_processes)}
+                for f in d.glob("*.pt"):
+                    if f.name not in mine:
+                        f.unlink(missing_ok=True)
+                meta = {"step": int(step), "keys": sorted(host), "format": FORMAT,
+                        "world": self.num_processes}
+                put(d / "meta.json", lambda p: p.write_text(json.dumps(meta) + "\n"))
+
+        retry_call(
+            attempt,
+            backoff=Backoff(base_s=0.05, cap_s=2.0, seed=step),
+            attempts=3,
+            retry_on=(OSError,),
+            on_retry=lambda _exc, _attempt: self._abort_shard(step),
+        )
+
+    def _abort_shard(self, step: int) -> None:
+        """Remove this rank's files of ``step`` (a failed write: no bytes of
+        it may pass for part of a committed step)."""
+        for f in self._step_dir(step).glob(f"*.r{self.process_id}.pt*"):
+            f.unlink(missing_ok=True)
+
+    def _commit_multi(self, step: int, state: Dict[str, Any], fault) -> None:
+        """A multi-process commit: the barrier protocol, then on the primary
+        the retention of old steps (and a ``torn`` fault's damage)."""
+        self._multihost(step, state, fault)
+        if self.process_id != 0:
+            return
+        if fault == "torn":
+            integrity.corrupt_step(self.directory, step)
+        if self.max_to_keep:
+            for old in integrity.list_steps(self.directory)[: -self.max_to_keep]:
+                shutil.rmtree(self._step_dir(old), ignore_errors=True)
+        integrity.prune_stale_sidecars(self.directory)
+
     def _report_save_failed(self, step: int, err) -> None:
         print(
             f"[tpujob] warning: checkpoint save of step {step} failed after retries ({err}); "
@@ -225,17 +444,25 @@ class CheckpointManager:
         (``checkpoint_save_failed``) and recorded on the writer, never raised
         into the step loop."""
         fault = faults.checkpoint_write_fault()
+        multi = self.num_processes > 1
+        if multi:
+            state = {key: _rank_part(value) for key, value in state.items()}
         if block:
             self._drain()  # commits stay in submission order
             with obs.span("ckpt_blocking_save", cat="ckpt", step=step):
-                self._commit_step(step, state, fault)
+                if multi:
+                    # Fenced before this rank's first byte; only the
+                    # primary's sidecar lifts it, and a failure keeps it.
+                    integrity.mark_inflight(self.directory, step)
+                self._commit(step, state, fault)
             return
         if self._writer is None:
             self._writer = AsyncCheckpointWriter(
-                self._commit_step,
+                self._commit,
                 root=self.directory,
                 on_error=self._report_save_failed,
                 on_commit=report_checkpoint_committed,
+                clear_fence_on_error=not multi,
             )
         if self._staged if staged is None else staged:
             with obs.span("ckpt_stage_submit", cat="ckpt", step=step):
@@ -267,27 +494,47 @@ class CheckpointManager:
             raise FileNotFoundError(f"no checkpoint under {self.directory}")
         return step
 
-    def _load(self, step: int, key: str):
-        path = self._step_dir(step) / f"{key}.pt"
-        if not path.exists():
+    def _load(self, step: int, key: str, like=None):
+        """The value of ``key`` at ``step``, checked against and shaped for
+        ``like`` (:func:`_fit`): one file, or the ranks' files of a
+        multi-process step. A manager in a world of one process reads a
+        single-process step whole; otherwise the files are memory-mapped, so
+        that only the rows taken are read."""
+        d = self._step_dir(step)
+        try:
+            world = int(json.loads((d / "meta.json").read_text()).get("world", 1))
+        except (OSError, ValueError):
+            world = 1
+        paths = [d / f"{key}.pt"] if world == 1 else [
+            self._rank_file(step, key, r) for r in range(world)
+        ]
+        missing = [p.name for p in paths if not p.exists()]
+        if missing:
             raise KeyError(
-                f"checkpoint at step {step} has no top-level {key!r} "
-                f"(files: {sorted(p.name for p in self._step_dir(step).iterdir())})"
+                f"checkpoint at step {step} has no top-level {key!r}: missing {missing} "
+                f"(files: {sorted(p.name for p in d.iterdir())})"
             )
-        return torch.load(path, weights_only=True, map_location="cpu")
+        if world == 1 and self.num_processes == 1:
+            tree = torch.load(paths[0], weights_only=True, map_location="cpu")
+            _check_like(key, tree, like)
+            return tree
+        trees = [torch.load(p, weights_only=True, map_location="cpu", mmap=True) for p in paths]
+        _check_like(key, trees[0], like)
+        return _fit(trees, like)
 
     def restore(self, state_like: Dict[str, Any], step: Optional[int] = None) -> Dict[str, Any]:
         """The saved values of ``state_like``'s top-level keys at ``step``
         (default: the newest), as CPU tensors: the caller loads them into
-        its model and optimizer (``load_state_dict``), which places them. A
-        flat tensor dict (a model's ``state_dict``) must have the names and
-        shapes of ``state_like``'s, or this raises ValueError."""
+        its model and optimizer (``load_state_dict``), which places them;
+        where ``state_like`` holds a DTensor, this rank's rows of it as a
+        DTensor of that layout. A flat tensor dict (a model's
+        ``state_dict``) must have the names and shapes of ``state_like``'s,
+        or this raises ValueError."""
         self._drain()
         step = self._resolve_step(step)
         out = {}
         for key, like in state_like.items():
-            out[key] = self._load(step, key)
-            _check_like(key, out[key], like)
+            out[key] = self._load(step, key, like)
         return out
 
     def restore_subtree(self, key: str) -> tuple[int, Any]:

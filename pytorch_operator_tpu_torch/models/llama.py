@@ -39,7 +39,7 @@ rematerialised block runs twice, so no side channel would count once).
 Not in this port yet (raises ``NotImplementedError`` from the config): ring
 and ulysses sequence parallelism. Expert parallelism and pipeline
 parallelism have no config field; the port has no ep or pp forward. All are
-ROADMAP.md item 3b.
+ROADMAP.md item 3c.
 """
 
 from __future__ import annotations
@@ -123,7 +123,7 @@ class LlamaConfig:
         if self.attn_impl in ("ring", "ulysses"):
             raise NotImplementedError(
                 f"attn_impl={self.attn_impl!r} is not ported yet "
-                "(ROADMAP.md item 3b: multi-GPU, ring/ulysses, pp)"
+                "(ROADMAP.md item 3c: tensor, sequence, pipeline and expert parallelism)"
             )
         if self.n_experts > 0:
             if self.moe_dispatch not in ("dense", "sparse"):

@@ -1,10 +1,28 @@
 """Parallelism — the port of ``pytorch_operator_tpu/parallel/``.
 
-Only the single-device mixture-of-experts layer is ported (``moe.py``); the
-meshes, sharding rules, ring and ulysses attention and the pipeline are
-ROADMAP.md item 3b (multi-GPU).
+- ``mesh.py``: the mesh-spec grammar and ``DeviceMesh`` construction over
+  the ranks of a joined world (``dp``, ``fsdp``, the ``@dcn`` layout).
+- ``collectives.py``: psum, pmean, all-gather, reduce-scatter, the ring
+  shift, over the process group of one mesh axis.
+- ``data.py``: each rank's rows of the identical host batch.
+- ``sharding.py`` / ``logical.py``: the rule table, and FSDP2 over the data
+  axes (``fsdp`` shards, ``dp`` replicates).
+- ``moe.py``: the mixture-of-experts layer on one device.
+
+Tensor, sequence (ring, ulysses), pipeline and expert parallelism are
+ROADMAP.md item 3c.
 """
 
+from .collectives import all_gather, axis_index, axis_size, pmean, psum, reduce_scatter, ring_shift  # noqa: F401
+from .mesh import (  # noqa: F401
+    MESH_AXIS_ORDER,
+    make_hybrid_mesh,
+    make_mesh,
+    mesh_from_env,
+    parse_mesh_spec,
+    resolve_axis_sizes,
+    split_hybrid_spec,
+)
 from .moe import (  # noqa: F401
     load_balance_loss,
     moe_mlp,

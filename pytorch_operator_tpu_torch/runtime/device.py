@@ -5,7 +5,9 @@ caller asks for the CPU, either explicitly (``device="cpu"``,
 ``--device cpu``) or through ``TPUJOB_PLATFORM=cpu`` — what the supervisor
 injects for ``cpu_devices`` jobs and what the test suite sets. With no GPU
 and no such request, resolution raises: a measurement or a job that silently
-ran on the host would report host numbers under the device's name.
+ran on the host would report host numbers under the device's name. In a
+world of several processes each rank takes ``cuda:(rank % device count)``
+(:func:`rank_device`).
 """
 
 from __future__ import annotations
@@ -35,6 +37,18 @@ def resolve_device(device: Union[str, torch.device, None] = None) -> torch.devic
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}: expected cuda or cpu")
+    return dev
+
+
+def rank_device(process_id: int, device: Union[str, torch.device, None] = None) -> torch.device:
+    """The device of rank ``process_id`` in a multi-process world: the
+    :func:`resolve_device` rule, and on CUDA the card
+    ``cuda:(process_id % device_count)`` unless ``device`` names one. Ranks
+    of one host with fewer cards than ranks share cards (the rendezvous then
+    picks gloo: NCCL refuses two ranks on one GPU)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", process_id % torch.cuda.device_count())
     return dev
 
 

@@ -1,5 +1,5 @@
-"""Llama causal-LM training on one GPU — the port of
-``pytorch_operator_tpu/workloads/llama_train.py``.
+"""Llama causal-LM training on one GPU or over a world of processes — the
+port of ``pytorch_operator_tpu/workloads/llama_train.py``.
 
 The llama presets default to ``attn_impl="flash"`` and ``xent_impl="chunked"``,
 so every step runs the flash forward kernel and both backward kernels once per
@@ -20,13 +20,22 @@ exit code 138 on a replica's first life (a simulated preemption);
 ``--moe-dispatch dense|sparse``, ``--moe-capacity-factor``,
 ``--moe-aux-weight``) with every expert on this one card.
 
+In a world of several processes (the supervisor's Master and Workers, joined
+by ``runtime.rendezvous.initialize_from_env``) ``--mesh``/``TPUJOB_MESH``
+(default ``fsdp=-1``) lays the model out over the ranks' data axes: ``fsdp``
+shards parameters, gradients and AdamW's state with FSDP2, ``dp``
+replicates them (both together: HSDP; ``@dcn`` axes outermost).
+``--batch-size`` is the global batch; each rank trains on its rows of it,
+and the losses reported are the global batch's.
+
     python -m pytorch_operator_tpu_torch.workloads.llama_train --config 0.3b \\
         --batch-size 4 --seq-len 4096 --steps 5 --json
 
 It runs on ``cuda`` unless ``--device cpu`` or ``TPUJOB_PLATFORM=cpu`` asks
-for the host; with neither and no GPU it raises. Flags of the JAX workload
-that need several GPUs are refused with the ROADMAP item they wait for
-(:data:`REFUSED_FLAGS`).
+for the host; with neither and no GPU it raises. What waits for ROADMAP.md
+item 3c is refused by name: the ``tp``, ``sp``, ``pp`` and ``ep`` mesh axes,
+the pipeline flags (:data:`REFUSED_FLAGS`), and in a world of several
+processes ring/ulysses attention, ``--experts`` and adafactor.
 """
 
 from __future__ import annotations
@@ -43,13 +52,17 @@ import numpy as np
 import torch
 
 from ..checkpoint import CheckpointManager, job_checkpoint_dir
-from ..data import field_range, open_loader, read_meta
+from ..data import field_range, open_training_loader, read_meta
 from ..data.device_prefetch import DevicePrefetcher, to_device
 from ..models import llama as llama_lib
 from ..models.convert import params_from_jax
 from ..ops import flash_attention as flash_lib
+from ..parallel import data as data_lib
+from ..parallel import mesh as mesh_lib
+from ..parallel.collectives import world as joined_world
+from ..parallel.sharding import data_axes, full_tensor, local_nbytes, shard_model
 from ..runtime import rendezvous
-from ..runtime.device import device_name, resolve_device
+from ..runtime.device import device_name, rank_device, resolve_device
 from .trainer import (
     add_feed_tuning_args,
     data_plane_env_defaults,
@@ -59,6 +72,7 @@ from .trainer import (
     make_optimizer,
     resolve_feed_tuning,
     throughput_loop,
+    world_mean,
 )
 
 
@@ -75,6 +89,24 @@ def synthetic_bigram_batch(batch: int, seq_len: int, vocab: int, step: int):
 CONFIGS = llama_lib.CONFIGS
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# The mesh axes a run can train on (the rule table's batch axes); the
+# others wait for this item.
+DATA_AXES = data_axes(mesh_lib.MESH_AXIS_ORDER)
+ITEM_3C = "ROADMAP.md item 3c: tensor, sequence, pipeline and expert parallelism"
+
+
+def resolve_train_mesh(spec: str, world: int) -> dict:
+    """The axes and sizes, in layout order, of mesh ``spec`` resolved
+    against ``world`` ranks (one device a process). Naming an axis other
+    than ``dp``/``fsdp`` raises, naming item 3c."""
+    beyond = sorted(set(mesh_lib.parse_mesh_spec(spec)) - set(DATA_AXES))
+    if beyond:
+        raise NotImplementedError(
+            f"mesh axes {beyond} are not ported yet ({ITEM_3C}); this port trains on "
+            f"{' and '.join(DATA_AXES)}"
+        )
+    return mesh_lib.hybrid_axis_sizes(spec, world)
 
 
 def run(
@@ -115,9 +147,11 @@ def run(
     xent_impl: str | None = None,
     preempt_at: int | None = None,
     profile_dir: str | None = None,
+    mesh_spec: str | None = None,
     device=None,
     seed: int = 0,
     init_params=None,
+    keep_params: bool = False,
     log=print,
 ) -> dict:
     """Train ``config`` for ``warmup`` + ``steps`` steps and return the JAX
@@ -162,8 +196,30 @@ def run(
     the first life (``TPUJOB_RESTART_COUNT`` 0), exit 138 through
     ``os._exit`` when the step about to run reaches it, after flushing the
     output; nothing else runs (no in-flight save commits). ``profile_dir``
-    profiles the timed window (:func:`trainer.maybe_profile`)."""
-    dev = resolve_device(device)
+    profiles the timed window (:func:`trainer.maybe_profile`).
+
+    In a joined world of more than one process (``torch.distributed``
+    initialized: ``main`` joins the supervisor's world, a test its own) the
+    run lays the model out on ``mesh_spec`` (default ``TPUJOB_MESH``, else
+    ``fsdp=-1``: ``parallel/mesh.mesh_spec_from_env``; see
+    :func:`resolve_train_mesh`):
+    every rank builds the same init, then FSDP2 shards it
+    (``parallel/sharding.shard_model``). ``batch_size`` is the global batch
+    (rounded to a multiple of the ranks, as the JAX workload rounds it to
+    its devices); each rank takes its rows (``parallel/data.global_batch``),
+    and ``losses``/``eval_loss`` are the global batch's means. The result
+    adds ``world``, ``mesh``, ``backend``, this rank's ``param_bytes`` and
+    ``optimizer_state_bytes``, and ``per_rank`` (each rank's bytes, peak
+    memory and flash launches). A resize record from the supervisor is
+    polled every step (``rendezvous.poll_resize``): the rank drains its
+    loader, feed and saves, then re-executes into the new world.
+    ``keep_params`` adds ``params``: the trained parameters whole on every
+    rank (gathered from the shards), CPU tensors in state-dict order."""
+    rank, world = joined_world()
+    backend = torch.distributed.get_backend() if world > 1 else None
+    dev = resolve_device(device) if world == 1 else rank_device(rank, device)
+    mesh_spec = mesh_spec or mesh_lib.mesh_spec_from_env()
+    axes = resolve_train_mesh(mesh_spec, world)
     over = {}
     if remat is not None:
         over["remat"] = remat
@@ -216,14 +272,33 @@ def run(
         log(
             f"[llama] n_experts={cfg.n_experts} top_k={cfg.moe_top_k} "
             f"dispatch={cfg.moe_dispatch}: every expert runs on this one card (no ep axis; "
-            "expert parallelism is ROADMAP.md item 3b)"
+            "expert parallelism is ROADMAP.md item 3c)"
         )
+    if world > 1:
+        for what, refused in (
+            (f"--attn-impl {cfg.attn_impl}", cfg.attn_impl in ("ring", "ulysses")),
+            ("--experts", cfg.n_experts > 0),
+            ("--optimizer adafactor", optimizer == "adafactor"),
+        ):
+            if refused:
+                raise NotImplementedError(
+                    f"{what} in a world of {world} processes is not ported yet ({ITEM_3C})"
+                )
+    # The global batch, rounded to a multiple of the ranks as the JAX
+    # workload rounds it to its devices.
+    if batch_size % world:
+        batch_size = max(batch_size // world, 1) * world
     if grad_accum > 1 and batch_size % grad_accum:
         raise ValueError(f"--grad-accum {grad_accum} must divide the global batch {batch_size}")
+    if grad_accum > 1 and (batch_size // world) % grad_accum:
+        raise ValueError(
+            f"--grad-accum {grad_accum} must divide each rank's {batch_size // world} rows"
+        )
     log(
         f"[llama] config={config} d_model={cfg.d_model} layers={cfg.n_layers} "
-        f"attn={cfg.attn_impl} xent={cfg.xent_impl} remat={cfg.remat and cfg.remat_policy} "
-        f"batch={batch_size} seq={seq_len} ({device_name(dev)})"
+        f"mesh={axes} attn={cfg.attn_impl} xent={cfg.xent_impl} "
+        f"remat={cfg.remat and cfg.remat_policy} batch={batch_size} seq={seq_len} "
+        f"({device_name(dev)}{f', {backend}' if backend else ''})"
     )
 
     def open_token_file(path: str, flag: str, seed: int, do_open: bool = True):
@@ -255,7 +330,7 @@ def run(
             )
         if not do_open:
             return None, meta
-        return open_loader(path, batch_size, seed=seed), meta
+        return open_training_loader(path, batch_size, seed=seed, processes=world), meta
 
     def host_tokens(ldr):
         # A copy out of the loader's slot: the native loader recycles it at
@@ -264,7 +339,8 @@ def run(
         return np.array(fields["tokens"][:, :seq_len], np.int32, copy=True)
 
     def next_tokens(ldr):
-        return torch.from_numpy(host_tokens(ldr)).to(dev, torch.long)
+        # This rank's rows of the next global batch, on its device.
+        return data_lib.put_global(host_tokens(ldr), dev, rank, world).long()
 
     if eval_file:
         # Before any training compute: a bad eval file must not cost a
@@ -274,6 +350,8 @@ def run(
         open_token_file(eval_file, "--eval-file", seed=1, do_open=False)
 
     t_init = time.time()
+    # Every rank builds the same values (one seed, or the same tree) before
+    # sharding: each then keeps its shard of them.
     model = llama_lib.Llama(cfg, device=dev)
     if init_params is not None:
         model.load_state_dict(params_from_jax(init_params, cfg))
@@ -281,7 +359,13 @@ def run(
         model.init_weights(torch.Generator(device=dev).manual_seed(seed))
     model.train()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"[llama] {n_params / 1e6:.1f}M params, init +{time.time() - t_init:.1f}s")
+    if world > 1:
+        shard_model(model, mesh_lib.make_mesh(mesh_spec, dev.type))
+    log(
+        f"[llama] {n_params / 1e6:.1f}M params, init +{time.time() - t_init:.1f}s"
+        + (f", {local_nbytes(model.parameters()) / 2**20:.1f} MiB of them on rank {rank}"
+           if world > 1 else "")
+    )
 
     # The cosine horizon defaults to --max-steps, the global budget across
     # resumed lives (the restored count is global), else this life's length.
@@ -292,7 +376,10 @@ def run(
         grad_clip=grad_clip, weight_decay=0.1,
     )
     aux_values = []  # one device scalar a loss_fn call
-    train_step = make_lm_train_step(model, opt, grad_accum=grad_accum, on_aux=aux_values.append)
+    rank_step = make_lm_train_step(model, opt, grad_accum=grad_accum, on_aux=aux_values.append)
+
+    def train_step(tokens):
+        return world_mean(rank_step(tokens), world)
 
     def train_state():
         return {"params": model.state_dict(), "opt_state": opt.state_dict()}
@@ -308,6 +395,27 @@ def run(
             sys.stdout.flush()
             sys.stderr.flush()
             os._exit(138)
+
+    # The elastic resize fence, polled each step: a rank the supervisor
+    # moved to a resized world drains its loader, feed and pending saves,
+    # then re-executes with the new world's coordinates (or exits, if
+    # evicted); the fresh process resumes from the last verified step.
+    train_world = rendezvous.world_from_env()
+
+    def maybe_resize(step: int):
+        sig = rendezvous.poll_resize(train_world)
+        if sig is None:
+            return
+        log(f"[llama] resize generation {sig.generation} observed at step {step}; draining")
+        for drain in (prefetcher, loader, mgr):
+            if drain is None:
+                continue
+            try:
+                drain.close()
+            except Exception:
+                # invariant: waived — best-effort drain on resize; a broken loader must not block the exit
+                pass
+        rendezvous.exit_for_resize(sig)
 
     loader = None
     mgr = None
@@ -335,7 +443,13 @@ def run(
             # The port's staged snapshot owns its bytes before save()
             # returns (async_writer.py), so it is safe beside the in-place
             # step; --donate is a no-op here.
-            mgr = CheckpointManager(ckpt_dir, staged=async_checkpoint)
+            mgr = CheckpointManager(
+                ckpt_dir, staged=async_checkpoint, process_id=rank, num_processes=world
+            )
+            # AdamW's state made now, so that a restore finds its layout
+            # (sharded moments under FSDP).
+            if hasattr(opt, "init_state"):
+                opt.init_state()
             resumed = mgr.restore_or_none(train_state())
             if resumed is not None:
                 start_step, restored = resumed
@@ -366,7 +480,7 @@ def run(
         if prefetch > 0:
             feed_steps = itertools.count(start_step)
             prefetcher = DevicePrefetcher(
-                lambda: host_batch(next(feed_steps)),
+                lambda: data_lib.global_batch(host_batch(next(feed_steps)), rank, world),
                 put=lambda toks: to_device(toks.astype(np.int64), dev),
                 depth=prefetch,
                 depth_max=prefetch_depth_max or None,
@@ -376,13 +490,15 @@ def run(
 
             def batches(step: int):
                 maybe_preempt(step)
+                maybe_resize(step)
                 return prefetcher.get()
 
         else:
 
             def batches(step: int):
                 maybe_preempt(step)
-                return torch.from_numpy(host_batch(step)).to(dev, torch.long)
+                maybe_resize(step)
+                return data_lib.put_global(host_batch(step), dev, rank, world).long()
 
         def save(step: int):
             t0 = time.perf_counter()
@@ -391,7 +507,7 @@ def run(
 
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
-        counts = {}
+        counts = {"run": flash_lib.launch_counts()}
 
         def on_first():
             rendezvous.report_first_step(start_step)
@@ -407,8 +523,8 @@ def run(
             profile_dir=profile_dir,
             progress=(
                 heartbeat_reporter(
-                    rendezvous.report_progress, batch=tokens_per_step, unit="tokens/sec/chip",
-                    feed=prefetcher,
+                    rendezvous.report_progress, batch=tokens_per_step, n_dev=world,
+                    unit="tokens/sec/chip", feed=prefetcher,
                 )
                 if rendezvous.progress_enabled()
                 else None
@@ -424,6 +540,10 @@ def run(
             loader.close()
         if mgr is not None:
             mgr.close()  # commits the pending asynchronous saves
+    kept = (
+        {name: full_tensor(p).detach().cpu() for name, p in model.state_dict().items()}
+        if keep_params else None
+    )
     steps_after_first = end_step - start_step - 1
     per_step = {
         k: (done[k] - counts["start"][k]) // max(steps_after_first, 1) for k in done
@@ -433,7 +553,7 @@ def run(
     final_loss = losses[-1]
     tokens_per_sec = steps_per_sec * tokens_per_step
     rendezvous.report_metrics(
-        end_step, tokens_per_sec=tokens_per_sec, tokens_per_sec_per_chip=tokens_per_sec,
+        end_step, tokens_per_sec=tokens_per_sec, tokens_per_sec_per_chip=tokens_per_sec / world,
         final_loss=final_loss,
     )
     log(
@@ -442,15 +562,26 @@ def run(
         f"final loss {final_loss:.3f}"
         + (f", peak memory {peak / 2**30:.2f} GiB" if peak is not None else "")
     )
+    mine = {
+        "rank": rank,
+        "param_bytes": local_nbytes(model.parameters()),
+        "optimizer_state_bytes": opt.state_nbytes(),
+        "peak_mem_bytes": peak,
+        "flash_launches": {k: done[k] - counts["run"][k] for k in done},
+    }
+    per_rank = [mine]
+    if world > 1:
+        per_rank = [None] * world
+        torch.distributed.all_gather_object(per_rank, mine)
     result = {
         "metric": "llama_train_tokens_per_sec_per_chip",
-        "value": round(tokens_per_sec, 1),
+        "value": round(tokens_per_sec / world, 1),
         "unit": "tokens/sec/chip",
         "config": config,
         "params_m": round(n_params / 1e6, 1),
         "final_loss": round(final_loss, 4),
         "end_step": end_step,
-        "devices": 1,
+        "devices": world,
         "n_layers": cfg.n_layers,
         "d_model": cfg.d_model,
         "step_s": 1.0 / steps_per_sec if steps_per_sec else None,
@@ -458,7 +589,12 @@ def run(
         "peak_mem_bytes": peak,
         "flash_launches_per_step": per_step,
         "optimizer": optimizer,
-        "optimizer_state_bytes": opt.state_nbytes(),
+        "optimizer_state_bytes": mine["optimizer_state_bytes"],
+        "param_bytes": mine["param_bytes"],
+        "world": world,
+        "mesh": axes,
+        "backend": backend,
+        "per_rank": per_rank,
         "device": device_name(dev),
     }
     if loader is not None:
@@ -467,6 +603,8 @@ def run(
         result["feed"] = prefetcher.stats()
     if save_s:
         result["save_s"] = save_s
+    if kept is not None:
+        result["params"] = kept
     if donate is not None:
         result["donate"] = "no-op (torch has no buffer donation)"
     if cfg.n_experts > 1:
@@ -490,7 +628,9 @@ def run(
         try:
             eval_step = make_lm_eval_step(model)
             n_eval = max(1, min(eval_batches, eval_meta.n_records // batch_size))
-            eval_losses = [float(eval_step(next_tokens(eval_loader))) for _ in range(n_eval)]
+            eval_losses = [
+                float(world_mean(eval_step(next_tokens(eval_loader)), world)) for _ in range(n_eval)
+            ]
         finally:
             eval_loader.close()
         eval_loss = sum(eval_losses) / len(eval_losses)
@@ -502,12 +642,11 @@ def run(
     return result
 
 
-# Flags of the JAX workload that need several GPUs, with the ROADMAP item
-# they wait for. main() accepts them so that it can refuse them by name.
+# Flags of the JAX workload that wait for pipeline parallelism, with the
+# ROADMAP item. main() accepts them so that it can refuse them by name.
 REFUSED_FLAGS = {
-    "--mesh": "item 3b, multi-GPU, ring/ulysses, pp",
-    "--pp-microbatches": "item 3b, multi-GPU, ring/ulysses, pp",
-    "--pp-schedule": "item 3b, multi-GPU, ring/ulysses, pp",
+    "--pp-microbatches": ITEM_3C,
+    "--pp-schedule": ITEM_3C,
 }
 
 
@@ -523,7 +662,12 @@ def _preempt_at(args):
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--config", choices=sorted(CONFIGS), default="tiny")
-    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument(
+        "--mesh", default=None,
+        help='data axes over the world\'s ranks, e.g. "fsdp=2", "dp=2", "dp=2@dcn,fsdp=-1" '
+        "(default: TPUJOB_MESH or fsdp=-1); tp, sp, pp and ep are refused",
+    )
+    p.add_argument("--batch-size", type=int, default=8, help="the global batch, over every rank")
     p.add_argument("--seq-len", type=int, default=128)
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--warmup", type=int, default=2)
@@ -647,19 +791,17 @@ def main(argv=None) -> int:
     )
     p.add_argument("--json", action="store_true")
     add_feed_tuning_args(p)
-    refused = p.add_argument_group("need several GPUs (refused)")
+    refused = p.add_argument_group("pipeline parallelism (refused)")
     for flag in REFUSED_FLAGS:
         refused.add_argument(flag, default=None)
     args = p.parse_args(argv)
     for flag, item in REFUSED_FLAGS.items():
         if getattr(args, flag[2:].replace("-", "_")) not in (None, False):
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP.md: {item})"
-            )
+            raise NotImplementedError(f"{flag} is not ported yet ({item})")
 
     env_async, env_prefetch = data_plane_env_defaults()
     feed_tuning = resolve_feed_tuning(args)
-    world = rendezvous.initialize_from_env()
+    world = rendezvous.initialize_from_env(device=args.device)
     result = run(
         config=args.config,
         batch_size=args.batch_size,
@@ -697,12 +839,20 @@ def main(argv=None) -> int:
         xent_impl=args.xent_impl,
         preempt_at=_preempt_at(args),
         profile_dir=args.profile_dir,
+        mesh_spec=args.mesh,
         device=args.device,
         seed=args.seed,
-        log=lambda msg: print(msg, flush=True),
+        log=lambda msg: print(
+            f"[rank {world.process_id}/{world.num_processes}] {msg}"
+            if world.num_processes > 1 else msg,
+            flush=True,
+        ),
     )
     if args.json and world.process_id == 0:
         print(json.dumps(result), flush=True)
+    # A multi-process world leaves through finalize (never returns): no gloo
+    # or NCCL thread may race the teardown of a replica that is done.
+    rendezvous.finalize(world)
     return 0
 
 

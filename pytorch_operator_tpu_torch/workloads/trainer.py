@@ -23,8 +23,12 @@
 
 PyTorch runs eagerly, so there is no jit: the model and the optimizer hold
 the state, and ``train_step(tokens)`` updates both in place and returns the
-loss as a device tensor. Not ported here: pipeline parallelism (ROADMAP.md
-item 3b, multi-GPU).
+loss as a device tensor. In a world of more than one process the model's
+parameters are DTensors (``parallel/sharding.shard_model``): the clip takes
+the global norm over the shards, the accumulation buffers are DTensors
+like the gradients, and :func:`world_mean` turns a rank's loss into the
+global batch's. Not ported here: pipeline parallelism and adafactor under a
+mesh (ROADMAP.md item 3c).
 """
 
 from __future__ import annotations
@@ -160,17 +164,57 @@ def lr_at(count: int, lr: float, *, schedule: str, warmup_steps: int, decay_step
     return lr * 0.5 * (1.0 + math.cos(math.pi * t / (decay - warm)))
 
 
+def _sharded_sq_norm(grads) -> torch.Tensor:
+    """The squared global norm of DTensor gradients laid out alike (FSDP2
+    puts every gradient on one mesh, sharded on dim 0): this rank's shards'
+    squares summed, then all-reduced over the mesh dimensions they are
+    sharded on (a replicated dimension holds whole copies: not summed)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    mesh, placements = grads[0].device_mesh, grads[0].placements
+    if any(not isinstance(g, DTensor) or g.placements != placements or g.device_mesh != mesh
+           for g in grads):
+        raise ValueError("clip_by_global_norm_: the sharded gradients are not laid out alike")
+    sq = torch.stack([torch.linalg.vector_norm(g.to_local().float()).square() for g in grads]).sum()
+    for d, pl in enumerate(placements):
+        if pl.is_shard():
+            dist.all_reduce(sq, group=mesh.get_group(d))
+    return sq
+
+
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
     """optax's ``clip_by_global_norm`` in place: ``g · max_norm / ‖g‖`` when
     ``‖g‖ >= max_norm``, unchanged otherwise, with no epsilon (unlike
     ``torch.nn.utils.clip_grad_norm_``). Returns the global norm (a device
-    scalar; no host sync)."""
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])
-    )
+    scalar; no host sync). Sharded gradients (DTensors) give the norm over
+    the whole gradient, not over this rank's shards."""
+    from ..parallel.sharding import local_tensor
+
+    local = [local_tensor(g) for g in grads]
+    if any(t is not g for t, g in zip(local, grads)):
+        norm = _sharded_sq_norm(grads).sqrt()
+    else:
+        norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])
+        )
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-    torch._foreach_mul_(grads, factor)
+    torch._foreach_mul_(local, factor)
     return norm
+
+
+def world_mean(x: torch.Tensor, world: int) -> torch.Tensor:
+    """The mean of a per-rank value over the joined world of ``world``
+    processes (each rank's loss is the mean over its equal share of the
+    global batch, so this is the global batch's); ``x`` itself in a world
+    of one process."""
+    import torch.distributed as dist
+
+    if world == 1:
+        return x
+    out = x.detach().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM)
+    return out / world
 
 
 class Optimizer:
@@ -213,12 +257,30 @@ class Optimizer:
         self.adamw.load_state_dict(state["adamw"])
 
     def state_nbytes(self) -> int:
-        """Bytes of the optimizer's state tensors (AdamW: two moments a
-        parameter, 2N f32, and a step scalar a parameter)."""
-        return sum(
-            t.nbytes for st in self.adamw.state.values() for t in st.values()
+        """Bytes of the optimizer's state tensors on this rank (AdamW: two
+        moments a parameter, 2N f32 over the ranks that shard them, and a
+        step scalar a parameter)."""
+        from ..parallel.sharding import local_nbytes
+
+        return local_nbytes(
+            t for st in self.adamw.state.values() for t in st.values()
             if isinstance(t, torch.Tensor)
         )
+
+    @torch.no_grad()
+    def init_state(self) -> None:
+        """Create AdamW's state now, as its first step would (a zero step
+        count, zero moments shaped and placed like each parameter), so that
+        :meth:`state_dict` has the layout a restore fills: under FSDP the
+        moments are DTensors sharded like their parameters. The first update
+        is unchanged."""
+        for p in self.params:
+            if not self.adamw.state[p]:
+                self.adamw.state[p] = {
+                    "step": torch.tensor(0.0, dtype=torch.float32),
+                    "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
+                    "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format),
+                }
 
 
 def _factored_dims(shape, min_dim_size_to_factor: int = 128):
@@ -261,8 +323,16 @@ class Adafactor:
 
     def __init__(self, model, lr: float, *, schedule: str, warmup_steps: int,
                  decay_steps, grad_clip: Optional[float]):
+        from torch.distributed.tensor import DTensor
+
         from ..models.convert import jax_leaves
 
+        if any(isinstance(p, DTensor) for p in model.parameters()):
+            raise NotImplementedError(
+                "adafactor over sharded parameters (a world of more than one process) is not "
+                "ported yet: its statistics span whole JAX leaves, which a mesh shards "
+                "(ROADMAP.md: item 3c)"
+            )
         named = dict(model.named_parameters())
         self.leaves = []  # (JaxLeaf, its port parameters, its factored dims)
         covered = set()
@@ -457,7 +527,9 @@ def make_lm_train_step(model, optimizer, grad_accum: int = 1, on_aux=None):
             B = tokens.shape[0]
             if B % grad_accum:
                 raise ValueError(f"global batch {B} not divisible by grad_accum={grad_accum}")
-            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in params]
+            # Shaped and placed like each parameter: a DTensor buffer under
+            # FSDP, added to the DTensor gradient shard by shard.
+            acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
             loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
             for mb in tokens.split(B // grad_accum):
                 mb_loss = loss_fn(mb)

@@ -12,6 +12,7 @@
 
 import ast
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -188,6 +189,47 @@ print(parallel.moe_mlp_sparse(p, x, capacity_factor=2.0).shape[0],
     assert out.stdout.split() == ["6", "6", "1"]
 
 
+def test_slice10_multi_process_modules_stand_alone(tmp_path):
+    """The multi-process modules (the rendezvous, ``parallel/{mesh,
+    collectives,data,sharding,logical}.py``, ``checkpoint/multihost.py``,
+    ``workloads/smoke_dist.py``) are among the scanned files, and two ranks
+    where jax and the JAX package are poisoned join a world, pass the
+    canary's checks, and train and save a tiny fsdp=2 run."""
+    for rel in ("parallel/mesh.py", "parallel/collectives.py", "parallel/data.py",
+                "parallel/sharding.py", "parallel/logical.py", "checkpoint/multihost.py",
+                "workloads/smoke_dist.py", "runtime/rendezvous.py"):
+        assert PKG / rel in _port_files()
+    code = f"""
+import os, sys
+for name in {sorted(FORBIDDEN)!r}:
+    sys.modules[name] = None
+import torch
+from pytorch_operator_tpu_torch.runtime import rendezvous
+from pytorch_operator_tpu_torch.workloads import llama_train, smoke_dist
+world = rendezvous.initialize_from_env()
+assert smoke_dist.checks(world, torch.device("cpu"), None) == []
+r = llama_train.run(config="tiny", device="cpu", mesh_spec="fsdp=2", batch_size=4, seq_len=8,
+                    steps=1, warmup=1, checkpoint_every=2, log=lambda m: None)
+print(world.backend, r["world"], sorted(os.listdir(os.path.join(os.environ["TPUJOB_CHECKPOINT_DIR"], "2"))))
+rendezvous.finalize(world)
+"""
+    from tests.torch_worlds import free_port, world_env
+
+    port = free_port()
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-c", code], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=dict(os.environ, **world_env(rank, 2, port,
+                                                         TPUJOB_CHECKPOINT_DIR=tmp_path / "ck")),
+        )
+        for rank in range(2)
+    ]
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], outs
+    assert outs[0][0].split()[-7:] == ["gloo", "2", "['meta.json',", "'opt_state.r0.pt',",
+                                       "'opt_state.r1.pt',", "'params.r0.pt',", "'params.r1.pt']"]
+
+
 def _no_gpu():
     if torch.cuda.is_available():
         pytest.skip("this box has a GPU: the no-fallback path is not reachable")
@@ -344,9 +386,14 @@ def test_status_channel_and_world(monkeypatch, tmp_path):
     recs = [json.loads(line) for line in (tmp_path / "worker-3.jsonl").read_text().splitlines()]
     assert [r["event"] for r in recs] == ["first_step", "metrics"]
     assert recs[1]["step"] == 7 and recs[1]["decode_tokens_per_sec"] == 12.5
+    # A world of two whose peer never comes raises; it never runs on as a
+    # world of one.
+    from tests.torch_worlds import free_port
+
     monkeypatch.setenv("TPUJOB_NUM_PROCESSES", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rendezvous.initialize_from_env()
+    monkeypatch.setenv("TPUJOB_COORDINATOR_ADDRESS", f"127.0.0.1:{free_port()}")
+    with pytest.raises(TimeoutError, match="rendezvous with coordinator"):
+        rendezvous.initialize_from_env(timeout_s=1, retry_interval_s=0.2)
 
 
 @pytest.mark.parametrize(

@@ -256,9 +256,9 @@ def test_aux_loss_spreads_the_router():
 
 def test_mesh_paths_and_bad_top_k_raise():
     p, x = _torch(_params()), torch.from_numpy(_x())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 3b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 3c"):
         moe.moe_mlp_sparse(p, x, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 3b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 3c"):
         moe.moe_mlp(p, x, mesh=object())
     for fn in (moe.moe_mlp_reference, moe.moe_mlp_sparse):
         for k in (0, E + 1):
