@@ -16,14 +16,17 @@ Phases, in order; any failure exits non-zero before the result line:
    (``scaled_dot_product_attention``, timed only) times at the generate
    prefill's shape, at the training shape, at phase 7's 1b prefill shape
    (B8 S128 H16 KH8 D128), at phase 8's training shape (B16 S1024), at
-   phase 10's (B8 S2048) and at phase 11's per-rank shape (B2 S4096), with
-   achieved TFLOP/s and the wrapper's host time a call.
+   phase 10's (B8 S2048), at phase 11's per-rank shape (B2 S4096) and at
+   phase 12's ViT-B/16 shape (B128 S197 H12 D64, non-causal: the kernel
+   alone on S padded to 256 with kv_len 197, the wrapper's time beside it,
+   SDPA on S 197), with achieved TFLOP/s and the wrapper's host time a call.
 3. The two backward kernels against their plain version
    (``flash_attention_backward_reference``) on the same padded inputs, in the
    listed cases, by ``grad_agreement`` (relative L2 error over the whole
    gradient, over its late half and per row); at the training shape, at
-   phase 8's, at phase 10's and at phase 11's each kernel's time, the plain backward's, SDPA's backward
-   (timed only) and each bound, and each kernel's host time a call. Then the bf16 gradients of the public, differentiable
+   phase 8's, at phase 10's, at phase 11's and at phase 12's ViT shape each
+   kernel's time, the plain backward's, SDPA's backward on the unpadded S
+   (timed only) and each bound (over the pairs the unpadded S needs), and each kernel's host time a call. Then the bf16 gradients of the public, differentiable
    ``flash_attention`` on the card against the plain forward and backward, at
    the training shape and at a padded one.
 4. The generate path: ``workloads.generate.run`` at ``llama_0_3b`` full
@@ -125,8 +128,8 @@ Phases, in order; any failure exits non-zero before the result line:
    CUDA events; (b) on phase 8's corpus at B16 x 1024 without remat, 2
    warmup + 20 steps inline, with ``prefetch=2``, and with ``prefetch=2``,
    autotune, ``prefetch_depth_max=8`` and 2 workers: equal losses step for
-   step, tokens/s and the feed's stall and depth; (c) the inline run, 1 + 9
-   steps, with ``checkpoint_every=5`` into ``TPUJOB_CHECKPOINT_DIR`` and
+   step, tokens/s and the feed's stall and depth; (c) the inline run at half
+   depth (8 layers, 1.9 GB a step), 1 + 9 steps, with ``checkpoint_every=5`` into ``TPUJOB_CHECKPOINT_DIR`` and
    ``TPUJOB_STATUS_DIR`` set, blocking and then async: steps 5 and 10
    committed with sidecars and verified, one ``checkpoint_committed`` record
    an async save, each save's return time, the async step 10 restored equal
@@ -134,7 +137,7 @@ Phases, in order; any failure exits non-zero before the result line:
    next step); then async under an ``enospc_checkpoint_write`` plan (the
    save at 10 lost): the run finishes, a ``checkpoint_save_failed`` record,
    and without the run's final save the restore falls back to step 5; (d)
-   ``python -m ...llama_train`` subprocesses at B4 x 1024, checkpoints every
+   ``python -m ...llama_train`` subprocesses at 8 layers, B4 x 1024, checkpoints every
    4, ``--preempt-at 6 --max-steps 10``: exit 138 with "injected
    preemption", then with ``TPUJOB_RESTART_COUNT=1`` a resume at step 4 to
    10, its losses equal an uninterrupted run's bit for bit; (e) (run last)
@@ -186,7 +189,40 @@ Phases, in order; any failure exits non-zero before the result line:
    ``restore_subtree`` of step 6 equal bit for bit (a digest) to the ranks'
    gathered parameters, and a two-rank resume from step 4 with the
    uninterrupted run's losses for steps 5-6 bit for bit.
-12. One ``{"kernels": [...]}`` line, the card's line, and as the last line
+12. The image models (ResNet-50, ViT-B/16), each with random weights from a
+   seed: (a) with TF32 off, ResNet-50 in f32 at full width (B2 x 64 px) and
+   ViT-B/16 in f32 built for 64 px (17 tokens; dense, and flash against the
+   CPU's plain version), one training forward and backward on the card
+   against the CPU on the same weights: the logits, every gradient and the
+   batch-norm running buffers within ``IMAGE_CARD_CPU_RTOL`` (relative L2),
+   and three planted faults on the card read above it (PyTorch's symmetric
+   SAME padding, ``nn.BatchNorm2d``'s unbiased running variance, its
+   LayerNorm epsilon); (b) the layout (channels_last weights and stem
+   output), then ``resnet_bench.run_benchmark`` as examples/resnet.yaml runs
+   it (ResNet-50, B128 x 224 px, 1000 classes, 30 steps a window, 3
+   windows): images/sec/chip sustained and in the fastest fenced window,
+   step time, peak memory, losses, and bench.py's 3 x 4.1 GFLOP an image as
+   a share of the dense bf16 peak; then the batch norm's two paths timed on
+   that step (``BN_AB_STEPS``); (c) ``resnet_ab`` plain against s2d
+   (2 rounds; first-step losses within ``S2D_FIRST_LOSS_ATOL``, a planted
+   wrong s2d regrouping above it), then a file the port's ``pack --dataset
+   synthetic`` writes under ``TMPDIR`` (1,024 images of 112 px) trained at
+   B128, 4 + 4 steps, inline and with ``prefetch=2``, equal losses step for
+   step; (d) ResNet-50 in two ranks sharing ``cuda:0`` over gloo (global
+   batch norm), global B64, 3 + 3 steps, against one process: the first
+   chunk's losses within ``WORLD_LOSS_ATOL``, a planted per-rank batch norm
+   above it; (e) ``vit_bench`` at ViT-B/16, B128 x 224 px, dense and then
+   flash, the launch counts set to 0 just before the flash run and read just
+   after (each kernel once a layer a step), images/sec/chip, step time, peak
+   memory; flash's losses of steps 2-10 within ``VIT_LOSS_ATOL`` of dense's,
+   beside dense bf16's drift from f32, a planted fault (the padded keys
+   attended) above it; the kernels at this shape are held and timed in
+   phases 2-3 (``VIT_SHAPE``); (f)
+   ``workloads.latency_probe`` started twice as the supervisor starts a
+   replica: launch -> first step and its phases; (g) (run last) one profiled
+   training step of each model, the card's busy time split into convs,
+   batch norm and elementwise ops, GEMMs and attention.
+13. One ``{"kernels": [...]}`` line, the card's line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -234,6 +270,10 @@ JOURNEY_SHAPE = ("journey", 16, 1024, 8, 4, 128, True, None, "bfloat16")
 MOE_SHAPE = ("moe", 8, 2048, 8, 4, 128, True, None, "bfloat16")
 # One rank's half of phase 5's global batch (phase 11): batch 2 x 4096.
 DIST_SHAPE = ("dist", 2, 4096, 8, 4, 128, True, None, "bfloat16")
+# ViT-B/16's attention at 224 px (phase 12): batch 128, 197 tokens (padded to
+# 256 for the kernels, the padded keys masked through kv_len 197), 12 heads
+# of 64, non-causal. Its bounds count the 197 x 197 pairs the data needs.
+VIT_SHAPE = ("vit", 128, 197, 12, 12, 64, False, None, "bfloat16")
 EDGE_CASES = [
     ("S192_causal", 2, 192, 8, 4, 128, True, None, "bfloat16"),
     ("S64_one_tile", 2, 64, 8, 4, 128, True, None, "bfloat16"),
@@ -251,6 +291,7 @@ FLASH_CASES = [
     JOURNEY_SHAPE,
     MOE_SHAPE,
     DIST_SHAPE,
+    VIT_SHAPE,
     ("unaligned_S500", 8, 500, 8, 4, 128, True, None, "bfloat16"),
     ("kv_len_noncausal", 4, 512, 8, 4, 128, False, 300, "bfloat16"),
     ("G1", 4, 256, 8, 8, 128, True, None, "bfloat16"),
@@ -277,6 +318,7 @@ BWD_CASES = [
     JOURNEY_SHAPE,
     MOE_SHAPE,
     DIST_SHAPE,
+    VIT_SHAPE,
     ("unaligned_S500", 2, 500, 8, 4, 128, True, None, "bfloat16"),
     ("kv_len_noncausal", 2, 512, 8, 4, 128, False, 300, "bfloat16"),
     ("G1", 2, 256, 8, 8, 128, True, None, "bfloat16"),
@@ -480,9 +522,15 @@ def phase_flash_vs_plain():
         )
         if not a["ok"]:
             _fail(f"flash_fwd disagrees with its plain version in case {name}")
-        if name in ("slice", "train", "prefill_1b", "journey", "moe", "dist"):
+        if name in ("slice", "train", "prefill_1b", "journey", "moe", "dist", "vit"):
             qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             call = functools.partial(fa.flash_attention_with_lse, q, k, v, causal=causal, kv_len=kv_len)
+            wrapper_ms = None
+            if S_pad != S:
+                # The kernel alone, on the inputs the wrapper pads for it; the
+                # wrapper's time (its pad and slice copies) beside it.
+                wrapper_ms = _time_ms(call)
+                call = functools.partial(fa._launch, qp, kp, vp, causal=causal, kv_len=kv, scale=scale)
             ms = _time_ms(call)
             host_us = _host_us(call)
             plain_ms = _time_ms(
@@ -508,6 +556,9 @@ def phase_flash_vs_plain():
                 "library_ms": library_ms,
                 "shape": f"B{B} S{S} H{H} KH{KH} D{D} {'causal' if causal else 'full'} {dtype}",
             }
+            if wrapper_ms is not None:
+                readings["wrapper_ms"] = wrapper_ms
+                _log(f"flash_fwd {name}: the wrapper (pad to S {S_pad}, kernel, slice) {wrapper_ms:.4f} ms")
             if name != "slice":
                 # The other timed shapes' readings, keyed by the case's name.
                 entry.update({f"{name}_{key}": value for key, value in readings.items()})
@@ -562,7 +613,7 @@ def phase_backward_vs_plain():
             for gname, g, r in zip(("dq", "dk", "dv"), grads, refs)
         }
         del refs
-        if name not in ("train", "journey", "moe", "dist"):
+        if name not in ("train", "journey", "moe", "dist", "vit"):
             continue
         lse_c, delta = lse.contiguous(), fa.bwd_delta(o, do)
         kin = (q, k, v, do, lse_c, delta)
@@ -573,9 +624,10 @@ def phase_backward_vs_plain():
         plain_ms = _time_ms(
             lambda: fa.flash_attention_backward_reference(q, k, v, o, lse, do, **args), reps=3
         )
-        qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+        # SDPA on the unpadded S (the same function on the rows the data has).
+        qh, kh, vh = (x[:, :S, :, :D].transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
         out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal, enable_gqa=True)
-        doh = do.transpose(1, 2).contiguous()
+        doh = do[:, :S, :, :D].transpose(1, 2).contiguous()
         library_ms = _time_ms(
             lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True)
         )
@@ -2130,9 +2182,13 @@ REST_SHAPE = dict(config="0.3b", batch_size=4, seq_len=4096, warmup=1, steps=3)
 ADAFACTOR_LR = 1e-2
 # The journey's shape (B16 x S1024) without remat, on phase 8's corpus.
 FEED_RUN = dict(config="0.3b", batch_size=16, seq_len=JOURNEY_S, warmup=2, steps=20)
+# Phase 9(c) at half depth (8 of 0.3b's 16 layers): 1.9 GB a step in place of
+# 3.8 GB, the same blocking, async and enospc checks.
+CKPT_LAYERS = 8
 CKPT_RUN = dict(config="0.3b", batch_size=16, seq_len=JOURNEY_S, warmup=1, steps=9,
-                checkpoint_every=5)
-PREEMPT_ARGV = ["--config", "0.3b", "--batch-size", "4", "--seq-len", "1024",
+                checkpoint_every=5, n_layers=CKPT_LAYERS)
+# Phase 9(d) at half depth too (8 layers: 1.9 GB saves).
+PREEMPT_ARGV = ["--config", "0.3b", "--layers", "8", "--batch-size", "4", "--seq-len", "1024",
                 "--checkpoint-every", "4", "--max-steps", "10", "--json"]
 # One adafactor update on the card against the same update on the CPU, from
 # the same parameters, statistics and gradients, in f32: each tensor's
@@ -2144,10 +2200,10 @@ ADAFACTOR_CARD_CPU_RTOL = 1e-4
 PROFILE_BUSY_RTOL = 0.05
 
 
-def _counted_run(kernels, path: str, total_steps: int, n_layers: int, **kw):
+def _counted_run(kernels, path: str, total_steps: int, layers: int, **kw):
     """llama_train.run on the card with the launch counts set to 0 just
-    before and read just after; each kernel once a layer a step, over
-    ``total_steps`` (warmup included)."""
+    before and read just after; each kernel once a layer a step (``layers``
+    of them), over ``total_steps`` (warmup included)."""
     from pytorch_operator_tpu_torch.ops import flash_attention as fa
     from pytorch_operator_tpu_torch.workloads import llama_train
 
@@ -2155,7 +2211,7 @@ def _counted_run(kernels, path: str, total_steps: int, n_layers: int, **kw):
     r = llama_train.run(device="cuda", log=_log, **kw)
     launches = fa.launch_counts()
     _record_launches(kernels, path, launches)
-    want = _per_step(n_layers, remat=False)
+    want = _per_step(layers, remat=False)
     if launches != {k: v * total_steps for k, v in want.items()}:
         _fail(f"{path} launched {launches}, expected {want} a step over {total_steps} steps")
     if not all(math.isfinite(x) for x in r["losses"]):
@@ -2184,7 +2240,7 @@ def phase_rest(kernels):
         train_f, _, _ = _journey_corpus(td)
         for part, run in (
             ("(b)", lambda: _rest_feed(kernels, n_layers, train_f)),
-            ("(c)", lambda: _rest_async_checkpoint(kernels, n_layers, train_f, td)),
+            ("(c)", lambda: _rest_async_checkpoint(kernels, train_f, td)),
             ("(d)", lambda: _rest_preemption(td)),
         ):
             t0 = time.perf_counter()
@@ -2324,7 +2380,7 @@ def _rest_feed(kernels, n_layers, train_f):
     _log(f"rest (b) losses equal step for step over {steps} steps: last {runs['inline']['losses'][-1]}")
 
 
-def _rest_async_checkpoint(kernels, n_layers, train_f, td):
+def _rest_async_checkpoint(kernels, train_f, td):
     """(c) blocking and async checkpoints every 5 steps into
     TPUJOB_CHECKPOINT_DIR with TPUJOB_STATUS_DIR set: every step committed
     with its sidecar and verified, one checkpoint_committed record an async
@@ -2364,7 +2420,7 @@ def _rest_async_checkpoint(kernels, n_layers, train_f, td):
                     {"faults": [{"kind": "enospc_checkpoint_write", "nth": 2}]})
             faults.reset()
             n_before = len(records())
-            r = _counted_run(kernels, f"rest_ckpt_{mode}", steps, n_layers, data_file=train_f,
+            r = _counted_run(kernels, f"rest_ckpt_{mode}", steps, CKPT_LAYERS, data_file=train_f,
                              **CKPT_RUN, **kw)
             recs = records()[n_before:]
             runs[mode] = (r, ck, recs)
@@ -2423,8 +2479,8 @@ def _rest_async_checkpoint(kernels, n_layers, train_f, td):
 
 
 def _rest_preemption(td):
-    """(d) llama_train as a subprocess on the card: 0.3b, B4 x S1024,
-    checkpoints every 4 steps, preempted at 6 on the first life (exit 138),
+    """(d) llama_train as a subprocess on the card: 0.3b width at 8 layers,
+    B4 x S1024, checkpoints every 4 steps, preempted at 6 on the first life (exit 138),
     resumed at 4 on the second, ending at 10 with the losses of an
     uninterrupted run bit for bit."""
     import os
@@ -2916,8 +2972,9 @@ def _rank_world(task: str, tag: str, env=None, **kw) -> list:
 
 
 def _rank_main(task: str, kw: dict) -> int:
-    """One rank of a phase-11 world: join from the env, run ``task``, write
-    this rank's output, leave through ``rendezvous.finalize``."""
+    """One rank of a phase-11 or phase-12 world: join from the env, run
+    ``task``, write this rank's output, leave through
+    ``rendezvous.finalize``."""
     from pathlib import Path
 
     import torch
@@ -2931,6 +2988,15 @@ def _rank_main(task: str, kw: dict) -> int:
            "device_name": device_name(dev)}
     if task == "probe":
         out.update(_rank_probe(world, dev))
+    elif task == "resnet":
+        from pytorch_operator_tpu_torch.models import resnet
+        from pytorch_operator_tpu_torch.workloads import resnet_bench
+
+        args = {k: v for k, v in kw.items() if k != "out"}
+        if args.pop("per_rank_bn", False):  # phase 12(d)'s planted fault: plain DDP's batch norm
+            init = resnet.BatchNorm.__init__
+            resnet.BatchNorm.__init__ = lambda self, c, **k: init(self, c, **dict(k, sync_stats=False))
+        out["result"] = resnet_bench.run_benchmark(log=_log, **args)
     else:
         out.update(_rank_train(kw))
     (Path(kw["out"]) / f"r{world.process_id}.json").write_text(json.dumps(out))
@@ -3127,6 +3193,522 @@ def phase_dist(kernels):
         shutil.rmtree(td, ignore_errors=True)
     return None
 
+
+# Phase 12: the image models. ResNet-50 as examples/resnet.yaml runs it
+# (bench.py's headline), resnet_ab, a packed file, a two-rank world, ViT-B/16
+# dense and flash, and the latency probe.
+RESNET_RUN = dict(depth=50, batch_size=128, image_size=224, classes=1000, steps=30, warmup=5,
+                  windows=3)
+# bench.py:64's count of a ResNet-50 training step's operations an image (3x
+# the forward's 4.1 GFLOP): an operation count, not a time.
+RESNET50_TRAIN_FLOPS_PER_IMG = 3 * 4.1e9
+AB_ARGS = dict(variant_names=["plain", "s2d"], rounds=2)
+# The file run: the port's pack writes 1,024 images of 112 px (154 MB of f32)
+# under TMPDIR; B128, one warm chunk of 4 steps and a window of 4.
+FILE_PACK = ["--dataset", "synthetic", "--n", "1024", "--height", "112", "--width", "112",
+             "--classes", "1000"]
+FILE_RUN = dict(depth=50, batch_size=128, classes=1000, steps=4, warmup=1)
+# Two ranks sharing cuda:0 over gloo, global B64: a warm chunk of 3 steps and
+# a window of 3.
+IMAGE_WORLD_RUN = dict(depth=50, batch_size=64, image_size=224, classes=1000, steps=3, warmup=1)
+VIT_RUN = dict(variant="b16", batch_size=128, image_size=224, classes=1000, steps=10, warmup=1,
+               windows=2)
+VIT_LAYERS = 12
+# (a) Card against CPU in f32, TF32 off (cuBLAS and cuDNN), on the same
+# weights: the relative L2 error of the logits, the largest of any gradient
+# (its norm floored at a tenth of the mean gradient norm) and of any
+# batch-norm buffer. Readings (NVIDIA H100 80GB HBM3, 700 W): ResNet-50
+# 6.4e-5, 1.6e-2, 6.4e-5; ViT-B/16 1.2e-6, 4.1e-6, none. ResNet-50's gradients
+# at B2 x 64 px are ill-conditioned in f32 itself (the last stage's batch
+# norms see 8 values a channel): a one-ulp change of the input moves them by
+# 1.8e-2 on the CPU alone (tests/test_torch_resnet.py, the conditioning
+# test), hence their wider limit. Each planted fault, on the card only, must read
+# above at least one limit: symmetric SAME padding 0.56 / 1.8 / 0.89, the
+# unbiased running variance 7.3e-2 on the buffers, the LayerNorm epsilon
+# 5.1e-3 on the logits.
+IMAGE_CARD_CPU_RTOL = {"logits": 1e-3, "grad": 5e-2, "buffers": 1e-3}
+# (b) The batch norm's two paths on the headline's step (ResNet-50, B128 x
+# 224 px): ``BatchNorm._fused`` (one ``F.batch_norm``; one process, f32
+# statistics) and ``_summed`` (the statistics summed by the port; a world and
+# bf16 statistics), switched on one model between windows of this many steps
+# timed by CUDA events, interleaved fused, summed, summed, fused.
+BN_AB_STEPS = 10
+# Each limit below lies between the sound reading and a planted fault's, both
+# read on the card (NVIDIA H100 80GB HBM3, 700 W).
+# (c) s2d against the plain stem: the gap of resnet_ab's first-step losses,
+# in nats. Readings: sound 6.2e-6; a wrong s2d regrouping (each 2x2 block of
+# the input transposed) 5.1e-3.
+S2D_FIRST_LOSS_ATOL = 2e-4
+# (d) Two ranks with global batch norm against one process, global B64: the
+# largest gap of the first chunk's WORLD_CHECK_STEPS losses, in nats (later
+# steps drift apart: 2.7e-3 by step 5). Readings: sound 3.9e-4; per-rank
+# batch norm (each rank's own statistics, as plain DDP) 6.4e-3.
+WORLD_CHECK_STEPS = 3
+WORLD_LOSS_ATOL = 1.5e-3
+# (e) ViT-B/16 flash against dense, both bf16: the largest gap of steps
+# 2..VIT_CHECK_STEPS (after the zero head has moved; step 1's logits are 0 on
+# either path), in nats, beside dense bf16's own drift from dense f32 (TF32
+# off) over the same steps. Readings: flash 2.7e-3, dense's drift 4.0e-3; the
+# padded keys attended 7.3.
+VIT_CHECK_STEPS = 10
+VIT_LOSS_ATOL = 1e-2
+
+
+def _image_batch(n: int, hw: int, seed: int = 0):
+    import torch
+
+    from pytorch_operator_tpu_torch.workloads.datasets import synthetic_images
+
+    x, y = synthetic_images(n, hw, hw, 1000, seed=seed)
+    return torch.from_numpy(x), torch.from_numpy(y).long()
+
+
+def _grads_and_buffers(model, x, y):
+    """One training forward and backward: (logits, loss, grads, buffers) on
+    the CPU."""
+    import torch.nn.functional as F
+
+    logits = model(x)
+    loss = F.cross_entropy(logits, y, label_smoothing=0.1)
+    loss.backward()
+    grads = {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()}
+    bufs = {n: b.detach().float().cpu() for n, b in model.named_buffers()}
+    return logits.detach().float().cpu(), float(loss.detach()), grads, bufs
+
+
+def _gap(card, cpu) -> dict:
+    """The largest relative L2 errors of the logits, the gradients and the
+    buffers of a card run against the CPU's."""
+    import torch
+
+    floor = 0.1 * sum(torch.linalg.vector_norm(g).item() for g in cpu[2].values()) / len(cpu[2])
+    grad = max(torch.linalg.vector_norm(card[2][n] - g).item()
+               / max(torch.linalg.vector_norm(g).item(), floor) for n, g in cpu[2].items())
+    bufs = max((_rel_l2(card[3][n], b) for n, b in cpu[3].items()), default=0.0)
+    return {"logits": _rel_l2(card[0], cpu[0]), "loss": abs(card[1] - cpu[1]), "grad": grad,
+            "buffers": bufs}
+
+
+def _resnet50_f32(seed: int = 0):
+    """ResNet-50 in f32 from ``seed`` with every BN scale drawn around 1 (the
+    zero scales of the blocks' last BN would leave their convs' gradients
+    at zero), on the CPU."""
+    import torch
+
+    from pytorch_operator_tpu_torch.models import resnet
+
+    model = resnet.ResNet50(dtype=torch.float32, seed=seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, resnet.BatchNorm):
+                m.weight.normal_(1.0, 0.1, generator=gen)
+    return model
+
+
+def _vit64_f32(attn_impl: str):
+    """ViT-B/16 built for 64 px (17 tokens) in f32, with a random head (the
+    zero head reads nothing), on the CPU."""
+    import torch
+
+    from pytorch_operator_tpu_torch.models import vit
+
+    model = vit.ViT(vit.vit_b16(image_size=64, dtype=torch.float32, attn_impl=attn_impl))
+    with torch.no_grad():
+        model.head.weight.normal_(0.0, 0.02, generator=torch.Generator().manual_seed(1))
+    return model
+
+
+def _image_card_vs_cpu():
+    """(a) ResNet-50 (B2 x 64 px) and ViT-B/16 (B2 x 64 px, dense and flash)
+    in f32 on the card against the CPU on the same weights; each planted
+    fault, on the card only, read against the same limit."""
+    import torch
+
+    from pytorch_operator_tpu_torch.models import resnet, vit
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    x, y = _image_batch(2, 64)
+
+    def card(build, patch=None):
+        model = build().to("cuda")
+        if isinstance(model, resnet.ResNet):
+            model.to(memory_format=torch.channels_last)
+        saved = []
+        try:
+            for obj, attr, value in patch or ():
+                saved.append((obj, attr, getattr(obj, attr)))
+                setattr(obj, attr, value)
+            return _grads_and_buffers(model, x.cuda(), y.cuda())
+        finally:
+            for obj, attr, value in reversed(saved):
+                setattr(obj, attr, value)
+
+    def unbiased(self, xb):
+        import torch.nn.functional as F
+
+        return F.batch_norm(xb, self.running_mean, self.running_var, self.weight, self.bias,
+                            True, 0.1, resnet.BN_EPS)
+
+    models = {
+        "resnet50": (_resnet50_f32, [
+            ("symmetric SAME padding", [(resnet, "same_pads", lambda size, k, st: ((k - 1) // 2,) * 2)]),
+            ("unbiased running variance", [(resnet.BatchNorm, "_fused", unbiased)]),
+        ]),
+        "vit_b16_dense": (lambda: _vit64_f32("dense"), [
+            ("LayerNorm epsilon 1e-5", [(vit, "LN_EPS", 1e-5)]),
+        ]),
+        "vit_b16_flash": (lambda: _vit64_f32("flash"), []),
+    }
+    def above(read):
+        return [k for k, lim in IMAGE_CARD_CPU_RTOL.items() if read[k] > lim]
+
+    for name, (build, faults_) in models.items():
+        ref = _grads_and_buffers(build(), x, y)
+        sound = _gap(card(build), ref)
+        _log(f"image (a) {name} f32, card vs CPU: " + ", ".join(f"{k} {v:.3e}" for k, v in sound.items())
+             + f" (limits {IMAGE_CARD_CPU_RTOL})")
+        if above(sound):
+            _fail(f"image (a) {name}: the card disagrees with the CPU ({sound})")
+        for fname, patch in faults_:
+            read = _gap(card(build, patch), ref)
+            _log(f"image (a) {name} planted fault ({fname}): " + ", ".join(f"{k} {v:.3e}" for k, v in read.items())
+                 + f"; above the limit: {above(read)}")
+            if not above(read):
+                _fail(f"image (a) {name}: the planted fault {fname} reads within the limits")
+        torch.cuda.empty_cache()
+
+
+def _image_headline():
+    """(b) resnet_bench as examples/resnet.yaml runs it, after the layout is
+    confirmed: channels_last weights and conv outputs."""
+    import torch
+
+    from pytorch_operator_tpu_torch.models import resnet
+    from pytorch_operator_tpu_torch.workloads import resnet_bench
+
+    model = resnet_bench.build_model(50, classes=1000, device="cuda")
+    formats = []
+    hook = model.conv_init.register_forward_hook(
+        lambda m, i, o: formats.append(o.is_contiguous(memory_format=torch.channels_last)))
+    with torch.no_grad():
+        model(_image_batch(2, 224)[0].cuda().to(torch.bfloat16))
+    hook.remove()
+    _log(f"image (b) layout: weights {resnet.memory_format(model)}, stem output channels_last {formats}")
+    if resnet.memory_format(model) != torch.channels_last or formats != [True]:
+        _fail("image (b): the ResNet is not channels_last on the card")
+    del model
+    torch.cuda.empty_cache()
+    r = resnet_bench.run_benchmark(device="cuda", log=_log, **RESNET_RUN)
+    share = r["value"] * RESNET50_TRAIN_FLOPS_PER_IMG / PEAK_OPS["bfloat16"]
+    _log(f"image (b) ResNet-50 B{r['global_batch']} x 224 px: {r['value']} images/sec/chip "
+         f"(min fenced window {r['min_window_images_per_sec_per_chip']}), step {r['step_time_ms']} ms, "
+         f"peak memory {r['peak_mem_bytes'] / 2**30:.2f} GiB, losses {r['losses'][0]:.4f} -> "
+         f"{r['final_loss']}, {len(r['losses'])} steps; {100 * share:.1f}% of the dense bf16 peak "
+         f"by bench.py's 3 x 4.1 GFLOP an image; weights {r['memory_format']}")
+    if r["memory_format"] != "channels_last" or not all(math.isfinite(v) for v in r["losses"]):
+        _fail(f"image (b): layout {r['memory_format']} or non-finite losses")
+    _bn_paths_ab()
+    return r
+
+
+def _bn_paths_ab():
+    """(b) One ResNet-50 B128 x 224 px training step with each batch-norm
+    path (``BN_AB_STEPS``), ms a step by CUDA events."""
+    import torch
+
+    from pytorch_operator_tpu_torch.models import resnet
+    from pytorch_operator_tpu_torch.workloads import resnet_bench
+
+    x, y = _image_batch(128, 224)
+    x, y = x.cuda().to(torch.bfloat16), y.cuda()
+    step, _ = resnet_bench.make_train_step(
+        resnet_bench.build_model(50, classes=1000, device="cuda"), lr=0.1, momentum=0.9)
+    fused = resnet.BatchNorm._fused
+    ms = {"fused": [], "summed": []}
+    try:
+        for path in ("fused", "summed", "summed", "fused"):
+            resnet.BatchNorm._fused = fused if path == "fused" else resnet.BatchNorm._summed
+            for _ in range(2):
+                float(step(x, y))
+            torch.cuda.reset_peak_memory_stats()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(BN_AB_STEPS):
+                loss = step(x, y)
+            end.record()
+            end.synchronize()
+            if not math.isfinite(float(loss)):
+                _fail(f"image (b) batch-norm A/B: the {path} path's loss is not finite")
+            ms[path].append((start.elapsed_time(end) / BN_AB_STEPS, torch.cuda.max_memory_allocated()))
+    finally:
+        resnet.BatchNorm._fused = fused
+    del step
+    torch.cuda.empty_cache()
+    _log("image (b) batch-norm paths, ResNet-50 B128 x 224 px step (ms, peak GiB) by window: " + "; ".join(
+        f"{p} " + ", ".join(f"{t:.3f} ms {m / 2**30:.2f} GiB" for t, m in v) for p, v in ms.items())
+        + f"; summed / fused {min(t for t, _ in ms['summed']) / min(t for t, _ in ms['fused']):.3f}x")
+
+
+def _image_ab_and_file():
+    """(c) resnet_ab plain against s2d (equal first-step losses); then a
+    packed file, inline and prefetched, equal losses step for step (cuDNN
+    held to deterministic algorithms for the pair)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from pytorch_operator_tpu_torch.data import pack
+    from pytorch_operator_tpu_torch.workloads import resnet_ab, resnet_bench
+
+    from pytorch_operator_tpu_torch.models import resnet
+
+    ab = resnet_ab.run_ab(device="cuda", log=_log, **AB_ARGS)
+    plain, s2d = ab["plain"], ab["s2d"]
+    gap = abs(plain["first_loss"] - s2d["first_loss"])
+    torch.cuda.empty_cache()
+    stem = resnet.SpaceToDepthStem.forward
+
+    def wrong_regroup(self, x):
+        n, c, h, w = x.shape
+        return stem(self, x.reshape(n, c, h // 2, 2, w // 2, 2).transpose(3, 5).reshape(n, c, h, w))
+
+    resnet.SpaceToDepthStem.forward = wrong_regroup
+    try:
+        fault = resnet_ab.run_ab(device="cuda", log=_log, variant_names=["s2d"], steps=1, rounds=1)
+    finally:
+        resnet.SpaceToDepthStem.forward = stem
+    fault_gap = abs(plain["first_loss"] - fault["s2d"]["first_loss"])
+    torch.cuda.empty_cache()
+    _log(f"image (c) resnet_ab: plain {plain['images_per_sec_per_chip']}, s2d "
+         f"{s2d['images_per_sec_per_chip']} images/sec/chip ({s2d['vs_first']}x); first-step losses "
+         f"{plain['first_loss']:.6f} / {s2d['first_loss']:.6f}, gap {gap:.3e}; planted fault (a wrong s2d "
+         f"regrouping) {fault['s2d']['first_loss']:.6f}, gap {fault_gap:.3e} (limit {S2D_FIRST_LOSS_ATOL:.0e})")
+    if gap > S2D_FIRST_LOSS_ATOL:
+        _fail("image (c): the s2d stem's first loss differs from the plain stem's")
+    if fault_gap <= S2D_FIRST_LOSS_ATOL:
+        _fail("image (c): the planted wrong s2d regrouping reads within the limit")
+    td = tempfile.mkdtemp(prefix="chip_smoke_image_")
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        f = f"{td}/syn112.bin"
+        t0 = time.perf_counter()
+        pack.main(FILE_PACK + ["--out", f])
+        _log(f"image (c) packed {f}: {time.perf_counter() - t0:.1f} s")
+        torch.backends.cudnn.deterministic = True
+        runs = {p: resnet_bench.run_benchmark(device="cuda", data_file=f, prefetch=p, log=_log, **FILE_RUN)
+                for p in (0, 2)}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(td, ignore_errors=True)
+    for p, r in runs.items():
+        _log(f"image (c) file 112 px, prefetch {p}: {r['value']} images/sec/chip, losses "
+             f"{[round(v, 5) for v in r['losses']]}")
+    if runs[0]["losses"] != runs[2]["losses"] or runs[0]["input"] != "file":
+        _fail("image (c): the prefetched file run's losses differ from the inline run's")
+    torch.cuda.empty_cache()
+
+
+def _image_world():
+    """(d) ResNet-50 in two ranks sharing cuda:0 over gloo (global batch
+    norm) against one process, global B64."""
+    import torch
+
+    from pytorch_operator_tpu_torch.workloads import resnet_bench
+
+    t0 = time.perf_counter()
+    outs = _rank_world("resnet", "(d) ResNet-50 two ranks", **IMAGE_WORLD_RUN)
+    fault = _rank_world("resnet", "(d) planted fault: per-rank batch norm", per_rank_bn=True,
+                        **IMAGE_WORLD_RUN)[0]["result"]
+    one = resnet_bench.run_benchmark(device="cuda", log=_log, **IMAGE_WORLD_RUN)
+    torch.cuda.empty_cache()
+    two = outs[0]["result"]
+    n = WORLD_CHECK_STEPS
+    gap, fault_gap = (max(abs(a - b) for a, b in zip(r["losses"][:n], one["losses"][:n]))
+                      for r in (two, fault))
+    _log(f"image (d) two ranks sharing one card (backend {outs[0]['backend']}): {two['value'] * 2:.1f} "
+         f"images/sec, step {two['step_time_ms']} ms, losses {[round(v, 6) for v in two['losses']]}; one "
+         f"process {one['value']} images/sec, step {one['step_time_ms']} ms, losses "
+         f"{[round(v, 6) for v in one['losses']]}: largest gap of steps 1-{n} {gap:.3e}; planted fault "
+         f"(per-rank batch norm) losses {[round(v, 6) for v in fault['losses']]}, gap {fault_gap:.3e} (limit "
+         f"{WORLD_LOSS_ATOL:.1e}); {time.perf_counter() - t0:.1f} s")
+    if (two["devices"], outs[1]["result"]["losses"]) != (2, two["losses"]) or gap > WORLD_LOSS_ATOL:
+        _fail("image (d): the two-rank losses differ from one process's or between the ranks")
+    if fault_gap <= WORLD_LOSS_ATOL:
+        _fail("image (d): the planted per-rank batch norm reads within the limit")
+
+
+def _vit_losses(attn_impl: str, dtype) -> list:
+    """``VIT_CHECK_STEPS`` losses of ViT-B/16 trained as ``vit_bench`` trains
+    it (seed-0 weights, its synthetic B128 x 224 px batch, AdamW), in
+    ``dtype``."""
+    import torch
+
+    from pytorch_operator_tpu_torch.models import vit
+    from pytorch_operator_tpu_torch.workloads import vit_bench
+
+    x, y = _image_batch(128, 224)
+    model = vit.ViT(vit.vit_b16(attn_impl=attn_impl, dtype=dtype), device="cuda")
+    step, _ = vit_bench.make_train_step(model, lr=1e-3)
+    x, y = x.to(torch.bfloat16).to(dtype).cuda(), y.cuda()
+    losses = [float(step(x, y)) for _ in range(VIT_CHECK_STEPS)]
+    del model, step
+    torch.cuda.empty_cache()
+    return losses
+
+
+def _image_vit(kernels):
+    """(e) vit_bench dense, then flash with the launch counts set to 0 just
+    before and read just after (each kernel once a layer a step); flash's
+    losses against dense's after the head has moved, beside dense bf16's
+    drift from f32 and a planted fault (the padded keys attended)."""
+    import torch
+
+    from pytorch_operator_tpu_torch.ops import flash_attention as fa
+    from pytorch_operator_tpu_torch.workloads import vit_bench
+
+    dense = vit_bench.run_benchmark(device="cuda", attn_impl="dense", log=_log, **VIT_RUN)
+    torch.cuda.empty_cache()
+    fa.reset_launch_count()
+    flash = vit_bench.run_benchmark(device="cuda", attn_impl="flash", log=_log, **VIT_RUN)
+    launches = fa.launch_counts()
+    torch.cuda.empty_cache()
+    _record_launches(kernels, "vit_flash", launches)
+    steps = len(flash["losses"])
+    for name, r in (("dense", dense), ("flash", flash)):
+        step_ms = 1000 * r["global_batch"] / (r["value"] * r["devices"])
+        _log(f"image (e) ViT-B/16 {name} B{r['global_batch']} x 224 px: {r['value']} images/sec/chip "
+             f"(min fenced window {r['min_window_images_per_sec_per_chip']}), step {step_ms:.1f} ms, peak "
+             f"memory {r['peak_mem_bytes'] / 2**30:.2f} GiB, losses {r['losses'][0]:.4f} -> "
+             f"{r['final_loss']}, {len(r['losses'])} steps")
+    f32 = _vit_losses("dense", torch.float32)
+    launch = fa._launch
+    fa._launch = lambda q, k, v, *, causal, kv_len, scale: launch(
+        q, k, v, causal=causal, kv_len=q.shape[1], scale=scale)
+    try:
+        fault = _vit_losses("flash", torch.bfloat16)
+    finally:
+        fa._launch = launch
+    n = VIT_CHECK_STEPS
+    ref = dense["losses"][:n]
+
+    def gap(losses):
+        return max(abs(a - b) for a, b in zip(losses[1:n], ref[1:n]))
+
+    reads = {"flash": gap(flash["losses"]), "dense f32 (drift)": gap(f32),
+             "planted fault (padded keys attended)": gap(fault)}
+    _log(f"image (e) losses of steps 1-{n}: dense {[round(v, 6) for v in ref]}, flash "
+         f"{[round(v, 6) for v in flash['losses'][:n]]}, dense f32 {[round(v, 6) for v in f32]}, fault "
+         f"{[round(v, 6) for v in fault]}; largest gap from dense bf16 over steps 2-{n}: "
+         + ", ".join(f"{k} {v:.3e}" for k, v in reads.items()) + f" (limit {VIT_LOSS_ATOL:.0e})")
+    _log(f"image (e) flash launches over {steps} steps: {launches} (want {VIT_LAYERS} a step each)")
+    if launches != dict.fromkeys(launches, VIT_LAYERS * steps):
+        _fail(f"image (e): the flash run launched {launches}, not {VIT_LAYERS} a step each")
+    if reads["flash"] > VIT_LOSS_ATOL or not all(math.isfinite(v) for v in flash["losses"]):
+        _fail("image (e): the flash losses differ from dense's, or a loss is not finite")
+    if reads["planted fault (padded keys attended)"] <= VIT_LOSS_ATOL:
+        _fail("image (e): the planted fault (padded keys attended) reads within the limit")
+
+
+def _image_latency():
+    """(f) latency_probe started twice as the supervisor starts a replica
+    (n = 1) with a status dir: launch -> first step, and its phases."""
+    import tempfile
+    from pathlib import Path
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_latency_") as td:
+        for label in ("cold", "second"):
+            status = Path(td) / label
+            status.mkdir()
+            t_launch = time.time()
+            _run_world([sys.executable, "-m", "pytorch_operator_tpu_torch.workloads.latency_probe"],
+                       f"(f) latency probe, {label}", n=1, env={"TPUJOB_STATUS_DIR": str(status)})
+            recs = [json.loads(x) for x in (status / "master-0.jsonl").read_text().splitlines()]
+            first = [r for r in recs if r["event"] == "first_step"]
+            phases = [r for r in recs if r["event"] == "latency_phases"]
+            if len(first) != 1 or len(phases) != 1:
+                _fail(f"image (f) {label}: records {recs}")
+            p = phases[0]
+            _log(f"image (f) latency probe {label}: launch -> first step {first[0]['ts'] - t_launch:.3f} s "
+                 f"(launch -> main entry {p['main_entry'] - t_launch:.3f} s; rendezvous "
+                 f"{p['rendezvous_s']} s, import torch {p['import_torch_s']} s, CUDA context "
+                 f"{p['client_init_s']} s, first step {p['first_exec_s']} s)")
+
+
+IMAGE_PARTS = ("conv", "bn_elementwise", "gemm", "attention")
+
+
+def _image_part(name: str, kernel: str) -> str:
+    """The part of an image step a kernel belongs to, by the op that launched
+    it: convs (their layout copies included), 2-D GEMMs (``mm``/``addmm``:
+    the Linear layers), attention (the flash kernels, and dense attention's
+    batched products and softmax), and the rest (batch and layer norms, the
+    activations, pooling, the loss, the optimizer's updates)."""
+    if "flash_" in kernel or "bmm" in name or "softmax" in name:
+        return "attention"
+    if "conv" in name:
+        return "conv"
+    if name in ("aten::mm", "aten::addmm"):
+        return "gemm"
+    return "bn_elementwise"
+
+
+def _profile_image_steps():
+    """One profiled training step of the ResNet-50 headline and of ViT-B/16
+    flash (B128 x 224 px): the card's busy time split by :data:`IMAGE_PARTS`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_operator_tpu_torch.models import vit
+    from pytorch_operator_tpu_torch.workloads import resnet_bench, vit_bench
+
+    x, y = _image_batch(128, 224)
+    x, y = x.cuda().to(torch.bfloat16), y.cuda()
+    builds = {
+        "ResNet-50": lambda: resnet_bench.make_train_step(
+            resnet_bench.build_model(50, classes=1000, device="cuda"), lr=0.1, momentum=0.9)[0],
+        "ViT-B/16 flash": lambda: vit_bench.make_train_step(
+            vit.ViT(vit.vit_b16(attn_impl="flash"), device="cuda"), lr=1e-3)[0],
+    }
+    for what, build in builds.items():
+        step = build()
+        float(step(x, y))
+        float(step(x, y))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            float(step(x, y))
+            wall = time.perf_counter() - t0
+        busy, _ = _report_profile(prof, wall, f"one {what} training step (B128 x 224 px)", top=10)
+        split = dict.fromkeys(IMAGE_PARTS, 0.0)
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CPU or getattr(e, "is_user_annotation", False):
+                continue
+            for k in e.kernels:
+                split[_image_part(e.name, k.name)] += k.duration / 1e3
+        busy_ms = 1e3 * busy
+        _log(f"image profile {what}: busy {busy_ms:.2f} ms: " + ", ".join(
+            f"{k} {v:.2f} ms ({100 * v / busy_ms:.1f}%)" for k, v in split.items())
+            + f"; charged {sum(split.values()):.2f} ms")
+        del step, prof
+        torch.cuda.empty_cache()
+
+
+def phase_image(kernels):
+    """Phase 12: (a) card against CPU with planted faults; (b) the ResNet-50
+    headline; (c) resnet_ab and a packed file; (d) a two-rank world; (e)
+    ViT-B/16 dense and flash; (f) the latency probe. Returns the profiles
+    of one ResNet-50 and one ViT step, to run with the other profiles."""
+    for part, run in (("(a)", _image_card_vs_cpu), ("(b)", _image_headline),
+                      ("(c)", _image_ab_and_file), ("(d)", _image_world),
+                      ("(e)", lambda: _image_vit(kernels)), ("(f)", _image_latency)):
+        t0 = time.perf_counter()
+        run()
+        _log(f"image {part}: {time.perf_counter() - t0:.1f} s")
+    return _profile_image_steps
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = phase_identity_and_build()
@@ -3136,7 +3718,7 @@ def main() -> int:
     # a profiler session.
     profiles = []
     for phase in (phase_generate, phase_train, phase_serve, phase_int8, phase_journey, phase_rest,
-                  phase_moe, phase_dist):
+                  phase_moe, phase_dist, phase_image):
         t0 = time.perf_counter()
         profiles.append(phase(kernels))
         _log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")

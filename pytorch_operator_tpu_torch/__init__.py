@@ -15,13 +15,15 @@ module there it keeps as its own copy.
   at first use by ``_build.py``) behind wrappers that keep a plain PyTorch
   version for CPU tensors (flash attention forward and backward), the
   chunked-vocab loss, and token sampling.
-- ``models``  — the Llama decoder with its KV-cache decode path, and the
-  loader that turns a JAX param tree into this package's state dict.
+- ``models``  — the Llama decoder with its KV-cache decode path, ResNet and
+  ViT, and the loaders that turn a JAX param tree into this package's state
+  dicts.
 - ``parallel`` — meshes over the ranks, collectives, each rank's rows, FSDP2
   over the data axes, and the mixture-of-experts layer on one device.
 - ``workloads`` — runnable entry points (``generate``, ``llama_train``,
-  ``serve``, ``quality_eval``, ``smoke_dist``) and the training loop they
-  share (``trainer``).
+  ``serve``, ``quality_eval``, ``smoke_dist``, ``resnet_bench``,
+  ``resnet_ab``, ``vit_bench``, ``latency_probe``) and the training loop and
+  image-bench parts they share (``trainer``).
 
 Entry points run on ``cuda`` unless the caller asks for the CPU
 (``--device cpu`` or ``TPUJOB_PLATFORM=cpu``); with no GPU and no such

@@ -1,15 +1,20 @@
-"""Pack a text file into the native loader's array-file format — the port of
-``pytorch_operator_tpu/data/pack.py``'s ``--dataset text``.
+"""Pack a dataset into the native loader's array-file format — the port of
+``pytorch_operator_tpu/data/pack.py`` (``--dataset text`` and ``synthetic``).
 
 Usage::
 
     python -m pytorch_operator_tpu_torch.data.pack --dataset text \\
         --input corpus.txt --seq-len 512 --out corpus.bin
+    python -m pytorch_operator_tpu_torch.data.pack --dataset synthetic \\
+        --n 4096 --height 32 --width 32 --classes 10 --out syn.bin
 
-The output is ``<out>`` plus a ``<out>.meta.json`` sidecar: int32 byte-level
-token records (vocab 256) of ``--seq-len`` tokens, the data of
-``llama_train --data-file``/``--eval-file``. ``--dataset digits`` and
-``synthetic`` need the image datasets of the other models and are refused
+The output is ``<out>`` plus a ``<out>.meta.json`` sidecar. ``text``: int32
+byte-level token records (vocab 256) of ``--seq-len`` tokens, the data of
+``llama_train --data-file``/``--eval-file``. ``synthetic``: ``--n`` records
+of an f32 ``x`` image (H×W×3) and an int32 ``y`` label from
+``workloads.datasets.synthetic_images`` (the same bytes as the JAX tool's for
+the same arguments), the data of ``resnet_bench``/``vit_bench
+--data-file``. ``--dataset digits`` needs scikit-learn and is refused
 (:data:`REFUSED_DATASETS`).
 """
 
@@ -26,8 +31,7 @@ from .array_file import pack_arrays
 # Datasets of the JAX tool that the port does not pack yet, with the ROADMAP
 # item each waits for.
 REFUSED_DATASETS = {
-    "digits": "the other models and workloads (workloads/datasets.py)",
-    "synthetic": "the other models and workloads (workloads/datasets.py)",
+    "digits": "Queue 1 item 2, the MNIST slice (scikit-learn's digits)",
 }
 
 
@@ -36,8 +40,13 @@ def main(argv=None) -> int:
     p.add_argument("--out", required=True)
     p.add_argument(
         "--dataset", choices=("digits", "synthetic", "text"), default="digits",
-        help="text is ported; digits and synthetic are refused",
+        help="text and synthetic are ported; digits is refused",
     )
+    p.add_argument("--n", type=int, default=4096, help="synthetic: record count")
+    p.add_argument("--height", type=int, default=32)
+    p.add_argument("--width", type=int, default=32)
+    p.add_argument("--classes", type=int, default=10)
+    p.add_argument("--seed", type=int, default=0)
     p.add_argument(
         "--input", default=None,
         help="text: path to a UTF-8/byte file to pack as LM training data",
@@ -52,6 +61,14 @@ def main(argv=None) -> int:
             f"--dataset {args.dataset} is not ported yet "
             f"(ROADMAP.md: {REFUSED_DATASETS[args.dataset]})"
         )
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    if args.dataset == "synthetic":
+        from ..workloads.datasets import synthetic_images
+
+        x, y = synthetic_images(args.n, args.height, args.width, args.classes, seed=args.seed)
+        meta = pack_arrays(args.out, {"x": x, "y": y})
+        print(f"packed {meta.n_records} records ({meta.record_bytes} B each) -> {args.out}")
+        return 0
     if not args.input:
         raise SystemExit("--dataset text needs --input FILE")
     data = Path(args.input).read_bytes()
@@ -60,7 +77,6 @@ def main(argv=None) -> int:
     if n == 0:
         raise SystemExit(f"{args.input}: {len(data)} bytes < one record of {S}")
     tokens = np.frombuffer(data[: n * S], np.uint8).astype(np.int32).reshape(n, S)
-    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     meta = pack_arrays(args.out, {"tokens": tokens})
     print(f"packed {meta.n_records} records ({meta.record_bytes} B each) -> {args.out}")
     return 0

@@ -1,1 +1,2 @@
-"""The Llama decoder (``llama.py``) and the JAX-tree loader (``convert.py``)."""
+"""The Llama decoder (``llama.py``), ResNet (``resnet.py``), ViT (``vit.py``)
+and the JAX-tree loaders (``convert.py``)."""

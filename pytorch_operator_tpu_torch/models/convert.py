@@ -1,4 +1,6 @@
-"""Load a JAX Llama param tree into the port's ``Llama``.
+"""Load a JAX param tree into the port's models: the Llama
+(:func:`params_from_jax`), ResNet (:func:`resnet_params_from_jax`) and ViT
+(:func:`vit_params_from_jax`, at the end of the module).
 
 The JAX package's ``Llama.init`` yields nested dicts whose layer leaves are
 stacked ``[n_layers, ...]`` (flax ``nn.scan``) and whose matmul kernels keep
@@ -178,3 +180,86 @@ def _is_quantized(leaf) -> bool:
 def _check(path: str, got, want) -> None:
     if tuple(got) != tuple(want):
         raise ValueError(f"JAX param {path} has shape {tuple(got)}, config expects {tuple(want)}")
+
+
+# ---- the image models ----
+
+
+def _np32(leaf) -> np.ndarray:
+    """A JAX leaf (a numpy or jax array, bf16 included, or a flax
+    ``Partitioned`` box, unboxed by duck typing) as f32 numpy."""
+    if hasattr(leaf, "unbox"):
+        leaf = leaf.unbox()
+    return np.array(leaf, dtype=np.float32)
+
+
+def _walk(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict) or hasattr(v, "items"):
+            yield from _walk(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+# flax leaf name -> the port's state-dict suffix.
+_RESNET_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
+                "mean": "running_mean", "var": "running_var"}
+
+
+def resnet_params_from_jax(params, batch_stats) -> Dict[str, torch.Tensor]:
+    """The port ``ResNet``'s state dict (f32 tensors; ``load_state_dict``
+    casts bf16 ones) for the JAX ResNet's ``params`` and ``batch_stats``
+    trees. Module paths carry over by name (``BottleneckBlock_3/Conv_1`` is
+    ``BottleneckBlock_3.Conv_1``); conv kernels HWIO become OIHW (the
+    space-to-depth stem keeps the canonical ``(7, 7, C, F)`` kernel, as the
+    JAX module does), the Dense kernel ``[in, out]`` becomes ``[out, in]``,
+    BN ``scale``/``bias`` become ``weight``/``bias`` and ``mean``/``var``
+    the running buffers."""
+    sd: Dict[str, torch.Tensor] = {}
+    for tree in (params, batch_stats):
+        for path, leaf in _walk(tree):
+            w = torch.from_numpy(_np32(leaf))
+            if path[-1] == "kernel":
+                w = w.permute(3, 2, 0, 1) if w.dim() == 4 else w.t()
+            sd[".".join(path[:-1] + (_RESNET_LEAF[path[-1]],))] = w.contiguous()
+    return sd
+
+
+def vit_params_from_jax(params) -> Dict[str, torch.Tensor]:
+    """The port ``ViT``'s state dict (f32) for the JAX ViT's ``params``
+    tree, whose encoder leaves ``nn.scan`` stacked ``[depth, ...]``: each
+    layer is unstacked; the ``DenseGeneral`` kernels q/k/v ``[D, H, hd]``
+    become ``[H·hd, D]`` weights and their ``[H, hd]`` biases ``[H·hd]``,
+    o ``[H, hd, D]`` becomes ``[D, H·hd]``; Dense kernels ``[in, out]``
+    become ``[out, in]``; the patch kernel HWIO becomes OIHW; LayerNorm
+    ``scale`` is ``weight``; ``cls`` and ``pos_embed`` carry over."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def linear(name: str, node, i=None):
+        k, b = (_np32(node[leaf]) for leaf in ("kernel", "bias"))
+        if i is not None:
+            k, b = k[i], b[i]
+        d_out = b.size
+        sd[f"{name}.weight"] = torch.from_numpy(k.reshape(-1, d_out).T.copy())
+        sd[f"{name}.bias"] = torch.from_numpy(b.reshape(d_out).copy())
+
+    def norm(name: str, node, i=None):
+        for leaf, port in (("scale", "weight"), ("bias", "bias")):
+            a = _np32(node[leaf])
+            sd[f"{name}.{port}"] = torch.from_numpy((a[i] if i is not None else a).copy())
+
+    pe = _np32(params["patch_embed"]["kernel"])
+    sd["patch_embed.weight"] = torch.from_numpy(pe.transpose(3, 2, 0, 1).copy())
+    sd["patch_embed.bias"] = torch.from_numpy(_np32(params["patch_embed"]["bias"]))
+    sd["cls"] = torch.from_numpy(_np32(params["cls"]))
+    sd["pos_embed"] = torch.from_numpy(_np32(params["pos_embed"]))
+    layers = params["layers"]
+    depth = _np32(layers["attn_norm"]["scale"]).shape[0]
+    for i in range(depth):
+        for n in ("attn_norm", "mlp_norm"):
+            norm(f"layers.{i}.{n}", layers[n], i)
+        for n in ("q_proj", "k_proj", "v_proj", "o_proj", "up_proj", "down_proj"):
+            linear(f"layers.{i}.{n}", layers[n], i)
+    norm("final_norm", params["final_norm"])
+    linear("head", params["head"])
+    return sd

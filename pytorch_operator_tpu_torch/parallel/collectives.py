@@ -10,7 +10,8 @@ when none was joined (then each collective is the identity, as JAX's are
 over an axis of size 1).
 
 - :func:`psum`, :func:`pmean`: all-reduce (the sum; the sum divided by the
-  axis size).
+  axis size). :func:`psum_autograd` is the differentiable sum (its backward
+  sums the ranks' gradients, as JAX differentiates ``psum``).
 - :func:`all_gather`: ``tiled`` concatenates the ranks' tensors along dim 0,
   else stacks them on a new leading dim (``jax.lax.all_gather``).
 - :func:`reduce_scatter`: sum, then this rank's block of
@@ -76,6 +77,24 @@ def psum(x: torch.Tensor, axis: str, mesh=None) -> torch.Tensor:
     if axis_size(axis, mesh) > 1:
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=_group(axis, mesh))
     return out
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        ctx.axis, ctx.mesh = axis, mesh
+        return psum(x, axis, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g, ctx.axis, ctx.mesh), None, None
+
+
+def psum_autograd(x: torch.Tensor, axis: str, mesh=None) -> torch.Tensor:
+    """:func:`psum` that autograd differentiates: the gradient of each
+    rank's input is the sum of the ranks' output gradients (every rank's loss
+    reads the same sum)."""
+    return _Psum.apply(x, axis, mesh)
 
 
 def pmean(x: torch.Tensor, axis: str, mesh=None) -> torch.Tensor:

@@ -7,7 +7,8 @@ injects for ``cpu_devices`` jobs and what the test suite sets. With no GPU
 and no such request, resolution raises: a measurement or a job that silently
 ran on the host would report host numbers under the device's name. In a
 world of several processes each rank takes ``cuda:(rank % device count)``
-(:func:`rank_device`).
+(:func:`rank_device`); :func:`world_device` applies whichever of the two the
+joined world calls for, and every entry point resolves its device with it.
 """
 
 from __future__ import annotations
@@ -50,6 +51,16 @@ def rank_device(process_id: int, device: Union[str, torch.device, None] = None) 
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", process_id % torch.cuda.device_count())
     return dev
+
+
+def world_device(device: Union[str, torch.device, None] = None) -> torch.device:
+    """The device of this process in the joined world: :func:`resolve_device`
+    in a world of one process, :func:`rank_device` of this rank in a world of
+    several (so the ranks of a host with several cards each take their own)."""
+    from ..parallel.collectives import world
+
+    rank, size = world()
+    return resolve_device(device) if size == 1 else rank_device(rank, device)
 
 
 def device_name(dev: torch.device) -> str:

@@ -34,7 +34,8 @@ from ..ops import flash_attention as flash_lib
 from ..ops import quantize as quant_lib
 from ..ops.sampling import make_sampler
 from ..runtime import rendezvous
-from ..runtime.device import device_name, resolve_device, synchronize
+from ..parallel.collectives import world as joined_world
+from ..runtime.device import device_name, synchronize, world_device
 
 
 def make_generate(
@@ -237,7 +238,8 @@ def run(
     device=None,
     log=print,
 ) -> dict:
-    dev = resolve_device(device)
+    dev = world_device(device)
+    n_dev = joined_world()[1]
     cfg = getattr(llama_lib, llama_lib.CONFIGS[config])(
         decode=True,
         max_decode_len=max_decode_len or (prompt_len + max_new_tokens),
@@ -312,7 +314,7 @@ def run(
     tps = new_tokens / dt
     rendezvous.report_first_step(0)
     rendezvous.report_metrics(
-        max_new_tokens, decode_tokens_per_sec=tps, decode_tokens_per_sec_per_chip=tps,
+        max_new_tokens, decode_tokens_per_sec=tps, decode_tokens_per_sec_per_chip=tps / n_dev,
     )
     log(
         f"[generate] {new_tokens} new tokens in {dt:.3f}s: {tps:,.0f} tokens/sec "
@@ -321,7 +323,7 @@ def run(
     )
     result = {
         "metric": "llama_decode_tokens_per_sec_per_chip",
-        "value": round(tps, 1),
+        "value": round(tps / n_dev, 1),
         "unit": "tokens/sec/chip",
         "config": config,
         "params_m": round(n_params / 1e6, 1),
@@ -329,7 +331,7 @@ def run(
         "prompt_len": prompt_len,
         "max_new_tokens": max_new_tokens,
         "max_decode_len": cfg.max_decode_len,
-        "devices": 1,
+        "devices": n_dev,
         "device": device_name(dev),
         "generate_s": dt,
         "prefill_s": prefill_s,
@@ -344,7 +346,7 @@ def run(
         result["restored_step"] = restored_step
     if dt_fp is not None:
         result["generate_s_unquantized"] = dt_fp
-        result["tokens_per_sec_per_chip_unquantized"] = round(new_tokens / dt_fp, 1)
+        result["tokens_per_sec_per_chip_unquantized"] = round(new_tokens / dt_fp / n_dev, 1)
         result["int8_speedup"] = round(dt_fp / dt, 3)
     return result
 
@@ -407,7 +409,7 @@ def main(argv=None) -> int:
     p.add_argument("--json", action="store_true")
     args = p.parse_args(argv)
 
-    world = rendezvous.initialize_from_env()
+    world = rendezvous.initialize_from_env(device=args.device)
     result = run(
         config=args.config,
         batch_size=args.batch_size,
@@ -428,6 +430,7 @@ def main(argv=None) -> int:
     )
     if args.json and world.process_id == 0:
         print(json.dumps(result), flush=True)
+    rendezvous.finalize(world)
     return 0
 
 

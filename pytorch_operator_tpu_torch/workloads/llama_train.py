@@ -62,7 +62,7 @@ from ..parallel import mesh as mesh_lib
 from ..parallel.collectives import world as joined_world
 from ..parallel.sharding import data_axes, full_tensor, local_nbytes, shard_model
 from ..runtime import rendezvous
-from ..runtime.device import device_name, rank_device, resolve_device
+from ..runtime.device import device_name, world_device
 from .trainer import (
     add_feed_tuning_args,
     data_plane_env_defaults,
@@ -217,7 +217,7 @@ def run(
     rank (gathered from the shards), CPU tensors in state-dict order."""
     rank, world = joined_world()
     backend = torch.distributed.get_backend() if world > 1 else None
-    dev = resolve_device(device) if world == 1 else rank_device(rank, device)
+    dev = world_device(device)
     mesh_spec = mesh_spec or mesh_lib.mesh_spec_from_env()
     axes = resolve_train_mesh(mesh_spec, world)
     over = {}

@@ -37,7 +37,7 @@ import torch.nn.functional as F
 from ..data import open_loader
 from ..models import llama as llama_lib
 from ..models.llama import decode_forward, init_decode_cache
-from ..runtime.device import device_name, resolve_device, synchronize
+from ..runtime.device import device_name, synchronize, world_device
 from .generate import init_cache, load_params, make_generate
 
 
@@ -98,7 +98,7 @@ def run(
     agreement drift over a ``drift_tokens`` greedy fp rollout. The result
     keys are the JAX workload's, with ``device`` and ``drift_rollout_s``
     (the rollout's wall time) beside them."""
-    dev = resolve_device(device)
+    dev = world_device(device)
     # Held-out sequences from the packed eval file (the format the trainer's
     # --eval-file takes).
     loader = open_loader(eval_file, batch_size, seed=1)

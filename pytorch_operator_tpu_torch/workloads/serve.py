@@ -41,7 +41,8 @@ from ..models import llama as llama_lib
 from ..obs.trace import serve_span, tracer as _span_tracer
 from ..ops.quantize import state_bytes
 from ..runtime import rendezvous
-from ..runtime.device import device_name, resolve_device
+from ..parallel.collectives import world as joined_world
+from ..runtime.device import device_name, world_device
 
 def run(
     *,
@@ -78,7 +79,7 @@ def run(
     from ..serving.shmring import EngineTransport
     from .generate import load_params
 
-    dev = resolve_device(device)
+    dev = world_device(device)
     cfg = getattr(llama_lib, llama_lib.CONFIGS[config])(
         decode=True, max_decode_len=max_decode_len, quantize=quantize, kv_quantize=kv_quantize,
     )
@@ -260,9 +261,10 @@ def run(
     if restored:
         stats["restored_step"] = restored[0]
     spool.close()
-    # One device per process (multi-GPU worlds are not ported yet).
     if stats["decode_tokens_per_sec"]:
-        stats["decode_tokens_per_sec_per_chip"] = stats["decode_tokens_per_sec"]
+        stats["decode_tokens_per_sec_per_chip"] = round(
+            stats["decode_tokens_per_sec"] / joined_world()[1], 1
+        )
     rendezvous.report_metrics(served, **{
         k: v for k, v in stats.items()
         if isinstance(v, (int, float)) and v is not None
@@ -328,7 +330,7 @@ def main(argv=None) -> int:
     if not args.spool:
         p.error("--spool is required (no TPUJOB_SPOOL_DIR in the environment)")
 
-    world = rendezvous.initialize_from_env()
+    world = rendezvous.initialize_from_env(device=args.device)
     stats = run(
         config=args.config,
         spool_dir=args.spool,
@@ -354,6 +356,7 @@ def main(argv=None) -> int:
     )
     if args.json and world.process_id == 0:
         print(json.dumps(stats), flush=True)
+    rendezvous.finalize(world)
     return 0
 
 

@@ -1,5 +1,5 @@
-"""The training loop's shared parts — the port of what the LM path uses from
-``pytorch_operator_tpu/workloads/trainer.py``.
+"""The training loop's shared parts — the port of what the LM path and the
+image benches use from ``pytorch_operator_tpu/workloads/trainer.py``.
 
 - :func:`make_optimizer`: AdamW with optax's defaults (b1 0.9, b2 0.999,
   eps 1e-8, decoupled weight decay on every parameter), or optax's
@@ -20,6 +20,13 @@
 - :func:`data_plane_env`, :func:`add_feed_tuning_args` and
   :func:`resolve_feed_tuning`: the ``spec.data_plane`` env defaults of the
   async-checkpoint and device-feed flags.
+- The image benches' parts (``resnet_bench``, ``vit_bench``):
+  :func:`probe_image_file` and :func:`open_image_feed` (a packed image file,
+  validated, stacked per chunk, optionally prefetched),
+  :func:`timed_windows` and :func:`window_progress` (the fenced and
+  sustained windows and their live meter), :func:`chunk_plan` and
+  :func:`image_bench_loop` (JAX's chunking, around both), and
+  :func:`average_gradients_` (dp over whole parameters).
 
 PyTorch runs eagerly, so there is no jit: the model and the optimizer hold
 the state, and ``train_step(tokens)`` updates both in place and returns the
@@ -676,3 +683,266 @@ def throughput_loop(
         # Taken here, before the profiler writes its trace.
         dt = time.time() - t0 - t_excluded
     return losses, steps / dt, step
+
+
+# ---- the image benches' shared parts (resnet_bench, vit_bench) ----
+
+
+def average_gradients_(params, world: int) -> None:
+    """Replace each parameter's ``.grad`` by its mean over the ``world``
+    ranks of the joined world (data parallelism over whole parameters, as
+    the image benches' dp mesh: each rank's loss is the mean over its equal
+    share of the global batch, so the mean of the gradients is the global
+    batch's). One flat all-reduce a gradient dtype; a no-op in a world of
+    one."""
+    if world == 1:
+        return
+    import torch.distributed as dist
+
+    grads = [p.grad for p in params if p.grad is not None]
+    for dtype in sorted({g.dtype for g in grads}, key=str):
+        group = [g for g in grads if g.dtype == dtype]
+        flat = torch.cat([g.reshape(-1) for g in group])
+        dist.all_reduce(flat)
+        flat /= world
+        offset = 0
+        for g in group:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+
+
+def probe_image_file(data_file: str):
+    """Pre-model geometry probe: ``(meta, x_field_or_None)``, the one place
+    both benches read the image shape from a packed file (full validation is
+    :func:`open_image_feed`'s, which takes the probed meta)."""
+    from ..data import read_meta
+
+    meta = read_meta(data_file)
+    return meta, next((f for f in meta.fields if f.name == "x"), None)
+
+
+def open_image_feed(
+    data_file: str,
+    *,
+    batch: int,
+    chunk: int,
+    classes: int,
+    device,
+    square: bool = False,
+    seed: int = 0,
+    meta=None,
+    prefetch: int = 0,
+    prefetch_depth_max: int = 0,
+    autotune: bool = False,
+    prefetch_workers: int = 0,
+):
+    """Validate and open a packed image file; return ``(next_batches,
+    loader)``, the real-data feed both image benches share (the JAX
+    function's protocol).
+
+    ``next_batches()`` returns ``chunk`` loader batches of the global
+    ``batch``, stacked ``[chunk, rows, H, W, C]`` bf16 images and ``[chunk,
+    rows]`` int64 labels on ``device``, ``rows`` this rank's share (each rank
+    of a world draws the same global batches from the same seed and keeps
+    its rows). The loader lends zero-copy views of a reused slot, so the copy
+    into the stacked buffers is mandatory. Refused up front: a file without
+    ``x`` and ``y`` fields or whose ``x`` is not H×W×C; with ``square``, H ≠
+    W (ViT's position embeddings); fewer records than the batch; and, by a
+    whole-file scan, any label outside ``[0, classes)`` (a one-hot of it
+    would be all zeros and deflate the loss). The caller closes ``loader``;
+    with ``prefetch > 0`` it is the device prefetcher's facade (closing it
+    closes the loader too) and the pulls, the stacking cast and the copy to
+    the card run on the feed's threads (``data/device_prefetch.py``)."""
+    from ..data import field_range, open_training_loader, read_meta
+    from ..data.device_prefetch import DevicePrefetcher, to_device
+    from ..parallel.collectives import world as joined_world
+
+    if meta is None:
+        meta = read_meta(data_file)
+    names = [f.name for f in meta.fields]
+    if "x" not in names or "y" not in names:
+        raise ValueError(
+            f"--data-file needs fields named 'x' (images) and 'y' (labels); "
+            f"{data_file} has {names} (pack with pytorch_operator_tpu_torch.data.pack)"
+        )
+    field_x = next(f for f in meta.fields if f.name == "x")
+    if len(field_x.shape) != 3:
+        raise ValueError(f"--data-file 'x' records must be HxWxC images; got shape {field_x.shape}")
+    if square and field_x.shape[0] != field_x.shape[1]:
+        raise ValueError(
+            f"--data-file images must be square (H == W) for this model; "
+            f"got {field_x.shape[0]}x{field_x.shape[1]}"
+        )
+    if meta.n_records < batch:
+        raise ValueError(f"--data-file holds {meta.n_records} records < global batch {batch}")
+    lo, hi = field_range(data_file, meta, "y")
+    if int(lo) < 0 or int(hi) >= classes:
+        raise ValueError(
+            f"--data-file labels span [{int(lo)}, {int(hi)}] but the model "
+            f"head has {classes} classes (pass --classes)"
+        )
+    rank, world = joined_world()
+    rows = slice(rank * batch // world, (rank + 1) * batch // world)
+    loader = open_training_loader(data_file, batch, seed=seed, processes=world)
+
+    def host_batches():
+        # The serial half (the loader's borrow contract): pulls and
+        # same-dtype copies out of the slot, this rank's rows only.
+        raw = []
+        for _ in range(chunk):
+            _, _, fields = loader.next_batch()
+            raw.append((np.array(fields["x"][rows], copy=True), np.array(fields["y"][rows], copy=True)))
+        return raw
+
+    def stacked(raw):
+        # The half that may run on several feed threads: stack, cast to bf16.
+        sx = torch.from_numpy(np.stack([x for x, _ in raw])).to(torch.bfloat16)
+        sy = torch.from_numpy(np.stack([y for _, y in raw]).astype(np.int64))
+        return sx, sy
+
+    if prefetch > 0:
+        pf = DevicePrefetcher(
+            host_batches,
+            put=lambda raw: to_device(stacked(raw), device),
+            depth=prefetch,
+            depth_max=prefetch_depth_max or None,
+            workers=max(prefetch_workers, 1),
+            autotune=autotune,
+        )
+
+        class _Feed:
+            """Caller-owned close handle: the prefetcher first, then the loader."""
+
+            def stats(self):
+                return pf.stats()
+
+            def close(self):
+                pf.close()
+                loader.close()
+
+        return pf.get, _Feed()
+
+    def next_batches():
+        return tuple(t.to(device) for t in stacked(host_batches()))
+
+    return next_batches, loader
+
+
+def window_progress(report_progress, *, steps: int, batch: int, n_dev: int, unit: str):
+    """The image benches' per-window live meter: maps :func:`timed_windows`'
+    ``(windows_done, windows_measured, dt)`` into a progress record."""
+
+    def progress(done, measured, dt):
+        report_progress(
+            done * steps,
+            steps_per_sec=measured * steps / dt,
+            throughput=batch * measured * steps / dt / n_dev,
+            unit=unit,
+        )
+
+    return progress
+
+
+def timed_windows(run_window, fence, *, windows, profile_dir=None, log=print, progress=None):
+    """The image benches' two protocols (the JAX function's):
+
+    - A: fenced windows, the fastest kept (skipped when ``windows == 1``,
+      identical to B then, or when profiling, so that the trace shows the
+      headline run alone);
+    - B (the headline): the same number of windows with depth-1 lookahead:
+      window i-1's token is fenced after window i is enqueued, so the card
+      never waits on a fence while the host runs at most one window ahead.
+
+    ``run_window()`` enqueues one window and returns a fence token;
+    ``fence(token)`` is a real device-to-host read of it. Returns
+    ``(dt_min_window | None, dt_sustained_total, n_win)``. ``progress``, when
+    given, is called after every fenced window and once after the sustained
+    run with the aggregate. Every window trains the same state."""
+    n_win = max(windows, 1)
+    dt = math.inf
+    wins_done = 0
+    if not profile_dir and n_win > 1:
+        for _ in range(n_win):
+            t0 = time.time()
+            fence(run_window())
+            dt_w = time.time() - t0
+            dt = min(dt, dt_w)
+            wins_done += 1
+            if progress is not None:
+                progress(wins_done, 1, dt_w)
+    with maybe_profile(profile_dir, log):
+        t0 = time.time()
+        prev = None
+        for _ in range(n_win):
+            tok = run_window()
+            if prev is not None:
+                fence(prev)
+            prev = tok
+        fence(prev)
+        # Taken here, before the profiler writes its trace.
+        dt_sustained = time.time() - t0
+    wins_done += n_win
+    if progress is not None:
+        progress(wins_done, n_win, dt_sustained)
+    if not math.isfinite(dt):
+        dt = None if profile_dir else dt_sustained / n_win
+    return dt, dt_sustained, n_win
+
+
+def chunk_plan(steps: int, warmup: int) -> tuple:
+    """``(chunk, steps, warm_chunks)`` as the JAX image benches fuse steps:
+    chunks of ``min(30, steps)`` steps, the timed steps rounded up to whole
+    chunks, the warmup rounded to whole chunks (at least one)."""
+    chunk = min(30, max(steps, 1))
+    steps = math.ceil(max(steps, 1) / chunk) * chunk
+    return chunk, steps, max(1, round(max(warmup, 1) / chunk))
+
+
+def image_bench_loop(train_step, next_batches, *, steps: int, warmup: int, windows: int,
+                     batch: int, world: int, profile_dir=None, tag: str, log=print):
+    """Warm up, then time ``windows`` windows of ``steps`` steps by
+    :func:`timed_windows`: the loop both image benches share. A chunk is
+    ``chunk`` steps (:func:`chunk_plan`), each on its own batch of
+    ``next_batches()`` (stacked ``[chunk, rows, ...]``, or one pair that the
+    synthetic mode reuses), each ``train_step(x, y) -> loss`` (a device
+    tensor). The first chunk's end is read back and reported as the first
+    step. Returns ``dict(dt, dt_sustained, n_win, steps, losses)``:
+    ``losses`` every step's loss in order, warmup included (kept on the
+    device and read back at the end, so no step waits on the host)."""
+    from ..runtime import rendezvous
+
+    chunk, steps, warm_chunks = chunk_plan(steps, warmup)
+    losses = []
+
+    def run_chunk():
+        bxs, bys = next_batches()
+        stacked = bxs.dim() == 5
+        for i in range(chunk):
+            losses.append(train_step(bxs[i], bys[i]) if stacked else train_step(bxs, bys))
+        return losses[-1]
+
+    t_start = time.time()
+    for i in range(warm_chunks):
+        loss = run_chunk()
+        if i == 0:
+            float(loss)
+            rendezvous.report_first_step(0)
+            log(f"[{tag}] first chunk ({chunk} steps, kernel build included) +{time.time() - t_start:.1f}s")
+    float(loss)
+    if profile_dir and windows > 1:
+        log(f"[{tag}] --profile-dir set: timing a single window")
+        windows = 1
+
+    def run_window():
+        for _ in range(steps // chunk):
+            run_chunk()
+        return losses[-1]
+
+    dt, dt_sustained, n_win = timed_windows(
+        run_window, lambda tok: float(tok), windows=windows, profile_dir=profile_dir,
+        log=lambda m: log(f"[{tag}] {m}"),
+        progress=window_progress(rendezvous.report_progress, steps=steps, batch=batch,
+                                 n_dev=world, unit="images/sec/chip"),
+    )
+    return dict(dt=dt, dt_sustained=dt_sustained, n_win=n_win, steps=steps,
+                losses=[float(x) for x in losses])

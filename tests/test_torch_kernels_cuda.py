@@ -33,7 +33,9 @@ from pytorch_operator_tpu_torch.ops import flash_attention as fa
 # CTA's second warpgroup, past S), S 64 (one tile, smaller than the CTA's
 # rows), a kv_len inside a tile, G 8 (dkv's longest walk over query heads),
 # causal kv_len 100 (ending inside a dkv CTA's second warpgroup) and kv_len 40
-# (that warpgroup wholly masked).
+# (that warpgroup wholly masked). The last is ViT-B/16's attention at 224 px
+# (197 tokens padded to 256, the padded keys masked; 12 heads of 64;
+# non-causal) at batch 4.
 CASES = [
     (8, 512, 8, 4, 128, True, None, "bfloat16"),
     (2, 500, 8, 4, 128, True, None, "bfloat16"),
@@ -49,6 +51,7 @@ CASES = [
     (2, 256, 8, 1, 128, True, None, "bfloat16"),
     (2, 256, 8, 4, 128, True, 100, "bfloat16"),
     (2, 192, 8, 4, 64, False, 40, "bfloat16"),
+    (4, 197, 12, 12, 64, False, None, "bfloat16"),
 ]
 
 
@@ -173,3 +176,28 @@ def test_build_reports_ptxas(cuda_device):
     for name, path in paths.items():
         assert path.exists() and path.parent == _build.BUILD_DIR
         print(_build.build_logs.get(name, f"{name}: library reused, no build this run"))
+
+
+@pytest.mark.cuda
+def test_vit_flash_path_launches_each_kernel_once_a_layer(cuda_device):
+    """ViT-B/16 width at depth 2, 224 px, batch 2, bf16: one training step
+    with ``attn_impl="flash"`` launches each kernel once a layer, and its
+    logits and loss agree with the dense model's on the same weights (both
+    round p to bf16 before p·v, at different points)."""
+    from pytorch_operator_tpu_torch.models import vit
+
+    x = _rand((2, 224, 224, 3), torch.float32, cuda_device, 0)
+    y = torch.tensor([3, 7], device=cuda_device)
+    out = {}
+    for impl in ("dense", "flash"):
+        model = vit.ViT(vit.vit_b16(depth=2, attn_impl=impl), device=cuda_device)
+        with torch.no_grad():  # a zero head reads nothing: the same random head for both
+            model.head.weight.normal_(0.0, 0.02, generator=torch.Generator(cuda_device).manual_seed(1))
+        fa.reset_launch_count()
+        logits = model(x)
+        F.cross_entropy(logits, y).backward()
+        torch.cuda.synchronize()
+        out[impl] = (logits.detach().float().cpu(), fa.launch_counts())
+    assert out["flash"][1] == {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+    assert out["dense"][1] == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    torch.testing.assert_close(out["flash"][0], out["dense"][0], atol=5e-2, rtol=0)

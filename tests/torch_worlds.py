@@ -234,3 +234,91 @@ def rank_restore_own_rows(world, root: str, step: int) -> dict:
         offset, _ = manager._shard_rows(t.shape, t.device_mesh, t.placements)
         out[name] = (offset, t.to_local().numpy().copy())
     return {"rows": out, "whole_raised": whole_raised}
+
+
+def rank_resnet(world, init: dict, x, y, steps: int, sync_stats: bool, bench_kw=None) -> dict:
+    """A tiny f32 ResNet (stage sizes [1, 1], 8 filters, 10 classes) from the
+    state dict ``init``, ``steps`` SGD-nesterov steps of
+    ``resnet_bench.make_train_step`` on this rank's rows of the global batch
+    ``x``/``y``, batch norm synchronised across the ranks unless
+    ``sync_stats`` is False (the planted per-rank fault); the losses and the
+    final state dict. With ``bench_kw``, also ``resnet_bench.run_benchmark``'s
+    result in this world."""
+    import torch
+
+    from pytorch_operator_tpu_torch.models import resnet
+    from pytorch_operator_tpu_torch.workloads import resnet_bench
+
+    model = resnet.ResNet([1, 1], num_classes=10, num_filters=8, dtype=torch.float32,
+                          sync_stats=sync_stats)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in init.items()})
+    step, _ = resnet_bench.make_train_step(model, lr=0.1, momentum=0.9, world=world.num_processes)
+    per = x.shape[0] // world.num_processes
+    rows = slice(world.process_id * per, (world.process_id + 1) * per)
+    bx, by = torch.from_numpy(x[rows]), torch.from_numpy(y[rows]).long()
+    losses = [float(step(bx, by)) for _ in range(steps)]
+    out = {"losses": losses, "state": {k: v.numpy().copy() for k, v in model.state_dict().items()}}
+    if bench_kw is not None:
+        out["bench"] = resnet_bench.run_benchmark(device="cpu", log=lambda m: None, **bench_kw)
+    return out
+
+
+def rank_entry_devices(world, eval_file: str, spool_root: str) -> dict:
+    """(a) With two cards faked (``torch.cuda.is_available`` True,
+    ``device_count`` 2) and no ``TPUJOB_PLATFORM``, the device that
+    ``generate.run``, ``serve.run`` and ``quality_eval.run`` each resolve
+    (each stopped at its ``load_params``, before anything touches a card);
+    (b) ``serve.run`` on the CPU over this rank's own spool (two requests):
+    its stats."""
+    import torch
+
+    from pytorch_operator_tpu_torch.serving import Spool
+    from pytorch_operator_tpu_torch.workloads import generate, quality_eval, serve
+
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def stop_at(tag):
+        def load_params(cfg, *, device, **kw):
+            seen[tag] = str(device)
+            raise Stop
+
+        return load_params
+
+    saved = dict(avail=torch.cuda.is_available, count=torch.cuda.device_count,
+                 gen=generate.load_params, qe=quality_eval.load_params,
+                 names=[m.device_name for m in (generate, serve, quality_eval)],
+                 platform=os.environ.pop("TPUJOB_PLATFORM"))
+    torch.cuda.is_available = lambda: True
+    torch.cuda.device_count = lambda: 2
+    for m in (generate, serve, quality_eval):
+        m.device_name = str
+    quiet = dict(log=lambda m: None)
+    calls = {
+        "generate": lambda: generate.run(config="tiny", **quiet),
+        "serve": lambda: serve.run(config="tiny", spool_dir=f"{spool_root}/faked{world.process_id}", **quiet),
+        "quality_eval": lambda: quality_eval.run(restore="unused", eval_file=eval_file, batch_size=2,
+                                                 eval_batches=1, **quiet),
+    }
+    try:
+        for tag, call in calls.items():
+            generate.load_params = quality_eval.load_params = stop_at(tag)
+            try:
+                call()
+            except Stop:
+                pass
+    finally:
+        torch.cuda.is_available, torch.cuda.device_count = saved["avail"], saved["count"]
+        generate.load_params, quality_eval.load_params = saved["gen"], saved["qe"]
+        for m, name in zip((generate, serve, quality_eval), saved["names"]):
+            m.device_name = name
+        os.environ["TPUJOB_PLATFORM"] = saved["platform"]
+    spool = f"{spool_root}/r{world.process_id}"
+    sp = Spool(spool)
+    for _ in range(2):
+        sp.submit(prompt_len=5, max_new_tokens=4)
+    stats = serve.run(config="tiny", spool_dir=spool, slots=2, chunk=8, block=4, max_decode_len=48,
+                      max_requests=2, idle_timeout=60, device="cpu", **quiet)
+    return {"seen": seen, "serve": stats}
