@@ -16,16 +16,18 @@ Phases, in order; any failure exits non-zero before the result line:
    (``scaled_dot_product_attention``, timed only) times at the generate
    prefill's shape, at the training shape, at phase 7's 1b prefill shape
    (B8 S128 H16 KH8 D128), at phase 8's training shape (B16 S1024), at
-   phase 10's (B8 S2048), at phase 11's per-rank shape (B2 S4096) and at
+   phase 10's (B8 S2048), at phase 11's per-rank shape (B2 S4096), at
    phase 12's ViT-B/16 shape (B128 S197 H12 D64, non-causal: the kernel
    alone on S padded to 256 with kv_len 197, the wrapper's time beside it,
-   SDPA on S 197), with achieved TFLOP/s and the wrapper's host time a call.
+   SDPA on S 197) and at phase 13's per-rank tp=2 shapes (0.3b B4 S2048 H4
+   KH2; Llama-3-8B B1 S2048 H16 KH4), with achieved TFLOP/s and the
+   wrapper's host time a call.
 3. The two backward kernels against their plain version
    (``flash_attention_backward_reference``) on the same padded inputs, in the
    listed cases, by ``grad_agreement`` (relative L2 error over the whole
    gradient, over its late half and per row); at the training shape, at
-   phase 8's, at phase 10's, at phase 11's and at phase 12's ViT shape each
-   kernel's time, the plain backward's, SDPA's backward on the unpadded S
+   phase 8's, at phase 10's, at phase 11's, at phase 12's ViT shape and at
+   phase 13's two tp shapes each kernel's time, the plain backward's, SDPA's backward on the unpadded S
    (timed only) and each bound (over the pairs the unpadded S needs), and each kernel's host time a call. Then the bf16 gradients of the public, differentiable
    ``flash_attention`` on the card against the plain forward and backward, at
    the training shape and at a padded one.
@@ -110,7 +112,8 @@ Phases, in order; any failure exits non-zero before the result line:
    each policy's tokens/s and peak memory over 3 timed steps; (d)
    ``quality_eval.run`` on the checkpoint (bench.py:377-382): fp, int8 and
    int8 + kv8 held-out losses through the serving path, argmax agreement
-   and drift over a 2,048-token greedy rollout, and the fp serving loss
+   and drift over a 1,024-token greedy rollout (halved for the script's
+   time budget), and the fp serving loss
    against the training path's on the same rows; (e) ``generate.run``
    with ``restore`` (bf16, then int8 + kv8) and each model's continuation
    of a held-out prompt as bytes; ``serve.run`` with ``restore`` on
@@ -128,8 +131,8 @@ Phases, in order; any failure exits non-zero before the result line:
    CUDA events; (b) on phase 8's corpus at B16 x 1024 without remat, 2
    warmup + 20 steps inline, with ``prefetch=2``, and with ``prefetch=2``,
    autotune, ``prefetch_depth_max=8`` and 2 workers: equal losses step for
-   step, tokens/s and the feed's stall and depth; (c) the inline run at half
-   depth (8 layers, 1.9 GB a step), 1 + 9 steps, with ``checkpoint_every=5`` into ``TPUJOB_CHECKPOINT_DIR`` and
+   step, tokens/s and the feed's stall and depth; (c) the inline run at 4
+   of its 16 layers (0.95 GB a step), 1 + 9 steps, with ``checkpoint_every=5`` into ``TPUJOB_CHECKPOINT_DIR`` and
    ``TPUJOB_STATUS_DIR`` set, blocking and then async: steps 5 and 10
    committed with sidecars and verified, one ``checkpoint_committed`` record
    an async save, each save's return time, the async step 10 restored equal
@@ -137,7 +140,7 @@ Phases, in order; any failure exits non-zero before the result line:
    next step); then async under an ``enospc_checkpoint_write`` plan (the
    save at 10 lost): the run finishes, a ``checkpoint_save_failed`` record,
    and without the run's final save the restore falls back to step 5; (d)
-   ``python -m ...llama_train`` subprocesses at 8 layers, B4 x 1024, checkpoints every
+   ``python -m ...llama_train`` subprocesses at 4 layers, B4 x 1024, checkpoints every
    4, ``--preempt-at 6 --max-steps 10``: exit 138 with "injected
    preemption", then with ``TPUJOB_RESTART_COUNT=1`` a resume at step 4 to
    10, its losses equal an uninterrupted run's bit for bit; (e) (run last)
@@ -177,7 +180,8 @@ Phases, in order; any failure exits non-zero before the result line:
    backend and card, and each collective of ``parallel/collectives.py`` on
    CUDA tensors against its value; (b) ``workloads.smoke_dist`` in both
    ranks, both exit 0; (c) ``llama_train.run`` at ``llama_0_3b`` full width
-   and depth, global batch 4 x 4096, AdamW, clip 1.0, 1 warmup + 5 steps:
+   and 4 of its 16 layers (the budget of phase 13), global batch 4 x 4096,
+   AdamW, clip 1.0, 1 warmup + 5 steps:
    one process in this one, then two ranks with ``mesh_spec="fsdp=2"`` and
    ``"dp=2"``, each rank's flash launches read from its result (each kernel
    once a layer a step): the two-rank losses within ``DIST_LOSS_ATOL`` of the
@@ -222,7 +226,29 @@ Phases, in order; any failure exits non-zero before the result line:
    replica: launch -> first step and its phases; (g) (run last) one profiled
    training step of each model, the card's busy time split into convs,
    batch norm and elementwise ops, GEMMs and attention.
-13. One ``{"kernels": [...]}`` line, the card's line, and as the last line
+13. Tensor parallelism and adafactor under a mesh, ranks sharing
+   ``cuda:0`` over gloo as in phase 11 (several runs in one world of
+   ranks), each rank's flash launches read from its result (each kernel
+   once a layer a step, the forward twice under remat): (a) ``llama_0_3b``
+   at tp=2, B4 x 2048, AdamW, 1 + 3 steps, against one process: losses
+   within ``TP_LOSS_ATOL``, a planted fault (tp's leave written with
+   ``psum_autograd``, whose backward sums too) above it, each rank's
+   parameter bytes exactly its blocks plus the whole norms, peak memory
+   and step time; (b) ``llama_0_3b`` at 4 of its 16 layers, fsdp=2 with
+   adafactor, f32 and bf16 parameters, against one process's adafactor: losses within
+   ``TP_LOSS_ATOL``, each rank's state a part of one process's, and the
+   moves of two tensors whose row statistics fsdp splits within
+   ``TP_ADA_MOVE_RTOL`` of one process's, a planted fault (the row
+   statistics left unreduced over fsdp) above it; (c) ``llama_0_3b`` at 4
+   layers on four ranks, fsdp=2,tp=2, 1 + 1 steps, the ranks' coordinates,
+   its checkpoint restored by one process equal (a digest) to the ranks'
+   gathered parameters; (d) Llama-3-8B's full width (d_model 4096, 32
+   layers, 32/8 heads, d_ff 14336, vocab 128256) at tp=2, bf16
+   parameters, adafactor, remat ``full``, B1 x 2048, 1 + 2 steps: finite
+   losses, the first within ``TP_8B_FIRST_LOSS_ATOL`` of ln 128256,
+   ``params_m`` 8030.3, 8,031,059,968 parameter bytes a rank, peak memory
+   and step time.
+14. One ``{"kernels": [...]}`` line, the card's line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -274,6 +300,10 @@ DIST_SHAPE = ("dist", 2, 4096, 8, 4, 128, True, None, "bfloat16")
 # 256 for the kernels, the padded keys masked through kv_len 197), 12 heads
 # of 64, non-causal. Its bounds count the 197 x 197 pairs the data needs.
 VIT_SHAPE = ("vit", 128, 197, 12, 12, 64, False, None, "bfloat16")
+# One tp=2 rank's attention (phase 13): 0.3b at B4 x 2048 holds 4 of the 8
+# heads and 2 of the 4 kv heads; Llama-3-8B at B1 x 2048 16 of 32 and 4 of 8.
+TP_SHAPE = ("tp", 4, 2048, 4, 2, 128, True, None, "bfloat16")
+TP8B_SHAPE = ("tp8b", 1, 2048, 16, 4, 128, True, None, "bfloat16")
 EDGE_CASES = [
     ("S192_causal", 2, 192, 8, 4, 128, True, None, "bfloat16"),
     ("S64_one_tile", 2, 64, 8, 4, 128, True, None, "bfloat16"),
@@ -292,6 +322,8 @@ FLASH_CASES = [
     MOE_SHAPE,
     DIST_SHAPE,
     VIT_SHAPE,
+    TP_SHAPE,
+    TP8B_SHAPE,
     ("unaligned_S500", 8, 500, 8, 4, 128, True, None, "bfloat16"),
     ("kv_len_noncausal", 4, 512, 8, 4, 128, False, 300, "bfloat16"),
     ("G1", 4, 256, 8, 8, 128, True, None, "bfloat16"),
@@ -319,6 +351,8 @@ BWD_CASES = [
     MOE_SHAPE,
     DIST_SHAPE,
     VIT_SHAPE,
+    TP_SHAPE,
+    TP8B_SHAPE,
     ("unaligned_S500", 2, 500, 8, 4, 128, True, None, "bfloat16"),
     ("kv_len_noncausal", 2, 512, 8, 4, 128, False, 300, "bfloat16"),
     ("G1", 2, 256, 8, 8, 128, True, None, "bfloat16"),
@@ -522,7 +556,7 @@ def phase_flash_vs_plain():
         )
         if not a["ok"]:
             _fail(f"flash_fwd disagrees with its plain version in case {name}")
-        if name in ("slice", "train", "prefill_1b", "journey", "moe", "dist", "vit"):
+        if name in ("slice", "train", "prefill_1b", "journey", "moe", "dist", "vit", "tp", "tp8b"):
             qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             call = functools.partial(fa.flash_attention_with_lse, q, k, v, causal=causal, kv_len=kv_len)
             wrapper_ms = None
@@ -613,7 +647,7 @@ def phase_backward_vs_plain():
             for gname, g, r in zip(("dq", "dk", "dv"), grads, refs)
         }
         del refs
-        if name not in ("train", "journey", "moe", "dist", "vit"):
+        if name not in ("train", "journey", "moe", "dist", "vit", "tp", "tp8b"):
             continue
         lse_c, delta = lse.contiguous(), fa.bwd_delta(o, do)
         kin = (q, k, v, do, lse_c, delta)
@@ -1632,7 +1666,7 @@ JOURNEY_TRAIN = dict(
     remat_policy="dots", donate=True, checkpoint_every=80,
 )
 JOURNEY_QUALITY = dict(
-    config="0.3b", eval_batches=2, batch_size=8, chunk=128, drift_tokens=2048,
+    config="0.3b", eval_batches=2, batch_size=8, chunk=128, drift_tokens=1024,
     drift_window=256, drift_prompt=128,
 )
 # Held-out loss below chance (ln 256 = 5.545) less one nat: bench.py's
@@ -2182,13 +2216,14 @@ REST_SHAPE = dict(config="0.3b", batch_size=4, seq_len=4096, warmup=1, steps=3)
 ADAFACTOR_LR = 1e-2
 # The journey's shape (B16 x S1024) without remat, on phase 8's corpus.
 FEED_RUN = dict(config="0.3b", batch_size=16, seq_len=JOURNEY_S, warmup=2, steps=20)
-# Phase 9(c) at half depth (8 of 0.3b's 16 layers): 1.9 GB a step in place of
-# 3.8 GB, the same blocking, async and enospc checks.
-CKPT_LAYERS = 8
+# Phase 9(c) at a quarter of the depth (4 of 0.3b's 16 layers):
+# 0.95 GB a step in place of 3.8 GB, the same blocking, async and enospc
+# checks (the script's time budget, PERF.md §7).
+CKPT_LAYERS = 4
 CKPT_RUN = dict(config="0.3b", batch_size=16, seq_len=JOURNEY_S, warmup=1, steps=9,
                 checkpoint_every=5, n_layers=CKPT_LAYERS)
-# Phase 9(d) at half depth too (8 layers: 1.9 GB saves).
-PREEMPT_ARGV = ["--config", "0.3b", "--layers", "8", "--batch-size", "4", "--seq-len", "1024",
+# Phase 9(d) at 4 layers too (0.95 GB saves).
+PREEMPT_ARGV = ["--config", "0.3b", "--layers", "4", "--batch-size", "4", "--seq-len", "1024",
                 "--checkpoint-every", "4", "--max-steps", "10", "--json"]
 # One adafactor update on the card against the same update on the CPU, from
 # the same parameters, statistics and gradients, in f32: each tensor's
@@ -2479,7 +2514,7 @@ def _rest_async_checkpoint(kernels, train_f, td):
 
 
 def _rest_preemption(td):
-    """(d) llama_train as a subprocess on the card: 0.3b width at 8 layers,
+    """(d) llama_train as a subprocess on the card: 0.3b width at 4 layers,
     B4 x S1024, checkpoints every 4 steps, preempted at 6 on the first life (exit 138),
     resumed at 4 on the second, ending at 10 with the losses of an
     uninterrupted run bit for bit."""
@@ -2883,7 +2918,9 @@ def _profile_moe_step():
 # of one communicator on one GPU, so the ranks share cuda:0 over gloo
 # (runtime/rendezvous.choose_backend): this proves the multi-process path
 # with the real kernels in every rank, and measures no scaling.
-DIST_RUN = dict(config="0.3b", batch_size=4, seq_len=4096, warmup=1, steps=5, grad_clip=1.0)
+# At 4 of 0.3b's 16 layers (the script's time budget; PERF.md §7).
+DIST_RUN = dict(config="0.3b", batch_size=4, seq_len=4096, warmup=1, steps=5, grad_clip=1.0,
+                n_layers=4)
 # The fsdp=2 run saves asynchronously at step 4 and blocking at its end (6).
 DIST_CKPT_EVERY = 4
 # The two-rank runs' losses against the one-process run of the same global
@@ -2959,20 +2996,20 @@ def _run_world(argv, tag: str, n: int = 2, env=None) -> list:
     return outs
 
 
-def _rank_world(task: str, tag: str, env=None, **kw) -> list:
-    """A world of two ranks of this script (``--rank task``), each writing
+def _rank_world(task: str, tag: str, env=None, n: int = 2, **kw) -> list:
+    """A world of ``n`` ranks of this script (``--rank task``), each writing
     its output as JSON; the outputs in rank order."""
     import tempfile
     from pathlib import Path
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_rank_") as td:
         argv = [sys.executable, __file__, "--rank", task, json.dumps(dict(kw, out=td))]
-        _run_world(argv, tag, env=env)
-        return [json.loads((Path(td) / f"r{r}.json").read_text()) for r in range(2)]
+        _run_world(argv, tag, n=n, env=env)
+        return [json.loads((Path(td) / f"r{r}.json").read_text()) for r in range(n)]
 
 
 def _rank_main(task: str, kw: dict) -> int:
-    """One rank of a phase-11 or phase-12 world: join from the env, run
+    """One rank of a phase-11, 12 or 13 world: join from the env, run
     ``task``, write this rank's output, leave through
     ``rendezvous.finalize``."""
     from pathlib import Path
@@ -2988,6 +3025,15 @@ def _rank_main(task: str, kw: dict) -> int:
            "device_name": device_name(dev)}
     if task == "probe":
         out.update(_rank_probe(world, dev))
+    elif task == "runs":
+        # Phase 13: several llama_train runs in one world, each under its
+        # planted fault if it names one.
+        out["runs"] = []
+        for run_kw in kw["runs"]:
+            run_kw = dict(run_kw)
+            with _planted(run_kw.pop("plant", None)):
+                out["runs"].append(_rank_train(run_kw))
+            torch.cuda.empty_cache()
     elif task == "resnet":
         from pytorch_operator_tpu_torch.models import resnet
         from pytorch_operator_tpu_torch.workloads import resnet_bench
@@ -3036,13 +3082,25 @@ def _rank_probe(world, dev) -> dict:
 def _rank_train(kw: dict) -> dict:
     """``llama_train.run`` on the card (this rank's device); with
     ``digest`` a blake2b of the trained parameters gathered from the shards
-    (``sharding.full_tensor``), in state-dict order."""
+    (``sharding.full_tensor``), in state-dict order; with ``save`` (a file
+    name and tensor names) rank 0 writes those gathered tensors there."""
     from pytorch_operator_tpu_torch.workloads import llama_train
 
     kw = {k: v for k, v in kw.items() if k != "out"}
     want_digest = kw.pop("digest", False)
-    r = llama_train.run(log=_log, keep_params=want_digest, **kw)
-    return {"result": r, **({"params": _params_digest(r.pop("params").items())} if want_digest else {})}
+    save = kw.pop("save", None)
+    r = llama_train.run(log=_log, keep_params=want_digest or save is not None, **kw)
+    params = r.pop("params", None)
+    out = {"result": r}
+    if want_digest:
+        out["params"] = _params_digest(params.items())
+    if save is not None:
+        import torch
+        import torch.distributed as dist
+
+        if dist.get_rank() == 0:
+            torch.save({name: params[name] for name in save[1]}, save[0])
+    return out
 
 
 def _params_digest(named) -> str:
@@ -3092,7 +3150,7 @@ def phase_dist(kernels):
     from pytorch_operator_tpu_torch.workloads import llama_train
 
     torch.cuda.empty_cache()
-    n_layers = llama_lib.llama_0_3b().n_layers
+    n_layers = DIST_RUN.get("n_layers", llama_lib.llama_0_3b().n_layers)
     total = DIST_RUN["warmup"] + DIST_RUN["steps"]
     t0 = time.perf_counter()
     for out in _rank_world("probe", "(a) collectives"):
@@ -3709,6 +3767,294 @@ def phase_image(kernels):
     return _profile_image_steps
 
 
+# Phase 13: tensor parallelism and adafactor under a mesh. Two (in (c) four)
+# ranks share cuda:0 over gloo, as in phase 11: the path and its numerics,
+# not scaling. Each world runs its runs in one pair of processes.
+TP_RUN = dict(config="0.3b", batch_size=4, seq_len=2048, warmup=1, steps=3)
+# (b) at 4 of 0.3b's 16 layers: gloo's fsdp=2 traffic is the step (the
+# budget of the script; PERF.md §7).
+TP_ADA_RUN = dict(TP_RUN, optimizer="adafactor", lr=ADAFACTOR_LR, n_layers=4)
+TP_FOUR_RUN = dict(config="0.3b", n_layers=4, batch_size=4, seq_len=2048, warmup=1, steps=1)
+TP_8B_RUN = dict(config="8b", batch_size=1, seq_len=2048, warmup=1, steps=2, param_dtype="bfloat16",
+                 optimizer="adafactor", lr=ADAFACTOR_LR, remat=True, remat_policy="full")
+# The world's losses against one process's over every step, in nats (the
+# largest absolute difference), for (a) and (b). Readings on the NVIDIA H100
+# 80GB HBM3 at 700 W: tp=2 2.7e-4, fsdp=2 adafactor 3.7e-4 (f32) and 7.8e-4
+# (bf16); the planted leave fault 4.67.
+TP_LOSS_ATOL = 5e-3
+# (b): the parameters adafactor moves, against one process's: the relative
+# L2 error of the move of the tensors below (their row statistics are split
+# by fsdp), held between the sound reading and the planted unreduced-row
+# fault's on the card (the losses of four steps barely show that fault:
+# the row factor is normalised by its own mean). Readings on the NVIDIA
+# H100 80GB HBM3 at 700 W: sound 5.9e-3 at 16 layers, 3.3e-3 at 8; the
+# fault 3.9e-2 and 4.1e-2.
+TP_ADA_TENSORS = ["lm_head.weight", "layers.0.mlp.gate_proj.weight"]
+TP_ADA_MOVE_RTOL = 1.5e-2
+# (d): the first loss of random weights sits near ln V (the head's logits
+# have about unit variance, which adds about half a nat).
+TP_8B_FIRST_LOSS_ATOL = 1.0
+
+
+def _planted(name):
+    """A context in which a planted fault replaces the port's code (None:
+    none), as ``tests/torch_worlds.planted`` plants it on the CPU (the card's
+    machine has its own ``tests`` package, so this script keeps a copy):
+    ``"leave_psum_autograd"``, tp's leave whose backward sums over tp too
+    (every gradient upstream multiplied by tp); ``"unreduced_rows"``,
+    adafactor's row statistics left unreduced over the axes that split the
+    dim they reduce."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def patch():
+        if name is None:
+            yield
+            return
+        from pytorch_operator_tpu_torch.parallel import collectives
+        from pytorch_operator_tpu_torch.workloads import trainer
+
+        if name == "leave_psum_autograd":
+            where, attr = collectives, "tp_leave"
+            fault = lambda x, axis="tp", mesh=None: collectives.psum_autograd(x, axis, mesh)  # noqa: E731
+        elif name == "unreduced_rows":
+            where, attr = trainer.Adafactor, "_mean"
+            sound = trainer.Adafactor._mean
+
+            def fault(self, x, dims, lay, leaf_dims, keepdim=False):
+                factored = trainer._factored_dims(lay.whole)
+                if factored is not None and list(leaf_dims) == [factored[1]] and not keepdim:
+                    return x.mean(dims)
+                return sound(self, x, dims, lay, leaf_dims, keepdim)
+        else:
+            raise ValueError(f"no planted fault {name!r}")
+        saved = getattr(where, attr)
+        setattr(where, attr, fault)
+        try:
+            yield
+        finally:
+            setattr(where, attr, saved)
+
+    return patch()
+
+
+def _tp_bytes(config: str, param_dtype: str, tp: int) -> tuple:
+    """``(params, bytes a rank)`` of ``config`` under ``tp``: the split
+    tensors' share plus the whole norms (f32), from a model on the meta
+    device."""
+    import torch
+
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+    from pytorch_operator_tpu_torch.parallel.sharding import tp_dim
+
+    cfg = getattr(llama_lib, llama_lib.CONFIGS[config])(param_dtype=getattr(torch, param_dtype))
+    model = llama_lib.Llama(cfg, device="meta")
+    total = sum(p.numel() for p in model.parameters())
+    mine = sum(p.numel() * p.element_size() // (tp if tp_dim(n) is not None else 1)
+               for n, p in model.named_parameters())
+    return total, mine
+
+
+def _seeded_tensors(config: str, n_layers: int, names) -> dict:
+    """``names``' tensors of ``llama_train``'s seed-0 init of ``config``
+    at ``n_layers`` on the card, as CPU tensors."""
+    import torch
+
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+
+    cfg = getattr(llama_lib, llama_lib.CONFIGS[config])(n_layers=n_layers)
+    model = llama_lib.Llama(cfg, device="cuda")
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    sd = model.state_dict()
+    out = {name: sd[name].detach().cpu() for name in names}
+    del model, sd
+    torch.cuda.empty_cache()
+    return out
+
+
+def _move_error(got: dict, want: dict, init: dict) -> float:
+    """The largest over the tensors of ``||got − want|| / ||want − init||``:
+    how far a run's parameter moves are from the reference's."""
+    return max(float((got[n].float() - want[n].float()).norm() / (want[n].float() - init[n].float()).norm())
+               for n in want)
+
+
+def _loss_gap(a, b) -> float:
+    return max(abs(x - y) for x, y in zip(a, b))
+
+
+def _tp_launches(kernels, path: str, results, total_steps: int, n_layers: int, remat: bool) -> None:
+    """Each rank launched each kernel once a layer a step (the forward
+    twice under remat); the ranks' sum into the kernels line under
+    ``path``."""
+    want = {k: v * total_steps for k, v in _per_step(n_layers, remat).items()}
+    summed = {k: 0 for k in want}
+    for r in results:
+        if r["flash_launches"] != want:
+            _fail(f"tp {path}: rank {r['rank']} launched {r['flash_launches']}, expected {want}")
+        for k, v in r["flash_launches"].items():
+            summed[k] += v
+    _record_launches(kernels, path, summed)
+
+
+def _tp_describe(tag: str, r: dict) -> None:
+    per = r["per_rank"]
+    _log(
+        f"tp {tag}: mesh {r['mesh']}, {r['value'] * r['world']:.1f} tokens/s over {r['world']} ranks "
+        f"sharing one card, step {r['step_s']:.4f} s, losses {[round(x, 5) for x in r['losses']]}; per "
+        f"rank (data, tp) {[(q['data_index'], q['tp_index']) for q in per]}, param bytes "
+        f"{[q['param_bytes'] for q in per]}, optimizer bytes {[q['optimizer_state_bytes'] for q in per]}, "
+        f"peak memory GiB {[round((q['peak_mem_bytes'] or 0) / 2**30, 2) for q in per]}"
+    )
+
+
+def phase_tp(kernels):
+    """Phase 13: (a) 0.3b at tp=2 against one process, and the planted
+    leave fault; (b) 0.3b at fsdp=2 with adafactor in f32 and bf16 against
+    one process's adafactor, and the planted unreduced-row fault; (c) 0.3b
+    at 4 layers on four ranks, fsdp=2,tp=2, its checkpoint restored by one
+    process; (d) Llama-3-8B's full width at tp=2, bf16, adafactor, remat.
+    The kernels at the per-rank shapes (B4 S2048 H4 KH2, B1 S2048 H16 KH4)
+    are held and timed in phases 2-3."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from pytorch_operator_tpu_torch.checkpoint import CheckpointManager
+    from pytorch_operator_tpu_torch.ops import flash_attention as fa
+    from pytorch_operator_tpu_torch.workloads import llama_train
+
+    torch.cuda.empty_cache()
+    total = TP_RUN["warmup"] + TP_RUN["steps"]
+    n_layers = 16
+
+    # (a) tp=2, AdamW, against one process; the planted leave fault. The
+    # same world of two ranks runs (d) after them.
+    t0 = time.perf_counter()
+    fa.reset_launch_count()
+    one = llama_train.run(device="cuda", log=_log, **TP_RUN)
+    _record_launches(kernels, "tp_one_process", fa.launch_counts())
+    torch.cuda.empty_cache()
+    tp_world = _rank_world("runs", "(a), (d) tp=2", runs=[
+        dict(TP_RUN, mesh_spec="tp=2"), dict(TP_RUN, mesh_spec="tp=2", plant="leave_psum_autograd"),
+        dict(TP_8B_RUN, mesh_spec="tp=2"),
+    ])
+    sound, fault = (tp_world[0]["runs"][i]["result"] for i in (0, 1))
+    _tp_describe("(a) tp=2", sound)
+    _tp_launches(kernels, "tp_0.3b_tp2", sound["per_rank"], total, n_layers, remat=False)
+    gap, fault_gap = _loss_gap(sound["losses"], one["losses"]), _loss_gap(fault["losses"], one["losses"])
+    n_params, want_bytes = _tp_bytes("0.3b", "float32", 2)
+    _log(
+        f"tp (a): one process {[round(x, 5) for x in one['losses']]}, step {one['step_s']:.4f} s, "
+        f"param bytes {one['param_bytes']}, peak {(one['peak_mem_bytes'] or 0) / 2**30:.2f} GiB; "
+        f"tp=2 losses within {gap:.3e} (limit {TP_LOSS_ATOL:.0e}); planted leave fault "
+        f"{fault_gap:.3e} ({[round(x, 5) for x in fault['losses']]}); param bytes a rank want "
+        f"{want_bytes}; {time.perf_counter() - t0:.1f} s"
+    )
+    if gap > TP_LOSS_ATOL or fault_gap <= TP_LOSS_ATOL:
+        _fail(f"tp (a): tp=2 losses {gap:.3e} from one process's, the leave fault {fault_gap:.3e} "
+              f"(limit {TP_LOSS_ATOL:.0e})")
+    if any(q["param_bytes"] != want_bytes for q in sound["per_rank"]) or (
+        sound["world"], sound["backend"], sound["mesh"]) != (2, "gloo", {"tp": 2}):
+        _fail(f"tp (a): per-rank bytes, world, backend or mesh wrong: {sound['per_rank']}")
+
+    # (b) fsdp=2 with adafactor, f32 and bf16, against one process's; the
+    # planted unreduced-row fault, read on two tensors whose row statistics
+    # fsdp splits (the head's over the vocabulary, gate's over d_ff).
+    t0 = time.perf_counter()
+    ones = {}
+    for dtype in ("float32", "bfloat16"):
+        fa.reset_launch_count()
+        ones[dtype] = llama_train.run(device="cuda", log=_log, param_dtype=dtype,
+                                      keep_params=dtype == "float32", **TP_ADA_RUN)
+        _record_launches(kernels, f"tp_adafactor_one_{dtype}", fa.launch_counts())
+        torch.cuda.empty_cache()
+    whole = ones["float32"].pop("params")
+    one_params = {name: whole[name] for name in TP_ADA_TENSORS}
+    del whole
+    init = _seeded_tensors("0.3b", TP_ADA_RUN["n_layers"], TP_ADA_TENSORS)
+    tdb = tempfile.mkdtemp(prefix="chip_smoke_tp_b_")
+    try:
+        outs = _rank_world("runs", "(b) fsdp=2 adafactor", runs=[
+            dict(TP_ADA_RUN, mesh_spec="fsdp=2", param_dtype="float32",
+                 save=[f"{tdb}/sound.pt", TP_ADA_TENSORS]),
+            dict(TP_ADA_RUN, mesh_spec="fsdp=2", param_dtype="bfloat16"),
+            dict(TP_ADA_RUN, mesh_spec="fsdp=2", param_dtype="float32", plant="unreduced_rows",
+                 save=[f"{tdb}/fault.pt", TP_ADA_TENSORS]),
+        ])
+        moved = {tag: _move_error(torch.load(f"{tdb}/{tag}.pt"), one_params, init)
+                 for tag in ("sound", "fault")}
+    finally:
+        shutil.rmtree(tdb, ignore_errors=True)
+    _log(f"tp (b): the parameters' moves against one process's, relative L2 (largest of "
+         f"{TP_ADA_TENSORS}): sound {moved['sound']:.3e}, planted unreduced rows "
+         f"{moved['fault']:.3e} (limit {TP_ADA_MOVE_RTOL:.1e})")
+    if moved["sound"] > TP_ADA_MOVE_RTOL or moved["fault"] <= TP_ADA_MOVE_RTOL:
+        _fail(f"tp (b): the moves differ from one process's by {moved['sound']:.3e}, the fault's "
+              f"by {moved['fault']:.3e} (limit {TP_ADA_MOVE_RTOL:.1e})")
+    runs = [r["result"] for r in outs[0]["runs"]]
+    for dtype, r in zip(("float32", "bfloat16"), runs):
+        _tp_describe(f"(b) fsdp=2 adafactor {dtype}", r)
+        _tp_launches(kernels, f"tp_adafactor_fsdp2_{dtype}", r["per_rank"], total,
+                     TP_ADA_RUN["n_layers"], remat=False)
+        g = _loss_gap(r["losses"], ones[dtype]["losses"])
+        _log(f"tp (b) {dtype}: one process {[round(x, 5) for x in ones[dtype]['losses']]}, state "
+             f"bytes {ones[dtype]['optimizer_state_bytes']}; fsdp=2 within {g:.3e} (limit "
+             f"{TP_LOSS_ATOL:.0e})")
+        if g > TP_LOSS_ATOL:
+            _fail(f"tp (b) {dtype}: fsdp=2 adafactor losses {g:.3e} from one process's")
+        if not all(0 < q["optimizer_state_bytes"] < ones[dtype]["optimizer_state_bytes"] for q in r["per_rank"]):
+            _fail(f"tp (b) {dtype}: a rank's adafactor state is not a part of one process's")
+    fault_gap = _loss_gap(runs[2]["losses"], ones["float32"]["losses"])
+    _log(f"tp (b): planted unreduced-row fault's losses {fault_gap:.3e} from one process's "
+         f"({[round(x, 5) for x in runs[2]['losses']]}); {time.perf_counter() - t0:.1f} s")
+
+    # (c) four ranks, fsdp=2,tp=2, at 4 layers; the checkpoint restored by
+    # one process.
+    t0 = time.perf_counter()
+    td = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    try:
+        ck = Path(td) / "ck"
+        outs = _rank_world("runs", "(c) fsdp=2,tp=2", n=4, env={"TPUJOB_CHECKPOINT_DIR": str(ck)},
+                           runs=[dict(TP_FOUR_RUN, mesh_spec="fsdp=2,tp=2", digest=True,
+                                      checkpoint_every=1000)])
+        r = outs[0]["runs"][0]["result"]
+        _tp_describe("(c) fsdp=2,tp=2", r)
+        four_total = TP_FOUR_RUN["warmup"] + TP_FOUR_RUN["steps"]
+        _tp_launches(kernels, "tp_0.3b_fsdp2_tp2", r["per_rank"], four_total, 4, remat=False)
+        step, params = CheckpointManager(ck, create=False).restore_subtree("params")
+        restored = _params_digest(params.items())
+        del params
+        digests = {o["runs"][0]["params"] for o in outs}
+        _log(f"tp (c): step {step} restored by one process, digest {restored}; the four ranks' "
+             f"gathered parameters {sorted(digests)}; {time.perf_counter() - t0:.1f} s")
+        if step != four_total or digests != {restored}:
+            _fail("tp (c): the one-process restore differs from the ranks' gathered parameters")
+        if [(q["data_index"], q["tp_index"]) for q in r["per_rank"]] != [(0, 0), (0, 1), (1, 0), (1, 1)]:
+            _fail(f"tp (c): rank coordinates {r['per_rank']}")
+    finally:
+        shutil.rmtree(td, ignore_errors=True)
+
+    # (d) Llama-3-8B's full width at tp=2 (run in (a)'s world).
+    t0 = time.perf_counter()
+    r = tp_world[0]["runs"][2]["result"]
+    _tp_describe("(d) Llama-3-8B tp=2", r)
+    total_8b = TP_8B_RUN["warmup"] + TP_8B_RUN["steps"]
+    _tp_launches(kernels, "tp_8b_tp2", r["per_rank"], total_8b, 32, remat=True)
+    n_8b, want_8b = _tp_bytes("8b", "bfloat16", 2)
+    first = r["losses"][0]
+    _log(f"tp (d): params_m {r['params_m']} (whole model {n_8b}), first loss {first:.4f} against ln "
+         f"128256 = {math.log(128256):.4f}, param bytes a rank want {want_8b}; "
+         f"{time.perf_counter() - t0:.1f} s")
+    if not all(math.isfinite(x) for x in r["losses"]) or abs(first - math.log(128256)) > TP_8B_FIRST_LOSS_ATOL:
+        _fail(f"tp (d): losses {r['losses']}")
+    if r["params_m"] != round(n_8b / 1e6, 1) or any(q["param_bytes"] != want_8b for q in r["per_rank"]):
+        _fail(f"tp (d): params_m {r['params_m']} or per-rank bytes {r['per_rank']}")
+    return None
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = phase_identity_and_build()
@@ -3718,7 +4064,7 @@ def main() -> int:
     # a profiler session.
     profiles = []
     for phase in (phase_generate, phase_train, phase_serve, phase_int8, phase_journey, phase_rest,
-                  phase_moe, phase_dist, phase_image):
+                  phase_moe, phase_dist, phase_image, phase_tp):
         t0 = time.perf_counter()
         profiles.append(phase(kernels))
         _log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")

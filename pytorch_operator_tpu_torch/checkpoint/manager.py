@@ -22,17 +22,19 @@ the JAX package cannot restore, nor the port an orbax step.
 
 **A world of more than one process** (``num_processes`` > 1): every rank
 writes its own part of a step into the shared directory,
-``<root>/<step>/<key>.r<rank>.pt``, where each DTensor (an FSDP2 shard) is
-a record of its local rows, their offset along dim 0 and the global shape;
-a shard replicated over ``dp`` is written by the rank at coordinate 0 of
-that axis only. The step is fenced (``<step>.inflight``) by every rank
+``<root>/<step>/<key>.r<rank>.pt``, where each DTensor (an FSDP2 shard) and
+each :class:`~..parallel.sharding.Block` (a tp block, FSDP2's rows of it,
+an optimizer statistic's block) is a record of its local part, its offset
+on every dim and the global shape; a part that several ranks hold (over
+``dp``, or over ``tp`` for a replicated tensor) is written by the rank at
+coordinate 0 of those axes only. The step is fenced (``<step>.inflight``) by every rank
 before its first byte, and the primary (rank 0) writes ``meta.json`` (with
 the world size) and, only after the ``written`` barrier of
 :func:`~.multihost.make_multihost_commit` (every rank's files durable), the
 sidecar, which clears the fence: blocking or asynchronous alike. Restore
-memory-maps the ranks' files and, for a DTensor in the caller's
-``state_like``, copies only the rows this rank holds in the new layout out
-of the records that overlap them (a rank reads its share of the step, not
+memory-maps the ranks' files and, for a DTensor or a Block in the caller's
+``state_like``, copies only the block this rank holds in the new layout out
+of the records that overlap it (a rank reads its share of the step, not
 the whole of it); elsewhere it assembles the whole tensor. A step restores
 at any world size, a single process included.
 
@@ -47,6 +49,7 @@ step and the step files are touched by one thread at a time.
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 from pathlib import Path
@@ -56,14 +59,16 @@ import torch
 
 from .. import faults, obs
 from ..backoff import Backoff, retry_call
+from ..parallel.sharding import Block
 from ..runtime.rendezvous import report, report_checkpoint_committed
 from . import integrity
 from .async_writer import AsyncCheckpointWriter, snapshot_to_host, stage_mutable_leaves
 from .multihost import make_multihost_commit
 
 FORMAT = "torch.save"
-# The key of a DTensor's record in a rank's file: its local rows (or None
-# where another rank writes the same rows), "offset" and "shape".
+# The key of a part's record in a rank's file: its local block (or None
+# where another rank writes the same block), "offset" (one a dim; a bare
+# int, dim 0's, in steps written before tp) and "shape".
 SHARD = "__shard__"
 # Each wait of a multi-process commit's barrier: a step whose ranks have
 # not all written their files by then is not committed.
@@ -96,9 +101,10 @@ def _shape(v) -> tuple:
 
 def _check_like(key: str, got, like) -> None:
     """Raise ValueError when a restored flat tensor dict (or one rank's
-    records of it) does not have the names and shapes of ``like`` (what the
-    caller will load it into)."""
-    if not (isinstance(like, dict) and like and all(isinstance(v, torch.Tensor) for v in like.values())):
+    records of it) does not have the names and (whole) shapes of ``like``
+    (what the caller will load it into)."""
+    if not (isinstance(like, dict) and like
+            and all(isinstance(v, (torch.Tensor, Block)) for v in like.values())):
         return
     for name in sorted(set(like) | set(got)):
         a, b = got.get(name), like.get(name)
@@ -110,39 +116,18 @@ def _check_like(key: str, got, like) -> None:
             )
 
 
-def _shard_rows(shape, mesh, placements) -> tuple:
-    """``(offset, rows)``: the rows of dim 0 this rank holds of a DTensor of
-    global ``shape`` laid out as ``placements`` on ``mesh``: FSDP2's
-    ``Shard(0)`` takes ``torch.chunk``'s blocks (ceil-sized, the last ones
-    short or empty), a ``Replicate`` dimension takes them all."""
-    offset, rows = 0, int(shape[0])
-    for i, pl in enumerate(placements):
-        if pl.is_shard():
-            if pl.dim != 0:
-                raise NotImplementedError(f"checkpointing a Shard({pl.dim}) layout (only dim 0)")
-            chunk = -(-rows // mesh.size(i))
-            start = min(mesh.get_local_rank(i) * chunk, rows)
-            offset, rows = offset + start, min(start + chunk, rows) - start
-    return offset, rows
-
-
 def _rank_part(tree):
-    """The tree this rank writes: each DTensor becomes a :data:`SHARD`
-    record of its local rows (a view: the snapshot copies it), or of None
-    where a rank at a lower coordinate of a replicated mesh dimension holds
-    the same rows."""
+    """The tree this rank writes: each DTensor and each Block becomes a
+    :data:`SHARD` record of its local part (a view: the snapshot copies
+    it), or of None where a rank at a lower coordinate of the axes that
+    hold the same part writes it."""
     from torch.distributed.tensor import DTensor
 
     if isinstance(tree, DTensor):
-        mesh, placements = tree.device_mesh, tree.placements
-        offset, rows = _shard_rows(tree.shape, mesh, placements)
-        local = tree.to_local()
-        if local.shape[0] != rows:
-            raise ValueError(f"a DTensor's local rows {local.shape[0]} are not its layout's {rows}")
-        writes = all(
-            mesh.get_local_rank(i) == 0 for i, pl in enumerate(placements) if pl.is_replicate()
-        )
-        return {SHARD: local if writes else None, "offset": offset, "shape": list(tree.shape)}
+        tree = Block.of(tree)
+    if isinstance(tree, Block):
+        return {SHARD: tree.data if tree.writer else None, "offset": list(tree.offsets),
+                "shape": list(tree.shape)}
     if isinstance(tree, dict):
         return {k: _rank_part(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -150,48 +135,56 @@ def _rank_part(tree):
     return tree
 
 
+def _offsets(rec) -> list:
+    """A record's offset on every dim (a bare int is dim 0's)."""
+    a = rec["offset"]
+    return list(a) if isinstance(a, (list, tuple)) else [a] + [0] * (len(rec["shape"]) - 1)
+
+
 def _rows(trees, like):
     """The value of one tensor from the ranks' trees of a step: each a
     :data:`SHARD` record, or (a single-process step) the whole tensor. For a
-    DTensor ``like``, this rank's rows of its layout as a DTensor on
-    ``like``'s device; else the whole tensor. Only the records that overlap
-    those rows are read, and every row must be covered by one (or
+    DTensor or a Block ``like``, this rank's block of its layout (a DTensor
+    on ``like``'s device where ``like`` holds one, else a CPU tensor);
+    otherwise the whole tensor. Only the records that overlap that block
+    are read, and every element of it must be covered by one (or
     ValueError)."""
     from torch.distributed.tensor import DTensor
 
     recs = [t if isinstance(t, dict) else {SHARD: t, "offset": 0, "shape": list(t.shape)} for t in trees]
-    shape = recs[0]["shape"]
-    sharded = isinstance(like, DTensor)
-    start, rows = (
-        _shard_rows(like.shape, like.device_mesh, like.placements) if sharded else (0, shape[0])
-    )
-    out, spans = None, []
+    shape = list(recs[0]["shape"])
+    if isinstance(like, DTensor):
+        like = Block.of(like)
+    if isinstance(like, Block):
+        start, size = list(like.offsets), list(like.data.shape)
+    else:
+        start, size = [0] * len(shape), shape
+    out, covered = None, 0
     for rec in recs:
         local = rec[SHARD]
         if local is None:
             continue
         if out is None:
-            out = torch.empty([rows, *shape[1:]], dtype=local.dtype)
-        a = rec["offset"]
-        lo, hi = max(a, start), min(a + local.shape[0], start + rows)
-        if lo < hi:
-            out[lo - start : hi - start] = local[lo - a : hi - a]
-            spans.append((lo, hi))
-    covered = start
-    for lo, hi in sorted(spans):
-        if lo > covered:
-            break
-        covered = max(covered, hi)
-    if out is None or covered < start + rows:
+            out = torch.empty(size, dtype=local.dtype)
+        a = _offsets(rec)
+        lo = [max(x, s) for x, s in zip(a, start)]
+        hi = [min(x + n, s + z) for x, n, s, z in zip(a, local.shape, start, size)]
+        if all(l < h for l, h in zip(lo, hi)):
+            out[tuple(slice(l - s, h - s) for l, h, s in zip(lo, hi, start))] = local[
+                tuple(slice(l - x, h - x) for l, h, x in zip(lo, hi, a))
+            ]
+            covered += math.prod(h - l for l, h in zip(lo, hi))
+    if out is None or covered < math.prod(size):
         raise ValueError(
-            f"the ranks' shards cover rows [{start}, {covered}) of the rows "
-            f"[{start}, {start + rows}) to restore of {shape}"
+            f"the ranks' parts cover {covered} of the {math.prod(size)} elements of the block at "
+            f"{start} of size {size} to restore of {shape}"
         )
-    if not sharded:
+    if not (isinstance(like, Block) and isinstance(like.local, DTensor)):
         return out
+    t = like.local
     return DTensor.from_local(
-        out.to(like.to_local().device), like.device_mesh, like.placements, run_check=False,
-        shape=like.shape, stride=like.stride(),
+        out.to(t.to_local().device), t.device_mesh, t.placements, run_check=False,
+        shape=t.shape, stride=t.stride(),
     )
 
 
@@ -205,7 +198,7 @@ def _fit(trees, like):
 
     first = trees[0]
     if (isinstance(first, dict) and SHARD in first) or (
-        isinstance(first, torch.Tensor) and isinstance(like, DTensor)
+        isinstance(first, torch.Tensor) and isinstance(like, (DTensor, Block))
     ):
         return _rows(trees, like)
     if isinstance(first, dict):

@@ -24,6 +24,10 @@ banks keep the reference's layout (``w_in`` ``q`` ``[L, E, D, F]`` with
 scale ``[L, E, 1, F]`` become ``[E, D, F]`` and ``w_in_scale`` ``[E, 1,
 F]``); its router ``gate`` is never quantized.
 
+For a tensor-parallel model (``tp``), :func:`params_from_jax` returns this
+rank's block of each tensor that tp splits (``parallel/sharding.tp_dim``);
+FSDP2 takes its rows of the block when the model is sharded.
+
 The mapping between the two layouts lives in one place, :func:`jax_leaves`:
 one :class:`JaxLeaf` a JAX param leaf, with the port tensors it holds and the
 two directions between them. :func:`params_from_jax` reads it one way; the
@@ -72,15 +76,45 @@ class JaxLeaf:
             return x.reshape(x.shape[0], -1).t()
         return x
 
-    def from_port(self, tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    def box(self, offsets: Sequence[int], sizes: Sequence[int]) -> tuple:
+        """``(offsets, sizes)`` in this JAX leaf of the port block at
+        ``offsets`` of ``sizes`` (the same block of every layer's tensor, for
+        a stacked leaf). A block of q/k/v's rows that does not map to a box
+        of ``[M, heads, D]`` (rows that cut across a head boundary) raises
+        NotImplementedError."""
+        offsets, sizes = tuple(offsets), tuple(sizes)
+        if self.layout == "t":
+            offsets, sizes = offsets[::-1], sizes[::-1]
+        elif self.layout == "heads":
+            H, D = self.shape[-2:]
+            (r0, c0), (n, m) = offsets, sizes
+            if n == 0:
+                h, hn, d, dn = min(r0 // D, H), 0, 0, D
+            elif r0 % D == 0 and n % D == 0:
+                h, hn, d, dn = r0 // D, n // D, 0, D
+            elif r0 // D == (r0 + n - 1) // D:
+                h, hn, d, dn = r0 // D, 1, r0 % D, n
+            else:
+                raise NotImplementedError(
+                    f"{self.path}: rows [{r0}, {r0 + n}) of a rank cut across heads of {D}"
+                )
+            offsets, sizes = (c0, h, d), (m, hn, dn)
+        if self.stacked:
+            offsets, sizes = (0,) + offsets, (self.shape[0],) + sizes
+        return offsets, sizes
+
+    def from_port(self, tensors: Sequence[torch.Tensor], shape=None) -> torch.Tensor:
         """The JAX-layout leaf of the port tensors ``tensors`` (one a name),
-        stacked over layers where the leaf is."""
+        stacked over layers where the leaf is. ``shape``: the shape of the
+        part of the leaf that ``tensors`` hold, where they are a rank's
+        blocks (default: the whole leaf's)."""
+        shape = self.shape if shape is None else tuple(shape)
 
         def one(t):
             if self.layout == "t":
                 return t.t()
             if self.layout == "heads":
-                return t.t().reshape(t.shape[1], *self.shape[-2:])
+                return t.t().reshape(t.shape[1], *shape[-2:])
             return t
 
         if self.stacked:
@@ -129,10 +163,14 @@ def jax_leaves(cfg: LlamaConfig) -> List[JaxLeaf]:
     ]
 
 
-def params_from_jax(tree, cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
-    """The port's state dict for the JAX param ``tree`` of config ``cfg``.
-    Raises ``ValueError`` naming the first leaf whose shape disagrees, or
-    whose quantization disagrees with ``cfg.quantize``."""
+def params_from_jax(tree, cfg: LlamaConfig, tp=None) -> Dict[str, torch.Tensor]:
+    """The port's state dict for the JAX param ``tree`` of config ``cfg``;
+    with ``tp`` (``parallel/sharding.TensorParallel``) this rank's block of
+    each tensor that tp splits. Raises ``ValueError`` naming the first leaf
+    whose shape disagrees, or whose quantization disagrees with
+    ``cfg.quantize``."""
+    from ..parallel.sharding import tp_dim
+
     sd: Dict[str, torch.Tensor] = {}
 
     def node(path: str):
@@ -156,8 +194,18 @@ def params_from_jax(tree, cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
         else:
             w, scale = torch.from_numpy(np.array(raw, dtype=np.float32)), None
         _check(leaf.path, w.shape, leaf.shape)
+        if tp is not None and tp.size > 1:
+            if quantized:
+                raise NotImplementedError("int8 weights of a tensor-parallel model")
+            dim = tp_dim(leaf.names[0])
+        else:
+            dim = None
         for i, name in enumerate(leaf.names):
-            if leaf.norm:
+            if dim is not None:
+                t = leaf.to_port(w, i)
+                start, n = tp.block(t.shape[dim], name)
+                sd[name] = t.narrow(dim, start, n).to(cfg.param_dtype).contiguous()
+            elif leaf.norm:
                 sd[name] = leaf.to_port(w, i).clone()
             elif scale is None:
                 sd[name] = leaf.to_port(w, i).to(cfg.param_dtype).contiguous()

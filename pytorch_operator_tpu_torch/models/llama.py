@@ -36,10 +36,22 @@ capacity-factor sparse dispatch); with ``moe_aux_weight > 0`` and
 load-balance loss, which each block hands back through its return value (a
 rematerialised block runs twice, so no side channel would count once).
 
+``tp=TensorParallel(...)`` (``parallel/sharding.py``) builds the rank's
+part of a tensor-parallel model, as JAX's ``shard_map`` and GSPMD give each
+device its heads: q/k/v and gate/up hold this rank's heads and ``d_ff``
+columns (column-parallel, after ``tp_enter``), o and down the matching
+inputs (row-parallel, before ``tp_leave``), the embedding its vocabulary
+rows (a masked local lookup, then ``tp_leave``), the head its vocabulary
+columns; the norms are whole on every rank. Attention (flash or dense)
+runs on the local ``[B, S, H/tp, D]`` and ``[B, S, KH/tp, D]``. Such a
+model returns hidden states only: its loss is the vocab-parallel one
+(``ops/chunked_xent.vocab_parallel_xent``). Decoding refuses it (JAX's
+generate and serve take no mesh).
+
 Not in this port yet (raises ``NotImplementedError`` from the config): ring
 and ulysses sequence parallelism. Expert parallelism and pipeline
-parallelism have no config field; the port has no ep or pp forward. All are
-ROADMAP.md item 3c.
+parallelism have no config field; the port has no ep or pp forward. They
+are ROADMAP.md items 3c-2 and 3c-3.
 """
 
 from __future__ import annotations
@@ -57,6 +69,7 @@ from torch.utils.checkpoint import checkpoint, noop_context_fn
 from ..ops.flash_attention import flash_attention
 from ..ops.quantize import dequantize, quantize, scale_name
 from ..parallel.moe import load_balance_loss, moe_mlp_reference, moe_mlp_sparse
+from ..parallel.sharding import TensorParallel, check_tp_divides, tp_dim
 from .common import remat_policy
 
 
@@ -123,7 +136,7 @@ class LlamaConfig:
         if self.attn_impl in ("ring", "ulysses"):
             raise NotImplementedError(
                 f"attn_impl={self.attn_impl!r} is not ported yet "
-                "(ROADMAP.md item 3c: tensor, sequence, pipeline and expert parallelism)"
+                "(ROADMAP.md item 3c-2: sequence and expert parallelism)"
             )
         if self.n_experts > 0:
             if self.moe_dispatch not in ("dense", "sparse"):
@@ -276,14 +289,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def _local(n: int, tp: Optional[TensorParallel], what: str) -> int:
+    """This rank's share of ``n`` under ``tp`` (``n`` itself without)."""
+    return n if tp is None else tp.block(n, what)[1]
+
+
 class Attention(nn.Module):
     """Grouped-query attention with RoPE; self-attention (flash or dense) or,
-    with ``cfg.decode``, KV-cache attention."""
+    with ``cfg.decode``, KV-cache attention. Under ``tp`` it holds and
+    attends this rank's heads (``n_heads/tp`` and ``n_kv_heads/tp``)."""
 
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None, tp: Optional[TensorParallel] = None):
         super().__init__()
         self.cfg = cfg
-        H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        self.tp = tp
+        H, K, D = _local(cfg.n_heads, tp, "n_heads"), _local(cfg.n_kv_heads, tp, "n_kv_heads"), cfg.head_dim
+        self.n_heads, self.n_kv_heads = H, K
         self.q_proj = _Linear(cfg.d_model, H * D, cfg, device)
         self.k_proj = _Linear(cfg.d_model, K * D, cfg, device)
         self.v_proj = _Linear(cfg.d_model, K * D, cfg, device)
@@ -292,7 +313,9 @@ class Attention(nn.Module):
     def forward(self, x, positions, cache: Optional[Dict[str, torch.Tensor]] = None):
         cfg = self.cfg
         B, S, _ = x.shape
-        H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        H, K, D = self.n_heads, self.n_kv_heads, cfg.head_dim
+        if self.tp is not None:
+            x = self.tp.enter(x)
         q = apply_rope(self.q_proj(x).view(B, S, H, D), positions, cfg.rope_theta)
         k = apply_rope(self.k_proj(x).view(B, S, K, D), positions, cfg.rope_theta)
         v = self.v_proj(x).view(B, S, K, D)
@@ -302,7 +325,8 @@ class Attention(nn.Module):
             out = self._decode_attend(q, k, v, positions, cache)
         else:
             out = self._self_attend(q, k, v)
-        return self.o_proj(out.reshape(B, S, H * D))
+        out = self.o_proj(out.reshape(B, S, H * D))
+        return out if self.tp is None else self.tp.leave(out)
 
     def _self_attend(self, q, k, v):
         """Causal self-attention over the incoming tokens only: the train
@@ -311,7 +335,7 @@ class Attention(nn.Module):
         causal attention). Returns [B,S,H,D]."""
         cfg = self.cfg
         B, S, H, D = q.shape
-        K = cfg.n_kv_heads
+        K = k.shape[2]
         if cfg.attn_impl == "flash":
             return flash_attention(q, k, v, causal=True)
         qg = q.view(B, S, K, H // K, D)
@@ -383,16 +407,22 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    """SwiGLU: down(silu(gate(x)) * up(x))."""
+    """SwiGLU: down(silu(gate(x)) * up(x)); under ``tp`` over this rank's
+    ``d_ff/tp`` columns."""
 
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None, tp: Optional[TensorParallel] = None):
         super().__init__()
-        self.gate_proj = _Linear(cfg.d_model, cfg.d_ff, cfg, device)
-        self.up_proj = _Linear(cfg.d_model, cfg.d_ff, cfg, device)
-        self.down_proj = _Linear(cfg.d_ff, cfg.d_model, cfg, device)
+        self.tp = tp
+        d_ff = _local(cfg.d_ff, tp, "d_ff")
+        self.gate_proj = _Linear(cfg.d_model, d_ff, cfg, device)
+        self.up_proj = _Linear(cfg.d_model, d_ff, cfg, device)
+        self.down_proj = _Linear(d_ff, cfg.d_model, cfg, device)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        if self.tp is not None:
+            x = self.tp.enter(x)
+        out = self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        return out if self.tp is None else self.tp.leave(out)
 
 
 class MoEMLP(nn.Module):
@@ -454,16 +484,16 @@ class Block(nn.Module):
     ``(x, aux)``, aux the MoE layer's load-balance loss when asked for
     (``want_aux``), else None."""
 
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None, tp: Optional[TensorParallel] = None):
         super().__init__()
         self.attn_norm = RMSNorm(cfg.d_model, cfg.rms_eps, device)
-        self.attn = Attention(cfg, device)
+        self.attn = Attention(cfg, device, tp)
         self.mlp_norm = RMSNorm(cfg.d_model, cfg.rms_eps, device)
         self.moe = cfg.n_experts > 0
         if self.moe:
             self.moe_mlp = MoEMLP(cfg, device)
         else:
-            self.mlp = MLP(cfg, device)
+            self.mlp = MLP(cfg, device, tp)
 
     def forward(self, x, positions, cache=None, want_aux: bool = False):
         x = x + self.attn(self.attn_norm(x), positions, cache)
@@ -479,20 +509,31 @@ class Llama(nn.Module):
 
     ``return_hidden=True`` returns the final-norm hidden states [B,S,D]
     instead of applying the LM head. With ``cfg.decode`` the forward needs a
-    cache (see :func:`decode_forward`).
+    cache (see :func:`decode_forward`). ``tp`` builds this rank's part of a
+    tensor-parallel model (the module docstring).
     """
 
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None, tp: Optional[TensorParallel] = None):
         super().__init__()
+        if tp is not None:
+            for what, refused in (
+                ("decoding (generate and serve take no mesh, as in JAX)", cfg.decode),
+                ("int8 weights", bool(cfg.quantize)),
+                ("the mixture of experts (ROADMAP.md item 3c-2)", cfg.n_experts > 0),
+            ):
+                if refused:
+                    raise NotImplementedError(f"a tensor-parallel Llama does not run {what}")
+            check_tp_divides(cfg, tp.size)
         self.cfg = cfg
-        self.embed = nn.Embedding(
-            cfg.vocab_size, cfg.d_model, device=device, dtype=cfg.param_dtype
-        )
-        self.layers = nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layers))
+        self.tp = tp
+        V = _local(cfg.vocab_size, tp, "vocab_size")
+        # The first vocabulary id of this rank's rows of the embedding and
+        # columns of the head.
+        self.vocab_offset = 0 if tp is None else tp.index * V
+        self.embed = nn.Embedding(V, cfg.d_model, device=device, dtype=cfg.param_dtype)
+        self.layers = nn.ModuleList(Block(cfg, device, tp) for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.d_model, cfg.rms_eps, device)
-        self.lm_head = nn.Linear(
-            cfg.d_model, cfg.vocab_size, bias=False, device=device, dtype=cfg.param_dtype
-        )
+        self.lm_head = nn.Linear(cfg.d_model, V, bias=False, device=device, dtype=cfg.param_dtype)
         if cfg.quantize:
             _hold_int8(self.embed)
             _hold_int8(self.lm_head)
@@ -504,7 +545,9 @@ class Llama(nn.Module):
         embedding, ones for the norms. Draws in f32 on ``generator``'s
         device, one tensor at a time, then copies into the parameter: one
         seed gives the same weights to a model on the host as on the card
-        when both draw with the card's generator."""
+        when both draw with the card's generator. A tensor-parallel model
+        draws each whole tensor and keeps its block, so that its ranks
+        together hold the one-process init."""
         if self.cfg.quantize:
             raise ValueError(
                 "a quantize-mode model cannot init: init the full-precision "
@@ -515,7 +558,11 @@ class Llama(nn.Module):
             if name.endswith("norm.weight"):
                 p.fill_(1.0)
                 continue
-            w = torch.empty(p.shape, dtype=torch.float32, device=generator.device)
+            dim = tp_dim(name) if self.tp is not None else None
+            shape = list(p.shape)
+            if dim is not None:
+                shape[dim] *= self.tp.size
+            w = torch.empty(shape, dtype=torch.float32, device=generator.device)
             if name == "embed.weight":
                 w.normal_(0.0, 1.0, generator=generator)
             else:
@@ -524,9 +571,11 @@ class Llama(nn.Module):
                 # the reference's [..., in, out] layout, whose fan-in counts
                 # every axis but the last (the expert axis of a bank too);
                 # an nn.Linear weight is [out, in].
-                fan_in = p.numel() // p.shape[-1] if ".moe_mlp." in name else p.shape[1]
+                fan_in = w.numel() // w.shape[-1] if ".moe_mlp." in name else w.shape[1]
                 std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
                 nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+            if dim is not None:
+                w = w.narrow(dim, self.tp.index * p.shape[dim], p.shape[dim])
             p.copy_(w)
         return self
 
@@ -578,6 +627,13 @@ class Llama(nn.Module):
                 F.embedding(tokens, self.embed.scale),
                 self.cfg.dtype,
             )
+        elif self.tp is not None:
+            # Vocab-parallel: this rank's rows, zeros for the others' ids,
+            # summed over tp.
+            local = tokens - self.vocab_offset
+            mine = (local >= 0) & (local < self.embed.weight.shape[0])
+            x = F.embedding(local.clamp(0, self.embed.weight.shape[0] - 1), self.embed.weight)
+            x = self.tp.leave(torch.where(mine[..., None], x, 0).to(self.cfg.dtype))
         else:
             x = F.embedding(tokens, self.embed.weight).to(self.cfg.dtype)
         auxes = []
@@ -594,6 +650,11 @@ class Llama(nn.Module):
                 x, aux = block(x, positions, layer_cache, want_aux)
                 auxes.append(aux)
         x = self.final_norm(x)
+        if self.tp is not None and not return_hidden:
+            raise ValueError(
+                "a tensor-parallel Llama returns hidden states (return_hidden=True); its loss is "
+                "ops.chunked_xent.vocab_parallel_xent over the head's blocks"
+            )
         if return_hidden:
             out = x
         else:
@@ -640,6 +701,8 @@ def decode_forward(model: Llama, cache, tokens, positions=None, *, return_hidden
     """
     if not model.cfg.decode:
         raise ValueError("decode_forward needs a model built with decode=True")
+    if getattr(model, "tp", None) is not None:
+        raise NotImplementedError("decoding a tensor-parallel Llama (generate and serve take no mesh)")
     if positions is not None:
         _debug_check_decode_positions(positions, model.cfg)
     out = model(tokens, positions, cache=cache, return_hidden=return_hidden)

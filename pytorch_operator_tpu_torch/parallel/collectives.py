@@ -21,6 +21,14 @@ over an axis of size 1).
   ``dist_sendrecv`` ring. gloo's point-to-point path moves host memory, so
   under gloo a CUDA tensor goes through a host copy each way.
 - :func:`axis_index`, :func:`axis_size`.
+- :func:`pmax`: the all-reduce max (``jax.lax.pmax``).
+- Tensor parallelism's pair (Megatron's f and g): :func:`tp_enter`, the
+  identity whose backward all-reduces, before a column-parallel product;
+  :func:`tp_leave`, the all-reduce whose backward is the identity, after a
+  row-parallel product. (:func:`psum_autograd` sums in its backward too:
+  right for a statistic every rank's loss reads, wrong after a row-parallel
+  product, where it would multiply every gradient upstream by the axis
+  size.)
 """
 
 from __future__ import annotations
@@ -70,13 +78,22 @@ def axis_index(axis: str, mesh=None) -> int:
     return mesh.get_local_rank(axis)
 
 
-def psum(x: torch.Tensor, axis: str, mesh=None) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, axis: str, mesh, op: str) -> torch.Tensor:
+    """A new tensor: ``x`` all-reduced with ``op`` over ``axis``."""
     import torch.distributed as dist
 
     out = x.clone()
     if axis_size(axis, mesh) > 1:
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=_group(axis, mesh))
+        dist.all_reduce(out, op=getattr(dist.ReduceOp, op), group=_group(axis, mesh))
     return out
+
+
+def psum(x: torch.Tensor, axis: str, mesh=None) -> torch.Tensor:
+    return _all_reduce(x, axis, mesh, "SUM")
+
+
+def pmax(x: torch.Tensor, axis: str, mesh=None) -> torch.Tensor:
+    return _all_reduce(x, axis, mesh, "MAX")
 
 
 class _Psum(torch.autograd.Function):
@@ -95,6 +112,39 @@ def psum_autograd(x: torch.Tensor, axis: str, mesh=None) -> torch.Tensor:
     rank's input is the sum of the ranks' output gradients (every rank's loss
     reads the same sum)."""
     return _Psum.apply(x, axis, mesh)
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        ctx.axis, ctx.mesh = axis, mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g, ctx.axis, ctx.mesh), None, None
+
+
+class _Leave(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        return psum(x, axis, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def tp_enter(x: torch.Tensor, axis: str = "tp", mesh=None) -> torch.Tensor:
+    """``x`` as it is; its gradient is the sum over ``axis`` of the ranks'
+    (each rank's column-parallel product contributes its part)."""
+    return _Enter.apply(x, axis, mesh)
+
+
+def tp_leave(x: torch.Tensor, axis: str = "tp", mesh=None) -> torch.Tensor:
+    """The sum over ``axis`` of the ranks' partial results of a row-parallel
+    product; its gradient passes to each rank's part unchanged."""
+    return _Leave.apply(x, axis, mesh)
 
 
 def pmean(x: torch.Tensor, axis: str, mesh=None) -> torch.Tensor:

@@ -11,14 +11,18 @@ axes outermost), so that the process group of one axis is
 (``runtime.rendezvous.initialize_from_env``).
 
 Canonical axis names: ``dp`` (replicated parameters, sharded batch),
-``fsdp`` (parameters and optimizer state sharded too), ``tp``, ``sp``,
-``pp``, ``ep``. This package trains on ``dp`` and ``fsdp``; the other four
-parse and resolve, and ``llama_train`` refuses them (ROADMAP.md item 3c).
+``fsdp`` (parameters and optimizer state sharded too), ``tp`` (each
+parameter split by the rule table's tensor-parallel axes, the batch
+replicated), ``sp``, ``pp``, ``ep``. This package trains on ``dp``,
+``fsdp`` and ``tp``; the other three parse and resolve, and ``llama_train``
+refuses them (ROADMAP.md items 3c-2 and 3c-3). :func:`train_coords` gives
+a rank its place on the data axes and on ``tp``.
 """
 
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
 from typing import Dict, Mapping, Union
 
 MESH_AXIS_ORDER = ("pp", "dp", "fsdp", "ep", "sp", "tp")
@@ -182,3 +186,37 @@ def axis_sizes(mesh) -> Dict[str, int]:
     if isinstance(mesh, Mapping):
         return dict(mesh)
     return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+# The axes that split the batch (the rule table's "batch" rule); every
+# other axis sees the same rows.
+DATA_AXES = ("dp", "fsdp")
+
+
+@dataclass(frozen=True)
+class TrainCoords:
+    """A rank's place in a training mesh: ``data_index`` of ``data_extent``
+    over the data axes (row-major over ``dp`` then ``fsdp``: which rows of
+    the global batch it trains on) and ``tp_index`` of ``tp_size`` (which
+    block of each tensor-parallel parameter it holds). The ranks of one tp
+    group share their data coordinate."""
+
+    data_index: int = 0
+    data_extent: int = 1
+    tp_index: int = 0
+    tp_size: int = 1
+
+
+def train_coords(mesh=None) -> TrainCoords:
+    """This rank's :class:`TrainCoords` on ``mesh`` (a ``DeviceMesh``); a
+    world of one process (``mesh=None``) is ``(0, 1, 0, 1)``."""
+    if mesh is None:
+        return TrainCoords()
+    sizes = axis_sizes(mesh)
+    index, extent = 0, 1
+    for axis in DATA_AXES:
+        if axis in sizes:
+            index = index * sizes[axis] + mesh.get_local_rank(axis)
+            extent *= sizes[axis]
+    tp = sizes.get("tp", 1)
+    return TrainCoords(index, extent, mesh.get_local_rank("tp") if tp > 1 else 0, tp)

@@ -30,7 +30,7 @@ Each part runs inside a ``torch.profiler.record_function`` range
 profile can charge the layer's kernels to its parts.
 
 Expert parallelism (the ``mesh=`` argument, :func:`moe_mlp`) needs several
-GPUs and raises ``NotImplementedError`` (ROADMAP.md item 3c).
+GPUs and raises ``NotImplementedError`` (ROADMAP.md item 3c-2).
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-_MESH_ITEM = "ROADMAP.md item 3c: expert parallelism over an ep mesh"
+_MESH_ITEM = "ROADMAP.md item 3c-2: expert parallelism over an ep mesh"
 
 
 def _router_topk(params, x, top_k: int):

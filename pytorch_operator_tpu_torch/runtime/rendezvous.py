@@ -159,6 +159,37 @@ def poll_resize(world: WorldInfo) -> Optional[ResizeSignal]:
     return ResizeSignal(gen, False, new_world, restore, rec)
 
 
+# How long a rank whose collective lost a peer waits for the supervisor's
+# resize record before it fails (a death the gang cannot absorb has none).
+PEER_LOST_WAIT_S = 60.0
+
+
+def peer_lost(err: BaseException) -> bool:
+    """Whether ``err`` is a collective that failed because a peer process
+    went away (gloo's closed or reset connection, c10d's network errors):
+    the survivors of a preempted peer see this before the supervisor has
+    committed a resize."""
+    import torch.distributed as dist
+
+    msg = str(err)
+    return isinstance(err, getattr(dist, "DistNetworkError", ())) or (
+        isinstance(err, RuntimeError)
+        and ("Connection closed by peer" in msg or "Connection reset by peer" in msg)
+    )
+
+
+def await_resize(world: WorldInfo, timeout_s: float = PEER_LOST_WAIT_S,
+                 interval_s: float = 0.2) -> Optional[ResizeSignal]:
+    """:func:`poll_resize` until the supervisor's resize record for a newer
+    generation appears or ``timeout_s`` passes (then None)."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        sig = poll_resize(world)
+        if sig is not None or time.monotonic() >= deadline:
+            return sig
+        time.sleep(interval_s)
+
+
 def adopt_resize(sig: ResizeSignal) -> WorldInfo:
     """Become a member of the resized world and report the re-join."""
     report(

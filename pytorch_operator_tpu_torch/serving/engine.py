@@ -111,6 +111,11 @@ class ServingEngine:
     ):
         if not cfg.decode:
             raise ValueError("ServingEngine needs a decode=True config")
+        if getattr(model, "tp", None) is not None:
+            raise NotImplementedError(
+                "serving a tensor-parallel Llama: the engine runs one process's whole model "
+                "(JAX's serve takes no mesh)"
+            )
         if chunk < 1 or block < 1 or slots < 1:
             raise ValueError("slots, chunk and block must be >= 1")
         if cfg.max_decode_len < chunk + 1:

@@ -22,20 +22,27 @@ exit code 138 on a replica's first life (a simulated preemption);
 
 In a world of several processes (the supervisor's Master and Workers, joined
 by ``runtime.rendezvous.initialize_from_env``) ``--mesh``/``TPUJOB_MESH``
-(default ``fsdp=-1``) lays the model out over the ranks' data axes: ``fsdp``
-shards parameters, gradients and AdamW's state with FSDP2, ``dp``
-replicates them (both together: HSDP; ``@dcn`` axes outermost).
-``--batch-size`` is the global batch; each rank trains on its rows of it,
-and the losses reported are the global batch's.
+(default ``fsdp=-1``) lays the model out over the ranks: ``tp`` splits each
+layer's heads and ``d_ff``, the embedding's and the head's vocabulary
+(``parallel/sharding.py``'s rule table; the loss is vocab-parallel);
+``fsdp`` shards parameters (tp's blocks, under tp), gradients and the
+optimizer's state with FSDP2, ``dp`` replicates them (both together: HSDP;
+``@dcn`` axes outermost). ``--batch-size`` is the global batch; each data
+coordinate (``parallel/mesh.train_coords``) trains on its rows of it, the
+ranks of one tp group on the same rows, and the losses reported are the
+global batch's. AdamW and adafactor both run in a world, in f32 or bf16
+parameters (``--param-dtype``).
 
     python -m pytorch_operator_tpu_torch.workloads.llama_train --config 0.3b \\
         --batch-size 4 --seq-len 4096 --steps 5 --json
 
 It runs on ``cuda`` unless ``--device cpu`` or ``TPUJOB_PLATFORM=cpu`` asks
 for the host; with neither and no GPU it raises. What waits for ROADMAP.md
-item 3c is refused by name: the ``tp``, ``sp``, ``pp`` and ``ep`` mesh axes,
-the pipeline flags (:data:`REFUSED_FLAGS`), and in a world of several
-processes ring/ulysses attention, ``--experts`` and adafactor.
+items 3c-2 and 3c-3 is refused by name: the ``sp``, ``ep`` (3c-2) and ``pp``
+(3c-3) mesh axes, the pipeline flags (:data:`REFUSED_FLAGS`), and in a
+world of several processes ring/ulysses attention and ``--experts`` (3c-2);
+so is a tp that does not divide the heads, kv heads, ``d_ff`` or the
+vocabulary.
 """
 
 from __future__ import annotations
@@ -56,11 +63,12 @@ from ..data import field_range, open_training_loader, read_meta
 from ..data.device_prefetch import DevicePrefetcher, to_device
 from ..models import llama as llama_lib
 from ..models.convert import params_from_jax
+from ..parallel.sharding import check_tp_divides, tp_dim
 from ..ops import flash_attention as flash_lib
 from ..parallel import data as data_lib
 from ..parallel import mesh as mesh_lib
 from ..parallel.collectives import world as joined_world
-from ..parallel.sharding import data_axes, full_tensor, local_nbytes, shard_model
+from ..parallel.sharding import TensorParallel, full_state_dict, local_nbytes, model_blocks, shard_model
 from ..runtime import rendezvous
 from ..runtime.device import device_name, world_device
 from .trainer import (
@@ -90,21 +98,24 @@ CONFIGS = llama_lib.CONFIGS
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-# The mesh axes a run can train on (the rule table's batch axes); the
-# others wait for this item.
-DATA_AXES = data_axes(mesh_lib.MESH_AXIS_ORDER)
-ITEM_3C = "ROADMAP.md item 3c: tensor, sequence, pipeline and expert parallelism"
+# The mesh axes a run can train on: the rule table's batch axes and tp.
+TRAIN_AXES = (*mesh_lib.DATA_AXES, "tp")
+ITEM_3C2 = "ROADMAP.md item 3c-2: sequence and expert parallelism"
+ITEM_3C3 = "ROADMAP.md item 3c-3: pipeline parallelism"
+# The item each refused axis waits for.
+WAITING_AXES = {"sp": ITEM_3C2, "ep": ITEM_3C2, "pp": ITEM_3C3}
 
 
 def resolve_train_mesh(spec: str, world: int) -> dict:
     """The axes and sizes, in layout order, of mesh ``spec`` resolved
-    against ``world`` ranks (one device a process). Naming an axis other
-    than ``dp``/``fsdp`` raises, naming item 3c."""
-    beyond = sorted(set(mesh_lib.parse_mesh_spec(spec)) - set(DATA_AXES))
+    against ``world`` ranks (one device a process). Naming ``sp``, ``ep``
+    or ``pp`` raises, naming the item it waits for."""
+    beyond = sorted(set(mesh_lib.parse_mesh_spec(spec)) - set(TRAIN_AXES))
     if beyond:
         raise NotImplementedError(
-            f"mesh axes {beyond} are not ported yet ({ITEM_3C}); this port trains on "
-            f"{' and '.join(DATA_AXES)}"
+            f"mesh axes {beyond} are not ported yet ("
+            f"{'; '.join(sorted({WAITING_AXES[a] for a in beyond}))}); this port trains on "
+            f"{', '.join(TRAIN_AXES)}"
         )
     return mesh_lib.hybrid_axis_sizes(spec, world)
 
@@ -202,15 +213,17 @@ def run(
     initialized: ``main`` joins the supervisor's world, a test its own) the
     run lays the model out on ``mesh_spec`` (default ``TPUJOB_MESH``, else
     ``fsdp=-1``: ``parallel/mesh.mesh_spec_from_env``; see
-    :func:`resolve_train_mesh`):
-    every rank builds the same init, then FSDP2 shards it
+    :func:`resolve_train_mesh`): a tp rank builds its blocks of the same
+    init (``init_weights`` draws each whole tensor; ``params_from_jax``
+    takes the rank's block), then FSDP2 shards them over the data axes
     (``parallel/sharding.shard_model``). ``batch_size`` is the global batch
     (rounded to a multiple of the ranks, as the JAX workload rounds it to
-    its devices); each rank takes its rows (``parallel/data.global_batch``),
-    and ``losses``/``eval_loss`` are the global batch's means. The result
-    adds ``world``, ``mesh``, ``backend``, this rank's ``param_bytes`` and
-    ``optimizer_state_bytes``, and ``per_rank`` (each rank's bytes, peak
-    memory and flash launches). A resize record from the supervisor is
+    its devices); each data coordinate takes its rows
+    (``parallel/data.global_batch``), and ``losses``/``eval_loss`` are the
+    global batch's means. The result adds ``world``, ``mesh``, ``backend``,
+    this rank's ``param_bytes`` and ``optimizer_state_bytes``, and
+    ``per_rank`` (each rank's data and tp coordinates, bytes, peak memory
+    and flash launches). A resize record from the supervisor is
     polled every step (``rendezvous.poll_resize``): the rank drains its
     loader, feed and saves, then re-executes into the new world.
     ``keep_params`` adds ``params``: the trained parameters whole on every
@@ -272,27 +285,31 @@ def run(
         log(
             f"[llama] n_experts={cfg.n_experts} top_k={cfg.moe_top_k} "
             f"dispatch={cfg.moe_dispatch}: every expert runs on this one card (no ep axis; "
-            "expert parallelism is ROADMAP.md item 3c)"
+            f"expert parallelism is {ITEM_3C2})"
         )
     if world > 1:
         for what, refused in (
             (f"--attn-impl {cfg.attn_impl}", cfg.attn_impl in ("ring", "ulysses")),
             ("--experts", cfg.n_experts > 0),
-            ("--optimizer adafactor", optimizer == "adafactor"),
         ):
             if refused:
                 raise NotImplementedError(
-                    f"{what} in a world of {world} processes is not ported yet ({ITEM_3C})"
+                    f"{what} in a world of {world} processes is not ported yet ({ITEM_3C2})"
                 )
+    check_tp_divides(cfg, axes.get("tp", 1))
+    mesh = mesh_lib.make_mesh(mesh_spec, dev.type) if world > 1 else None
+    # The rows this rank trains on: the ranks of one tp group share them.
+    coords = mesh_lib.train_coords(mesh)
     # The global batch, rounded to a multiple of the ranks as the JAX
-    # workload rounds it to its devices.
+    # workload rounds it to its devices (every device of the mesh, tp's too).
     if batch_size % world:
         batch_size = max(batch_size // world, 1) * world
     if grad_accum > 1 and batch_size % grad_accum:
         raise ValueError(f"--grad-accum {grad_accum} must divide the global batch {batch_size}")
-    if grad_accum > 1 and (batch_size // world) % grad_accum:
+    if grad_accum > 1 and (batch_size // coords.data_extent) % grad_accum:
         raise ValueError(
-            f"--grad-accum {grad_accum} must divide each rank's {batch_size // world} rows"
+            f"--grad-accum {grad_accum} must divide each data coordinate's "
+            f"{batch_size // coords.data_extent} rows"
         )
     log(
         f"[llama] config={config} d_model={cfg.d_model} layers={cfg.n_layers} "
@@ -339,8 +356,8 @@ def run(
         return np.array(fields["tokens"][:, :seq_len], np.int32, copy=True)
 
     def next_tokens(ldr):
-        # This rank's rows of the next global batch, on its device.
-        return data_lib.put_global(host_tokens(ldr), dev, rank, world).long()
+        # This data coordinate's rows of the next global batch, on its device.
+        return data_lib.put_global(host_tokens(ldr), dev, coords.data_index, coords.data_extent).long()
 
     if eval_file:
         # Before any training compute: a bad eval file must not cost a
@@ -350,17 +367,23 @@ def run(
         open_token_file(eval_file, "--eval-file", seed=1, do_open=False)
 
     t_init = time.time()
-    # Every rank builds the same values (one seed, or the same tree) before
-    # sharding: each then keeps its shard of them.
-    model = llama_lib.Llama(cfg, device=dev)
+    tp = TensorParallel.of(mesh) if mesh is not None else None
+    # Every rank of a tp coordinate builds the same values (one seed, or the
+    # same tree) before sharding: each then keeps its shard of them. A tp
+    # rank builds its blocks only.
+    model = llama_lib.Llama(cfg, device=dev, tp=tp)
     if init_params is not None:
-        model.load_state_dict(params_from_jax(init_params, cfg))
+        model.load_state_dict(params_from_jax(init_params, cfg, tp))
     else:
         model.init_weights(torch.Generator(device=dev).manual_seed(seed))
     model.train()
     n_params = sum(p.numel() for p in model.parameters())
-    if world > 1:
-        shard_model(model, mesh_lib.make_mesh(mesh_spec, dev.type))
+    if tp is not None:
+        # Whole parameters: a split tensor counts its tp blocks.
+        n_params = sum(p.numel() * (tp.size if tp_dim(n) is not None else 1)
+                       for n, p in model.named_parameters())
+    if mesh is not None:
+        shard_model(model, mesh)
     log(
         f"[llama] {n_params / 1e6:.1f}M params, init +{time.time() - t_init:.1f}s"
         + (f", {local_nbytes(model.parameters()) / 2**20:.1f} MiB of them on rank {rank}"
@@ -373,16 +396,19 @@ def run(
         model, lr, optimizer=optimizer, schedule=lr_schedule,
         warmup_steps=lr_warmup_steps,
         decay_steps=lr_decay_steps or max_steps or (steps + max(warmup, 1)),
-        grad_clip=grad_clip, weight_decay=0.1,
+        grad_clip=grad_clip, weight_decay=0.1, mesh=mesh,
     )
     aux_values = []  # one device scalar a loss_fn call
     rank_step = make_lm_train_step(model, opt, grad_accum=grad_accum, on_aux=aux_values.append)
 
     def train_step(tokens):
-        return world_mean(rank_step(tokens), world)
+        return world_mean(rank_step(tokens), world, mesh)
 
     def train_state():
-        return {"params": model.state_dict(), "opt_state": opt.state_dict()}
+        # Under tp each tensor as the Block of its layout (its offsets in
+        # the whole), which the checkpoint writes and restores by.
+        params = model_blocks(model) if tp is not None else model.state_dict()
+        return {"params": params, "opt_state": opt.state_dict()}
 
     # A simulated preemption on the first life of this replica: die with a
     # retryable code (138 = 128 + SIGUSR1) so that the supervisor's
@@ -404,8 +430,10 @@ def run(
 
     def maybe_resize(step: int):
         sig = rendezvous.poll_resize(train_world)
-        if sig is None:
-            return
+        if sig is not None:
+            resize_now(sig, step)
+
+    def resize_now(sig, step: int):
         log(f"[llama] resize generation {sig.generation} observed at step {step}; draining")
         for drain in (prefetcher, loader, mgr):
             if drain is None:
@@ -480,7 +508,9 @@ def run(
         if prefetch > 0:
             feed_steps = itertools.count(start_step)
             prefetcher = DevicePrefetcher(
-                lambda: data_lib.global_batch(host_batch(next(feed_steps)), rank, world),
+                lambda: data_lib.global_batch(
+                    host_batch(next(feed_steps)), coords.data_index, coords.data_extent
+                ),
                 put=lambda toks: to_device(toks.astype(np.int64), dev),
                 depth=prefetch,
                 depth_max=prefetch_depth_max or None,
@@ -498,7 +528,9 @@ def run(
             def batches(step: int):
                 maybe_preempt(step)
                 maybe_resize(step)
-                return data_lib.put_global(host_batch(step), dev, rank, world).long()
+                return data_lib.put_global(
+                    host_batch(step), dev, coords.data_index, coords.data_extent
+                ).long()
 
         def save(step: int):
             t0 = time.perf_counter()
@@ -514,22 +546,33 @@ def run(
             counts["start"] = flash_lib.launch_counts()
 
         tokens_per_step = batch_size * seq_len
-        losses, steps_per_sec, end_step = throughput_loop(
-            train_step, batches, steps=steps, warmup=warmup, on_first_step=on_first,
-            checkpoint_every=checkpoint_every,
-            save=save if mgr is not None else None,
-            start_step=start_step,
-            log=lambda m: log(f"[llama] {m}"),
-            profile_dir=profile_dir,
-            progress=(
-                heartbeat_reporter(
-                    rendezvous.report_progress, batch=tokens_per_step, n_dev=world,
-                    unit="tokens/sec/chip", feed=prefetcher,
-                )
-                if rendezvous.progress_enabled()
-                else None
-            ),
-        )
+        try:
+            losses, steps_per_sec, end_step = throughput_loop(
+                train_step, batches, steps=steps, warmup=warmup, on_first_step=on_first,
+                checkpoint_every=checkpoint_every,
+                save=save if mgr is not None else None,
+                start_step=start_step,
+                log=lambda m: log(f"[llama] {m}"),
+                profile_dir=profile_dir,
+                progress=(
+                    heartbeat_reporter(
+                        rendezvous.report_progress, batch=tokens_per_step, n_dev=world,
+                        unit="tokens/sec/chip", feed=prefetcher,
+                    )
+                    if rendezvous.progress_enabled()
+                    else None
+                ),
+            )
+        except RuntimeError as err:
+            # A collective that lost a peer (a preempted rank): gloo raises
+            # at once, before the supervisor has committed the resize that
+            # a death the gang absorbs brings, so wait for its record.
+            if world > 1 and rendezvous.peer_lost(err):
+                log(f"[llama] a peer went away ({str(err).splitlines()[0][:120]}); waiting for a resize")
+                sig = rendezvous.await_resize(train_world)
+                if sig is not None:
+                    resize_now(sig, -1)
+            raise
         done = flash_lib.launch_counts()
         if mgr is not None and mgr.latest_step() != end_step:
             mgr.save(end_step, train_state())
@@ -540,10 +583,7 @@ def run(
             loader.close()
         if mgr is not None:
             mgr.close()  # commits the pending asynchronous saves
-    kept = (
-        {name: full_tensor(p).detach().cpu() for name, p in model.state_dict().items()}
-        if keep_params else None
-    )
+    kept = full_state_dict(model) if keep_params else None
     steps_after_first = end_step - start_step - 1
     per_step = {
         k: (done[k] - counts["start"][k]) // max(steps_after_first, 1) for k in done
@@ -564,6 +604,8 @@ def run(
     )
     mine = {
         "rank": rank,
+        "data_index": coords.data_index,
+        "tp_index": coords.tp_index,
         "param_bytes": local_nbytes(model.parameters()),
         "optimizer_state_bytes": opt.state_nbytes(),
         "peak_mem_bytes": peak,
@@ -629,7 +671,8 @@ def run(
             eval_step = make_lm_eval_step(model)
             n_eval = max(1, min(eval_batches, eval_meta.n_records // batch_size))
             eval_losses = [
-                float(world_mean(eval_step(next_tokens(eval_loader)), world)) for _ in range(n_eval)
+                float(world_mean(eval_step(next_tokens(eval_loader)), world, mesh))
+                for _ in range(n_eval)
             ]
         finally:
             eval_loader.close()
@@ -645,8 +688,8 @@ def run(
 # Flags of the JAX workload that wait for pipeline parallelism, with the
 # ROADMAP item. main() accepts them so that it can refuse them by name.
 REFUSED_FLAGS = {
-    "--pp-microbatches": ITEM_3C,
-    "--pp-schedule": ITEM_3C,
+    "--pp-microbatches": ITEM_3C3,
+    "--pp-schedule": ITEM_3C3,
 }
 
 
@@ -664,8 +707,8 @@ def main(argv=None) -> int:
     p.add_argument("--config", choices=sorted(CONFIGS), default="tiny")
     p.add_argument(
         "--mesh", default=None,
-        help='data axes over the world\'s ranks, e.g. "fsdp=2", "dp=2", "dp=2@dcn,fsdp=-1" '
-        "(default: TPUJOB_MESH or fsdp=-1); tp, sp, pp and ep are refused",
+        help='axes over the world\'s ranks, e.g. "fsdp=2", "dp=2", "tp=2", "fsdp=2,tp=2", '
+        '"dp=2@dcn,fsdp=-1" (default: TPUJOB_MESH or fsdp=-1); sp, pp and ep are refused',
     )
     p.add_argument("--batch-size", type=int, default=8, help="the global batch, over every rank")
     p.add_argument("--seq-len", type=int, default=128)
@@ -696,7 +739,7 @@ def main(argv=None) -> int:
     p.add_argument(
         "--attn-impl", choices=("dense", "flash", "ring", "ulysses"), default=None,
         help="attention implementation (flash = the CUDA kernels); ring and "
-        "ulysses are refused",
+        "ulysses are refused (ROADMAP.md item 3c-2)",
     )
     p.add_argument("--xent", choices=("dense", "chunked"), default=None, dest="xent_impl")
     p.add_argument(

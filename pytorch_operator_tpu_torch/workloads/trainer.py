@@ -31,11 +31,14 @@ image benches use from ``pytorch_operator_tpu/workloads/trainer.py``.
 PyTorch runs eagerly, so there is no jit: the model and the optimizer hold
 the state, and ``train_step(tokens)`` updates both in place and returns the
 loss as a device tensor. In a world of more than one process the model's
-parameters are DTensors (``parallel/sharding.shard_model``): the clip takes
-the global norm over the shards, the accumulation buffers are DTensors
-like the gradients, and :func:`world_mean` turns a rank's loss into the
-global batch's. Not ported here: pipeline parallelism and adafactor under a
-mesh (ROADMAP.md item 3c).
+parameters are DTensors over the data axes (``parallel/sharding.shard_model``)
+and, under tp, each rank's blocks of the split tensors: the clip takes the
+global norm over the shards and blocks (a tensor replicated over tp counts
+once), the accumulation buffers are laid out like the gradients, the
+adafactor statistics are reduced over the axes that split each JAX leaf
+(:class:`Adafactor`), a tensor-parallel model's loss is the vocab-parallel
+one, and :func:`world_mean` turns a rank's loss into the global batch's.
+Not ported here: pipeline parallelism (ROADMAP.md item 3c-3).
 """
 
 from __future__ import annotations
@@ -171,36 +174,45 @@ def lr_at(count: int, lr: float, *, schedule: str, warmup_steps: int, decay_step
     return lr * 0.5 * (1.0 + math.cos(math.pi * t / (decay - warm)))
 
 
-def _sharded_sq_norm(grads) -> torch.Tensor:
-    """The squared global norm of DTensor gradients laid out alike (FSDP2
-    puts every gradient on one mesh, sharded on dim 0): this rank's shards'
-    squares summed, then all-reduced over the mesh dimensions they are
-    sharded on (a replicated dimension holds whole copies: not summed)."""
+def _sharded_sq_norm(grads, tp_split=None, tp=None) -> torch.Tensor:
+    """The squared global norm of gradients laid out over a mesh: each
+    gradient's local squares summed by the axes that split it (the mesh
+    dimensions a DTensor is sharded on; tp where ``tp_split`` says tp splits
+    it), each such sum all-reduced over those axes (a replicated axis holds
+    whole copies: not summed), then added up."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
-    mesh, placements = grads[0].device_mesh, grads[0].placements
-    if any(not isinstance(g, DTensor) or g.placements != placements or g.device_mesh != mesh
-           for g in grads):
-        raise ValueError("clip_by_global_norm_: the sharded gradients are not laid out alike")
-    sq = torch.stack([torch.linalg.vector_norm(g.to_local().float()).square() for g in grads]).sum()
-    for d, pl in enumerate(placements):
-        if pl.is_shard():
-            dist.all_reduce(sq, group=mesh.get_group(d))
-    return sq
+    sums: dict = {}
+    for i, g in enumerate(grads):
+        groups = []
+        if isinstance(g, DTensor):
+            groups = [g.device_mesh.get_group(d) for d, pl in enumerate(g.placements) if pl.is_shard()]
+            g = g.to_local()
+        if tp_split is not None and tp_split[i] and tp is not None and tp.size > 1:
+            groups.append(tp.mesh.get_group("tp"))
+        key = tuple(groups)
+        sums[key] = sums.get(key, 0) + torch.linalg.vector_norm(g.float()).square()
+    total = 0
+    for groups, sq in sums.items():  # the same order on every rank
+        for group in groups:
+            dist.all_reduce(sq, group=group)
+        total = total + sq
+    return total
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float, tp_split=None, tp=None) -> torch.Tensor:
     """optax's ``clip_by_global_norm`` in place: ``g · max_norm / ‖g‖`` when
     ``‖g‖ >= max_norm``, unchanged otherwise, with no epsilon (unlike
     ``torch.nn.utils.clip_grad_norm_``). Returns the global norm (a device
-    scalar; no host sync). Sharded gradients (DTensors) give the norm over
-    the whole gradient, not over this rank's shards."""
+    scalar; no host sync). Sharded gradients (DTensors, and tp's blocks:
+    ``tp_split[i]`` says whether ``tp`` splits ``grads[i]``) give the norm
+    over the whole gradient, not over this rank's parts."""
     from ..parallel.sharding import local_tensor
 
     local = [local_tensor(g) for g in grads]
-    if any(t is not g for t, g in zip(local, grads)):
-        norm = _sharded_sq_norm(grads).sqrt()
+    if any(t is not g for t, g in zip(local, grads)) or (tp is not None and tp.size > 1):
+        norm = _sharded_sq_norm(grads, tp_split, tp).sqrt()
     else:
         norm = torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])
@@ -210,18 +222,27 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Te
     return norm
 
 
-def world_mean(x: torch.Tensor, world: int) -> torch.Tensor:
+def world_mean(x: torch.Tensor, world: int, mesh=None) -> torch.Tensor:
     """The mean of a per-rank value over the joined world of ``world``
     processes (each rank's loss is the mean over its equal share of the
     global batch, so this is the global batch's); ``x`` itself in a world
-    of one process."""
+    of one process. With ``mesh``, the mean over its data axes (the ranks
+    of one tp group hold the same rows and the same loss)."""
     import torch.distributed as dist
 
     if world == 1:
         return x
     out = x.detach().clone()
-    dist.all_reduce(out, op=dist.ReduceOp.SUM)
-    return out / world
+    if mesh is None:
+        dist.all_reduce(out, op=dist.ReduceOp.SUM)
+        return out / world
+    from ..parallel.collectives import psum
+    from ..parallel.mesh import DATA_AXES, axis_sizes, train_coords
+
+    for axis in DATA_AXES:
+        if axis_sizes(mesh).get(axis, 1) > 1:
+            out = psum(out, axis, mesh)
+    return out / train_coords(mesh).data_extent
 
 
 class Optimizer:
@@ -230,8 +251,16 @@ class Optimizer:
     updates the parameters in place and clears the gradients."""
 
     def __init__(self, params, lr: float, *, schedule: str, warmup_steps: int,
-                 decay_steps, grad_clip: Optional[float], weight_decay: float):
-        self.params = [p for p in params if p.requires_grad]
+                 decay_steps, grad_clip: Optional[float], weight_decay: float,
+                 tp_dims=None, tp=None):
+        params = list(params)
+        # tp_dims: the dim tp splits of each parameter (None: replicated),
+        # for the clip's norm and the checkpoint's blocks.
+        dims = tp_dims if tp_dims is not None else [None] * len(params)
+        kept = [(p, d) for p, d in zip(params, dims) if p.requires_grad]
+        self.params = [p for p, _ in kept]
+        self.tp_dims = [d for _, d in kept]
+        self.tp = tp
         self.lr = lr
         self.schedule = dict(schedule=schedule, warmup_steps=warmup_steps,
                              decay_steps=decay_steps)
@@ -246,7 +275,8 @@ class Optimizer:
 
     def step(self) -> None:
         if self.grad_clip is not None:
-            clip_by_global_norm_([p.grad for p in self.params], self.grad_clip)
+            clip_by_global_norm_([p.grad for p in self.params], self.grad_clip,
+                                 [d is not None for d in self.tp_dims], self.tp)
         for group in self.adamw.param_groups:
             group["lr"] = lr_at(self.count, self.lr, **self.schedule)
         self.adamw.step()
@@ -256,8 +286,18 @@ class Optimizer:
     def state_dict(self) -> dict:
         """The optimizer state a checkpoint carries: the update count (the
         schedule's step, optax's ``count``) and AdamW's moments and
-        bias-correction steps."""
-        return {"count": self.count, "adamw": self.adamw.state_dict()}
+        bias-correction steps; under tp each moment as the
+        ``sharding.Block`` of its parameter's layout."""
+        sd = self.adamw.state_dict()
+        if self.tp is not None and self.tp.size > 1:
+            from ..parallel.sharding import Block
+
+            sd["state"] = {
+                i: {k: Block.of(t, self.tp_dims[i], self.tp) if k != "step" else t
+                    for k, t in st.items()}
+                for i, st in sd["state"].items()
+            }
+        return {"count": self.count, "adamw": sd}
 
     def load_state_dict(self, state: dict) -> None:
         self.count = int(state["count"])
@@ -309,6 +349,68 @@ def _in_dtype(x: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(x, dtype=torch.float32).to(dtype))
 
 
+class _LeafLayout:
+    """Where a rank's part of one JAX leaf of shape ``whole`` sits
+    (``offsets``, ``sizes`` in the leaf), and, for each dim of the leaf, the
+    mesh axes that split it."""
+
+    def __init__(self, offsets, sizes, split, whole):
+        self.offsets, self.sizes, self.split, self.whole = tuple(offsets), tuple(sizes), split, tuple(whole)
+
+    @classmethod
+    def of_whole(cls, shape) -> "_LeafLayout":
+        return cls([0] * len(shape), shape, [()] * len(shape), shape)
+
+
+def _leaf_layout(leaf, param, name: str, tp, mesh) -> _LeafLayout:
+    """The :class:`_LeafLayout` of ``leaf`` on this rank, ``param`` the
+    port tensor of its first name (each layer's alike): tp's block of the
+    port tensor, then FSDP2's rows of that block, mapped into the leaf; an
+    axis splits a leaf dim when another coordinate on it holds another range
+    of that dim. An axis that would split two dims raises
+    NotImplementedError."""
+    from ..parallel.mesh import axis_sizes, train_coords
+    from ..parallel.sharding import Block, tp_dim
+
+    sizes = axis_sizes(mesh)
+    fsdp = sizes.get("fsdp", 1)
+    dim = tp_dim(name) if tp is not None else None
+    whole = list(param.shape)  # FSDP2's global shape: the tp block's
+    if dim is not None:
+        whole[dim] *= tp.size
+
+    def port_box(t: int, f: int):
+        offs, size = [0] * len(whole), list(whole)
+        if dim is not None:
+            size[dim] //= tp.size
+            offs[dim] = t * size[dim]
+        if fsdp > 1:
+            rows = size[0]
+            chunk = -(-rows // fsdp)
+            start = min(f * chunk, rows)
+            offs[0], size[0] = offs[0] + start, min(start + chunk, rows) - start
+        return leaf.box(offs, size)
+
+    t_idx = train_coords(mesh).tp_index
+    f_idx = mesh.get_local_rank("fsdp") if fsdp > 1 else 0
+    mine = port_box(t_idx, f_idx)
+    block = Block.of(param, dim, tp)
+    if leaf.box(block.offsets, block.data.shape) != mine:
+        raise RuntimeError(f"{leaf.path}: the parameter's layout is not FSDP2's rows of tp's block")
+    split = [[] for _ in leaf.shape]
+    for axis, n in (("tp", tp.size if dim is not None else 1), ("fsdp", fsdp)):
+        varied = set()
+        for c in range(n):
+            other = port_box(c, f_idx) if axis == "tp" else port_box(t_idx, c)
+            for which in (0, 1):
+                varied |= {d for d in range(len(leaf.shape)) if other[which][d] != mine[which][d]}
+        if len(varied) > 1:
+            raise NotImplementedError(f"{leaf.path}: {axis} splits dims {sorted(varied)} of the leaf")
+        for d in varied:
+            split[d].append(axis)
+    return _LeafLayout(mine[0], mine[1], [tuple(a) for a in split], leaf.shape)
+
+
 class Adafactor:
     """optax's ``adafactor(lr)`` with its defaults, optionally after
     ``clip_by_global_norm``: per JAX leaf, (1) the factored second-moment
@@ -326,96 +428,165 @@ class Adafactor:
     (:func:`~pytorch_operator_tpu_torch.models.convert.jax_leaves`), computes
     the update there, and adds it back through the same mapping. The state
     holds optax's ``v_row``, ``v_col`` and ``v`` a leaf, with optax's shapes
-    (a ``[1]`` placeholder for the unused ones)."""
+    (a ``[1]`` placeholder for the unused ones).
+
+    **Under a mesh** (``mesh``: the world's ``DeviceMesh``) each rank
+    computes on its own part of each leaf (its tp blocks, FSDP2's rows of
+    them: a box of the leaf) and holds the statistics of that part; no leaf
+    is gathered. The row and column means sum this rank's part and
+    all-reduce over the axes that split the dim they reduce; the two block
+    RMS values all-reduce their sums of squares over the axes that split
+    the leaf. ``state_dict`` gives each statistic as the
+    ``sharding.Block`` of its part."""
 
     def __init__(self, model, lr: float, *, schedule: str, warmup_steps: int,
-                 decay_steps, grad_clip: Optional[float]):
-        from torch.distributed.tensor import DTensor
-
+                 decay_steps, grad_clip: Optional[float], mesh=None):
         from ..models.convert import jax_leaves
+        from ..parallel.sharding import tp_dim
 
-        if any(isinstance(p, DTensor) for p in model.parameters()):
-            raise NotImplementedError(
-                "adafactor over sharded parameters (a world of more than one process) is not "
-                "ported yet: its statistics span whole JAX leaves, which a mesh shards "
-                "(ROADMAP.md: item 3c)"
-            )
+        self.mesh = mesh
+        self.tp = getattr(model, "tp", None)
         named = dict(model.named_parameters())
-        self.leaves = []  # (JaxLeaf, its port parameters, its factored dims)
+        self.leaves = []  # (JaxLeaf, its port parameters, its factored dims, _LeafLayout)
         covered = set()
         for leaf in jax_leaves(model.cfg):
             params = [named[n] for n in leaf.names]
             covered.update(leaf.names)
-            self.leaves.append((leaf, params, _factored_dims(leaf.shape)))
+            layout = (_LeafLayout.of_whole(leaf.shape) if mesh is None
+                      else _leaf_layout(leaf, params[0], leaf.names[0], self.tp, mesh))
+            self.leaves.append((leaf, params, _factored_dims(leaf.shape), layout))
         missing = sorted(n for n, q in named.items() if q.requires_grad and n not in covered)
         if missing:
             raise ValueError(f"adafactor maps the Llama's JAX leaves only; not covered: {missing}")
-        self.params = [q for _, ps, _ in self.leaves for q in ps]
+        self.params = [q for _, ps, _, _ in self.leaves for q in ps]
+        self.tp_split = [self.tp is not None and tp_dim(n) is not None
+                         for leaf, _, _, _ in self.leaves for n in leaf.names]
         self.lr = lr
         self.schedule = dict(schedule=schedule, warmup_steps=warmup_steps, decay_steps=decay_steps)
         lr_at(0, lr, **self.schedule)  # validate the schedule name now
         self.grad_clip = grad_clip
         self.count = 0
         self.state = {}
-        for leaf, ps, dims in self.leaves:
+        for leaf, ps, dims, lay in self.leaves:
             dtype, dev = ps[0].dtype, ps[0].device
             one = torch.zeros((1,), dtype=dtype, device=dev)
             if dims is None:
                 st = {"v_row": one, "v_col": one.clone(),
-                      "v": torch.zeros(leaf.shape, dtype=dtype, device=dev)}
+                      "v": torch.zeros(lay.sizes, dtype=dtype, device=dev)}
             else:
                 d1, d0 = dims
                 st = {
-                    "v_row": torch.zeros(np.delete(leaf.shape, d0).tolist(), dtype=dtype, device=dev),
-                    "v_col": torch.zeros(np.delete(leaf.shape, d1).tolist(), dtype=dtype, device=dev),
+                    "v_row": torch.zeros(np.delete(lay.sizes, d0).tolist(), dtype=dtype, device=dev),
+                    "v_col": torch.zeros(np.delete(lay.sizes, d1).tolist(), dtype=dtype, device=dev),
                     "v": one,
                 }
             self.state[leaf.path] = st
 
+    def _mean(self, x: torch.Tensor, dims, lay: _LeafLayout, leaf_dims, keepdim: bool = False):
+        """The mean of ``x`` (this rank's part, in the parameter's dtype)
+        over its ``dims`` (leaf dims ``leaf_dims``) over the whole leaf:
+        ``x.mean`` where no axis splits them, else the f32 sum all-reduced
+        over the axes that do, divided by their whole extent, rounded to
+        ``x``'s dtype as a mean of it is."""
+        from ..parallel.collectives import psum
+
+        axes = sorted({a for d in leaf_dims for a in lay.split[d]})
+        if not axes:
+            return x.mean(dims, keepdim=keepdim)
+        total = x.float().sum(dims, keepdim=keepdim)
+        for axis in axes:
+            total = psum(total, axis, self.mesh)
+        n = math.prod(lay.whole[d] for d in leaf_dims)
+        return (total / n).to(x.dtype)
+
     @torch.no_grad()
     def step(self) -> None:
+        from ..parallel.sharding import local_tensor
+
         if self.grad_clip is not None:
-            clip_by_global_norm_([q.grad for q in self.params], self.grad_clip)
+            clip_by_global_norm_([q.grad for q in self.params], self.grad_clip, self.tp_split, self.tp)
         t = torch.tensor(float(self.count + 1), dtype=torch.float32)
         decay_t = 1.0 - t.pow(-0.8)
         decay, keep_new = float(decay_t), float(1.0 - decay_t)
         lr = lr_at(self.count, self.lr, **self.schedule)
-        for leaf, ps, dims in self.leaves:
-            g = leaf.from_port([q.grad for q in ps])
-            p = leaf.from_port([q.detach() for q in ps])
+        for leaf, ps, dims, lay in self.leaves:
+            g = leaf.from_port([local_tensor(q.grad) for q in ps], lay.sizes)
+            p = leaf.from_port([local_tensor(q).detach() for q in ps], lay.sizes)
             st = self.state[leaf.path]
             dtype = p.dtype
+            every = tuple(range(p.dim()))
             g_sq = g * g + _in_dtype(1e-30, dtype)
             if dims is not None:
                 d1, d0 = dims
-                v_row = (decay * st["v_row"].float() + keep_new * g_sq.mean(d0).float()).to(dtype)
-                v_col = (decay * st["v_col"].float() + keep_new * g_sq.mean(d1).float()).to(dtype)
+                v_row = (decay * st["v_row"].float() + keep_new * self._mean(g_sq, d0, lay, [d0]).float()).to(dtype)
+                v_col = (decay * st["v_col"].float() + keep_new * self._mean(g_sq, d1, lay, [d1]).float()).to(dtype)
                 st["v_row"], st["v_col"] = v_row, v_col
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_factor = (v_row / v_row.mean(reduced_d1, keepdim=True)).pow(-0.5)
+                row_mean = self._mean(v_row, reduced_d1, lay, [d1], keepdim=True)
+                row_factor = (v_row / row_mean).pow(-0.5)
                 u = g * row_factor.unsqueeze(d0) * v_col.pow(-0.5).unsqueeze(d1)
             else:
                 v = (decay * st["v"].float() + keep_new * g_sq.float()).to(dtype)
                 st["v"] = v
                 u = g * v.pow(-0.5)
-            u = u / torch.clamp_min((u * u).mean().sqrt() / 1.0, 1.0)  # clip_by_block_rms(1)
+            u = u / torch.clamp_min(self._mean(u * u, every, lay, every).sqrt() / 1.0, 1.0)  # clip_by_block_rms(1)
             u = u * _in_dtype(lr, dtype)
-            u = u * (p * p).mean().sqrt().clamp_min(_in_dtype(1e-3, dtype))  # param block rms
+            u = u * self._mean(p * p, every, lay, every).sqrt().clamp_min(_in_dtype(1e-3, dtype))  # param block rms
             for i, q in enumerate(ps):
-                q.sub_(leaf.to_port(u, i))
+                local_tensor(q).sub_(leaf.to_port(u, i))
                 q.grad = None
         self.count += 1
 
+    def _state_blocks(self, st: dict, dims, lay: _LeafLayout) -> dict:
+        """Each statistic of one leaf as the ``sharding.Block`` of this
+        rank's part: a factored statistic's offsets are the leaf part's less
+        the reduced dim; a part is written by the lowest coordinate of the
+        axes that do not split it."""
+        from ..parallel.mesh import axis_sizes
+        from ..parallel.sharding import Block
+
+        sizes = axis_sizes(self.mesh)
+        out = {}
+        for key, t in st.items():
+            if tuple(t.shape) == (1,) and (dims is not None) == (key == "v"):
+                kept = []  # a placeholder: rank 0 writes it
+            elif key == "v":
+                kept = list(range(len(lay.whole)))
+            else:
+                kept = [d for d in range(len(lay.whole)) if d != dims[1 if key == "v_row" else 0]]
+            axes = {a for d in kept for a in lay.split[d]}
+            writer = all(self.mesh.get_local_rank(a) == 0 for a, n in sizes.items()
+                          if n > 1 and a not in axes)
+            if not kept:
+                out[key] = Block(t, (0,), (1,), writer)
+            else:
+                out[key] = Block(t, tuple(lay.offsets[d] for d in kept),
+                                 tuple(lay.whole[d] for d in kept), writer)
+        return out
+
     def state_dict(self) -> dict:
         """The update count and optax's ``v_row``/``v_col``/``v`` by JAX leaf
-        path."""
-        return {"count": self.count, "adafactor": {k: dict(v) for k, v in self.state.items()}}
+        path; under a mesh each as the ``sharding.Block`` of this rank's
+        part."""
+        if self.mesh is None:
+            return {"count": self.count, "adafactor": {k: dict(v) for k, v in self.state.items()}}
+        return {"count": self.count, "adafactor": {
+            leaf.path: self._state_blocks(self.state[leaf.path], dims, lay)
+            for leaf, _, dims, lay in self.leaves
+        }}
 
     def load_state_dict(self, state: dict) -> None:
+        """Load :meth:`state_dict`'s values: this rank's parts, or (under a
+        mesh) the whole statistics, of which it takes its part."""
         self.count = int(state["count"])
+        blocks = self.state_dict()["adafactor"] if self.mesh is not None else None
         for path, st in state["adafactor"].items():
             for k, t in st.items():
                 mine = self.state[path][k]
+                if blocks is not None and tuple(t.shape) != tuple(mine.shape):
+                    b = blocks[path][k]
+                    if tuple(t.shape) == tuple(b.shape):
+                        t = t[tuple(slice(o, o + n) for o, n in zip(b.offsets, mine.shape))]
                 if tuple(t.shape) != tuple(mine.shape):
                     raise ValueError(
                         f"adafactor state {path}/{k} has shape {tuple(t.shape)}, expected "
@@ -424,7 +595,8 @@ class Adafactor:
                 mine.copy_(t)
 
     def state_nbytes(self) -> int:
-        """Bytes of the state tensors (the factored statistics)."""
+        """Bytes of the state tensors (the factored statistics) this rank
+        holds."""
         return sum(t.nbytes for st in self.state.values() for t in st.values())
 
 
@@ -438,13 +610,16 @@ def make_optimizer(
     grad_clip=None,
     weight_decay: float = 0.1,
     optimizer: str = "adamw",
+    mesh=None,
 ):
     """The shared optimizer recipe: AdamW (weight decay ``weight_decay``) or
     adafactor (no weight decay, as in the JAX package), optional
     linear-warmup + cosine decay, optional global-norm clipping before
     either (see the JAX ``make_optimizer``). ``params`` is an iterable of
     parameters or the model; adafactor needs the model, whose JAX leaves
-    decide its factored axes and block RMS."""
+    decide its factored axes and block RMS. ``mesh``: the world's
+    ``DeviceMesh`` the model is laid out on (adafactor's reductions run over
+    its axes); a tensor-parallel model's layout is read from the model."""
     if optimizer not in ("adamw", "adafactor"):
         raise ValueError(f"optimizer={optimizer!r} not in ('adamw', 'adafactor')")
     if grad_clip is not None and grad_clip <= 0:
@@ -454,8 +629,15 @@ def make_optimizer(
     if optimizer == "adafactor":
         if not isinstance(params, torch.nn.Module):
             raise TypeError("optimizer='adafactor' needs the model, not its parameters")
-        return Adafactor(params, lr, **sched)
+        return Adafactor(params, lr, mesh=mesh, **sched)
     if isinstance(params, torch.nn.Module):
+        tp = getattr(params, "tp", None)
+        if tp is not None:
+            from ..parallel.sharding import tp_dim
+
+            named = list(params.named_parameters())
+            return Optimizer([p for _, p in named], lr, weight_decay=weight_decay,
+                             tp_dims=[tp_dim(n) for n, _ in named], tp=tp, **sched)
         params = params.parameters()
     return Optimizer(params, lr, weight_decay=weight_decay, **sched)
 
@@ -472,9 +654,26 @@ def make_lm_loss_fn(
     A MoE model with ``cfg.moe_aux_weight > 0`` adds that weight times the
     mean over layers of its load-balance loss, unless ``include_aux`` is
     False (the held-out loss); ``on_aux`` then receives each call's aux value
-    (detached, on the device)."""
+    (detached, on the device).
+
+    A tensor-parallel model's loss is ``vocab_parallel_xent`` over its
+    head's block of columns: in 8192-column chunks for ``"chunked"``, in one
+    chunk of the block for ``"dense"`` (the same value)."""
     chunked = model.cfg.xent_impl == "chunked"
     aux_w = model.cfg.moe_aux_weight if include_aux else 0.0
+    tp = getattr(model, "tp", None)
+    if tp is not None:
+        from ..ops.chunked_xent import vocab_parallel_xent
+
+        def tp_loss_fn(tokens):
+            h = model(tokens, return_hidden=True)[:, :-1]
+            w = model.head_kernel()
+            return vocab_parallel_xent(
+                h.reshape(-1, h.shape[-1]), w, tokens[:, 1:].reshape(-1), tp=tp,
+                col_offset=model.vocab_offset, chunk=8192 if chunked else w.shape[1],
+            ).mean()
+
+        return tp_loss_fn
 
     def loss_fn(tokens):
         labels = tokens[:, 1:].reshape(-1)

@@ -107,16 +107,17 @@ def port_runs(init_tree):
     return runs
 
 
-# What a world of more than one process refuses, naming item 3c.
-REFUSED = [dict(n_experts=4), dict(optimizer="adafactor"), dict(attn_impl="ring")]
+# What a world of more than one process refuses, naming item 3c-2 (adafactor
+# runs in a world since tensor parallelism's slice: tests/test_torch_tp_*.py).
+REFUSED = [dict(n_experts=4), dict(attn_impl="ulysses"), dict(attn_impl="ring")]
 
 
 def test_what_waits_for_item_3c_is_refused_in_a_world(port_runs):
     msgs = port_runs["refused"]
     assert len(msgs) == len(REFUSED)
-    assert all("ROADMAP.md item 3c" in m for m in msgs), msgs
+    assert all("ROADMAP.md item 3c-2" in m for m in msgs), msgs
     assert "--experts in a world of 2 processes" in msgs[0]
-    assert "adafactor" in msgs[1]
+    assert "ulysses" in msgs[1]
 
 
 @pytest.mark.parametrize(

@@ -207,14 +207,15 @@ def test_run_cpu_flash_chunked_and_bf16_params():
     "argv",
     [
         ["--pp-schedule", "1f1b"],
-        ["--mesh", "tp=2"],
+        ["--mesh", "sp=2"],
         ["--attn-impl", "ring"],
     ],
     ids=lambda a: a[0].lstrip("-"),
 )
 def test_main_refuses_unported_flags(argv):
-    """What waits for item 3c is refused by name: the pipeline flags, a
-    mesh axis beyond dp/fsdp (before its size is resolved), ring attention."""
+    """What waits for items 3c-2 and 3c-3 is refused by name: the pipeline
+    flags, a mesh axis beyond dp/fsdp/tp (before its size is resolved), ring
+    attention."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*3c"):
         llama_train.main(["--device", "cpu", "--steps", "1", "--seq-len", "8", *argv])
 

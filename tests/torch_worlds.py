@@ -112,11 +112,67 @@ def run_world(fn_name: str, *args, n: int = 2, timeout: float = 180.0, **extra_e
 # ---- what a rank runs ----
 
 
+def planted(name):
+    """A context in which the planted fault ``name`` replaces the port's
+    code (None: no fault):
+
+    - ``"leave_psum_autograd"``: tp's leave written with ``psum_autograd``,
+      whose backward sums too (every gradient upstream multiplied by tp);
+    - ``"unshifted_vocab_sum"``: the vocab-parallel loss summing the ranks'
+      ``s`` without the shift by ``exp(m - M)``;
+    - ``"unreduced_rows"``: adafactor's row statistics (the means over a
+      factored leaf's largest dim) left unreduced over the axes that split
+      that dim."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def patch():
+        if name is None:
+            yield
+            return
+        import torch
+
+        from pytorch_operator_tpu_torch.ops import chunked_xent
+        from pytorch_operator_tpu_torch.parallel import collectives
+        from pytorch_operator_tpu_torch.workloads import trainer
+
+        if name == "leave_psum_autograd":
+            where, attr = collectives, "tp_leave"
+            fault = lambda x, axis="tp", mesh=None: collectives.psum_autograd(x, axis, mesh)  # noqa: E731
+        elif name == "unshifted_vocab_sum":
+            where, attr = chunked_xent, "combine_vocab_stats"
+
+            def fault(m, s, lab_logit, tp):
+                M = collectives.pmax(m, "tp", tp.mesh)
+                lse = M + torch.log(collectives.psum(s, "tp", tp.mesh))
+                return lse, lse - collectives.psum(lab_logit, "tp", tp.mesh)
+        elif name == "unreduced_rows":
+            where, attr = trainer.Adafactor, "_mean"
+            sound = trainer.Adafactor._mean
+
+            def fault(self, x, dims, lay, leaf_dims, keepdim=False):
+                factored = trainer._factored_dims(lay.whole)
+                if factored is not None and list(leaf_dims) == [factored[1]] and not keepdim:
+                    return x.mean(dims)
+                return sound(self, x, dims, lay, leaf_dims, keepdim)
+        else:
+            raise ValueError(f"no planted fault {name!r}")
+        saved = getattr(where, attr)
+        setattr(where, attr, fault)
+        try:
+            yield
+        finally:
+            setattr(where, attr, saved)
+
+    return patch()
+
+
 def rank_train(world, runs: list) -> list:
     """``llama_train.run(device="cpu", **kw)`` for each ``kw`` of ``runs``
     in this world (``kw["env"]``, if given, is set in the environment
-    first); each run's result, with ``params``: the whole trained
-    parameters (gathered from the shards) as numpy arrays. A run with
+    first; ``kw["plant"]`` names a :func:`planted` fault to run it under);
+    each run's result, with ``params``: the whole trained parameters
+    (gathered from the shards and tp's blocks) as numpy arrays. A run with
     ``kw["raises"]`` must raise that exception type: its message is the
     result."""
     from pytorch_operator_tpu_torch.workloads import llama_train
@@ -126,6 +182,7 @@ def rank_train(world, runs: list) -> list:
         kw = dict(kw)
         os.environ.update(kw.pop("env", {}))
         raises = kw.pop("raises", None)
+        plant = kw.pop("plant", None)
         if raises is not None:
             try:
                 llama_train.run(device="cpu", log=lambda m: None, **kw)
@@ -133,8 +190,10 @@ def rank_train(world, runs: list) -> list:
                 out.append(str(e))
                 continue
             raise AssertionError(f"run({kw}) did not raise {raises.__name__}")
-        r = llama_train.run(device="cpu", log=lambda m: None, keep_params=True, **kw)
-        r["params"] = {name: t.numpy() for name, t in r["params"].items()}
+        with planted(plant):
+            r = llama_train.run(device="cpu", log=lambda m: None, keep_params=True, **kw)
+        # bf16 parameters come back as f32 arrays (numpy has no bf16).
+        r["params"] = {name: t.float().numpy() for name, t in r["params"].items()}
         out.append(r)
     return out
 
@@ -198,7 +257,7 @@ def rank_restore_own_rows(world, root: str, step: int) -> dict:
     from pytorch_operator_tpu_torch.checkpoint import CheckpointManager, manager
     from pytorch_operator_tpu_torch.models import llama as llama_lib
     from pytorch_operator_tpu_torch.parallel.mesh import make_mesh
-    from pytorch_operator_tpu_torch.parallel.sharding import shard_model
+    from pytorch_operator_tpu_torch.parallel.sharding import dim0_rows, shard_model
 
     def blind(tree):
         if isinstance(tree, dict) and manager.SHARD in tree:
@@ -231,7 +290,7 @@ def rank_restore_own_rows(world, root: str, step: int) -> dict:
     out = {}
     for name, t in got.items():
         assert isinstance(t, DTensor), name
-        offset, _ = manager._shard_rows(t.shape, t.device_mesh, t.placements)
+        offset, _ = dim0_rows(t.shape, t.device_mesh, t.placements)
         out[name] = (offset, t.to_local().numpy().copy())
     return {"rows": out, "whole_raised": whole_raised}
 
@@ -322,3 +381,151 @@ def rank_entry_devices(world, eval_file: str, spool_root: str) -> dict:
     stats = serve.run(config="tiny", spool_dir=spool, slots=2, chunk=8, block=4, max_decode_len=48,
                       max_requests=2, idle_timeout=60, device="cpu", **quiet)
     return {"seen": seen, "serve": stats}
+
+
+def _blocks_out(tree):
+    """``tree`` with each ``sharding.Block`` as a dict of its offsets, whole
+    shape, writer flag and data (numpy, f32 for bf16), for the test process
+    to assemble the whole from the ranks' parts."""
+    from pytorch_operator_tpu_torch.parallel.sharding import Block
+
+    if isinstance(tree, Block):
+        return {"offsets": tuple(tree.offsets), "shape": tuple(tree.shape), "writer": tree.writer,
+                "data": tree.data.detach().float().numpy().copy()}
+    if isinstance(tree, dict):
+        return {k: _blocks_out(v) for k, v in tree.items()}
+    return tree
+
+
+def rank_adafactor(world, runs: list) -> list:
+    """For each run (``mesh``, the Llama config's overrides ``cfg``, the
+    JAX init ``tree``, token ``batches``, ``lr``, optional ``plant`` and
+    ``teacher``): the port's adafactor under that mesh, built by hand as
+    ``llama_train`` builds it (tp's blocks, FSDP2 over the data axes, the
+    statistics reduced over the mesh). Free-running, one step a batch; with
+    ``teacher`` (one ``(tree, opt_state)`` a step, JAX's before that step)
+    each step starts again from JAX's parameters and state. Returns each
+    step's loss, the gathered parameters after every step and the last
+    statistics as blocks."""
+    import torch
+
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+    from pytorch_operator_tpu_torch.models.convert import params_from_jax
+    from pytorch_operator_tpu_torch.parallel.data import put_global
+    from pytorch_operator_tpu_torch.parallel.mesh import make_mesh, train_coords
+    from pytorch_operator_tpu_torch.parallel.sharding import TensorParallel, full_state_dict, shard_model
+    from pytorch_operator_tpu_torch.workloads import trainer
+
+    out = []
+    for run in runs:
+        mesh = make_mesh(run["mesh"], "cpu")
+        tp, coords = TensorParallel.of(mesh), train_coords(mesh)
+        cfg = llama_lib.llama_tiny(**run["cfg"])
+
+        def build(tree, opt_state=None):
+            model = llama_lib.Llama(cfg, tp=tp)
+            model.load_state_dict(params_from_jax(tree, cfg, tp))
+            shard_model(model, mesh)
+            opt = trainer.make_optimizer(model, run["lr"], optimizer="adafactor", mesh=mesh)
+            if opt_state is not None:
+                opt.load_state_dict(opt_state)
+            return model, opt
+
+        teacher = run.get("teacher")
+        model, opt = build(*(teacher[0] if teacher else (run["tree"],)))
+        losses, params = [], []
+        with planted(run.get("plant")):
+            for i, toks in enumerate(run["batches"]):
+                if teacher and i:
+                    model, opt = build(*teacher[i])
+                step = trainer.make_lm_train_step(model, opt)
+                rows = put_global(toks, "cpu", coords.data_index, coords.data_extent).long()
+                losses.append(float(trainer.world_mean(step(rows), world.num_processes, mesh)))
+                params.append({k: v.float().numpy() for k, v in full_state_dict(model).items()})
+        out.append({"losses": losses, "params": params, "state": _blocks_out(opt.state_dict()),
+                    "state_nbytes": opt.state_nbytes()})
+    return out
+
+
+def rank_vocab_parallel(world, h, w, labels, ct, chunk: int, plants: list) -> dict:
+    """``ops.chunked_xent.vocab_parallel_xent`` on a ``tp`` mesh of the
+    world: this rank's block of ``w``'s columns, the whole ``h`` and
+    ``labels``, backward with the cotangent ``ct``; under each of
+    ``plants`` (a :func:`planted` fault or None). Returns, by plant, the
+    per-token loss, h's gradient (summed over tp by ``tp_enter``) and this
+    rank's block's gradient with its first column."""
+    import torch
+
+    from pytorch_operator_tpu_torch.ops.chunked_xent import vocab_parallel_xent
+    from pytorch_operator_tpu_torch.parallel.mesh import make_mesh
+    from pytorch_operator_tpu_torch.parallel.sharding import TensorParallel
+
+    tp = TensorParallel.of(make_mesh({"tp": world.num_processes}, "cpu"))
+    start, n = tp.block(w.shape[1], "vocab")
+    out = {}
+    for plant in plants:
+        hh = torch.tensor(h, requires_grad=True)
+        ww = torch.tensor(w[:, start:start + n], requires_grad=True)
+        with planted(plant):
+            loss = vocab_parallel_xent(hh, ww, torch.tensor(labels), tp=tp, col_offset=start, chunk=chunk)
+            loss.backward(torch.tensor(ct))
+        out[plant] = {"loss": loss.detach().numpy(), "dh": hh.grad.numpy(), "dw": ww.grad.numpy(),
+                      "start": start}
+    return out
+
+
+def rank_restore_layout(world, root: str, step: int, mesh_spec: str, optimizer: str) -> dict:
+    """Restore step ``step`` of ``root`` (the tiny Llama and its
+    ``optimizer`` state, written under any layout) into this world's
+    ``mesh_spec`` layout, built as ``llama_train`` builds it. Every record
+    read is counted: the elements copied out of the ranks' files (a record
+    memory-mapped, so only those are read). Returns the restored parameters
+    and optimizer state as blocks, and the elements read."""
+    import torch
+
+    from pytorch_operator_tpu_torch.checkpoint import CheckpointManager, manager
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+    from pytorch_operator_tpu_torch.parallel.mesh import make_mesh
+    from pytorch_operator_tpu_torch.parallel.sharding import TensorParallel, model_blocks, shard_model
+    from pytorch_operator_tpu_torch.workloads import trainer
+
+    mesh = make_mesh(mesh_spec, "cpu")
+    tp = TensorParallel.of(mesh)
+    model = llama_lib.Llama(llama_lib.llama_tiny(), tp=tp)
+    shard_model(model, mesh)
+    opt = trainer.make_optimizer(model, 1e-2, optimizer=optimizer, mesh=mesh)
+    if hasattr(opt, "init_state"):
+        opt.init_state()
+    read = []
+
+    class Spy:
+        """A record's tensor that counts the elements taken out of it."""
+
+        def __init__(self, t):
+            self.t, self.shape, self.dtype = t, t.shape, t.dtype
+
+        def __getitem__(self, idx):
+            part = self.t[idx]
+            read.append(part.numel())
+            return part
+
+    def spy(tree):
+        if isinstance(tree, dict) and manager.SHARD in tree and tree[manager.SHARD] is not None:
+            return {**tree, manager.SHARD: Spy(tree[manager.SHARD])}
+        if isinstance(tree, dict):
+            return {k: spy(v) for k, v in tree.items()}
+        return tree
+
+    real_load = torch.load
+    torch.load = lambda *a, **kw: spy(real_load(*a, **kw))
+    try:
+        mgr = CheckpointManager(root, process_id=world.process_id, num_processes=world.num_processes)
+        like = {"params": model_blocks(model) if tp is not None else model.state_dict(),
+                "opt_state": opt.state_dict()}
+        restored = mgr.restore(like, step=step)
+    finally:
+        torch.load = real_load
+    model.load_state_dict(restored["params"])
+    opt.load_state_dict(restored["opt_state"])
+    return {"params": _blocks_out(model_blocks(model)), "opt": _blocks_out(opt.state_dict()),
+            "read": sum(read)}
