@@ -19,15 +19,15 @@ Phases, in order; any failure exits non-zero before the result line:
    phase 10's (B8 S2048), at phase 11's per-rank shape (B2 S4096), at
    phase 12's ViT-B/16 shape (B128 S197 H12 D64, non-causal: the kernel
    alone on S padded to 256 with kv_len 197, the wrapper's time beside it,
-   SDPA on S 197) and at phase 13's per-rank tp=2 shapes (0.3b B4 S2048 H4
-   KH2; Llama-3-8B B1 S2048 H16 KH4), with achieved TFLOP/s and the
-   wrapper's host time a call.
+   SDPA on S 197), at phase 13's per-rank tp=2 shapes (0.3b B4 S2048 H4
+   KH2; Llama-3-8B B1 S2048 H16 KH4) and at phase 14's one-process shape
+   (B2 S8192), with achieved TFLOP/s and the wrapper's host time a call.
 3. The two backward kernels against their plain version
    (``flash_attention_backward_reference``) on the same padded inputs, in the
    listed cases, by ``grad_agreement`` (relative L2 error over the whole
    gradient, over its late half and per row); at the training shape, at
-   phase 8's, at phase 10's, at phase 11's, at phase 12's ViT shape and at
-   phase 13's two tp shapes each kernel's time, the plain backward's, SDPA's backward on the unpadded S
+   phase 8's, at phase 10's, at phase 11's, at phase 12's ViT shape, at
+   phase 13's two tp shapes and at phase 14's each kernel's time, the plain backward's, SDPA's backward on the unpadded S
    (timed only) and each bound (over the pairs the unpadded S needs), and each kernel's host time a call. Then the bf16 gradients of the public, differentiable
    ``flash_attention`` on the card against the plain forward and backward, at
    the training shape and at a padded one.
@@ -112,8 +112,8 @@ Phases, in order; any failure exits non-zero before the result line:
    each policy's tokens/s and peak memory over 3 timed steps; (d)
    ``quality_eval.run`` on the checkpoint (bench.py:377-382): fp, int8 and
    int8 + kv8 held-out losses through the serving path, argmax agreement
-   and drift over a 1,024-token greedy rollout (halved for the script's
-   time budget), and the fp serving loss
+   and drift over a 512-token greedy rollout (a quarter of the
+   reference's, for the script's time budget), and the fp serving loss
    against the training path's on the same rows; (e) ``generate.run``
    with ``restore`` (bf16, then int8 + kv8) and each model's continuation
    of a held-out prompt as bytes; ``serve.run`` with ``restore`` on
@@ -230,7 +230,8 @@ Phases, in order; any failure exits non-zero before the result line:
    ``cuda:0`` over gloo as in phase 11 (several runs in one world of
    ranks), each rank's flash launches read from its result (each kernel
    once a layer a step, the forward twice under remat): (a) ``llama_0_3b``
-   at tp=2, B4 x 2048, AdamW, 1 + 3 steps, against one process: losses
+   at 4 of its 16 layers, tp=2, B4 x 2048, AdamW, 1 + 3 steps, against one
+   process: losses
    within ``TP_LOSS_ATOL``, a planted fault (tp's leave written with
    ``psum_autograd``, whose backward sums too) above it, each rank's
    parameter bytes exactly its blocks plus the whole norms, peak memory
@@ -248,7 +249,23 @@ Phases, in order; any failure exits non-zero before the result line:
    losses, the first within ``TP_8B_FIRST_LOSS_ATOL`` of ln 128256,
    ``params_m`` 8030.3, 8,031,059,968 parameter bytes a rank, peak memory
    and step time.
-14. One ``{"kernels": [...]}`` line, the card's line, and as the last line
+14. Sequence and expert parallelism, ranks sharing ``cuda:0`` over gloo as
+   in phase 13: (a) ``llama_0_3b`` at full width and 4 of its 16 layers,
+   global B2 x 8192, AdamW, 1 + 3 steps: one process with
+   ``attn_impl="flash"``, then two ranks at ``sp=2`` with ring attention and
+   with ulysses (each rank its 4,096 positions): losses within
+   ``SP_LOSS_ATOL`` of the one process's, a planted fault (the ring masking
+   by each rank's local positions) above it, the sp ranks' parameters equal
+   (a digest), no flash launch (the sp schemes run none, as in JAX), each
+   rank's peak memory and step time; (b) the MoE Llama at 0.3b width, 4
+   layers, 8 experts, top 2, flash, B8 x 2048, 1 + 3 steps: one process,
+   then ``ep=2``, dense and then sparse (aux 1e-2): losses within
+   ``EP_LOSS_ATOL``, each rank's expert parameter bytes exactly half of one
+   process's, the moves of two tensors upstream of the experts within
+   ``EP_MOVE_RTOL`` of one process's, a planted fault (ep's leave written
+   with ``psum_autograd``) above it, each rank's flash launches (each kernel
+   once a layer a step) into the kernels line.
+15. One ``{"kernels": [...]}`` line, the card's line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -304,6 +321,9 @@ VIT_SHAPE = ("vit", 128, 197, 12, 12, 64, False, None, "bfloat16")
 # heads and 2 of the 4 kv heads; Llama-3-8B at B1 x 2048 16 of 32 and 4 of 8.
 TP_SHAPE = ("tp", 4, 2048, 4, 2, 128, True, None, "bfloat16")
 TP8B_SHAPE = ("tp8b", 1, 2048, 16, 4, 128, True, None, "bfloat16")
+# Phase 14(a)'s one-process reference: 0.3b at B2 x 8192 (the sp runs' global
+# batch). The ep ranks of 14(b) attend at MOE_SHAPE (ep splits no batch).
+SP_SHAPE = ("sp", 2, 8192, 8, 4, 128, True, None, "bfloat16")
 EDGE_CASES = [
     ("S192_causal", 2, 192, 8, 4, 128, True, None, "bfloat16"),
     ("S64_one_tile", 2, 64, 8, 4, 128, True, None, "bfloat16"),
@@ -324,6 +344,7 @@ FLASH_CASES = [
     VIT_SHAPE,
     TP_SHAPE,
     TP8B_SHAPE,
+    SP_SHAPE,
     ("unaligned_S500", 8, 500, 8, 4, 128, True, None, "bfloat16"),
     ("kv_len_noncausal", 4, 512, 8, 4, 128, False, 300, "bfloat16"),
     ("G1", 4, 256, 8, 8, 128, True, None, "bfloat16"),
@@ -353,6 +374,7 @@ BWD_CASES = [
     VIT_SHAPE,
     TP_SHAPE,
     TP8B_SHAPE,
+    SP_SHAPE,
     ("unaligned_S500", 2, 500, 8, 4, 128, True, None, "bfloat16"),
     ("kv_len_noncausal", 2, 512, 8, 4, 128, False, 300, "bfloat16"),
     ("G1", 2, 256, 8, 8, 128, True, None, "bfloat16"),
@@ -387,8 +409,9 @@ TRAIN_QKV_GRAD_RTOL = 5e-2  # readings: median 1.3e-2, worst layer 2.0e-2
 LOGITS_TOL = 0.15
 # Decode steps under the profiler (a generate call's, a serve block's): the
 # profiler's post-processing takes about a millisecond an event, and a 1b
-# int8 step launches 1,845 kernels.
-PROFILE_STEPS = 16
+# int8 step launches 1,845 kernels (8, not 16, for the script's time
+# budget; the readings are a step's).
+PROFILE_STEPS = 8
 # Readings of the profiles that a later one is held against (phase 9(e)
 # against phase 5's training step).
 PROFILE_READINGS: dict = {}
@@ -556,7 +579,7 @@ def phase_flash_vs_plain():
         )
         if not a["ok"]:
             _fail(f"flash_fwd disagrees with its plain version in case {name}")
-        if name in ("slice", "train", "prefill_1b", "journey", "moe", "dist", "vit", "tp", "tp8b"):
+        if name in ("slice", "train", "prefill_1b", "journey", "moe", "dist", "vit", "tp", "tp8b", "sp"):
             qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             call = functools.partial(fa.flash_attention_with_lse, q, k, v, causal=causal, kv_len=kv_len)
             wrapper_ms = None
@@ -647,7 +670,7 @@ def phase_backward_vs_plain():
             for gname, g, r in zip(("dq", "dk", "dv"), grads, refs)
         }
         del refs
-        if name not in ("train", "journey", "moe", "dist", "vit", "tp", "tp8b"):
+        if name not in ("train", "journey", "moe", "dist", "vit", "tp", "tp8b", "sp"):
             continue
         lse_c, delta = lse.contiguous(), fa.bwd_delta(o, do)
         kin = (q, k, v, do, lse_c, delta)
@@ -1666,7 +1689,7 @@ JOURNEY_TRAIN = dict(
     remat_policy="dots", donate=True, checkpoint_every=80,
 )
 JOURNEY_QUALITY = dict(
-    config="0.3b", eval_batches=2, batch_size=8, chunk=128, drift_tokens=1024,
+    config="0.3b", eval_batches=2, batch_size=8, chunk=128, drift_tokens=512,
     drift_window=256, drift_prompt=128,
 )
 # Held-out loss below chance (ln 256 = 5.545) less one nat: bench.py's
@@ -3009,12 +3032,14 @@ def _rank_world(task: str, tag: str, env=None, n: int = 2, **kw) -> list:
 
 
 def _rank_main(task: str, kw: dict) -> int:
-    """One rank of a phase-11, 12 or 13 world: join from the env, run
+    """One rank of a phase-11, 12, 13 or 14 world: join from the env, run
     ``task``, write this rank's output, leave through
     ``rendezvous.finalize``."""
     from pathlib import Path
 
     import torch
+
+    import gc
 
     from pytorch_operator_tpu_torch.runtime import rendezvous
     from pytorch_operator_tpu_torch.runtime.device import device_name
@@ -3026,13 +3051,14 @@ def _rank_main(task: str, kw: dict) -> int:
     if task == "probe":
         out.update(_rank_probe(world, dev))
     elif task == "runs":
-        # Phase 13: several llama_train runs in one world, each under its
-        # planted fault if it names one.
+        # Phases 13 and 14: several llama_train runs in one world, each
+        # under its planted fault if it names one.
         out["runs"] = []
         for run_kw in kw["runs"]:
             run_kw = dict(run_kw)
             with _planted(run_kw.pop("plant", None)):
                 out["runs"].append(_rank_train(run_kw))
+            gc.collect()  # a run's FSDP2 modules hold reference cycles
             torch.cuda.empty_cache()
     elif task == "resnet":
         from pytorch_operator_tpu_torch.models import resnet
@@ -3173,11 +3199,14 @@ def phase_dist(kernels):
     td = tempfile.mkdtemp(prefix="chip_smoke_dist_")
     try:
         ck = Path(td) / "ck"
-        fsdp = _rank_world(
-            "train", "(c) fsdp=2", env={"TPUJOB_CHECKPOINT_DIR": str(ck)}, mesh_spec="fsdp=2",
-            digest=True, checkpoint_every=DIST_CKPT_EVERY, async_checkpoint=True, **DIST_RUN,
-        )
-        dp = _rank_world("train", "(c) dp=2", mesh_spec="dp=2", **DIST_RUN)
+        # One world of two ranks runs both meshes (a world's start-up is
+        # ~10 s); only the fsdp=2 run checkpoints.
+        outs = _rank_world("runs", "(c) fsdp=2 and dp=2", env={"TPUJOB_CHECKPOINT_DIR": str(ck)}, runs=[
+            dict(DIST_RUN, mesh_spec="fsdp=2", digest=True, checkpoint_every=DIST_CKPT_EVERY,
+                 async_checkpoint=True),
+            dict(DIST_RUN, mesh_spec="dp=2"),
+        ])
+        fsdp, dp = ([o["runs"][i] for o in outs] for i in (0, 1))
         _log(f"dist (c): {time.perf_counter() - t0:.1f} s")
         runs = {"fsdp=2": fsdp, "dp=2": dp}
         for mesh, outs in runs.items():
@@ -3770,10 +3799,11 @@ def phase_image(kernels):
 # Phase 13: tensor parallelism and adafactor under a mesh. Two (in (c) four)
 # ranks share cuda:0 over gloo, as in phase 11: the path and its numerics,
 # not scaling. Each world runs its runs in one pair of processes.
-TP_RUN = dict(config="0.3b", batch_size=4, seq_len=2048, warmup=1, steps=3)
-# (b) at 4 of 0.3b's 16 layers: gloo's fsdp=2 traffic is the step (the
-# budget of the script; PERF.md §7).
-TP_ADA_RUN = dict(TP_RUN, optimizer="adafactor", lr=ADAFACTOR_LR, n_layers=4)
+# (a) at 4 of 0.3b's 16 layers (the script's budget: 1,064.6 s with it at
+# 16 layers; PERF.md §7).
+TP_RUN = dict(config="0.3b", n_layers=4, batch_size=4, seq_len=2048, warmup=1, steps=3)
+# (b) at 4 layers too: gloo's fsdp=2 traffic is the step.
+TP_ADA_RUN = dict(TP_RUN, optimizer="adafactor", lr=ADAFACTOR_LR)
 TP_FOUR_RUN = dict(config="0.3b", n_layers=4, batch_size=4, seq_len=2048, warmup=1, steps=1)
 TP_8B_RUN = dict(config="8b", batch_size=1, seq_len=2048, warmup=1, steps=2, param_dtype="bfloat16",
                  optimizer="adafactor", lr=ADAFACTOR_LR, remat=True, remat_policy="full")
@@ -3803,7 +3833,11 @@ def _planted(name):
     ``"leave_psum_autograd"``, tp's leave whose backward sums over tp too
     (every gradient upstream multiplied by tp); ``"unreduced_rows"``,
     adafactor's row statistics left unreduced over the axes that split the
-    dim they reduce."""
+    dim they reduce; ``"ring_local_positions"``, the ring attention masking
+    by each rank's local positions (rank 0 sees later blocks, the others
+    lose earlier ones); ``"ep_leave_psum_autograd"``, the MoE layer's leave
+    over ep written with ``psum_autograd`` (the experts' upstream gradients
+    multiplied by ep)."""
     import contextlib
 
     @contextlib.contextmanager
@@ -3811,10 +3845,20 @@ def _planted(name):
         if name is None:
             yield
             return
-        from pytorch_operator_tpu_torch.parallel import collectives
+        from pytorch_operator_tpu_torch.models import llama as llama_lib
+        from pytorch_operator_tpu_torch.parallel import collectives, moe
         from pytorch_operator_tpu_torch.workloads import trainer
 
-        if name == "leave_psum_autograd":
+        if name == "ring_local_positions":
+            where, attr = llama_lib, "ring_attention_shard"
+            sound = llama_lib.ring_attention_shard
+
+            def fault(q, k, v, q_pos, kv_pos, **kw):
+                return sound(q, k, v, q_pos - q_pos[:, :1], kv_pos - kv_pos[:, :1], **kw)
+        elif name == "ep_leave_psum_autograd":
+            where, attr = moe, "tp_leave"
+            fault = lambda x, axis, mesh=None: collectives.psum_autograd(x, axis, mesh)  # noqa: E731
+        elif name == "leave_psum_autograd":
             where, attr = collectives, "tp_leave"
             fault = lambda x, axis="tp", mesh=None: collectives.psum_autograd(x, axis, mesh)  # noqa: E731
         elif name == "unreduced_rows":
@@ -3838,16 +3882,16 @@ def _planted(name):
     return patch()
 
 
-def _tp_bytes(config: str, param_dtype: str, tp: int) -> tuple:
-    """``(params, bytes a rank)`` of ``config`` under ``tp``: the split
-    tensors' share plus the whole norms (f32), from a model on the meta
-    device."""
+def _tp_bytes(config: str, param_dtype: str, tp: int, **over) -> tuple:
+    """``(params, bytes a rank)`` of ``config`` (with ``over``) under ``tp``:
+    the split tensors' share plus the whole norms (f32), from a model on the
+    meta device."""
     import torch
 
     from pytorch_operator_tpu_torch.models import llama as llama_lib
     from pytorch_operator_tpu_torch.parallel.sharding import tp_dim
 
-    cfg = getattr(llama_lib, llama_lib.CONFIGS[config])(param_dtype=getattr(torch, param_dtype))
+    cfg = getattr(llama_lib, llama_lib.CONFIGS[config])(param_dtype=getattr(torch, param_dtype), **over)
     model = llama_lib.Llama(cfg, device="meta")
     total = sum(p.numel() for p in model.parameters())
     mine = sum(p.numel() * p.element_size() // (tp if tp_dim(n) is not None else 1)
@@ -3855,14 +3899,15 @@ def _tp_bytes(config: str, param_dtype: str, tp: int) -> tuple:
     return total, mine
 
 
-def _seeded_tensors(config: str, n_layers: int, names) -> dict:
+def _seeded_tensors(config: str, n_layers: int, names, **over) -> dict:
     """``names``' tensors of ``llama_train``'s seed-0 init of ``config``
-    at ``n_layers`` on the card, as CPU tensors."""
+    at ``n_layers`` (and the config's ``over``) on the card, as CPU
+    tensors."""
     import torch
 
     from pytorch_operator_tpu_torch.models import llama as llama_lib
 
-    cfg = getattr(llama_lib, llama_lib.CONFIGS[config])(n_layers=n_layers)
+    cfg = getattr(llama_lib, llama_lib.CONFIGS[config])(n_layers=n_layers, **over)
     model = llama_lib.Llama(cfg, device="cuda")
     model.init_weights(torch.Generator(device="cuda").manual_seed(0))
     sd = model.state_dict()
@@ -3928,24 +3973,46 @@ def phase_tp(kernels):
 
     torch.cuda.empty_cache()
     total = TP_RUN["warmup"] + TP_RUN["steps"]
-    n_layers = 16
+    n_layers = TP_RUN["n_layers"]
 
-    # (a) tp=2, AdamW, against one process; the planted leave fault. The
-    # same world of two ranks runs (d) after them.
+    # The one-process references of (a) and (b), then one world of two
+    # ranks for (a), (b) and (d) (a world's start-up is ~10 s).
     t0 = time.perf_counter()
     fa.reset_launch_count()
     one = llama_train.run(device="cuda", log=_log, **TP_RUN)
     _record_launches(kernels, "tp_one_process", fa.launch_counts())
     torch.cuda.empty_cache()
-    tp_world = _rank_world("runs", "(a), (d) tp=2", runs=[
-        dict(TP_RUN, mesh_spec="tp=2"), dict(TP_RUN, mesh_spec="tp=2", plant="leave_psum_autograd"),
-        dict(TP_8B_RUN, mesh_spec="tp=2"),
-    ])
+    ones = {}
+    for dtype in ("float32", "bfloat16"):
+        fa.reset_launch_count()
+        ones[dtype] = llama_train.run(device="cuda", log=_log, param_dtype=dtype,
+                                      keep_params=dtype == "float32", **TP_ADA_RUN)
+        _record_launches(kernels, f"tp_adafactor_one_{dtype}", fa.launch_counts())
+        torch.cuda.empty_cache()
+    whole = ones["float32"].pop("params")
+    one_params = {name: whole[name] for name in TP_ADA_TENSORS}
+    del whole
+    init = _seeded_tensors("0.3b", TP_ADA_RUN["n_layers"], TP_ADA_TENSORS)
+    tdb = tempfile.mkdtemp(prefix="chip_smoke_tp_b_")
+    try:
+        tp_world = _rank_world("runs", "(a), (b), (d) tp=2 and fsdp=2", runs=[
+            dict(TP_RUN, mesh_spec="tp=2"), dict(TP_RUN, mesh_spec="tp=2", plant="leave_psum_autograd"),
+            dict(TP_ADA_RUN, mesh_spec="fsdp=2", param_dtype="float32",
+                 save=[f"{tdb}/sound.pt", TP_ADA_TENSORS]),
+            dict(TP_ADA_RUN, mesh_spec="fsdp=2", param_dtype="bfloat16"),
+            dict(TP_ADA_RUN, mesh_spec="fsdp=2", param_dtype="float32", plant="unreduced_rows",
+                 save=[f"{tdb}/fault.pt", TP_ADA_TENSORS]),
+            dict(TP_8B_RUN, mesh_spec="tp=2"),
+        ])
+        moved = {tag: _move_error(torch.load(f"{tdb}/{tag}.pt"), one_params, init)
+                 for tag in ("sound", "fault")}
+    finally:
+        shutil.rmtree(tdb, ignore_errors=True)
     sound, fault = (tp_world[0]["runs"][i]["result"] for i in (0, 1))
     _tp_describe("(a) tp=2", sound)
     _tp_launches(kernels, "tp_0.3b_tp2", sound["per_rank"], total, n_layers, remat=False)
     gap, fault_gap = _loss_gap(sound["losses"], one["losses"]), _loss_gap(fault["losses"], one["losses"])
-    n_params, want_bytes = _tp_bytes("0.3b", "float32", 2)
+    n_params, want_bytes = _tp_bytes("0.3b", "float32", 2, n_layers=n_layers)
     _log(
         f"tp (a): one process {[round(x, 5) for x in one['losses']]}, step {one['step_s']:.4f} s, "
         f"param bytes {one['param_bytes']}, peak {(one['peak_mem_bytes'] or 0) / 2**30:.2f} GiB; "
@@ -3964,37 +4031,13 @@ def phase_tp(kernels):
     # planted unreduced-row fault, read on two tensors whose row statistics
     # fsdp splits (the head's over the vocabulary, gate's over d_ff).
     t0 = time.perf_counter()
-    ones = {}
-    for dtype in ("float32", "bfloat16"):
-        fa.reset_launch_count()
-        ones[dtype] = llama_train.run(device="cuda", log=_log, param_dtype=dtype,
-                                      keep_params=dtype == "float32", **TP_ADA_RUN)
-        _record_launches(kernels, f"tp_adafactor_one_{dtype}", fa.launch_counts())
-        torch.cuda.empty_cache()
-    whole = ones["float32"].pop("params")
-    one_params = {name: whole[name] for name in TP_ADA_TENSORS}
-    del whole
-    init = _seeded_tensors("0.3b", TP_ADA_RUN["n_layers"], TP_ADA_TENSORS)
-    tdb = tempfile.mkdtemp(prefix="chip_smoke_tp_b_")
-    try:
-        outs = _rank_world("runs", "(b) fsdp=2 adafactor", runs=[
-            dict(TP_ADA_RUN, mesh_spec="fsdp=2", param_dtype="float32",
-                 save=[f"{tdb}/sound.pt", TP_ADA_TENSORS]),
-            dict(TP_ADA_RUN, mesh_spec="fsdp=2", param_dtype="bfloat16"),
-            dict(TP_ADA_RUN, mesh_spec="fsdp=2", param_dtype="float32", plant="unreduced_rows",
-                 save=[f"{tdb}/fault.pt", TP_ADA_TENSORS]),
-        ])
-        moved = {tag: _move_error(torch.load(f"{tdb}/{tag}.pt"), one_params, init)
-                 for tag in ("sound", "fault")}
-    finally:
-        shutil.rmtree(tdb, ignore_errors=True)
     _log(f"tp (b): the parameters' moves against one process's, relative L2 (largest of "
          f"{TP_ADA_TENSORS}): sound {moved['sound']:.3e}, planted unreduced rows "
          f"{moved['fault']:.3e} (limit {TP_ADA_MOVE_RTOL:.1e})")
     if moved["sound"] > TP_ADA_MOVE_RTOL or moved["fault"] <= TP_ADA_MOVE_RTOL:
         _fail(f"tp (b): the moves differ from one process's by {moved['sound']:.3e}, the fault's "
               f"by {moved['fault']:.3e} (limit {TP_ADA_MOVE_RTOL:.1e})")
-    runs = [r["result"] for r in outs[0]["runs"]]
+    runs = [r["result"] for r in tp_world[0]["runs"][2:5]]
     for dtype, r in zip(("float32", "bfloat16"), runs):
         _tp_describe(f"(b) fsdp=2 adafactor {dtype}", r)
         _tp_launches(kernels, f"tp_adafactor_fsdp2_{dtype}", r["per_rank"], total,
@@ -4039,7 +4082,7 @@ def phase_tp(kernels):
 
     # (d) Llama-3-8B's full width at tp=2 (run in (a)'s world).
     t0 = time.perf_counter()
-    r = tp_world[0]["runs"][2]["result"]
+    r = tp_world[0]["runs"][5]["result"]
     _tp_describe("(d) Llama-3-8B tp=2", r)
     total_8b = TP_8B_RUN["warmup"] + TP_8B_RUN["steps"]
     _tp_launches(kernels, "tp_8b_tp2", r["per_rank"], total_8b, 32, remat=True)
@@ -4055,6 +4098,153 @@ def phase_tp(kernels):
     return None
 
 
+# Phase 14: sequence and expert parallelism. (a) at B2 x 8192, not 16384:
+# ulysses keeps each layer's [B, K/sp, G, S, S] f32 probabilities for the
+# backward (8.6 GB a layer a rank at 16384, 69 GB for the two ranks' 4
+# layers beside their other state on one card), and the one-process
+# reference's shape is held against the plain kernels in phases 2-3 (17 GB
+# of f32 scores at 16384).
+SP_RUN = dict(config="0.3b", n_layers=4, batch_size=2, seq_len=8192, warmup=1, steps=3)
+EP_RUN = dict(config="0.3b", n_layers=4, batch_size=8, seq_len=2048, warmup=1, steps=3,
+              n_experts=8, moe_top_k=2, attn_impl="flash")
+EP_SPARSE = dict(moe_dispatch="sparse", moe_aux_weight=1e-2)
+# The worlds' losses against one process's over every step, in nats (the
+# largest absolute difference). Predictions (PERF.md §6): sp 1e-4 to
+# 2e-3 (the ring and ulysses attend in f32, the one process's flash rounds
+# p to bf16), the planted local-position fault 1e-2 to 0.5; ep 1e-4 to
+# 2e-3 (the experts' bf16 parts summed over ep by an all-reduce).
+SP_LOSS_ATOL = 5e-3
+EP_LOSS_ATOL = 5e-3
+# (b): the planted ep fault doubles the gradient upstream of each MoE
+# output, which AdamW's normalisation hides from four steps' losses (the
+# experts' own gradients are only scaled); it shows in the moves of tensors
+# whose gradients mix the doubled path with the residual one: relative L2
+# against one process's move (predicted: sound 1e-3 to 2e-2, the fault 0.1
+# to 0.3; the CPU's tiny f32 readings 1.5e-6 and 0.15).
+EP_MOVE_TENSORS = ["layers.0.attn.q_proj.weight", "layers.0.moe_mlp.gate"]
+EP_MOVE_RTOL = 5e-2
+
+
+def _world_describe(tag: str, r: dict) -> None:
+    per = r["per_rank"]
+    _log(
+        f"{tag}: mesh {r['mesh']}, {r['value'] * r['world']:.1f} tokens/s over {r['world']} ranks "
+        f"sharing one card, step {r['step_s']:.4f} s, losses {[round(x, 5) for x in r['losses']]}; per "
+        f"rank (data, sp, ep) {[(q['data_index'], q['sp_index'], q['ep_index']) for q in per]}, "
+        f"param bytes {[q['param_bytes'] for q in per]}, expert bytes "
+        f"{[q['expert_param_bytes'] for q in per]}, peak memory GiB "
+        f"{[round((q['peak_mem_bytes'] or 0) / 2**30, 2) for q in per]}, flash launches "
+        f"{[q['flash_launches'] for q in per]}"
+    )
+
+
+def phase_sp_ep(kernels):
+    """Phase 14: (a) 0.3b at sp=2, ring and ulysses, against one process with
+    the flash kernels, and the planted local-position fault; (b) the MoE
+    Llama at ep=2, dense and sparse, against one process, and the planted
+    ep leave fault. The kernels at (a)'s one-process shape (B2 S8192) and
+    at (b)'s per-rank shape (B8 S2048, ``MOE_SHAPE``) are held and timed in
+    phases 2-3."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from pytorch_operator_tpu_torch.ops import flash_attention as fa
+    from pytorch_operator_tpu_torch.workloads import llama_train
+
+    torch.cuda.empty_cache()
+    total = SP_RUN["warmup"] + SP_RUN["steps"]
+    # The one-process references of (a) and (b), then one world of two ranks
+    # for both (a world's start-up is ~10 s).
+    t0 = time.perf_counter()
+    fa.reset_launch_count()
+    one = llama_train.run(device="cuda", log=_log, attn_impl="flash", **SP_RUN)
+    _record_launches(kernels, "sp_one_process", fa.launch_counts())
+    torch.cuda.empty_cache()
+    ones = {}
+    for dispatch, over in (("dense", {}), ("sparse", EP_SPARSE)):
+        fa.reset_launch_count()
+        ones[dispatch] = llama_train.run(device="cuda", log=_log, keep_params=dispatch == "dense",
+                                         **EP_RUN, **over)
+        _record_launches(kernels, f"ep_one_{dispatch}", fa.launch_counts())
+        torch.cuda.empty_cache()
+    whole = ones["dense"].pop("params")
+    one_params = {name: whole[name] for name in EP_MOVE_TENSORS}
+    del whole
+    init = _seeded_tensors(EP_RUN["config"], EP_RUN["n_layers"], EP_MOVE_TENSORS,
+                           n_experts=EP_RUN["n_experts"])
+    tdb = tempfile.mkdtemp(prefix="chip_smoke_ep_")
+    try:
+        outs = _rank_world("runs", "(a), (b) sp=2 and ep=2", runs=[
+            dict(SP_RUN, mesh_spec="sp=2", attn_impl="ring", digest=True),
+            dict(SP_RUN, mesh_spec="sp=2", attn_impl="ring", plant="ring_local_positions"),
+            dict(SP_RUN, mesh_spec="sp=2", attn_impl="ulysses", digest=True),
+            dict(EP_RUN, mesh_spec="ep=2", save=[f"{tdb}/sound.pt", EP_MOVE_TENSORS]),
+            dict(EP_RUN, mesh_spec="ep=2", **EP_SPARSE),
+            dict(EP_RUN, mesh_spec="ep=2", plant="ep_leave_psum_autograd",
+                 save=[f"{tdb}/fault.pt", EP_MOVE_TENSORS]),
+        ])
+        moved = {tag: _move_error(torch.load(f"{tdb}/{tag}.pt"), one_params, init)
+                 for tag in ("sound", "fault")}
+    finally:
+        shutil.rmtree(tdb, ignore_errors=True)
+    ring, fault, uly = (outs[0]["runs"][i]["result"] for i in range(3))
+    gaps = {tag: _loss_gap(r["losses"], one["losses"])
+            for tag, r in (("ring", ring), ("fault", fault), ("ulysses", uly))}
+    for tag, r in (("ring", ring), ("ulysses", uly)):
+        _world_describe(f"sp (a) sp=2 {tag}", r)
+        digests = {o["runs"][0 if tag == "ring" else 2]["params"] for o in outs}
+        if len(digests) != 1:
+            _fail(f"sp (a) {tag}: the sp ranks' parameters differ after the last step: {digests}")
+        if any(any(q["flash_launches"].values()) for q in r["per_rank"]):
+            _fail(f"sp (a) {tag}: a flash kernel launched on the sp path")
+        if (r["world"], r["backend"], r["mesh"], len(r["losses"])) != (2, "gloo", {"sp": 2}, total):
+            _fail(f"sp (a) {tag}: world, backend, mesh or step count wrong")
+        if [(q["data_index"], q["sp_index"]) for q in r["per_rank"]] != [(0, 0), (0, 1)]:
+            _fail(f"sp (a) {tag}: rank coordinates {r['per_rank']}")
+        _record_launches(kernels, f"sp_{tag}_sp2", {k: 0 for k in fa.launch_counts()})
+    _log(
+        f"sp (a): one process (flash) {[round(x, 5) for x in one['losses']]}, step "
+        f"{one['step_s']:.4f} s, peak {(one['peak_mem_bytes'] or 0) / 2**30:.2f} GiB; sp=2 ring within "
+        f"{gaps['ring']:.3e}, ulysses within {gaps['ulysses']:.3e} (limit {SP_LOSS_ATOL:.0e}); planted "
+        f"local-position fault {gaps['fault']:.3e} ({[round(x, 5) for x in fault['losses']]}); "
+        f"{time.perf_counter() - t0:.1f} s"
+    )
+    if max(gaps["ring"], gaps["ulysses"]) > SP_LOSS_ATOL or gaps["fault"] <= SP_LOSS_ATOL:
+        _fail(f"sp (a): losses from one process's {gaps} (limit {SP_LOSS_ATOL:.0e})")
+
+    # (b) ep=2, dense then sparse, against one process; the planted leave
+    # fault, read on the moves of two tensors upstream of the experts.
+    runs = [r["result"] for r in outs[0]["runs"][3:]]
+    for dispatch, r in zip(("dense", "sparse"), runs):
+        _world_describe(f"ep (b) ep=2 {dispatch}", r)
+        _tp_launches(kernels, f"ep_{dispatch}_ep2", r["per_rank"], total, EP_RUN["n_layers"], remat=False)
+        g = _loss_gap(r["losses"], ones[dispatch]["losses"])
+        half = ones[dispatch]["per_rank"][0]["expert_param_bytes"] // 2
+        _log(f"ep (b) {dispatch}: one process {[round(x, 5) for x in ones[dispatch]['losses']]}, step "
+             f"{ones[dispatch]['step_s']:.4f} s, expert bytes "
+             f"{ones[dispatch]['per_rank'][0]['expert_param_bytes']}, peak "
+             f"{(ones[dispatch]['peak_mem_bytes'] or 0) / 2**30:.2f} GiB; ep=2 within {g:.3e} (limit "
+             f"{EP_LOSS_ATOL:.0e})")
+        if g > EP_LOSS_ATOL:
+            _fail(f"ep (b) {dispatch}: ep=2 losses {g:.3e} from one process's")
+        if any(q["expert_param_bytes"] != half for q in r["per_rank"]):
+            _fail(f"ep (b) {dispatch}: a rank's expert bytes are not half of one process's {2 * half}")
+        if (r["n_experts"], r["moe_dispatch"], r["params_m"]) != (
+            8, dispatch, ones[dispatch]["params_m"]
+        ):
+            _fail(f"ep (b) {dispatch}: n_experts, dispatch or params_m differ from one process's")
+    fault_gap = _loss_gap(runs[2]["losses"], ones["dense"]["losses"])
+    _log(f"ep (b): the moves of {EP_MOVE_TENSORS} against one process's, relative L2: sound "
+         f"{moved['sound']:.3e}, planted ep leave fault {moved['fault']:.3e} (limit "
+         f"{EP_MOVE_RTOL:.0e}); the fault's losses {fault_gap:.3e} from one process's")
+    if moved["sound"] > EP_MOVE_RTOL or moved["fault"] <= EP_MOVE_RTOL:
+        _fail(f"ep (b): the moves differ from one process's by {moved['sound']:.3e}, the fault's by "
+              f"{moved['fault']:.3e} (limit {EP_MOVE_RTOL:.0e})")
+    return None
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = phase_identity_and_build()
@@ -4064,7 +4254,7 @@ def main() -> int:
     # a profiler session.
     profiles = []
     for phase in (phase_generate, phase_train, phase_serve, phase_int8, phase_journey, phase_rest,
-                  phase_moe, phase_dist, phase_image, phase_tp):
+                  phase_moe, phase_dist, phase_image, phase_tp, phase_sp_ep):
         t0 = time.perf_counter()
         profiles.append(phase(kernels))
         _log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")

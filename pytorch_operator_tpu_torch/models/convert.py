@@ -24,9 +24,10 @@ banks keep the reference's layout (``w_in`` ``q`` ``[L, E, D, F]`` with
 scale ``[L, E, 1, F]`` become ``[E, D, F]`` and ``w_in_scale`` ``[E, 1,
 F]``); its router ``gate`` is never quantized.
 
-For a tensor-parallel model (``tp``), :func:`params_from_jax` returns this
-rank's block of each tensor that tp splits (``parallel/sharding.tp_dim``);
-FSDP2 takes its rows of the block when the model is sharded.
+For a tensor- or expert-parallel model (``tp``, ``ep``),
+:func:`params_from_jax` returns this rank's block of each tensor that tp or
+ep splits (``parallel/sharding.param_splits``: the MoE banks' experts on
+dim 0); FSDP2 takes its rows of the block when the model is sharded.
 
 The mapping between the two layouts lives in one place, :func:`jax_leaves`:
 one :class:`JaxLeaf` a JAX param leaf, with the port tensors it holds and the
@@ -163,13 +164,13 @@ def jax_leaves(cfg: LlamaConfig) -> List[JaxLeaf]:
     ]
 
 
-def params_from_jax(tree, cfg: LlamaConfig, tp=None) -> Dict[str, torch.Tensor]:
+def params_from_jax(tree, cfg: LlamaConfig, tp=None, ep=None) -> Dict[str, torch.Tensor]:
     """The port's state dict for the JAX param ``tree`` of config ``cfg``;
-    with ``tp`` (``parallel/sharding.TensorParallel``) this rank's block of
-    each tensor that tp splits. Raises ``ValueError`` naming the first leaf
-    whose shape disagrees, or whose quantization disagrees with
-    ``cfg.quantize``."""
-    from ..parallel.sharding import tp_dim
+    with ``tp`` (``parallel/sharding.TensorParallel``) and ``ep``
+    (``ExpertParallel``) this rank's block of each tensor that they split.
+    Raises ``ValueError`` naming the first leaf whose shape disagrees, or
+    whose quantization disagrees with ``cfg.quantize``."""
+    from ..parallel.sharding import param_splits
 
     sd: Dict[str, torch.Tensor] = {}
 
@@ -194,17 +195,16 @@ def params_from_jax(tree, cfg: LlamaConfig, tp=None) -> Dict[str, torch.Tensor]:
         else:
             w, scale = torch.from_numpy(np.array(raw, dtype=np.float32)), None
         _check(leaf.path, w.shape, leaf.shape)
-        if tp is not None and tp.size > 1:
-            if quantized:
-                raise NotImplementedError("int8 weights of a tensor-parallel model")
-            dim = tp_dim(leaf.names[0])
-        else:
-            dim = None
+        axes = [ax for ax in (tp, ep) if ax is not None and ax.size > 1]
+        if axes and quantized:
+            raise NotImplementedError("int8 weights of a tensor- or expert-parallel model")
+        splits = [(ax, d) for ax, d in param_splits(leaf.names[0], axes) if d is not None]
         for i, name in enumerate(leaf.names):
-            if dim is not None:
+            if splits:
                 t = leaf.to_port(w, i)
-                start, n = tp.block(t.shape[dim], name)
-                sd[name] = t.narrow(dim, start, n).to(cfg.param_dtype).contiguous()
+                for ax, d in splits:
+                    t = t.narrow(d, *ax.block(t.shape[d], name))
+                sd[name] = t.to(cfg.param_dtype).contiguous()
             elif leaf.norm:
                 sd[name] = leaf.to_port(w, i).clone()
             elif scale is None:

@@ -30,8 +30,8 @@ write and folded into the scores and probabilities after the dots.
 input, ``"dots"`` also keeps the outputs of its GEMMs (``models/common.py``).
 
 ``n_experts > 0`` replaces each block's MLP with ``moe_mlp``, the top-k
-mixture of experts of ``parallel/moe.py`` on this one device (dense or
-capacity-factor sparse dispatch); with ``moe_aux_weight > 0`` and
+mixture of experts of ``parallel/moe.py`` (dense or capacity-factor sparse
+dispatch); with ``moe_aux_weight > 0`` and
 ``return_aux=True`` the forward also returns the mean over layers of the
 load-balance loss, which each block hands back through its return value (a
 rematerialised block runs twice, so no side channel would count once).
@@ -48,10 +48,25 @@ model returns hidden states only: its loss is the vocab-parallel one
 (``ops/chunked_xent.vocab_parallel_xent``). Decoding refuses it (JAX's
 generate and serve take no mesh).
 
-Not in this port yet (raises ``NotImplementedError`` from the config): ring
-and ulysses sequence parallelism. Expert parallelism and pipeline
-parallelism have no config field; the port has no ep or pp forward. They
-are ROADMAP.md items 3c-2 and 3c-3.
+``mesh=`` (the world's ``DeviceMesh``) gives the model the mesh's other
+model-parallel axes, as JAX's ``Llama(cfg, mesh=mesh)``:
+
+- **ep** (``ExpertParallel``): each MoE layer holds its rank's ``E/ep``
+  experts (and under tp each expert's ``d_ff/tp``), and runs
+  ``moe_mlp``/``moe_mlp_sparse`` over the mesh, as the reference's
+  ``MoEMLP`` picks (JAX l.654-672).
+- **sp** (``SequenceParallel``) with ``attn_impl="ring"`` or ``"ulysses"``:
+  the forward takes whole rows and computes this rank's block of ``S/sp``
+  positions (:meth:`Llama.seq_block`) with their global positions; the
+  attention is ``ring_attention_shard`` or ``ulysses_attention_shard`` over
+  sp. Where sp does not divide S, or with no sp axis (no world), ring and
+  ulysses run the dense f32 ``_single_shard`` over the whole sequence, as
+  JAX's do; with another ``attn_impl`` every sp rank computes the whole
+  sequence. Ulysses refuses a kv-head count that sp does not divide (JAX's
+  error), and, under tp, ``(n_kv_heads/tp) % sp != 0`` (ROADMAP.md item
+  3c-2d: JAX's ulysses sees the global heads).
+
+Pipeline parallelism has no config field (ROADMAP.md item 3c-3).
 """
 
 from __future__ import annotations
@@ -68,8 +83,18 @@ from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from ..ops.flash_attention import flash_attention
 from ..ops.quantize import dequantize, quantize, scale_name
-from ..parallel.moe import load_balance_loss, moe_mlp_reference, moe_mlp_sparse
-from ..parallel.sharding import TensorParallel, check_tp_divides, tp_dim
+from ..parallel.collectives import all_gather
+from ..parallel.moe import load_balance_loss, moe_mlp, moe_mlp_reference, moe_mlp_sparse
+from ..parallel.ring import _single_shard, ring_attention_shard
+from ..parallel.sharding import (
+    ExpertParallel,
+    SequenceParallel,
+    TensorParallel,
+    check_tp_divides,
+    model_axes,
+    param_splits,
+)
+from ..parallel.ulysses import check_kv_heads, ulysses_attention_shard
 from .common import remat_policy
 
 
@@ -133,11 +158,6 @@ class LlamaConfig:
                 f"attn_impl={self.attn_impl!r} is not supported with "
                 "decode=True (prefill uses flash/dense self-attention)"
             )
-        if self.attn_impl in ("ring", "ulysses"):
-            raise NotImplementedError(
-                f"attn_impl={self.attn_impl!r} is not ported yet "
-                "(ROADMAP.md item 3c-2: sequence and expert parallelism)"
-            )
         if self.n_experts > 0:
             if self.moe_dispatch not in ("dense", "sparse"):
                 raise ValueError(
@@ -156,8 +176,10 @@ class LlamaConfig:
                     "tokens. Set moe_aux_weight~1e-2.",
                     stacklevel=2,
                 )
-        if self.attn_impl not in ("dense", "flash"):
-            raise ValueError(f"attn_impl={self.attn_impl!r} not in ('dense', 'flash')")
+        if self.attn_impl not in ("dense", "flash", "ring", "ulysses"):
+            raise ValueError(
+                f"attn_impl={self.attn_impl!r} not in ('dense', 'flash', 'ring', 'ulysses')"
+            )
         if self.remat:
             remat_policy(self)  # an unknown policy raises here, as in JAX
         if self.n_heads % self.n_kv_heads:
@@ -295,22 +317,37 @@ def _local(n: int, tp: Optional[TensorParallel], what: str) -> int:
 
 
 class Attention(nn.Module):
-    """Grouped-query attention with RoPE; self-attention (flash or dense) or,
-    with ``cfg.decode``, KV-cache attention. Under ``tp`` it holds and
-    attends this rank's heads (``n_heads/tp`` and ``n_kv_heads/tp``)."""
+    """Grouped-query attention with RoPE; self-attention (flash, dense, or
+    the sequence-parallel ring and ulysses over ``sp``) or, with
+    ``cfg.decode``, KV-cache attention. Under ``tp`` it holds and attends
+    this rank's heads (``n_heads/tp`` and ``n_kv_heads/tp``)."""
 
-    def __init__(self, cfg: LlamaConfig, device=None, tp: Optional[TensorParallel] = None):
+    def __init__(self, cfg: LlamaConfig, device=None, tp: Optional[TensorParallel] = None,
+                 sp: Optional[SequenceParallel] = None):
         super().__init__()
         self.cfg = cfg
         self.tp = tp
+        self.sp = sp
         H, K, D = _local(cfg.n_heads, tp, "n_heads"), _local(cfg.n_kv_heads, tp, "n_kv_heads"), cfg.head_dim
+        if cfg.attn_impl == "ulysses" and sp is not None:
+            check_kv_heads(cfg.n_kv_heads, sp.size)
+            if K % sp.size:
+                raise NotImplementedError(
+                    f"attn_impl='ulysses' with {K} kv heads a tp rank (n_kv_heads={cfg.n_kv_heads} "
+                    f"over tp={tp.size}) and sp={sp.size}: this port swaps a tp rank's own heads "
+                    "over sp, which needs (n_kv_heads/tp) % sp == 0 (JAX's swaps the global heads: "
+                    "ROADMAP.md item 3c-2d)"
+                )
         self.n_heads, self.n_kv_heads = H, K
         self.q_proj = _Linear(cfg.d_model, H * D, cfg, device)
         self.k_proj = _Linear(cfg.d_model, K * D, cfg, device)
         self.v_proj = _Linear(cfg.d_model, K * D, cfg, device)
         self.o_proj = _Linear(H * D, cfg.d_model, cfg, device)
 
-    def forward(self, x, positions, cache: Optional[Dict[str, torch.Tensor]] = None):
+    def forward(self, x, positions, cache: Optional[Dict[str, torch.Tensor]] = None,
+                seq_split: bool = False):
+        """``seq_split``: ``x`` is this rank's block of the sequence over sp
+        (``positions`` its global positions)."""
         cfg = self.cfg
         B, S, _ = x.shape
         H, K, D = self.n_heads, self.n_kv_heads, cfg.head_dim
@@ -323,6 +360,8 @@ class Attention(nn.Module):
             if cache is None:
                 raise ValueError("decode=True needs the layer's cache (init_decode_cache)")
             out = self._decode_attend(q, k, v, positions, cache)
+        elif cfg.attn_impl in ("ring", "ulysses"):
+            out = self._sp_attend(q, k, v, positions, seq_split)
         else:
             out = self._self_attend(q, k, v)
         out = self.o_proj(out.reshape(B, S, H * D))
@@ -344,6 +383,25 @@ class Attention(nn.Module):
         scores = scores.masked_fill(~causal, torch.finfo(torch.float32).min)
         probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
         return torch.einsum("bkgst,btkd->bskgd", probs, v).reshape(B, S, H, D)
+
+    def _sp_attend(self, q, k, v, positions, seq_split: bool):
+        """Ring or ulysses attention (``parallel/ring.py``,
+        ``parallel/ulysses.py``), as JAX's l.350-368 dispatch: over sp on
+        this rank's block when the sequence is split, else the dense f32
+        single-shard path over the whole sequence. Returns [B,S,H,D]."""
+        B, S, H, D = q.shape
+        K = k.shape[2]
+        qg = q.view(B, S, K, H // K, D)
+        mesh = self.sp.mesh if self.sp is not None else None
+        if not seq_split:
+            out = _single_shard(qg, k, v, positions, causal=True)
+        elif self.cfg.attn_impl == "ring":
+            out = ring_attention_shard(qg, k, v, positions, positions, mesh=mesh)
+        else:
+            # The mask needs the whole rows' positions.
+            full = all_gather(positions.t().contiguous(), "sp", mesh).t()
+            out = ulysses_attention_shard(qg, k, v, full, mesh=mesh)
+        return out.reshape(B, S, H, D)
 
     def _decode_attend(self, q, k, v, positions, cache):
         """Write the incoming tokens' K/V into the layer's cache slabs
@@ -426,9 +484,12 @@ class MLP(nn.Module):
 
 
 class MoEMLP(nn.Module):
-    """Top-k mixture-of-experts feed-forward (``parallel/moe.py``) on this
-    one device: dense dispatch (``moe_mlp_reference``) or capacity-factor
-    sparse dispatch (``moe_mlp_sparse``).
+    """Top-k mixture-of-experts feed-forward (``parallel/moe.py``): dense
+    dispatch (``moe_mlp_reference``, or ``moe_mlp`` over the mesh) or
+    capacity-factor sparse dispatch (``moe_mlp_sparse``). Under ``ep`` it
+    holds this rank's ``E/ep`` experts, under ``tp`` each expert's
+    ``d_ff/tp``; ``token_axes`` are the axes of ``mesh`` that split the
+    tokens, over which the load-balance loss takes its statistics.
 
     Parameters in the reference's layout and names, in ``cfg.param_dtype``:
     the router ``gate`` [D, E], used as stored (the router computes in f32),
@@ -438,11 +499,18 @@ class MoEMLP(nn.Module):
     ``w_out_scale`` [E, 1, D]), dequantized at the call; the router stays
     full precision."""
 
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None, tp: Optional[TensorParallel] = None,
+                 ep: Optional[ExpertParallel] = None, mesh=None, token_axes=()):
         super().__init__()
         self.cfg = cfg
-        E, D, Fd = cfg.n_experts, cfg.d_model, cfg.d_ff
-        self.gate = nn.Parameter(torch.empty((D, E), dtype=cfg.param_dtype, device=device))
+        if ep is not None and cfg.n_experts % ep.size:
+            raise ValueError(f"experts {cfg.n_experts} not divisible by ep={ep.size}")
+        # The mesh the experts' parts are summed over (None: all of them
+        # here), and the one the tokens are split over.
+        self.mesh = mesh if (ep is not None or tp is not None) else None
+        self.token_mesh, self.token_axes = (mesh, tuple(token_axes)) if token_axes else (None, ())
+        E, D, Fd = _local(cfg.n_experts, ep, "n_experts"), cfg.d_model, _local(cfg.d_ff, tp, "d_ff")
+        self.gate = nn.Parameter(torch.empty((D, cfg.n_experts), dtype=cfg.param_dtype, device=device))
         for name, shape in (("w_in", (E, D, Fd)), ("w_out", (E, Fd, D))):
             if cfg.quantize:
                 q = torch.zeros(shape, dtype=torch.int8, device=device)
@@ -468,11 +536,15 @@ class MoEMLP(nn.Module):
         x2d = x.reshape(-1, cfg.d_model)
         aux = None
         if want_aux and cfg.moe_aux_weight > 0:
-            aux = load_balance_loss(params, x2d, cfg.moe_top_k)
+            aux = load_balance_loss(params, x2d, cfg.moe_top_k, mesh=self.token_mesh,
+                                    token_axes=self.token_axes)
         if cfg.moe_dispatch == "sparse":
             out = moe_mlp_sparse(
-                params, x2d, top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor
+                params, x2d, top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor,
+                mesh=self.mesh,
             )
+        elif self.mesh is not None:
+            out = moe_mlp(params, x2d, mesh=self.mesh, top_k=cfg.moe_top_k)
         else:
             out = moe_mlp_reference(params, x2d, top_k=cfg.moe_top_k)
         return out.reshape(x.shape).to(x.dtype), aux
@@ -484,19 +556,21 @@ class Block(nn.Module):
     ``(x, aux)``, aux the MoE layer's load-balance loss when asked for
     (``want_aux``), else None."""
 
-    def __init__(self, cfg: LlamaConfig, device=None, tp: Optional[TensorParallel] = None):
+    def __init__(self, cfg: LlamaConfig, device=None, tp: Optional[TensorParallel] = None,
+                 ep: Optional[ExpertParallel] = None, sp: Optional[SequenceParallel] = None,
+                 mesh=None, token_axes=()):
         super().__init__()
         self.attn_norm = RMSNorm(cfg.d_model, cfg.rms_eps, device)
-        self.attn = Attention(cfg, device, tp)
+        self.attn = Attention(cfg, device, tp, sp)
         self.mlp_norm = RMSNorm(cfg.d_model, cfg.rms_eps, device)
         self.moe = cfg.n_experts > 0
         if self.moe:
-            self.moe_mlp = MoEMLP(cfg, device)
+            self.moe_mlp = MoEMLP(cfg, device, tp, ep, mesh, token_axes)
         else:
             self.mlp = MLP(cfg, device, tp)
 
-    def forward(self, x, positions, cache=None, want_aux: bool = False):
-        x = x + self.attn(self.attn_norm(x), positions, cache)
+    def forward(self, x, positions, cache=None, want_aux: bool = False, seq_split: bool = False):
+        x = x + self.attn(self.attn_norm(x), positions, cache, seq_split)
         h = self.mlp_norm(x)
         if self.moe:
             out, aux = self.moe_mlp(h, want_aux)
@@ -510,28 +584,43 @@ class Llama(nn.Module):
     ``return_hidden=True`` returns the final-norm hidden states [B,S,D]
     instead of applying the LM head. With ``cfg.decode`` the forward needs a
     cache (see :func:`decode_forward`). ``tp`` builds this rank's part of a
-    tensor-parallel model (the module docstring).
+    tensor-parallel model, ``mesh`` the model's part on that mesh (its tp
+    axis when ``tp`` is not given, its ep and sp axes: the module
+    docstring).
     """
 
-    def __init__(self, cfg: LlamaConfig, device=None, tp: Optional[TensorParallel] = None):
+    def __init__(self, cfg: LlamaConfig, device=None, tp: Optional[TensorParallel] = None,
+                 mesh=None):
         super().__init__()
-        if tp is not None:
+        if tp is None:
+            tp = TensorParallel.of(mesh)
+        ep, sp = ExpertParallel.of(mesh), SequenceParallel.of(mesh)
+        if mesh is None and tp is not None:
+            mesh = tp.mesh
+        for ax, kind in ((tp, "tensor-parallel"), (ep, "expert-parallel"), (sp, "sequence-parallel")):
+            if ax is None:
+                continue
             for what, refused in (
                 ("decoding (generate and serve take no mesh, as in JAX)", cfg.decode),
                 ("int8 weights", bool(cfg.quantize)),
-                ("the mixture of experts (ROADMAP.md item 3c-2)", cfg.n_experts > 0),
             ):
                 if refused:
-                    raise NotImplementedError(f"a tensor-parallel Llama does not run {what}")
+                    raise NotImplementedError(f"a {kind} Llama does not run {what}")
+        if tp is not None:
             check_tp_divides(cfg, tp.size)
         self.cfg = cfg
-        self.tp = tp
+        self.tp, self.ep, self.sp = tp, ep, sp
+        # The axes that split the tokens (the MoE load-balance loss's).
+        sizes = {} if mesh is None else dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+        token_axes = tuple(a for a in ("dp", "fsdp", "sp") if sizes.get(a, 1) > 1)
         V = _local(cfg.vocab_size, tp, "vocab_size")
         # The first vocabulary id of this rank's rows of the embedding and
         # columns of the head.
         self.vocab_offset = 0 if tp is None else tp.index * V
         self.embed = nn.Embedding(V, cfg.d_model, device=device, dtype=cfg.param_dtype)
-        self.layers = nn.ModuleList(Block(cfg, device, tp) for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(
+            Block(cfg, device, tp, ep, sp, mesh, token_axes) for _ in range(cfg.n_layers)
+        )
         self.final_norm = RMSNorm(cfg.d_model, cfg.rms_eps, device)
         self.lm_head = nn.Linear(cfg.d_model, V, bias=False, device=device, dtype=cfg.param_dtype)
         if cfg.quantize:
@@ -545,23 +634,24 @@ class Llama(nn.Module):
         embedding, ones for the norms. Draws in f32 on ``generator``'s
         device, one tensor at a time, then copies into the parameter: one
         seed gives the same weights to a model on the host as on the card
-        when both draw with the card's generator. A tensor-parallel model
-        draws each whole tensor and keeps its block, so that its ranks
-        together hold the one-process init."""
+        when both draw with the card's generator. A tensor- or
+        expert-parallel model draws each whole tensor and keeps its block,
+        so that its ranks together hold the one-process init."""
         if self.cfg.quantize:
             raise ValueError(
                 "a quantize-mode model cannot init: init the full-precision "
                 "model and quantize its state dict with "
                 "ops.quantize.quantize_state_dict"
             )
+        axes = model_axes(self)
         for name, p in self.named_parameters():
             if name.endswith("norm.weight"):
                 p.fill_(1.0)
                 continue
-            dim = tp_dim(name) if self.tp is not None else None
+            splits = [(ax, d) for ax, d in param_splits(name, axes) if d is not None]
             shape = list(p.shape)
-            if dim is not None:
-                shape[dim] *= self.tp.size
+            for ax, d in splits:
+                shape[d] *= ax.size
             w = torch.empty(shape, dtype=torch.float32, device=generator.device)
             if name == "embed.weight":
                 w.normal_(0.0, 1.0, generator=generator)
@@ -574,10 +664,21 @@ class Llama(nn.Module):
                 fan_in = w.numel() // w.shape[-1] if ".moe_mlp." in name else w.shape[1]
                 std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
                 nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
-            if dim is not None:
-                w = w.narrow(dim, self.tp.index * p.shape[dim], p.shape[dim])
+            for ax, d in splits:
+                w = w.narrow(d, ax.index * p.shape[d], p.shape[d])
             p.copy_(w)
         return self
+
+    def seq_block(self, S: int):
+        """``(offset, length)`` of the block of a length-``S`` sequence this
+        rank computes over sp, or None when it computes the whole sequence
+        (no sp axis, an ``attn_impl`` other than ring and ulysses, or S % sp
+        != 0)."""
+        sp = self.sp
+        if sp is None or self.cfg.attn_impl not in ("ring", "ulysses") or S % sp.size:
+            return None
+        n = S // sp.size
+        return sp.index * n, n
 
     @torch.no_grad()
     def cast_matmul_weights_(self) -> "Llama":
@@ -610,12 +711,20 @@ class Llama(nn.Module):
         ``(out, aux)``: aux the mean over layers of the MoE load-balance loss
         when the model has experts and ``cfg.moe_aux_weight > 0``, else None
         (the reference's ``losses`` collection, collected only when the loss
-        asks for it)."""
+        asks for it).
+
+        Over sp (:meth:`seq_block`) ``tokens`` and ``positions`` are whole
+        rows, and the output is this rank's block of positions."""
         want_aux = return_aux and self.cfg.n_experts > 0 and self.cfg.moe_aux_weight > 0
+        S = tokens.shape[-1]
         if positions is None:
-            S = tokens.shape[-1]
             positions = torch.arange(S, device=tokens.device).expand(tokens.shape)
         positions = positions.long()  # cache writes index with it
+        span = self.seq_block(S) if cache is None else None
+        if span is not None:
+            off, n = span
+            tokens, positions = tokens[:, off:off + n], positions[:, off:off + n]
+        seq_split = span is not None
         # Gather, then cast: the same values as flax's cast-then-gather
         # (nn.Embed(dtype=bf16) casts the whole table first). The backward
         # differs only in where it rounds: the rows of repeated tokens are
@@ -641,13 +750,14 @@ class Llama(nn.Module):
             context_fn = remat_policy(self.cfg) or noop_context_fn
             for block in self.layers:
                 x, aux = checkpoint(
-                    block, x, positions, None, want_aux, use_reentrant=False, context_fn=context_fn
+                    block, x, positions, None, want_aux, seq_split, use_reentrant=False,
+                    context_fn=context_fn,
                 )
                 auxes.append(aux)
         else:
             for i, block in enumerate(self.layers):
                 layer_cache = None if cache is None else cache[f"layer_{i}"]["attn"]
-                x, aux = block(x, positions, layer_cache, want_aux)
+                x, aux = block(x, positions, layer_cache, want_aux, seq_split)
                 auxes.append(aux)
         x = self.final_norm(x)
         if self.tp is not None and not return_hidden:

@@ -2,21 +2,34 @@
 
 - ``mesh.py``: the mesh-spec grammar and ``DeviceMesh`` construction over
   the ranks of a joined world (``dp``, ``fsdp``, ``tp``, the ``@dcn``
-  layout), and a rank's data and tp coordinates (``train_coords``).
+  layout), and a rank's data, tp, sp and ep coordinates (``train_coords``).
 - ``collectives.py``: psum, pmax, pmean, all-gather, reduce-scatter, the
-  ring shift, over the process group of one mesh axis; tp's enter and leave
-  as autograd functions.
+  ring shift and the all-to-all (both differentiable), over the process
+  group of one mesh axis; tp's (and ep's) enter and leave as autograd
+  functions.
 - ``data.py``: each rank's rows of the identical host batch.
-- ``sharding.py`` / ``logical.py``: the rule table, tp's blocks of the
-  Llama's tensors, and FSDP2 over the data axes (``fsdp`` shards, ``dp``
-  replicates).
-- ``moe.py``: the mixture-of-experts layer on one device.
+- ``sharding.py`` / ``logical.py``: the rule table, tp's and ep's blocks of
+  the Llama's tensors, and FSDP2 over the data axes (``fsdp`` shards,
+  ``dp`` replicates).
+- ``ring.py`` / ``ulysses.py``: sequence parallelism over ``sp`` (K/V
+  rotated around the ring; the all-to-all head/sequence swap).
+- ``moe.py``: the mixture-of-experts layer, on one device or with its
+  experts over ``ep``.
 
-Sequence (ring, ulysses) and expert parallelism are ROADMAP.md item 3c-2,
-pipeline parallelism 3c-3.
+Pipeline parallelism is ROADMAP.md item 3c-3.
 """
 
-from .collectives import all_gather, axis_index, axis_size, pmax, pmean, psum, reduce_scatter, ring_shift  # noqa: F401
+from .collectives import (  # noqa: F401
+    all_gather,
+    all_to_all,
+    axis_index,
+    axis_size,
+    pmax,
+    pmean,
+    psum,
+    reduce_scatter,
+    ring_shift,
+)
 from .mesh import (  # noqa: F401
     MESH_AXIS_ORDER,
     make_hybrid_mesh,
@@ -26,6 +39,8 @@ from .mesh import (  # noqa: F401
     resolve_axis_sizes,
     split_hybrid_spec,
 )
+from .ring import ring_attention_shard, ring_self_attention  # noqa: F401
+from .ulysses import ulysses_attention_shard, ulysses_self_attention  # noqa: F401
 from .moe import (  # noqa: F401
     load_balance_loss,
     moe_mlp,

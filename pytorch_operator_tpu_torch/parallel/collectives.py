@@ -19,13 +19,21 @@ over an axis of size 1).
 - :func:`ring_shift`: rank i's output is rank i-shift's input
   (``ppermute``), through ``batch_isend_irecv``, the upstream's
   ``dist_sendrecv`` ring. gloo's point-to-point path moves host memory, so
-  under gloo a CUDA tensor goes through a host copy each way.
+  under gloo a CUDA tensor goes through a host copy each way. Autograd
+  differentiates it: the gradient goes back by the shift the other way
+  (the ring attention of ``ring.py`` rotates K/V with it).
+- :func:`all_to_all`: ``jax.lax.all_to_all(tiled=True)``: ``split_dim``
+  cut into one block a rank, block j sent to rank j, the blocks received
+  concatenated along ``concat_dim`` in rank order; its gradient is the
+  inverse swap (ulysses' head/sequence swap in ``ulysses.py``).
 - :func:`axis_index`, :func:`axis_size`.
 - :func:`pmax`: the all-reduce max (``jax.lax.pmax``).
 - Tensor parallelism's pair (Megatron's f and g): :func:`tp_enter`, the
   identity whose backward all-reduces, before a column-parallel product;
   :func:`tp_leave`, the all-reduce whose backward is the identity, after a
-  row-parallel product. (:func:`psum_autograd` sums in its backward too:
+  row-parallel product. Expert parallelism uses the same pair over ``ep``:
+  each rank's experts contribute their part of the gradient of the MoE
+  layer's input and gates, and their part of its output. (:func:`psum_autograd` sums in its backward too:
   right for a statistic every rank's loss reads, wrong after a row-parallel
   product, where it would multiply every gradient upstream by the axis
   size.)
@@ -182,9 +190,7 @@ def reduce_scatter(x: torch.Tensor, axis: str, mesh=None, *, scatter_dimension: 
     return out.movedim(0, scatter_dimension)
 
 
-def ring_shift(x: torch.Tensor, axis: str, mesh=None, *, shift: int = 1) -> torch.Tensor:
-    """Cyclic shift along ``axis``: this rank sends to ``(i + shift) % n``
-    and receives from ``(i - shift) % n``."""
+def _ring_shift(x: torch.Tensor, axis: str, mesh, shift: int) -> torch.Tensor:
     import torch.distributed as dist
 
     n = axis_size(axis, mesh)
@@ -206,3 +212,64 @@ def ring_shift(x: torch.Tensor, axis: str, mesh=None, *, shift: int = 1) -> torc
     for work in dist.batch_isend_irecv(ops):
         work.wait()
     return recv.to(x.device) if staged else recv
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh, shift):
+        ctx.axis, ctx.mesh, ctx.shift = axis, mesh, shift
+        return _ring_shift(x, axis, mesh, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ring_shift(g, ctx.axis, ctx.mesh, -ctx.shift), None, None, None
+
+
+def ring_shift(x: torch.Tensor, axis: str, mesh=None, *, shift: int = 1) -> torch.Tensor:
+    """Cyclic shift along ``axis``: this rank sends to ``(i + shift) % n``
+    and receives from ``(i - shift) % n``. The gradient of the input is the
+    output's gradient shifted back (``-shift``)."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _Shift.apply(x, axis, mesh, shift)
+    return _ring_shift(x, axis, mesh, shift)
+
+
+def _all_to_all(x: torch.Tensor, axis: str, mesh, split_dim: int, concat_dim: int) -> torch.Tensor:
+    import torch.distributed as dist
+
+    n = axis_size(axis, mesh)
+    if x.shape[split_dim] % n:
+        raise ValueError(
+            f"all_to_all: dim {split_dim} of size {x.shape[split_dim]} does not split over {n} ranks"
+        )
+    if n == 1:
+        return x.clone()
+    # Block j of split_dim first, for all_to_all_single's equal dim-0 split.
+    blocks = x.movedim(split_dim, 0)
+    blocks = blocks.reshape(n, blocks.shape[0] // n, *blocks.shape[1:]).contiguous()
+    out = torch.empty_like(blocks)
+    dist.all_to_all_single(out, blocks, group=_group(axis, mesh))
+    # out[j] is rank j's block: put split_dim back, then rank j's blocks
+    # side by side along concat_dim.
+    out = out.movedim(1, split_dim + 1).movedim(0, concat_dim)
+    return out.flatten(concat_dim, concat_dim + 1)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh, split_dim, concat_dim):
+        ctx.args = (axis, mesh, split_dim, concat_dim)
+        return _all_to_all(x, axis, mesh, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, mesh, split_dim, concat_dim = ctx.args
+        return _all_to_all(g, axis, mesh, concat_dim, split_dim), None, None, None, None
+
+
+def all_to_all(x: torch.Tensor, axis: str, split_dim: int, concat_dim: int, mesh=None) -> torch.Tensor:
+    """``jax.lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True)``:
+    ``split_dim`` cut into ``n`` equal blocks, block j sent to rank j; the
+    ``n`` blocks this rank receives concatenated along ``concat_dim`` in
+    rank order. Autograd differentiates it by the inverse swap."""
+    return _AllToAll.apply(x, axis, mesh, split_dim, concat_dim)

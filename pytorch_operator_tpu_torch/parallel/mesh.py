@@ -13,10 +13,11 @@ axes outermost), so that the process group of one axis is
 Canonical axis names: ``dp`` (replicated parameters, sharded batch),
 ``fsdp`` (parameters and optimizer state sharded too), ``tp`` (each
 parameter split by the rule table's tensor-parallel axes, the batch
-replicated), ``sp``, ``pp``, ``ep``. This package trains on ``dp``,
-``fsdp`` and ``tp``; the other three parse and resolve, and ``llama_train``
-refuses them (ROADMAP.md items 3c-2 and 3c-3). :func:`train_coords` gives
-a rank its place on the data axes and on ``tp``.
+replicated), ``sp`` (the sequence split into one block a rank, the
+parameters whole), ``ep`` (the MoE experts split, the batch replicated),
+``pp``. This package trains on all but ``pp``, which parses and resolves and
+which ``llama_train`` refuses (ROADMAP.md item 3c-3). :func:`train_coords`
+gives a rank its place on the data axes, on ``tp``, ``sp`` and ``ep``.
 """
 
 from __future__ import annotations
@@ -197,19 +198,26 @@ DATA_AXES = ("dp", "fsdp")
 class TrainCoords:
     """A rank's place in a training mesh: ``data_index`` of ``data_extent``
     over the data axes (row-major over ``dp`` then ``fsdp``: which rows of
-    the global batch it trains on) and ``tp_index`` of ``tp_size`` (which
-    block of each tensor-parallel parameter it holds). The ranks of one tp
-    group share their data coordinate."""
+    the global batch it trains on), ``tp_index`` of ``tp_size`` (which
+    block of each tensor-parallel parameter it holds), ``sp_index`` of
+    ``sp_size`` (which block of ``S/sp`` positions of its rows it computes)
+    and ``ep_index`` of ``ep_size`` (which ``E/ep`` experts it holds). The
+    ranks of one tp, sp or ep group share their data coordinate: they read
+    the same rows."""
 
     data_index: int = 0
     data_extent: int = 1
     tp_index: int = 0
     tp_size: int = 1
+    sp_index: int = 0
+    sp_size: int = 1
+    ep_index: int = 0
+    ep_size: int = 1
 
 
 def train_coords(mesh=None) -> TrainCoords:
     """This rank's :class:`TrainCoords` on ``mesh`` (a ``DeviceMesh``); a
-    world of one process (``mesh=None``) is ``(0, 1, 0, 1)``."""
+    world of one process (``mesh=None``) is ``(0, 1, 0, 1, 0, 1, 0, 1)``."""
     if mesh is None:
         return TrainCoords()
     sizes = axis_sizes(mesh)
@@ -218,5 +226,9 @@ def train_coords(mesh=None) -> TrainCoords:
         if axis in sizes:
             index = index * sizes[axis] + mesh.get_local_rank(axis)
             extent *= sizes[axis]
-    tp = sizes.get("tp", 1)
-    return TrainCoords(index, extent, mesh.get_local_rank("tp") if tp > 1 else 0, tp)
+
+    def coord(axis: str) -> tuple:
+        n = sizes.get(axis, 1)
+        return (mesh.get_local_rank(axis) if n > 1 else 0), n
+
+    return TrainCoords(index, extent, *coord("tp"), *coord("sp"), *coord("ep"))

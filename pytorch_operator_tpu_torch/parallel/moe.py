@@ -1,5 +1,6 @@
-"""Top-k mixture-of-experts MLP on one device — the port of
-``pytorch_operator_tpu/parallel/moe.py`` without its ``ep`` mesh.
+"""Top-k mixture-of-experts MLP — the port of
+``pytorch_operator_tpu/parallel/moe.py``, on one device or with its experts
+over the ``ep`` mesh axis.
 
 Functions on tensors, with the reference's names and arguments: ``params``
 is ``{"gate": [D, E], "w_in": [E, D, F], "w_out": [E, F, D]}`` and ``x`` is
@@ -29,8 +30,25 @@ Each part runs inside a ``torch.profiler.record_function`` range
 (``moe.router``, ``moe.slots``, ``moe.dispatch``, ``moe.experts``), so a
 profile can charge the layer's kernels to its parts.
 
-Expert parallelism (the ``mesh=`` argument, :func:`moe_mlp`) needs several
-GPUs and raises ``NotImplementedError`` (ROADMAP.md item 3c-2).
+**Expert parallelism** (:func:`moe_mlp`, and :func:`moe_mlp_sparse` with
+``mesh=``): ``params["w_in"]``/``["w_out"]`` hold this rank's block of
+``E/ep`` experts (``ep_index·E/ep`` on), and on a mesh with ``tp`` each
+expert's block of ``F/tp`` (the model's ``tp`` blocks, as the reference's
+``moe_mlp`` splits F over tp); the router ``gate`` is whole. The router runs
+replicated on every rank, each rank computes its experts' part of the output
+with its columns of the gates (dense) or of the dispatch and combine
+tensors (sparse), and the parts are summed over ep and tp
+(``collectives.tp_leave``: a sum forward, the identity backward). The input
+and the gates enter through ``tp_enter`` (the identity forward, a sum
+backward): each rank's experts give their part of those gradients. The
+router reads the input before it enters, its gradient being whole on every
+rank already. A rank's tokens are its own rows (the data axes and sp split
+them; ep and tp do not).
+
+:func:`load_balance_loss` with ``token_axes`` takes its routing shares and
+mean probabilities over the tokens of every rank of those axes (the
+reference computes it on the global batch): the counts are summed, the
+probabilities summed with ``psum_autograd``.
 """
 
 from __future__ import annotations
@@ -41,7 +59,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-_MESH_ITEM = "ROADMAP.md item 3c-2: expert parallelism over an ep mesh"
+from .collectives import axis_index, axis_size, psum, psum_autograd, tp_enter, tp_leave
 
 
 def _router_topk(params, x, top_k: int):
@@ -66,18 +84,66 @@ def _gates(params, x, top_k: int):
         return torch.zeros_like(logits).scatter(-1, top_idx, probs)
 
 
-def load_balance_loss(params, x, top_k: int):
+def load_balance_loss(params, x, top_k: int, *, mesh=None, token_axes=()):
     """Switch-Transformer load-balancing loss ``E · Σ_e f_e · P_e``: ``f_e``
     the share of (token, choice) routings on expert e (no gradient), ``P_e``
     the mean full-softmax router probability of e (the gradient that spreads
-    the router)."""
+    the router). ``token_axes``: the mesh axes that split the tokens; both
+    statistics are then over all of them, the same value on every rank."""
     logits, top_idx, _ = _router_topk(params, x, top_k)
     with record_function("moe.router"):
         E = logits.shape[-1]
         counts = F.one_hot(top_idx, E).float().sum(dim=(0, 1))
+        axes = [a for a in token_axes if axis_size(a, mesh) > 1]
+        if axes:
+            p_sum, n = torch.softmax(logits, dim=-1).sum(dim=0), x.shape[0]
+            for a in axes:
+                counts = psum(counts, a, mesh)
+                p_sum = psum_autograd(p_sum, a, mesh)
+                n *= axis_size(a, mesh)
+            p = p_sum / n
+        else:
+            p = torch.softmax(logits, dim=-1).mean(dim=0)
         f = (counts / counts.sum()).detach()
-        p = torch.softmax(logits, dim=-1).mean(dim=0)
         return E * torch.sum(f * p)
+
+
+def token_group(n: int, limit: int = 1024) -> int:
+    """The sparse dispatch's group of ``n`` tokens: the largest divisor of
+    ``n`` not above ``limit`` (never rejecting a token count the dense path
+    accepts)."""
+    return next(d for d in range(min(limit, n), 0, -1) if n % d == 0)
+
+
+def _expert_axes(params, mesh, axis: str) -> tuple:
+    """``(e_local, e0, split_axes)``: the experts this rank holds and the
+    first of them, and the mesh axes over which the experts' parts are
+    summed (``axis`` and ``tp`` where of size > 1). Raises the reference's
+    error when ep does not divide E."""
+    n_exp, e_local = params["gate"].shape[1], params["w_in"].shape[0]
+    names = (mesh.mesh_dim_names or ()) if mesh is not None else ()
+    ep = axis_size(axis, mesh) if axis in names else 1
+    if n_exp % ep:
+        raise ValueError(f"experts {n_exp} not divisible by ep={ep}")
+    if e_local != n_exp // ep:
+        raise ValueError(
+            f"w_in holds {e_local} experts; a rank's block of {n_exp} over ep={ep} is {n_exp // ep}"
+        )
+    split = tuple(a for a in (axis, "tp") if a in names and axis_size(a, mesh) > 1)
+    e0 = axis_index(axis, mesh) * e_local if axis in split else 0
+    return e_local, e0, split
+
+
+def _enter(x, axes, mesh):
+    for a in axes:
+        x = tp_enter(x, a, mesh)
+    return x
+
+
+def _leave(x, axes, mesh):
+    for a in axes:
+        x = tp_leave(x, a, mesh)
+    return x
 
 
 def _expert_ffn(w_in, w_out, gates, x):
@@ -149,34 +215,49 @@ def moe_mlp_sparse(
     top_k / E)`` slots an expert; the expert FFN runs on the [E, groups·C, D]
     buffer, and the combine product brings the results back, weighted.
     ``dispatch`` is rounded to ``x``'s dtype and ``combine`` to the experts'
-    output dtype before their products, as in the reference. ``mesh``
-    (expert parallelism) raises ``NotImplementedError``."""
-    if mesh is not None:
-        raise NotImplementedError(f"moe_mlp_sparse(mesh=...) is not ported yet ({_MESH_ITEM})")
-    n_exp, d_model, _ = params["w_in"].shape
+    output dtype before their products, as in the reference. With ``mesh``
+    (expert parallelism, the module docstring) the dispatch and combine
+    tensors are computed whole on every rank, each rank takes its experts'
+    columns of both, runs its experts and the parts are summed over ep."""
+    n_exp, d_model = params["gate"].shape[1], params["w_in"].shape[1]
     if not (1 <= top_k <= n_exp):
         raise ValueError(f"top_k={top_k} outside [1, {n_exp}]")
+    e_local, e0, split = _expert_axes(params, mesh, axis)
     N = x.shape[0]
-    # Never reject a token count the dense path accepts.
-    g = next(d for d in range(min(group_size, N), 0, -1) if N % d == 0)
+    g = token_group(N, group_size)
     G, C = N // g, math.ceil(g * capacity_factor * top_k / n_exp)
-    xg = x.reshape(G, g, d_model)
-    dispatch, combine = _dispatch_tensors(params, xg, top_k, C)
+    dispatch, combine = _dispatch_tensors(params, x.reshape(G, g, d_model), top_k, C)
+    if split:
+        dispatch = dispatch[:, :, e0:e0 + e_local]
+        combine = _enter(combine, split, mesh)[:, :, e0:e0 + e_local]
+    xg = _enter(x, split, mesh).reshape(G, g, d_model)
     with record_function("moe.dispatch"):
         # gnec,gnd->gecd, then the expert-major layout [E, G·C, D].
-        x_e = torch.bmm(dispatch.to(x.dtype).view(G, g, n_exp * C).transpose(1, 2), xg)
-        x_e = x_e.view(G, n_exp, C, d_model).transpose(0, 1).reshape(n_exp, G * C, d_model)
+        x_e = torch.bmm(dispatch.to(x.dtype).reshape(G, g, e_local * C).transpose(1, 2), xg)
+        x_e = x_e.view(G, e_local, C, d_model).transpose(0, 1).reshape(e_local, G * C, d_model)
     with record_function("moe.experts"):
         h = F.gelu(torch.bmm(x_e, params["w_in"]), approximate="tanh")  # gecd,edf->gecf
         y = torch.bmm(h, params["w_out"])  # gecf,efd->gecd
     with record_function("moe.dispatch"):
         # gnec,gecd->gnd
-        y = y.view(n_exp, G, C, d_model).transpose(0, 1).reshape(G, n_exp * C, d_model)
-        out = torch.bmm(combine.to(y.dtype).view(G, g, n_exp * C), y)
-        return out.reshape(N, d_model)
+        y = y.view(e_local, G, C, d_model).transpose(0, 1).reshape(G, e_local * C, d_model)
+        out = torch.bmm(combine.to(y.dtype).reshape(G, g, e_local * C), y)
+        return _leave(out.reshape(N, d_model), split, mesh)
 
 
 def moe_mlp(params, x, *, mesh, top_k: int = 2, axis: str = "ep"):
-    """The reference's expert-parallel MoE over the ``ep`` mesh axis: not
-    ported (several GPUs); one device runs :func:`moe_mlp_reference`."""
-    raise NotImplementedError(f"moe_mlp is not ported yet ({_MESH_ITEM})")
+    """Dense-dispatch MoE with the experts over ``axis`` of ``mesh`` (the
+    module docstring): the router whole on every rank, this rank's columns
+    ``[ep_index·E/ep, +E/ep)`` of the gates, its experts over its tokens,
+    the parts summed over ep (and tp). ``mesh=None``, or a mesh without the
+    axis, runs every expert here: :func:`moe_mlp_reference`'s value."""
+    n_exp = params["gate"].shape[1]
+    if not (1 <= top_k <= n_exp):
+        raise ValueError(f"top_k={top_k} outside [1, {n_exp}]")
+    e_local, e0, split = _expert_axes(params, mesh, axis)
+    gates = _gates(params, x, top_k)
+    if split:
+        # Entered whole: each rank's gradient fills its own columns.
+        gates = _enter(gates, split, mesh)[:, e0:e0 + e_local]
+    out = _expert_ffn(params["w_in"], params["w_out"], gates, _enter(x, split, mesh))
+    return _leave(out, split, mesh)

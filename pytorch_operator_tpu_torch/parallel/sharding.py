@@ -19,10 +19,19 @@ plain tensor, and runs its collectives itself
 redistributes through DTensor's functional collectives, which crash under
 gloo on CUDA tensors.
 
+**ep** splits the MoE banks ``w_in`` ``[E, D, F]`` and ``w_out`` ``[E, F,
+D]`` on dim 0 (the rule ``expert → ep``): a model built with an
+:class:`ExpertParallel` holds ``E/ep`` experts a rank, plain tensors as tp's
+blocks are, and tp splits each expert's ``F`` on top (``mlp → tp``). **sp**
+splits no parameter: each sp rank holds them whole, trains on its block of
+the sequence, and the gradients are averaged over sp after the backward
+(``workloads/trainer.py``). :class:`SequenceParallel` is the axis as the
+model holds it.
+
 **dp, fsdp** (the rule for ``"batch"``) are laid out with FSDP2:
 :func:`shard_model` calls ``torch.distributed.fsdp.fully_shard`` on each
 decoder block and then on the root, over the mesh of the data axes (one
-such mesh a tp coordinate). ``fsdp`` is the shard dimension: every parameter (a
+such mesh a coordinate of the other axes). ``fsdp`` is the shard dimension: every parameter (a
 tp block, under tp), its gradient and its optimizer state become DTensors
 sharded on dim 0, gathered per block for the forward and the backward and
 reduce-scattered after it. ``dp`` replicates: on a mesh ``(dp, fsdp)``
@@ -48,7 +57,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Optional, Sequence, Tuple, Union
+from typing import Any, ClassVar, Optional, Sequence, Tuple, Union
 
 MeshAxes = Union[str, Tuple[str, ...], None]
 LogicalRules = Sequence[Tuple[str, MeshAxes]]
@@ -127,6 +136,11 @@ LLAMA_PARAM_AXES = (
     ("embed.weight", ("vocab", "embed")),
     ("lm_head.weight", ("vocab", "embed")),
     ("norm.weight", ("norm",)),
+    # The MoE layer's parameters keep the reference's layout (models/llama.py
+    # MoEMLP: gate l.616, w_in l.624, w_out l.632).
+    ("moe_mlp.gate", ("embed", None)),
+    ("moe_mlp.w_in", ("expert", "embed", "mlp")),
+    ("moe_mlp.w_out", ("expert", "mlp", "embed")),
 )
 
 
@@ -135,52 +149,90 @@ def param_axes(name: str) -> tuple:
     for suffix, axes in LLAMA_PARAM_AXES:
         if name.endswith(suffix):
             return axes
-    raise KeyError(f"no logical axes for parameter {name!r} (tensor parallelism lays out the dense Llama)")
+    raise KeyError(f"no logical axes for parameter {name!r} (the Llama's layout)")
 
 
-def tp_dim(name: str, rules: LogicalRules = DEFAULT_RULES) -> Optional[int]:
-    """The dim of parameter ``name`` that ``tp`` splits under ``rules``, or
-    None (replicated)."""
-    axes = logical_to_mesh_axes(param_axes(name), rules, {"tp"})
-    dims = [i for i, ax in enumerate(axes) if ax == "tp"]
+def axis_dim(name: str, axis: str, rules: LogicalRules = DEFAULT_RULES) -> Optional[int]:
+    """The dim of parameter ``name`` that mesh axis ``axis`` splits under
+    ``rules``, or None (replicated)."""
+    axes = logical_to_mesh_axes(param_axes(name), rules, {axis})
+    dims = [i for i, ax in enumerate(axes) if ax == axis]
     return dims[0] if dims else None
 
 
+def tp_dim(name: str, rules: LogicalRules = DEFAULT_RULES) -> Optional[int]:
+    """The dim of parameter ``name`` that ``tp`` splits, or None."""
+    return axis_dim(name, "tp", rules)
+
+
 @dataclass(frozen=True)
-class TensorParallel:
-    """The ``tp`` axis as a model holds it: ``size`` ranks, this one at
-    ``index``; ``mesh`` the ``DeviceMesh`` whose ``tp`` group the
-    collectives run on."""
+class AxisParallel:
+    """One model-parallel mesh axis as a model holds it: ``size`` ranks,
+    this one at ``index``; ``mesh`` the ``DeviceMesh`` whose group of the
+    axis (:attr:`axis`) the collectives run on."""
 
     size: int
     index: int
     mesh: Any = None
+    axis: ClassVar[str] = ""
 
     @classmethod
-    def of(cls, mesh) -> Optional["TensorParallel"]:
-        """The mesh's tp axis, or None when it has none (or of size 1)."""
-        from .mesh import train_coords
+    def of(cls, mesh):
+        """The mesh's axis, or None when it has none (or of size 1)."""
+        if mesh is None:
+            return None
+        from .mesh import axis_sizes
 
-        c = train_coords(mesh)
-        return cls(c.tp_size, c.tp_index, mesh) if c.tp_size > 1 else None
+        n = axis_sizes(mesh).get(cls.axis, 1)
+        return cls(n, mesh.get_local_rank(cls.axis), mesh) if n > 1 else None
 
     def enter(self, x):
         from .collectives import tp_enter
 
-        return tp_enter(x, "tp", self.mesh)
+        return tp_enter(x, self.axis, self.mesh)
 
     def leave(self, x):
         from .collectives import tp_leave
 
-        return tp_leave(x, "tp", self.mesh)
+        return tp_leave(x, self.axis, self.mesh)
 
     def block(self, n: int, what: str) -> tuple:
         """``(start, length)`` of this rank's block of ``n`` (``what``: its
-        name in the error); tp must divide ``n``."""
+        name in the error); the axis must divide ``n``."""
         if n % self.size:
-            raise ValueError(f"tp={self.size} does not divide {what}={n}")
+            raise ValueError(f"{self.axis}={self.size} does not divide {what}={n}")
         k = n // self.size
         return self.index * k, k
+
+
+class TensorParallel(AxisParallel):
+    """The ``tp`` axis."""
+
+    axis = "tp"
+
+
+class ExpertParallel(AxisParallel):
+    """The ``ep`` axis: ``E/ep`` experts a rank."""
+
+    axis = "ep"
+
+
+class SequenceParallel(AxisParallel):
+    """The ``sp`` axis: this rank's block of ``S/sp`` positions."""
+
+    axis = "sp"
+
+
+def model_axes(model) -> tuple:
+    """The model-parallel axes a model holds (its ``tp``, ``ep`` and ``sp``
+    attributes that are set), in that order."""
+    return tuple(ax for ax in (getattr(model, a, None) for a in ("tp", "ep", "sp")) if ax is not None)
+
+
+def param_splits(name: str, axes) -> tuple:
+    """``(axis, dim)`` for each of ``axes`` (:class:`AxisParallel` s): the
+    dim of parameter ``name`` it splits, or None where it replicates it."""
+    return tuple((ax, axis_dim(name, ax.axis)) for ax in axes)
 
 
 def check_tp_divides(cfg, size: int) -> None:
@@ -233,10 +285,11 @@ class Block:
         return local_tensor(self.local)
 
     @classmethod
-    def of(cls, t, dim: Optional[int] = None, tp: Optional[TensorParallel] = None) -> "Block":
+    def of(cls, t, splits: Sequence = ()) -> "Block":
         """The block of ``t`` (a tensor, or a DTensor of FSDP2's dim-0
-        layout) when ``tp`` splits its dim ``dim`` (None: replicated over
-        tp, written by tp's coordinate 0)."""
+        layout) under ``splits``, ``(axis, dim)`` pairs
+        (:func:`param_splits`): each axis splits the tensor's dim ``dim``,
+        or, with ``dim`` None, replicates it (coordinate 0 writes it)."""
         from torch.distributed.tensor import DTensor
 
         shape = list(t.shape)
@@ -246,30 +299,32 @@ class Block:
             offsets[0], _ = dim0_rows(t.shape, t.device_mesh, t.placements)
             writer = all(t.device_mesh.get_local_rank(i) == 0
                          for i, pl in enumerate(t.placements) if pl.is_replicate())
-        if tp is not None and tp.size > 1:
-            if dim is None:
-                writer = writer and tp.index == 0
+        for ax, d in splits:
+            if ax.size <= 1:
+                continue
+            if d is None:
+                writer = writer and ax.index == 0
             else:
-                offsets[dim] += tp.index * shape[dim]
-                shape[dim] *= tp.size
+                offsets[d] += ax.index * shape[d]
+                shape[d] *= ax.size
         return cls(t, tuple(offsets), tuple(shape), writer)
 
 
 def model_blocks(model) -> dict:
     """A model's state dict as :class:`Block` s (name: its block), the
-    layout a checkpoint writes: each tp parameter's block of the whole,
-    FSDP2's rows of it."""
-    tp = getattr(model, "tp", None)
-    return {name: Block.of(t, tp_dim(name) if tp is not None else None, tp)
-            for name, t in model.state_dict().items()}
+    layout a checkpoint writes: each tp and ep parameter's block of the
+    whole, FSDP2's rows of it; a part that a tp, ep or sp coordinate other
+    than 0 also holds is written by coordinate 0."""
+    axes = model_axes(model)
+    return {name: Block.of(t, param_splits(name, axes)) for name, t in model.state_dict().items()}
 
 
 def shard_model(model, mesh):
-    """Lay ``model`` out on ``mesh``: tp first (the model must hold the
-    mesh's tp blocks already: built with ``tp=TensorParallel.of(mesh)``),
-    then FSDP2 over the data axes, each decoder block of ``model.layers``
-    and then the root (embedding, final norm, LM head), one data mesh a tp
-    coordinate. Returns the model, whose parameters are then DTensors (none
+    """Lay ``model`` out on ``mesh``: tp and ep first (the model must hold
+    the mesh's tp and ep blocks already: built with ``Llama(cfg,
+    mesh=mesh)``), then FSDP2 over the data axes, each decoder block of
+    ``model.layers`` and then the root (embedding, final norm, LM head), one
+    data mesh a coordinate of the other axes (tp, ep, sp). Returns the model, whose parameters are then DTensors (none
     on a mesh whose data axes hold one rank). Every rank of a tp coordinate
     must hold the same values before the call (the same seeded init or the
     same ``init_params``): each keeps its own shard of them."""
@@ -278,13 +333,14 @@ def shard_model(model, mesh):
     from .mesh import axis_sizes
 
     sizes = axis_sizes(mesh)
-    tp = getattr(model, "tp", None)
-    if sizes.get("tp", 1) != (tp.size if tp is not None else 1):
-        raise ValueError(
-            f"the mesh has tp={sizes.get('tp', 1)} but the model holds "
-            f"{'whole tensors' if tp is None else f'tp={tp.size} blocks'}: build it with "
-            "tp=TensorParallel.of(mesh)"
-        )
+    for name in ("tp", "ep"):
+        ax = getattr(model, name, None)
+        if sizes.get(name, 1) != (ax.size if ax is not None else 1):
+            raise ValueError(
+                f"the mesh has {name}={sizes.get(name, 1)} but the model holds "
+                f"{'whole tensors' if ax is None else f'{name}={ax.size} blocks'}: build it "
+                "with Llama(cfg, mesh=mesh)"
+            )
     axes = data_axes(mesh.mesh_dim_names)
     if math.prod(sizes[a] for a in axes) == 1:
         return model
@@ -317,19 +373,22 @@ def shard_model(model, mesh):
     return model
 
 
-def full_tensor(t, dim: Optional[int] = None, tp: Optional[TensorParallel] = None):
+def full_tensor(t, splits: Sequence = ()):
     """The whole of ``t`` on every rank: a DTensor sharded on dim 0 over at
     most one mesh dimension (FSDP2's and HSDP's layouts) gathered with the
     c10d all-gather (each rank's rows padded to the ceil-sized chunk, the
-    padding cut off after); then, when ``tp`` splits its dim ``dim``, the tp
-    blocks gathered along it. ``t`` itself if it is neither.
-    ``DTensor.full_tensor`` would gather through functional collectives,
-    which crash over gloo on CUDA tensors (torch 2.11)."""
-    if dim is not None and tp is not None and tp.size > 1:
+    padding cut off after); then, for each ``(axis, dim)`` of ``splits``
+    (:func:`param_splits`) whose axis splits dim ``dim``, the axis' blocks
+    gathered along it. ``t`` itself if it is neither. ``DTensor.full_tensor`` would gather
+    through functional collectives, which crash over gloo on CUDA tensors
+    (torch 2.11)."""
+    splits = [(ax, d) for ax, d in splits if ax.size > 1 and d is not None]
+    if splits:
         from .collectives import all_gather
 
-        block = full_tensor(t).movedim(dim, 0).contiguous()
-        return all_gather(block, "tp", tp.mesh).movedim(0, dim)
+        (ax, d), rest = splits[-1], splits[:-1]
+        block = full_tensor(t, rest).movedim(d, 0).contiguous()
+        return all_gather(block, ax.axis, ax.mesh).movedim(0, d)
     from torch.distributed.tensor import DTensor
 
     if not isinstance(t, DTensor):
@@ -356,10 +415,10 @@ def full_tensor(t, dim: Optional[int] = None, tp: Optional[TensorParallel] = Non
 def full_state_dict(model) -> dict:
     """The whole of each tensor of ``model.state_dict()`` on every rank (CPU
     tensors, in state-dict order), gathered from FSDP2's shards and tp's
-    blocks."""
-    tp = getattr(model, "tp", None)
+    and ep's blocks."""
+    axes = model_axes(model)
     return {
-        name: full_tensor(t, tp_dim(name) if tp is not None else None, tp).detach().cpu()
+        name: full_tensor(t, param_splits(name, axes)).detach().cpu()
         for name, t in model.state_dict().items()
     }
 

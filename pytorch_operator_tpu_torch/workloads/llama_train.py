@@ -18,31 +18,35 @@ exit code 138 on a replica's first life (a simulated preemption);
 ``--profile-dir`` writes a ``torch.profiler`` trace of the timed window.
 ``--experts N`` trains the mixture-of-experts Llama (``--moe-top-k``,
 ``--moe-dispatch dense|sparse``, ``--moe-capacity-factor``,
-``--moe-aux-weight``) with every expert on this one card.
+``--moe-aux-weight``), its experts over the mesh's ``ep`` axis, or every
+expert on each rank without one.
 
 In a world of several processes (the supervisor's Master and Workers, joined
 by ``runtime.rendezvous.initialize_from_env``) ``--mesh``/``TPUJOB_MESH``
 (default ``fsdp=-1``) lays the model out over the ranks: ``tp`` splits each
 layer's heads and ``d_ff``, the embedding's and the head's vocabulary
 (``parallel/sharding.py``'s rule table; the loss is vocab-parallel);
-``fsdp`` shards parameters (tp's blocks, under tp), gradients and the
-optimizer's state with FSDP2, ``dp`` replicates them (both together: HSDP;
-``@dcn`` axes outermost). ``--batch-size`` is the global batch; each data
-coordinate (``parallel/mesh.train_coords``) trains on its rows of it, the
-ranks of one tp group on the same rows, and the losses reported are the
-global batch's. AdamW and adafactor both run in a world, in f32 or bf16
-parameters (``--param-dtype``).
+``ep`` splits the MoE layers' experts; ``sp`` splits the sequence, each rank
+computing its block of ``S/sp`` positions with ``--attn-impl ring`` or
+``ulysses`` (``parallel/ring.py``, ``parallel/ulysses.py``), its gradients
+averaged over sp; ``fsdp`` shards parameters (tp's and ep's blocks), gradients
+and the optimizer's state with FSDP2, ``dp`` replicates them (both together:
+HSDP; ``@dcn`` axes outermost). ``--batch-size`` is the global batch; each
+data coordinate (``parallel/mesh.train_coords``) trains on its rows of it,
+the ranks of one tp, ep or sp group on the same rows, and the losses
+reported are the global batch's. AdamW and adafactor both run in a world, in
+f32 or bf16 parameters (``--param-dtype``).
 
     python -m pytorch_operator_tpu_torch.workloads.llama_train --config 0.3b \\
         --batch-size 4 --seq-len 4096 --steps 5 --json
 
 It runs on ``cuda`` unless ``--device cpu`` or ``TPUJOB_PLATFORM=cpu`` asks
 for the host; with neither and no GPU it raises. What waits for ROADMAP.md
-items 3c-2 and 3c-3 is refused by name: the ``sp``, ``ep`` (3c-2) and ``pp``
-(3c-3) mesh axes, the pipeline flags (:data:`REFUSED_FLAGS`), and in a
-world of several processes ring/ulysses attention and ``--experts`` (3c-2);
-so is a tp that does not divide the heads, kv heads, ``d_ff`` or the
-vocabulary.
+is refused by name: the ``pp`` mesh axis and the pipeline flags
+(:data:`REFUSED_FLAGS`, item 3c-3); sparse MoE dispatch whose token groups
+would differ from the reference's global ones (item 3c-2c); ulysses under tp
+where ``(n_kv_heads/tp) % sp != 0`` (item 3c-2d); a tp that does not divide
+the heads, kv heads, ``d_ff`` or the vocabulary.
 """
 
 from __future__ import annotations
@@ -63,12 +67,13 @@ from ..data import field_range, open_training_loader, read_meta
 from ..data.device_prefetch import DevicePrefetcher, to_device
 from ..models import llama as llama_lib
 from ..models.convert import params_from_jax
-from ..parallel.sharding import check_tp_divides, tp_dim
+from ..parallel.moe import token_group
+from ..parallel.sharding import check_tp_divides, model_axes, param_splits
 from ..ops import flash_attention as flash_lib
 from ..parallel import data as data_lib
 from ..parallel import mesh as mesh_lib
 from ..parallel.collectives import world as joined_world
-from ..parallel.sharding import TensorParallel, full_state_dict, local_nbytes, model_blocks, shard_model
+from ..parallel.sharding import full_state_dict, local_nbytes, model_blocks, shard_model
 from ..runtime import rendezvous
 from ..runtime.device import device_name, world_device
 from .trainer import (
@@ -98,18 +103,38 @@ CONFIGS = llama_lib.CONFIGS
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-# The mesh axes a run can train on: the rule table's batch axes and tp.
-TRAIN_AXES = (*mesh_lib.DATA_AXES, "tp")
-ITEM_3C2 = "ROADMAP.md item 3c-2: sequence and expert parallelism"
+# The mesh axes a run can train on: the rule table's batch axes, ep, sp, tp.
+TRAIN_AXES = (*mesh_lib.DATA_AXES, "ep", "sp", "tp")
+ITEM_3C2C = "ROADMAP.md item 3c-2c: sparse MoE dispatch over token groups that cross ranks"
 ITEM_3C3 = "ROADMAP.md item 3c-3: pipeline parallelism"
 # The item each refused axis waits for.
-WAITING_AXES = {"sp": ITEM_3C2, "ep": ITEM_3C2, "pp": ITEM_3C3}
+WAITING_AXES = {"pp": ITEM_3C3}
+
+
+def check_sparse_groups(batch: int, seq_len: int, data_extent: int, sp: int) -> None:
+    """Refuse, by name, sparse MoE dispatch on a mesh whose ranks would
+    group their tokens otherwise than the reference groups the global
+    ``[B·S]`` tokens (moe.py l.167-172): a rank holds ``batch/data_extent``
+    rows of ``seq_len/sp`` positions, and its groups are the reference's only
+    if they have the same size and none crosses a row's block."""
+    if data_extent * sp == 1:
+        return
+    rows, block = batch // data_extent, seq_len // sp
+    g, g_rank = token_group(batch * seq_len), token_group(rows * block)
+    run = block if sp > 1 else rows * seq_len  # a rank's contiguous tokens
+    if g != g_rank or run % g:
+        raise NotImplementedError(
+            f"--moe-dispatch sparse with {rows} rows of {block} positions a rank (data "
+            f"extent {data_extent}, sp={sp}): the reference groups the global {batch}x{seq_len} "
+            f"tokens in groups of {g}, a rank's would be {g_rank} or cross ranks, and "
+            f"capacity would drop other tokens ({ITEM_3C2C})"
+        )
 
 
 def resolve_train_mesh(spec: str, world: int) -> dict:
     """The axes and sizes, in layout order, of mesh ``spec`` resolved
-    against ``world`` ranks (one device a process). Naming ``sp``, ``ep``
-    or ``pp`` raises, naming the item it waits for."""
+    against ``world`` ranks (one device a process). Naming ``pp`` raises,
+    naming the item it waits for."""
     beyond = sorted(set(mesh_lib.parse_mesh_spec(spec)) - set(TRAIN_AXES))
     if beyond:
         raise NotImplementedError(
@@ -274,6 +299,11 @@ def run(
             "--moe-aux-weight needs a MoE model (pass --experts N); without experts no "
             "router exists, so the aux loss would be silently inert"
         )
+    # The global batch, rounded to a multiple of the ranks as the JAX
+    # workload rounds it to its devices (every device of the mesh, tp's too).
+    if batch_size % world:
+        batch_size = max(batch_size // world, 1) * world
+    data_extent = math.prod(axes.get(a, 1) for a in mesh_lib.DATA_AXES)
     if cfg.n_experts > 0:
         if cfg.moe_dispatch == "sparse" and not cfg.moe_aux_weight:
             # LlamaConfig warns library users; repeat it in the job log.
@@ -282,28 +312,33 @@ def run(
                 "unbalanced router collapses onto a few experts and capacity-factor "
                 "dispatch then DROPS most tokens. Pass --moe-aux-weight 1e-2."
             )
+        if axes.get("ep", 1) > 1:
+            log(
+                f"[llama] n_experts={cfg.n_experts} top_k={cfg.moe_top_k} "
+                f"dispatch={cfg.moe_dispatch}: {cfg.n_experts // axes['ep']} experts a rank "
+                f"over ep={axes['ep']}"
+            )
+        elif world > 1:
+            log(
+                f"[llama] WARNING: n_experts={cfg.n_experts} but the mesh has no ep axis — "
+                f"experts run replicated on every device (dense fallback). Use e.g. "
+                f'--mesh "dp={max(world // cfg.n_experts, 1)},ep={cfg.n_experts}".'
+            )
+        else:
+            log(
+                f"[llama] n_experts={cfg.n_experts} top_k={cfg.moe_top_k} "
+                f"dispatch={cfg.moe_dispatch}: every expert runs on this one card"
+            )
+    if axes.get("sp", 1) > 1 and cfg.attn_impl not in ("ring", "ulysses"):
         log(
-            f"[llama] n_experts={cfg.n_experts} top_k={cfg.moe_top_k} "
-            f"dispatch={cfg.moe_dispatch}: every expert runs on this one card (no ep axis; "
-            f"expert parallelism is {ITEM_3C2})"
+            f"[llama] WARNING: sp={axes['sp']} with attn_impl={cfg.attn_impl}: every sp rank "
+            "computes the whole sequence; --attn-impl ring or ulysses splits it"
         )
-    if world > 1:
-        for what, refused in (
-            (f"--attn-impl {cfg.attn_impl}", cfg.attn_impl in ("ring", "ulysses")),
-            ("--experts", cfg.n_experts > 0),
-        ):
-            if refused:
-                raise NotImplementedError(
-                    f"{what} in a world of {world} processes is not ported yet ({ITEM_3C2})"
-                )
     check_tp_divides(cfg, axes.get("tp", 1))
     mesh = mesh_lib.make_mesh(mesh_spec, dev.type) if world > 1 else None
-    # The rows this rank trains on: the ranks of one tp group share them.
+    # The rows this rank trains on: the ranks of one tp, ep or sp group
+    # share them.
     coords = mesh_lib.train_coords(mesh)
-    # The global batch, rounded to a multiple of the ranks as the JAX
-    # workload rounds it to its devices (every device of the mesh, tp's too).
-    if batch_size % world:
-        batch_size = max(batch_size // world, 1) * world
     if grad_accum > 1 and batch_size % grad_accum:
         raise ValueError(f"--grad-accum {grad_accum} must divide the global batch {batch_size}")
     if grad_accum > 1 and (batch_size // coords.data_extent) % grad_accum:
@@ -311,6 +346,9 @@ def run(
             f"--grad-accum {grad_accum} must divide each data coordinate's "
             f"{batch_size // coords.data_extent} rows"
         )
+    if cfg.n_experts > 0 and cfg.moe_dispatch == "sparse":
+        # A microbatch's tokens are what the dispatch groups.
+        check_sparse_groups(batch_size // grad_accum, seq_len, data_extent, axes.get("sp", 1))
     log(
         f"[llama] config={config} d_model={cfg.d_model} layers={cfg.n_layers} "
         f"mesh={axes} attn={cfg.attn_impl} xent={cfg.xent_impl} "
@@ -367,21 +405,21 @@ def run(
         open_token_file(eval_file, "--eval-file", seed=1, do_open=False)
 
     t_init = time.time()
-    tp = TensorParallel.of(mesh) if mesh is not None else None
-    # Every rank of a tp coordinate builds the same values (one seed, or the
-    # same tree) before sharding: each then keeps its shard of them. A tp
-    # rank builds its blocks only.
-    model = llama_lib.Llama(cfg, device=dev, tp=tp)
+    # Every rank of a tp or ep coordinate builds the same values (one seed,
+    # or the same tree) before sharding: each then keeps its shard of them.
+    # A tp or ep rank builds its blocks only.
+    model = llama_lib.Llama(cfg, device=dev, mesh=mesh)
     if init_params is not None:
-        model.load_state_dict(params_from_jax(init_params, cfg, tp))
+        model.load_state_dict(params_from_jax(init_params, cfg, model.tp, model.ep))
     else:
         model.init_weights(torch.Generator(device=dev).manual_seed(seed))
     model.train()
-    n_params = sum(p.numel() for p in model.parameters())
-    if tp is not None:
-        # Whole parameters: a split tensor counts its tp blocks.
-        n_params = sum(p.numel() * (tp.size if tp_dim(n) is not None else 1)
-                       for n, p in model.named_parameters())
+    # Whole parameters: a split tensor counts its tp and ep blocks.
+    parallel = model_axes(model)
+    n_params = sum(
+        p.numel() * math.prod(ax.size for ax, d in param_splits(n, parallel) if d is not None)
+        for n, p in model.named_parameters()
+    )
     if mesh is not None:
         shard_model(model, mesh)
     log(
@@ -405,9 +443,10 @@ def run(
         return world_mean(rank_step(tokens), world, mesh)
 
     def train_state():
-        # Under tp each tensor as the Block of its layout (its offsets in
-        # the whole), which the checkpoint writes and restores by.
-        params = model_blocks(model) if tp is not None else model.state_dict()
+        # Under tp, ep or sp each tensor as the Block of its layout (its
+        # offsets in the whole, written by one rank of its copies), which
+        # the checkpoint writes and restores by.
+        params = model_blocks(model) if parallel else model.state_dict()
         return {"params": params, "opt_state": opt.state_dict()}
 
     # A simulated preemption on the first life of this replica: die with a
@@ -606,6 +645,11 @@ def run(
         "rank": rank,
         "data_index": coords.data_index,
         "tp_index": coords.tp_index,
+        "sp_index": coords.sp_index,
+        "ep_index": coords.ep_index,
+        "expert_param_bytes": local_nbytes(
+            p for n, p in model.named_parameters() if n.endswith(("moe_mlp.w_in", "moe_mlp.w_out"))
+        ),
         "param_bytes": local_nbytes(model.parameters()),
         "optimizer_state_bytes": opt.state_nbytes(),
         "peak_mem_bytes": peak,
@@ -653,7 +697,8 @@ def run(
         # FLOPs-active parameters: sparse dispatch computes about top_k/E of
         # the expert banks a token (capacity padding excluded), dense all.
         expert = sum(
-            p.numel() for n, p in model.named_parameters()
+            p.numel() * math.prod(ax.size for ax, d in param_splits(n, parallel) if d is not None)
+            for n, p in model.named_parameters()
             if n.endswith(("moe_mlp.w_in", "moe_mlp.w_out"))
         )
         frac = cfg.moe_top_k / cfg.n_experts if cfg.moe_dispatch == "sparse" else 1.0
@@ -708,7 +753,8 @@ def main(argv=None) -> int:
     p.add_argument(
         "--mesh", default=None,
         help='axes over the world\'s ranks, e.g. "fsdp=2", "dp=2", "tp=2", "fsdp=2,tp=2", '
-        '"dp=2@dcn,fsdp=-1" (default: TPUJOB_MESH or fsdp=-1); sp, pp and ep are refused',
+        '"sp=2", "dp=2,ep=2", "dp=2@dcn,fsdp=-1" (default: TPUJOB_MESH or fsdp=-1); pp is '
+        'refused (ROADMAP.md item 3c-3)',
     )
     p.add_argument("--batch-size", type=int, default=8, help="the global batch, over every rank")
     p.add_argument("--seq-len", type=int, default=128)
@@ -738,8 +784,9 @@ def main(argv=None) -> int:
     )
     p.add_argument(
         "--attn-impl", choices=("dense", "flash", "ring", "ulysses"), default=None,
-        help="attention implementation (flash = the CUDA kernels); ring and "
-        "ulysses are refused (ROADMAP.md item 3c-2)",
+        help="attention implementation (flash = the CUDA kernels); ring = "
+        "sequence-parallel K/V rotation over sp; ulysses = all-to-all head/seq "
+        "swap over sp (both dense f32 over the whole sequence without sp)",
     )
     p.add_argument("--xent", choices=("dense", "chunked"), default=None, dest="xent_impl")
     p.add_argument(
@@ -791,7 +838,8 @@ def main(argv=None) -> int:
     )
     p.add_argument(
         "--experts", type=int, default=None, dest="n_experts",
-        help="mixture-of-experts MLP with this many experts, all on this card",
+        help="mixture-of-experts MLP with this many experts, sharded over the mesh's "
+        "ep axis (all on each rank without one)",
     )
     p.add_argument(
         "--moe-top-k", type=int, default=None, dest="moe_top_k",

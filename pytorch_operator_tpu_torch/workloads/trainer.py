@@ -174,12 +174,13 @@ def lr_at(count: int, lr: float, *, schedule: str, warmup_steps: int, decay_step
     return lr * 0.5 * (1.0 + math.cos(math.pi * t / (decay - warm)))
 
 
-def _sharded_sq_norm(grads, tp_split=None, tp=None) -> torch.Tensor:
+def _sharded_sq_norm(grads, split_axes=None) -> torch.Tensor:
     """The squared global norm of gradients laid out over a mesh: each
     gradient's local squares summed by the axes that split it (the mesh
-    dimensions a DTensor is sharded on; tp where ``tp_split`` says tp splits
-    it), each such sum all-reduced over those axes (a replicated axis holds
-    whole copies: not summed), then added up."""
+    dimensions a DTensor is sharded on; the model-parallel axes
+    ``split_axes[i]``, ``sharding.AxisParallel`` s, that split it: tp, ep),
+    each such sum all-reduced over those axes (a replicated axis holds whole
+    copies: not summed), then added up."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
@@ -189,8 +190,8 @@ def _sharded_sq_norm(grads, tp_split=None, tp=None) -> torch.Tensor:
         if isinstance(g, DTensor):
             groups = [g.device_mesh.get_group(d) for d, pl in enumerate(g.placements) if pl.is_shard()]
             g = g.to_local()
-        if tp_split is not None and tp_split[i] and tp is not None and tp.size > 1:
-            groups.append(tp.mesh.get_group("tp"))
+        for ax in (split_axes[i] if split_axes is not None else ()):
+            groups.append(ax.mesh.get_group(ax.axis))
         key = tuple(groups)
         sums[key] = sums.get(key, 0) + torch.linalg.vector_norm(g.float()).square()
     total = 0
@@ -201,18 +202,19 @@ def _sharded_sq_norm(grads, tp_split=None, tp=None) -> torch.Tensor:
     return total
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float, tp_split=None, tp=None) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float, split_axes=None) -> torch.Tensor:
     """optax's ``clip_by_global_norm`` in place: ``g · max_norm / ‖g‖`` when
     ``‖g‖ >= max_norm``, unchanged otherwise, with no epsilon (unlike
     ``torch.nn.utils.clip_grad_norm_``). Returns the global norm (a device
-    scalar; no host sync). Sharded gradients (DTensors, and tp's blocks:
-    ``tp_split[i]`` says whether ``tp`` splits ``grads[i]``) give the norm
-    over the whole gradient, not over this rank's parts."""
+    scalar; no host sync). Sharded gradients (DTensors, and tp's and ep's
+    blocks: ``split_axes[i]`` the axes that split ``grads[i]``) give the
+    norm over the whole gradient, not over this rank's parts; a tensor that
+    an axis replicates (sp's, and tp's or ep's unsplit ones) counts once."""
     from ..parallel.sharding import local_tensor
 
     local = [local_tensor(g) for g in grads]
-    if any(t is not g for t, g in zip(local, grads)) or (tp is not None and tp.size > 1):
-        norm = _sharded_sq_norm(grads, tp_split, tp).sqrt()
+    if any(t is not g for t, g in zip(local, grads)) or any(split_axes or ()):
+        norm = _sharded_sq_norm(grads, split_axes).sqrt()
     else:
         norm = torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])
@@ -226,8 +228,9 @@ def world_mean(x: torch.Tensor, world: int, mesh=None) -> torch.Tensor:
     """The mean of a per-rank value over the joined world of ``world``
     processes (each rank's loss is the mean over its equal share of the
     global batch, so this is the global batch's); ``x`` itself in a world
-    of one process. With ``mesh``, the mean over its data axes (the ranks
-    of one tp group hold the same rows and the same loss)."""
+    of one process. With ``mesh``, the mean over its data axes and sp (the
+    ranks of one tp or ep group hold the same rows and the same loss; an sp
+    rank's loss is its share of its rows' mean times sp)."""
     import torch.distributed as dist
 
     if world == 1:
@@ -239,10 +242,11 @@ def world_mean(x: torch.Tensor, world: int, mesh=None) -> torch.Tensor:
     from ..parallel.collectives import psum
     from ..parallel.mesh import DATA_AXES, axis_sizes, train_coords
 
-    for axis in DATA_AXES:
+    for axis in (*DATA_AXES, "sp"):
         if axis_sizes(mesh).get(axis, 1) > 1:
             out = psum(out, axis, mesh)
-    return out / train_coords(mesh).data_extent
+    c = train_coords(mesh)
+    return out / (c.data_extent * c.sp_size)
 
 
 class Optimizer:
@@ -252,15 +256,16 @@ class Optimizer:
 
     def __init__(self, params, lr: float, *, schedule: str, warmup_steps: int,
                  decay_steps, grad_clip: Optional[float], weight_decay: float,
-                 tp_dims=None, tp=None):
+                 layouts=None):
         params = list(params)
-        # tp_dims: the dim tp splits of each parameter (None: replicated),
-        # for the clip's norm and the checkpoint's blocks.
-        dims = tp_dims if tp_dims is not None else [None] * len(params)
-        kept = [(p, d) for p, d in zip(params, dims) if p.requires_grad]
+        # layouts: each parameter's (axis, dim) pairs of the model-parallel
+        # axes (sharding.param_splits; dim None where the axis replicates
+        # it), for the clip's norm and the checkpoint's blocks.
+        lays = layouts if layouts is not None else [()] * len(params)
+        kept = [(p, lay) for p, lay in zip(params, lays) if p.requires_grad]
         self.params = [p for p, _ in kept]
-        self.tp_dims = [d for _, d in kept]
-        self.tp = tp
+        self.layouts = [lay for _, lay in kept]
+        self.split_axes = [tuple(ax for ax, d in lay if d is not None) for lay in self.layouts]
         self.lr = lr
         self.schedule = dict(schedule=schedule, warmup_steps=warmup_steps,
                              decay_steps=decay_steps)
@@ -275,8 +280,7 @@ class Optimizer:
 
     def step(self) -> None:
         if self.grad_clip is not None:
-            clip_by_global_norm_([p.grad for p in self.params], self.grad_clip,
-                                 [d is not None for d in self.tp_dims], self.tp)
+            clip_by_global_norm_([p.grad for p in self.params], self.grad_clip, self.split_axes)
         for group in self.adamw.param_groups:
             group["lr"] = lr_at(self.count, self.lr, **self.schedule)
         self.adamw.step()
@@ -286,14 +290,14 @@ class Optimizer:
     def state_dict(self) -> dict:
         """The optimizer state a checkpoint carries: the update count (the
         schedule's step, optax's ``count``) and AdamW's moments and
-        bias-correction steps; under tp each moment as the
+        bias-correction steps; under tp, ep or sp each moment as the
         ``sharding.Block`` of its parameter's layout."""
         sd = self.adamw.state_dict()
-        if self.tp is not None and self.tp.size > 1:
+        if any(self.layouts):
             from ..parallel.sharding import Block
 
             sd["state"] = {
-                i: {k: Block.of(t, self.tp_dims[i], self.tp) if k != "step" else t
+                i: {k: Block.of(t, self.layouts[i]) if k != "step" else t
                     for k, t in st.items()}
                 for i, st in sd["state"].items()
             }
@@ -362,28 +366,30 @@ class _LeafLayout:
         return cls([0] * len(shape), shape, [()] * len(shape), shape)
 
 
-def _leaf_layout(leaf, param, name: str, tp, mesh) -> _LeafLayout:
+def _leaf_layout(leaf, param, name: str, axes, mesh) -> _LeafLayout:
     """The :class:`_LeafLayout` of ``leaf`` on this rank, ``param`` the
-    port tensor of its first name (each layer's alike): tp's block of the
-    port tensor, then FSDP2's rows of that block, mapped into the leaf; an
-    axis splits a leaf dim when another coordinate on it holds another range
-    of that dim. An axis that would split two dims raises
+    port tensor of its first name (each layer's alike): the block of the
+    port tensor that the model-parallel ``axes`` (``sharding.AxisParallel``
+    s: tp, ep) cut, then FSDP2's rows of that block, mapped into the leaf;
+    an axis splits a leaf dim when another coordinate on it holds another
+    range of that dim. An axis that would split two dims raises
     NotImplementedError."""
-    from ..parallel.mesh import axis_sizes, train_coords
-    from ..parallel.sharding import Block, tp_dim
+    from ..parallel.mesh import axis_sizes
+    from ..parallel.sharding import Block, param_splits
 
     sizes = axis_sizes(mesh)
     fsdp = sizes.get("fsdp", 1)
-    dim = tp_dim(name) if tp is not None else None
-    whole = list(param.shape)  # FSDP2's global shape: the tp block's
-    if dim is not None:
-        whole[dim] *= tp.size
+    layout = param_splits(name, axes)
+    cuts = [(ax, d) for ax, d in layout if d is not None]
+    whole = list(param.shape)  # FSDP2's global shape: the block's
+    for ax, d in cuts:
+        whole[d] *= ax.size
 
-    def port_box(t: int, f: int):
+    def port_box(at: dict, f: int):
         offs, size = [0] * len(whole), list(whole)
-        if dim is not None:
-            size[dim] //= tp.size
-            offs[dim] = t * size[dim]
+        for ax, d in cuts:
+            size[d] //= ax.size
+            offs[d] = at[ax.axis] * size[d]
         if fsdp > 1:
             rows = size[0]
             chunk = -(-rows // fsdp)
@@ -391,17 +397,17 @@ def _leaf_layout(leaf, param, name: str, tp, mesh) -> _LeafLayout:
             offs[0], size[0] = offs[0] + start, min(start + chunk, rows) - start
         return leaf.box(offs, size)
 
-    t_idx = train_coords(mesh).tp_index
+    at = {ax.axis: ax.index for ax, _ in cuts}
     f_idx = mesh.get_local_rank("fsdp") if fsdp > 1 else 0
-    mine = port_box(t_idx, f_idx)
-    block = Block.of(param, dim, tp)
+    mine = port_box(at, f_idx)
+    block = Block.of(param, layout)
     if leaf.box(block.offsets, block.data.shape) != mine:
-        raise RuntimeError(f"{leaf.path}: the parameter's layout is not FSDP2's rows of tp's block")
+        raise RuntimeError(f"{leaf.path}: the parameter's layout is not FSDP2's rows of its block")
     split = [[] for _ in leaf.shape]
-    for axis, n in (("tp", tp.size if dim is not None else 1), ("fsdp", fsdp)):
+    for axis, n in [(ax.axis, ax.size) for ax, _ in cuts] + [("fsdp", fsdp)]:
         varied = set()
         for c in range(n):
-            other = port_box(c, f_idx) if axis == "tp" else port_box(t_idx, c)
+            other = port_box({**at, axis: c}, f_idx) if axis != "fsdp" else port_box(at, c)
             for which in (0, 1):
                 varied |= {d for d in range(len(leaf.shape)) if other[which][d] != mine[which][d]}
         if len(varied) > 1:
@@ -431,9 +437,10 @@ class Adafactor:
     (a ``[1]`` placeholder for the unused ones).
 
     **Under a mesh** (``mesh``: the world's ``DeviceMesh``) each rank
-    computes on its own part of each leaf (its tp blocks, FSDP2's rows of
-    them: a box of the leaf) and holds the statistics of that part; no leaf
-    is gathered. The row and column means sum this rank's part and
+    computes on its own part of each leaf (its tp and ep blocks, FSDP2's
+    rows of them: a box of the leaf; an expert leaf ``[L, E, M, F]`` cut on
+    its E by ep) and holds the statistics of that part; no leaf is
+    gathered. The row and column means sum this rank's part and
     all-reduce over the axes that split the dim they reduce; the two block
     RMS values all-reduce their sums of squares over the axes that split
     the leaf. ``state_dict`` gives each statistic as the
@@ -442,10 +449,10 @@ class Adafactor:
     def __init__(self, model, lr: float, *, schedule: str, warmup_steps: int,
                  decay_steps, grad_clip: Optional[float], mesh=None):
         from ..models.convert import jax_leaves
-        from ..parallel.sharding import tp_dim
+        from ..parallel.sharding import model_axes, param_splits
 
         self.mesh = mesh
-        self.tp = getattr(model, "tp", None)
+        axes = model_axes(model)
         named = dict(model.named_parameters())
         self.leaves = []  # (JaxLeaf, its port parameters, its factored dims, _LeafLayout)
         covered = set()
@@ -453,14 +460,14 @@ class Adafactor:
             params = [named[n] for n in leaf.names]
             covered.update(leaf.names)
             layout = (_LeafLayout.of_whole(leaf.shape) if mesh is None
-                      else _leaf_layout(leaf, params[0], leaf.names[0], self.tp, mesh))
+                      else _leaf_layout(leaf, params[0], leaf.names[0], axes, mesh))
             self.leaves.append((leaf, params, _factored_dims(leaf.shape), layout))
         missing = sorted(n for n, q in named.items() if q.requires_grad and n not in covered)
         if missing:
             raise ValueError(f"adafactor maps the Llama's JAX leaves only; not covered: {missing}")
         self.params = [q for _, ps, _, _ in self.leaves for q in ps]
-        self.tp_split = [self.tp is not None and tp_dim(n) is not None
-                         for leaf, _, _, _ in self.leaves for n in leaf.names]
+        self.split_axes = [tuple(ax for ax, d in param_splits(n, axes) if d is not None)
+                           for leaf, _, _, _ in self.leaves for n in leaf.names]
         self.lr = lr
         self.schedule = dict(schedule=schedule, warmup_steps=warmup_steps, decay_steps=decay_steps)
         lr_at(0, lr, **self.schedule)  # validate the schedule name now
@@ -504,7 +511,7 @@ class Adafactor:
         from ..parallel.sharding import local_tensor
 
         if self.grad_clip is not None:
-            clip_by_global_norm_([q.grad for q in self.params], self.grad_clip, self.tp_split, self.tp)
+            clip_by_global_norm_([q.grad for q in self.params], self.grad_clip, self.split_axes)
         t = torch.tensor(float(self.count + 1), dtype=torch.float32)
         decay_t = 1.0 - t.pow(-0.8)
         decay, keep_new = float(decay_t), float(1.0 - decay_t)
@@ -619,7 +626,8 @@ def make_optimizer(
     parameters or the model; adafactor needs the model, whose JAX leaves
     decide its factored axes and block RMS. ``mesh``: the world's
     ``DeviceMesh`` the model is laid out on (adafactor's reductions run over
-    its axes); a tensor-parallel model's layout is read from the model."""
+    its axes); a tensor-, expert- or sequence-parallel model's layout is
+    read from the model."""
     if optimizer not in ("adamw", "adafactor"):
         raise ValueError(f"optimizer={optimizer!r} not in ('adamw', 'adafactor')")
     if grad_clip is not None and grad_clip <= 0:
@@ -631,13 +639,13 @@ def make_optimizer(
             raise TypeError("optimizer='adafactor' needs the model, not its parameters")
         return Adafactor(params, lr, mesh=mesh, **sched)
     if isinstance(params, torch.nn.Module):
-        tp = getattr(params, "tp", None)
-        if tp is not None:
-            from ..parallel.sharding import tp_dim
+        from ..parallel.sharding import model_axes, param_splits
 
+        axes = model_axes(params)
+        if axes:
             named = list(params.named_parameters())
             return Optimizer([p for _, p in named], lr, weight_decay=weight_decay,
-                             tp_dims=[tp_dim(n) for n, _ in named], tp=tp, **sched)
+                             layouts=[param_splits(n, axes) for n, _ in named], **sched)
         params = params.parameters()
     return Optimizer(params, lr, weight_decay=weight_decay, **sched)
 
@@ -658,36 +666,56 @@ def make_lm_loss_fn(
 
     A tensor-parallel model's loss is ``vocab_parallel_xent`` over its
     head's block of columns: in 8192-column chunks for ``"chunked"``, in one
-    chunk of the block for ``"dense"`` (the same value)."""
+    chunk of the block for ``"dense"`` (the same value).
+
+    Over sp (``model.seq_block``) ``tokens`` are whole rows, the model
+    computes this rank's block of positions, and each position's label is
+    the row's next token (the next block's first at a block's end; the
+    row's last position has none). The rank's loss is the sum over its
+    positions divided by all ``B·(S−1)`` of the rows, times sp: the mean of
+    the sp ranks' losses (``world_mean``) is the rows' mean, and so is the
+    gradient averaged over sp (:func:`make_lm_train_step`)."""
     chunked = model.cfg.xent_impl == "chunked"
     aux_w = model.cfg.moe_aux_weight if include_aux else 0.0
     tp = getattr(model, "tp", None)
-    if tp is not None:
-        from ..ops.chunked_xent import vocab_parallel_xent
+    seq_block = getattr(model, "seq_block", lambda S: None)
+    hidden = chunked or tp is not None
 
-        def tp_loss_fn(tokens):
-            h = model(tokens, return_hidden=True)[:, :-1]
+    def token_xent(out, labels, reduction):
+        """The cross-entropy of ``out`` [N, D or V] against ``labels`` [N],
+        reduced by ``reduction`` ("mean" or "sum")."""
+        if tp is not None:
+            from ..ops.chunked_xent import vocab_parallel_xent
+
             w = model.head_kernel()
-            return vocab_parallel_xent(
-                h.reshape(-1, h.shape[-1]), w, tokens[:, 1:].reshape(-1), tp=tp,
-                col_offset=model.vocab_offset, chunk=8192 if chunked else w.shape[1],
-            ).mean()
-
-        return tp_loss_fn
-
-    def loss_fn(tokens):
-        labels = tokens[:, 1:].reshape(-1)
-        if aux_w > 0:
-            out, aux = model(tokens, return_hidden=chunked, return_aux=True)
-        else:
-            out, aux = model(tokens, return_hidden=chunked), None
-        if chunked:
+            per = vocab_parallel_xent(out, w, labels, tp=tp, col_offset=model.vocab_offset,
+                                      chunk=8192 if chunked else w.shape[1])
+        elif chunked:
             from ..ops.chunked_xent import chunked_softmax_xent
 
-            h = out[:, :-1].reshape(-1, out.shape[-1])
-            xent = chunked_softmax_xent(h, model.head_kernel(), labels).mean()
+            per = chunked_softmax_xent(out, model.head_kernel(), labels)
         else:
-            xent = F.cross_entropy(out[:, :-1].reshape(-1, out.shape[-1]), labels)
+            return F.cross_entropy(out, labels, reduction=reduction)
+        return per.mean() if reduction == "mean" else per.sum()
+
+    def loss_fn(tokens):
+        B, S = tokens.shape
+        span = seq_block(S)
+        if aux_w > 0:
+            out, aux = model(tokens, return_hidden=hidden, return_aux=True)
+        else:
+            out, aux = model(tokens, return_hidden=hidden), None
+        if span is None:
+            labels, out = tokens[:, 1:], out[:, :-1]
+        else:
+            off, n = span
+            labels = tokens[:, off + 1:off + n + 1]
+            out = out[:, :labels.shape[1]]
+        flat, labels = out.reshape(-1, out.shape[-1]), labels.reshape(-1)
+        if span is None:
+            xent = token_xent(flat, labels, "mean")
+        else:
+            xent = token_xent(flat, labels, "sum") * (model.sp.size / (B * (S - 1)))
         if aux is None:
             return xent
         if on_aux is not None:
@@ -719,11 +747,16 @@ def make_lm_train_step(model, optimizer, grad_accum: int = 1, on_aux=None):
     ``grad_accum=N`` splits the batch into N sequential microbatches: their
     gradients are summed in f32 buffers (whatever the parameter dtype),
     divided by N and cast to each parameter's dtype before the one update;
-    the loss is the mean of the microbatch losses."""
+    the loss is the mean of the microbatch losses.
+
+    Over sp (``model.sp``) the gradients are then averaged over the sp
+    ranks (:func:`mean_all_reduce_`) before the update: each sp rank holds
+    the parameters whole and its own positions' part of the gradient."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     loss_fn = make_lm_loss_fn(model, on_aux=on_aux)
     params = optimizer.params
+    sp = getattr(model, "sp", None)
 
     def train_step(tokens):
         if grad_accum == 1:
@@ -747,10 +780,13 @@ def make_lm_train_step(model, optimizer, grad_accum: int = 1, on_aux=None):
             loss = loss / grad_accum
             for a, p in zip(acc, params):
                 p.grad = (a / grad_accum).to(p.dtype)
+        if sp is not None:
+            mean_all_reduce_([p.grad for p in params], sp.size, sp.mesh.get_group(sp.axis))
         optimizer.step()
         return loss.detach()
 
     return train_step
+
 
 
 class ProgressHeartbeat:
@@ -892,20 +928,27 @@ def average_gradients_(params, world: int) -> None:
     ranks of the joined world (data parallelism over whole parameters, as
     the image benches' dp mesh: each rank's loss is the mean over its equal
     share of the global batch, so the mean of the gradients is the global
-    batch's). One flat all-reduce a gradient dtype; a no-op in a world of
-    one."""
-    if world == 1:
-        return
+    batch's); a no-op in a world of one."""
+    if world > 1:
+        mean_all_reduce_([p.grad for p in params], world)
+
+
+def mean_all_reduce_(grads, n: int, group=None) -> None:
+    """Replace each of ``grads`` (tensors, or DTensors: their local shards;
+    None skipped) by its mean over the ``n`` ranks of ``group`` (None: the
+    world): one flat all-reduce a dtype. Every rank gets the same bits."""
     import torch.distributed as dist
 
-    grads = [p.grad for p in params if p.grad is not None]
-    for dtype in sorted({g.dtype for g in grads}, key=str):
-        group = [g for g in grads if g.dtype == dtype]
-        flat = torch.cat([g.reshape(-1) for g in group])
-        dist.all_reduce(flat)
-        flat /= world
+    from ..parallel.sharding import local_tensor
+
+    local = [local_tensor(g) for g in grads if g is not None]
+    for dtype in sorted({g.dtype for g in local}, key=str):
+        part = [g for g in local if g.dtype == dtype]
+        flat = torch.cat([g.reshape(-1) for g in part])
+        dist.all_reduce(flat, group=group)
+        flat /= n
         offset = 0
-        for g in group:
+        for g in part:
             g.copy_(flat[offset:offset + g.numel()].view_as(g))
             offset += g.numel()
 

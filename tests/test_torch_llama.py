@@ -134,15 +134,18 @@ def test_decode_forward_matches(per_row, prefill_mode):
 
 
 def test_config_validation():
-    """Same validation as the JAX config; what the port lacks raises
-    NotImplementedError naming the ROADMAP item."""
+    """Same validation as the JAX config: ring and ulysses are accepted for
+    training and refused for decoding, as in JAX."""
     with pytest.raises(ValueError, match="prefill_mode"):
         port_llama.llama_tiny(prefill_mode="bogus")
     with pytest.raises(ValueError, match="require decode=True"):
         port_llama.llama_tiny(decode_per_row=True)
-    for over in ({"attn_impl": "ring"}, {"attn_impl": "ulysses"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_llama.llama_tiny(**over)
+    for impl in ("ring", "ulysses"):
+        assert port_llama.llama_tiny(attn_impl=impl).attn_impl == impl
+        with pytest.raises(ValueError, match="decode=True"):
+            port_llama.llama_tiny(attn_impl=impl, decode=True)
+    with pytest.raises(ValueError, match="attn_impl"):
+        port_llama.llama_tiny(attn_impl="bogus")
     # MoE is ported: the reference's warning for sparse dispatch without the
     # aux loss, and a dispatch name check.
     assert port_llama.llama_tiny(n_experts=4).n_experts == 4

@@ -207,16 +207,16 @@ def test_run_cpu_flash_chunked_and_bf16_params():
     "argv",
     [
         ["--pp-schedule", "1f1b"],
-        ["--mesh", "sp=2"],
-        ["--attn-impl", "ring"],
+        ["--mesh", "pp=2"],
+        ["--attn-impl", "ring", "--mesh", "dp=1,pp=2"],
     ],
     ids=lambda a: a[0].lstrip("-"),
 )
 def test_main_refuses_unported_flags(argv):
-    """What waits for items 3c-2 and 3c-3 is refused by name: the pipeline
-    flags, a mesh axis beyond dp/fsdp/tp (before its size is resolved), ring
-    attention."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*3c"):
+    """What waits for item 3c-3 is refused by name: the pipeline flags, the
+    pp mesh axis (before its size is resolved), also beside ring attention
+    (which runs since sequence parallelism's slice)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 3c-3"):
         llama_train.main(["--device", "cpu", "--steps", "1", "--seq-len", "8", *argv])
 
 

@@ -255,12 +255,15 @@ def test_aux_loss_spreads_the_router():
 
 
 def test_mesh_paths_and_bad_top_k_raise():
+    """The mesh paths without a world (``mesh=None``) run every expert here,
+    as the one-device paths do (over ep they are tests/test_torch_ep.py's);
+    a bank that is not the rank's block of E, and a bad top_k, raise."""
     p, x = _torch(_params()), torch.from_numpy(_x())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 3c"):
-        moe.moe_mlp_sparse(p, x, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 3c"):
-        moe.moe_mlp(p, x, mesh=object())
-    for fn in (moe.moe_mlp_reference, moe.moe_mlp_sparse):
+    torch.testing.assert_close(moe.moe_mlp(p, x, mesh=None), moe.moe_mlp_reference(p, x), rtol=0, atol=0)
+    torch.testing.assert_close(moe.moe_mlp_sparse(p, x, mesh=None), moe.moe_mlp_sparse(p, x), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="w_in holds 4 experts"):
+        moe.moe_mlp(dict(p, w_in=p["w_in"][:4]), x, mesh=None)
+    for fn in (moe.moe_mlp_reference, moe.moe_mlp_sparse, lambda p, x, top_k: moe.moe_mlp(p, x, mesh=None, top_k=top_k)):
         for k in (0, E + 1):
             with pytest.raises(ValueError, match="top_k"):
                 fn(p, x, top_k=k)

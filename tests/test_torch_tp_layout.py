@@ -86,9 +86,9 @@ def test_params_from_jax_and_the_init_give_each_rank_its_block(jax_tree_and_spec
 
 def test_blocks_say_where_a_rank_part_sits():
     t = torch.zeros(6, 4)
-    b = sharding.Block.of(t, 1, TensorParallel(2, 1))
+    b = sharding.Block.of(t, [(TensorParallel(2, 1), 1)])
     assert (b.offsets, b.shape, b.writer) == ((0, 4), (6, 8), True)
-    b = sharding.Block.of(t, None, TensorParallel(2, 1))
+    b = sharding.Block.of(t, [(TensorParallel(2, 1), None)])
     assert (b.offsets, b.shape, b.writer) == ((0, 0), (6, 4), False)
     assert mesh_lib.train_coords(None) == mesh_lib.TrainCoords(0, 1, 0, 1)
 
@@ -97,8 +97,13 @@ def test_blocks_say_where_a_rank_part_sits():
     "spec,item", [("sp=2", "3c-2"), ("ep=2", "3c-2"), ("pp=2", "3c-3"), ("dp=1,pp=2", "3c-3")]
 )
 def test_sp_ep_and_pp_are_refused_naming_their_item(spec, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
-        llama_train.resolve_train_mesh(spec, 2)
+    """Item 3c-2's axes (sp, ep) resolve since they were ported; 3c-3's pp
+    is still refused by name."""
+    if item == "3c-2":
+        assert llama_train.resolve_train_mesh(spec, 2) == mesh_lib.parse_mesh_spec(spec)
+    else:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
+            llama_train.resolve_train_mesh(spec, 2)
     assert llama_train.resolve_train_mesh("fsdp=2,tp=2", 4) == {"fsdp": 2, "tp": 2}
 
 

@@ -474,10 +474,12 @@ def rank_vocab_parallel(world, h, w, labels, ct, chunk: int, plants: list) -> di
     return out
 
 
-def rank_restore_layout(world, root: str, step: int, mesh_spec: str, optimizer: str) -> dict:
-    """Restore step ``step`` of ``root`` (the tiny Llama and its
-    ``optimizer`` state, written under any layout) into this world's
-    ``mesh_spec`` layout, built as ``llama_train`` builds it. Every record
+def rank_restore_layout(world, root: str, step: int, mesh_spec: str, optimizer: str,
+                        cfg_over=None) -> dict:
+    """Restore step ``step`` of ``root`` (the tiny Llama, with the config's
+    ``cfg_over``, and its ``optimizer`` state, written under any layout)
+    into this world's ``mesh_spec`` layout, built as ``llama_train`` builds
+    it. Every record
     read is counted: the elements copied out of the ranks' files (a record
     memory-mapped, so only those are read). Returns the restored parameters
     and optimizer state as blocks, and the elements read."""
@@ -486,12 +488,11 @@ def rank_restore_layout(world, root: str, step: int, mesh_spec: str, optimizer: 
     from pytorch_operator_tpu_torch.checkpoint import CheckpointManager, manager
     from pytorch_operator_tpu_torch.models import llama as llama_lib
     from pytorch_operator_tpu_torch.parallel.mesh import make_mesh
-    from pytorch_operator_tpu_torch.parallel.sharding import TensorParallel, model_blocks, shard_model
+    from pytorch_operator_tpu_torch.parallel.sharding import model_axes, model_blocks, shard_model
     from pytorch_operator_tpu_torch.workloads import trainer
 
     mesh = make_mesh(mesh_spec, "cpu")
-    tp = TensorParallel.of(mesh)
-    model = llama_lib.Llama(llama_lib.llama_tiny(), tp=tp)
+    model = llama_lib.Llama(llama_lib.llama_tiny(**(cfg_over or {})), mesh=mesh)
     shard_model(model, mesh)
     opt = trainer.make_optimizer(model, 1e-2, optimizer=optimizer, mesh=mesh)
     if hasattr(opt, "init_state"):
@@ -520,7 +521,7 @@ def rank_restore_layout(world, root: str, step: int, mesh_spec: str, optimizer: 
     torch.load = lambda *a, **kw: spy(real_load(*a, **kw))
     try:
         mgr = CheckpointManager(root, process_id=world.process_id, num_processes=world.num_processes)
-        like = {"params": model_blocks(model) if tp is not None else model.state_dict(),
+        like = {"params": model_blocks(model) if model_axes(model) else model.state_dict(),
                 "opt_state": opt.state_dict()}
         restored = mgr.restore(like, step=step)
     finally:
@@ -529,3 +530,139 @@ def rank_restore_layout(world, root: str, step: int, mesh_spec: str, optimizer: 
     opt.load_state_dict(restored["opt_state"])
     return {"params": _blocks_out(model_blocks(model)), "opt": _blocks_out(opt.state_dict()),
             "read": sum(read)}
+
+
+def rank_attention(world, cases: list) -> list:
+    """Sequence-parallel attention on the world's ``sp`` mesh (``sp=n``):
+    for each case (``fn``: ``"ring"``, ``"ulysses"`` — the shard bodies on
+    this rank's block of the sequence — or ``"ring_global"``,
+    ``"ulysses_global"`` — the global views on the whole arrays; ``q``,
+    ``k``, ``v``, ``pos`` whole numpy arrays; ``causal``; ``local_pos``: the
+    planted fault of masking with each rank's local positions), the output
+    and the gradients of q, k and v of the loss ``sum(out²)/numel(q)``
+    (this rank's block, or the whole arrays for a global view). Also the
+    tiled ``all_to_all`` of ``arange + 100·rank`` over sp."""
+    import torch
+
+    from pytorch_operator_tpu_torch.parallel import collectives, ring, ulysses
+    from pytorch_operator_tpu_torch.parallel.mesh import make_mesh
+
+    n, r = world.num_processes, world.process_id
+    mesh = make_mesh({"sp": n}, "cpu")
+    out = []
+    for case in cases:
+        S = case["q"].shape[1]
+        whole = case["fn"].endswith("_global")
+        mine = slice(None) if whole else slice(r * S // n, (r + 1) * S // n)
+        q, k, v = (torch.tensor(case[a][:, mine], requires_grad=True) for a in "qkv")
+        pos = torch.from_numpy(case["pos"])
+        if case.get("local_pos"):
+            local = torch.arange(S // n).expand(pos.shape[0], S // n)
+            q_pos = kv_pos = local
+        else:
+            q_pos = kv_pos = pos[:, mine]
+        if case["fn"] == "ring":
+            o = ring.ring_attention_shard(q, k, v, q_pos, kv_pos, mesh=mesh, causal=case["causal"])
+        elif case["fn"] == "ulysses":
+            o = ulysses.ulysses_attention_shard(q, k, v, pos, mesh=mesh, causal=case["causal"])
+        elif case["fn"] == "ring_global":
+            o = ring.ring_self_attention(q, k, v, pos, mesh, causal=case["causal"])
+        else:
+            o = ulysses.ulysses_self_attention(q, k, v, pos, mesh, causal=case["causal"])
+        ((o.float() ** 2).sum() / case["q"].size).backward()
+        out.append({"out": o.detach().numpy(), "dq": q.grad.numpy(), "dk": k.grad.numpy(),
+                    "dv": v.grad.numpy()})
+    x = torch.arange(2.0 * n * 3 * n).reshape(2, n * 3, n) + 100 * r
+    return {"cases": out, "all_to_all": collectives.all_to_all(x, "sp", 1, 2, mesh).numpy()}
+
+
+def rank_moe(world, spec: str, cases: list) -> list:
+    """The MoE layer's mesh paths on mesh ``spec`` (``ep``, with or without
+    ``tp``): for each case (``fn``: ``"dense"`` for ``moe_mlp``,
+    ``"sparse"`` for ``moe_mlp_sparse``; ``params`` whole; ``x``; ``top_k``;
+    ``capacity_factor``), this rank takes its experts' block of the banks
+    (and tp's block of each expert's F), and returns the output and the
+    gradients of the loss ``mean(out²)`` of the router, of its blocks (with
+    their offsets) and of x."""
+    import torch
+
+    from pytorch_operator_tpu_torch.parallel import moe
+    from pytorch_operator_tpu_torch.parallel.mesh import make_mesh
+    from pytorch_operator_tpu_torch.parallel.sharding import ExpertParallel, TensorParallel
+
+    mesh = make_mesh(spec, "cpu")
+    ep, tp = ExpertParallel.of(mesh), TensorParallel.of(mesh)
+    out = []
+    for case in cases:
+        p = case["params"]
+        e0, en = ep.block(p["w_in"].shape[0], "experts")
+        f0, fn = tp.block(p["w_in"].shape[2], "d_ff") if tp is not None else (0, p["w_in"].shape[2])
+        params = {
+            "gate": torch.tensor(p["gate"], requires_grad=True),
+            "w_in": torch.tensor(p["w_in"][e0:e0 + en, :, f0:f0 + fn], requires_grad=True),
+            "w_out": torch.tensor(p["w_out"][e0:e0 + en, f0:f0 + fn], requires_grad=True),
+        }
+        x = torch.tensor(case["x"], requires_grad=True)
+        if case["fn"] == "dense":
+            y = moe.moe_mlp(params, x, mesh=mesh, top_k=case["top_k"])
+        else:
+            y = moe.moe_mlp_sparse(params, x, mesh=mesh, top_k=case["top_k"],
+                                   capacity_factor=case["capacity_factor"])
+        (y ** 2).mean().backward()
+        out.append({"out": y.detach().numpy(), "x": x.grad.numpy(), "block": (e0, en, f0, fn),
+                    **{k: t.grad.numpy() for k, t in params.items()}})
+    return out
+
+
+# Runs the JAX package's llama_train.run of each case in a process whose XLA
+# client has as many CPU devices as the case's world; each run's final
+# parameters come back through its own checkpoint.
+JAX_RUNS = """
+import os, pickle, sys
+import tests.jaxenv
+from pytorch_operator_tpu.checkpoint import CheckpointManager
+from pytorch_operator_tpu.workloads import llama_train
+import jax
+cases, out_dir, n = pickle.load(open(sys.argv[1], "rb")), sys.argv[2], int(sys.argv[3])
+assert jax.device_count() == n, jax.devices()
+out = {}
+for name, kw in cases.items():
+    ck = os.path.join(out_dir, "ck_" + name)
+    os.environ["TPUJOB_CHECKPOINT_DIR"] = ck
+    r = llama_train.run(log=lambda m: None, checkpoint_every=1000, **kw)
+    _, params = CheckpointManager(ck, create=False).restore_subtree("params")
+    out[name] = {"result": r, "params": jax.tree.map(lambda a: a.astype("float32"), params)}
+pickle.dump(out, open(os.path.join(out_dir, "jax.pkl"), "wb"))
+"""
+
+
+def start_jax_runs(cases: dict, n_devices: int, d):
+    """Start the JAX package's ``llama_train.run`` of each of ``cases`` (name:
+    kwargs) in a subprocess with ``n_devices`` virtual CPU devices; read the
+    results with :func:`finish_jax_runs`."""
+    import subprocess
+    import sys
+
+    d = Path(d)
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "cases.pkl").write_bytes(pickle.dumps(cases))
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS=f"--xla_force_host_platform_device_count={n_devices}")
+    return subprocess.Popen(
+        [sys.executable, "-c", JAX_RUNS, str(d / "cases.pkl"), str(d), str(n_devices)],
+        cwd=Path(__file__).resolve().parents[1], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+    )
+
+
+def finish_jax_runs(proc, d, timeout: float = 400) -> dict:
+    """The results of :func:`start_jax_runs` (name: ``{"result", "params"}``)."""
+    _, err = proc.communicate(timeout=timeout)
+    assert proc.returncode == 0, err[-4000:]
+    return pickle.loads((Path(d) / "jax.pkl").read_bytes())
+
+
+def rank_many(world, calls: list) -> list:
+    """Run each ``(name, args)`` of ``calls`` as ``rank_<name>(world,
+    *args)`` in this one world, in order; their results."""
+    return [globals()[f"rank_{name}"](world, *args) for name, args in calls]
