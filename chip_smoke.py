@@ -20,14 +20,15 @@ Phases, in order; any failure exits non-zero before the result line:
    phase 12's ViT-B/16 shape (B128 S197 H12 D64, non-causal: the kernel
    alone on S padded to 256 with kv_len 197, the wrapper's time beside it,
    SDPA on S 197), at phase 13's per-rank tp=2 shapes (0.3b B4 S2048 H4
-   KH2; Llama-3-8B B1 S2048 H16 KH4) and at phase 14's one-process shape
-   (B2 S8192), with achieved TFLOP/s and the wrapper's host time a call.
+   KH2; Llama-3-8B B1 S2048 H16 KH4), at phase 14's one-process shape
+   (B2 S8192) and at phase 15's microbatch (B2 S2048), with achieved
+   TFLOP/s and the wrapper's host time a call.
 3. The two backward kernels against their plain version
    (``flash_attention_backward_reference``) on the same padded inputs, in the
    listed cases, by ``grad_agreement`` (relative L2 error over the whole
    gradient, over its late half and per row); at the training shape, at
    phase 8's, at phase 10's, at phase 11's, at phase 12's ViT shape, at
-   phase 13's two tp shapes and at phase 14's each kernel's time, the plain backward's, SDPA's backward on the unpadded S
+   phase 13's two tp shapes, at phase 14's and at phase 15's each kernel's time, the plain backward's, SDPA's backward on the unpadded S
    (timed only) and each bound (over the pairs the unpadded S needs), and each kernel's host time a call. Then the bf16 gradients of the public, differentiable
    ``flash_attention`` on the card against the plain forward and backward, at
    the training shape and at a padded one.
@@ -139,11 +140,10 @@ Phases, in order; any failure exits non-zero before the result line:
    bit for bit to the blocking run's (the same training, saved before its
    next step); then async under an ``enospc_checkpoint_write`` plan (the
    save at 10 lost): the run finishes, a ``checkpoint_save_failed`` record,
-   and without the run's final save the restore falls back to step 5; (d)
-   ``python -m ...llama_train`` subprocesses at 4 layers, B4 x 1024, checkpoints every
-   4, ``--preempt-at 6 --max-steps 10``: exit 138 with "injected
-   preemption", then with ``TPUJOB_RESTART_COUNT=1`` a resume at step 4 to
-   10, its losses equal an uninterrupted run's bit for bit; (e) (run last)
+   and without the run's final save the restore falls back to step 5; (d),
+   preemption and resume in ``llama_train`` subprocesses, is given up for
+   the time limit (``tests/test_torch_preemption.py`` holds it on the CPU);
+   (e) (run last)
    ``llama_train.run`` with ``profile_dir`` at phase 5's shape and
    ``profiling.device_report`` on its trace: the three kernels among its
    ops, its busy time a step within ``PROFILE_BUSY_RTOL`` of phase 5's
@@ -265,7 +265,24 @@ Phases, in order; any failure exits non-zero before the result line:
    ``EP_MOVE_RTOL`` of one process's, a planted fault (ep's leave written
    with ``psum_autograd``) above it, each rank's flash launches (each kernel
    once a layer a step) into the kernels line.
-15. One ``{"kernels": [...]}`` line, the card's line, and as the last line
+15. Pipeline parallelism, two ranks sharing ``cuda:0`` over gloo in one
+   world: ``llama_0_3b`` at full width and 8 of its 16 layers (4 a stage),
+   global B8 x 2048, AdamW, 1 + 3 steps. (a) One process, then ``pp=2``
+   with GPipe and with 1F1B at 4 microbatches (B2 x 2048 each): every
+   step's loss within ``PP_LOSS_ATOL`` of one process's, each rank's stage
+   (rank 0 the embedding) and parameter bytes exactly its stage's (its 4
+   layers, the final norm, half the head's vocabulary rows), step time and
+   peak memory a rank, each rank's flash launches (each kernel once a layer
+   a microbatch) into the kernels line; (b) both schedules at 8
+   microbatches of the same B2 x 2048 (global B16): GPipe's peak grows by
+   at least ``PP_GPIPE_GROWTH_MIN`` bytes (it holds every microbatch's
+   graph), 1F1B's stays within ``PP_RING_PEAK_RTOL`` of (a)'s (its ring
+   holds at most 2(P-1)+1 microbatches whatever M); (c) a planted fault
+   (each stage backwarding a microbatch's stored graph with the previous
+   microbatch's cotangent) above ``PP_LOSS_ATOL``; (d) (a)'s 1F1B run's
+   checkpoint (each rank its layers and head rows) restored by one process
+   equal (a digest) to the ranks' gathered parameters.
+16. One ``{"kernels": [...]}`` line, the card's line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -324,6 +341,8 @@ TP8B_SHAPE = ("tp8b", 1, 2048, 16, 4, 128, True, None, "bfloat16")
 # Phase 14(a)'s one-process reference: 0.3b at B2 x 8192 (the sp runs' global
 # batch). The ep ranks of 14(b) attend at MOE_SHAPE (ep splits no batch).
 SP_SHAPE = ("sp", 2, 8192, 8, 4, 128, True, None, "bfloat16")
+# A pipeline microbatch of phase 15: 0.3b's global B8 x 2048 in 4.
+PP_SHAPE = ("pp", 2, 2048, 8, 4, 128, True, None, "bfloat16")
 EDGE_CASES = [
     ("S192_causal", 2, 192, 8, 4, 128, True, None, "bfloat16"),
     ("S64_one_tile", 2, 64, 8, 4, 128, True, None, "bfloat16"),
@@ -345,6 +364,7 @@ FLASH_CASES = [
     TP_SHAPE,
     TP8B_SHAPE,
     SP_SHAPE,
+    PP_SHAPE,
     ("unaligned_S500", 8, 500, 8, 4, 128, True, None, "bfloat16"),
     ("kv_len_noncausal", 4, 512, 8, 4, 128, False, 300, "bfloat16"),
     ("G1", 4, 256, 8, 8, 128, True, None, "bfloat16"),
@@ -375,6 +395,7 @@ BWD_CASES = [
     TP_SHAPE,
     TP8B_SHAPE,
     SP_SHAPE,
+    PP_SHAPE,
     ("unaligned_S500", 2, 500, 8, 4, 128, True, None, "bfloat16"),
     ("kv_len_noncausal", 2, 512, 8, 4, 128, False, 300, "bfloat16"),
     ("G1", 2, 256, 8, 8, 128, True, None, "bfloat16"),
@@ -579,7 +600,7 @@ def phase_flash_vs_plain():
         )
         if not a["ok"]:
             _fail(f"flash_fwd disagrees with its plain version in case {name}")
-        if name in ("slice", "train", "prefill_1b", "journey", "moe", "dist", "vit", "tp", "tp8b", "sp"):
+        if name in ("slice", "train", "prefill_1b", "journey", "moe", "dist", "vit", "tp", "tp8b", "sp", "pp"):
             qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             call = functools.partial(fa.flash_attention_with_lse, q, k, v, causal=causal, kv_len=kv_len)
             wrapper_ms = None
@@ -670,7 +691,7 @@ def phase_backward_vs_plain():
             for gname, g, r in zip(("dq", "dk", "dv"), grads, refs)
         }
         del refs
-        if name not in ("train", "journey", "moe", "dist", "vit", "tp", "tp8b", "sp"):
+        if name not in ("train", "journey", "moe", "dist", "vit", "tp", "tp8b", "sp", "pp"):
             continue
         lse_c, delta = lse.contiguous(), fa.bwd_delta(o, do)
         kin = (q, k, v, do, lse_c, delta)
@@ -2232,7 +2253,7 @@ def _profile_journey_step(B: int = 16, S: int = JOURNEY_S):
 
 
 # Phase 9, the rest of the training path: adafactor, the device feed, async
-# checkpoints, preemption and profiling, at llama_0_3b full width and depth.
+# checkpoints and profiling, at llama_0_3b full width and depth.
 REST_SHAPE = dict(config="0.3b", batch_size=4, seq_len=4096, warmup=1, steps=3)
 # Adafactor's natural step is larger than AdamW's (optax's note on
 # adafactor's learning rate): an update is about lr times the leaf's RMS.
@@ -2245,9 +2266,6 @@ FEED_RUN = dict(config="0.3b", batch_size=16, seq_len=JOURNEY_S, warmup=2, steps
 CKPT_LAYERS = 4
 CKPT_RUN = dict(config="0.3b", batch_size=16, seq_len=JOURNEY_S, warmup=1, steps=9,
                 checkpoint_every=5, n_layers=CKPT_LAYERS)
-# Phase 9(d) at 4 layers too (0.95 GB saves).
-PREEMPT_ARGV = ["--config", "0.3b", "--layers", "4", "--batch-size", "4", "--seq-len", "1024",
-                "--checkpoint-every", "4", "--max-steps", "10", "--json"]
 # One adafactor update on the card against the same update on the CPU, from
 # the same parameters, statistics and gradients, in f32: each tensor's
 # update within this share of its largest element (means over up to 32,000
@@ -2279,8 +2297,8 @@ def _counted_run(kernels, path: str, total_steps: int, layers: int, **kw):
 
 def phase_rest(kernels):
     """Phase 9: (a) adafactor beside AdamW; (b) the device feed; (c)
-    asynchronous checkpoints; (d) preemption and resume in subprocesses.
-    Returns (e), the profiled run, to run with the other profiles."""
+    asynchronous checkpoints ((d), preemption in subprocesses, is given up
+    for the time limit). Returns (e), the profiled run, to run with the other profiles."""
     import shutil
     import tempfile
 
@@ -2299,7 +2317,6 @@ def phase_rest(kernels):
         for part, run in (
             ("(b)", lambda: _rest_feed(kernels, n_layers, train_f)),
             ("(c)", lambda: _rest_async_checkpoint(kernels, train_f, td)),
-            ("(d)", lambda: _rest_preemption(td)),
         ):
             t0 = time.perf_counter()
             run()
@@ -2534,61 +2551,6 @@ def _rest_async_checkpoint(kernels, train_f, td):
          f"final save the restore falls back to step {fallback}")
     if ends_at != [5, 10] or fallback != 5:
         _fail("enospc run did not fall back to the previous verified step")
-
-
-def _rest_preemption(td):
-    """(d) llama_train as a subprocess on the card: 0.3b width at 4 layers,
-    B4 x S1024, checkpoints every 4 steps, preempted at 6 on the first life (exit 138),
-    resumed at 4 on the second, ending at 10 with the losses of an
-    uninterrupted run bit for bit."""
-    import os
-    from pathlib import Path
-
-    args = [sys.executable, "-m", "pytorch_operator_tpu_torch.workloads.llama_train", *PREEMPT_ARGV]
-    root = str(Path(__file__).resolve().parent)
-    base = {k: v for k, v in os.environ.items() if not k.startswith("TPUJOB_")}
-    base["PYTHONPATH"] = root + os.pathsep + base.get("PYTHONPATH", "")
-    ck = str(Path(td) / "ck_preempt")
-
-    def start(extra, **env):
-        return subprocess.Popen(args + extra, cwd=root, env={**base, **env}, stdout=subprocess.PIPE,
-                                stderr=subprocess.PIPE, text=True)
-
-    def finish(proc):
-        try:
-            out, err = proc.communicate(timeout=300)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            out, err = proc.communicate()
-        return subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
-
-    # The uninterrupted run shares the card with the first life: neither is
-    # timed, and their losses do not depend on it.
-    t0 = time.perf_counter()
-    whole_proc = start([])
-    first = finish(start(["--preempt-at", "6"], TPUJOB_CHECKPOINT_DIR=ck, TPUJOB_RESTART_COUNT="0"))
-    t1 = time.perf_counter() - t0
-    second = finish(start(["--preempt-at", "6"], TPUJOB_CHECKPOINT_DIR=ck, TPUJOB_RESTART_COUNT="1"))
-    t2 = time.perf_counter() - t0 - t1
-    whole = finish(whole_proc)
-    t3 = time.perf_counter() - t0
-    _log(f"rest (d) preemption: first life exit {first.returncode} ({t1:.1f} s), second life exit "
-         f"{second.returncode} ({t2:.1f} s), uninterrupted exit {whole.returncode} (done by "
-         f"{t3:.1f} s)")
-    if first.returncode != 138 or "injected preemption at step 6" not in first.stdout:
-        _fail(f"first life did not preempt with 138: {first.returncode}\n{first.stdout[-2000:]}"
-              f"\n{first.stderr[-2000:]}")
-    for name, out in (("second life", second), ("uninterrupted run", whole)):
-        if out.returncode != 0:
-            _fail(f"{name} exited {out.returncode}\n{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
-    if "resumed from checkpoint at step 4" not in second.stdout:
-        _fail(f"second life did not resume at step 4:\n{second.stdout[-2000:]}")
-    r2 = json.loads(second.stdout.strip().splitlines()[-1])
-    rw = json.loads(whole.stdout.strip().splitlines()[-1])
-    _log(f"rest (d) resumed life: end_step {r2['end_step']}, losses {r2['losses']}; uninterrupted "
-         f"steps 4-9 {rw['losses'][4:]}")
-    if r2["end_step"] != 10 or rw["end_step"] != 10 or r2["losses"] != rw["losses"][4:]:
-        _fail("the resumed life's losses differ from the uninterrupted run's")
 
 
 def _profile_rest(kernels, n_layers):
@@ -3032,7 +2994,7 @@ def _rank_world(task: str, tag: str, env=None, n: int = 2, **kw) -> list:
 
 
 def _rank_main(task: str, kw: dict) -> int:
-    """One rank of a phase-11, 12, 13 or 14 world: join from the env, run
+    """One rank of a phase-11, 12, 13, 14 or 15 world: join from the env, run
     ``task``, write this rank's output, leave through
     ``rendezvous.finalize``."""
     from pathlib import Path
@@ -3051,7 +3013,7 @@ def _rank_main(task: str, kw: dict) -> int:
     if task == "probe":
         out.update(_rank_probe(world, dev))
     elif task == "runs":
-        # Phases 13 and 14: several llama_train runs in one world, each
+        # Phases 13, 14 and 15: several llama_train runs in one world, each
         # under its planted fault if it names one.
         out["runs"] = []
         for run_kw in kw["runs"]:
@@ -3837,7 +3799,9 @@ def _planted(name):
     by each rank's local positions (rank 0 sees later blocks, the others
     lose earlier ones); ``"ep_leave_psum_autograd"``, the MoE layer's leave
     over ep written with ``psum_autograd`` (the experts' upstream gradients
-    multiplied by ep)."""
+    multiplied by ep); ``"pp_shifted_cotangent"``, each pipeline stage
+    backwarding a microbatch's stored graph with the previous microbatch's
+    cotangent (the first with its own)."""
     import contextlib
 
     @contextlib.contextmanager
@@ -3849,7 +3813,16 @@ def _planted(name):
         from pytorch_operator_tpu_torch.parallel import collectives, moe
         from pytorch_operator_tpu_torch.workloads import trainer
 
-        if name == "ring_local_positions":
+        if name == "pp_shifted_cotangent":
+            from pytorch_operator_tpu_torch.parallel import pipeline
+
+            where, attr = pipeline._Stage, "backward"
+            sound_backward = pipeline._Stage.backward
+
+            def fault(self, j, cot):
+                prev, self.prev_cot = getattr(self, "prev_cot", None), cot
+                return sound_backward(self, j, cot if prev is None else prev)
+        elif name == "ring_local_positions":
             where, attr = llama_lib, "ring_attention_shard"
             sound = llama_lib.ring_attention_shard
 
@@ -4245,6 +4218,157 @@ def phase_sp_ep(kernels):
     return None
 
 
+# Phase 15: pipeline parallelism. (b) holds each microbatch at (a)'s B2 x
+# 2048 and doubles M (JAX's residency test holds B/M too): at a fixed global
+# batch GPipe's residuals would not grow.
+PP_RUN = dict(config="0.3b", n_layers=8, batch_size=8, seq_len=2048, warmup=1, steps=3)
+PP_DEEP = dict(PP_RUN, batch_size=16, pp_microbatches=8)
+# The pp runs' losses against one process's over every step, in nats (the
+# largest absolute difference), and the planted fault's above it.
+# Predictions (PERF.md §6): 1e-4 to 2e-3 (the stages' gradients are sums of
+# microbatch gradients in f32, one process's one backward's; the loss tail
+# sums its chunks' partial statistics over pp); the fault 1e-2 to 0.3 (the
+# CPU's tiny f32: 2.0e-2 to 7.6e-2).
+PP_LOSS_ATOL = 5e-3
+# (b): 1F1B's peak at 8 microbatches against (a)'s at 4, relative; GPipe's
+# growth from 4 to 8 held microbatches (predicted 3-6 GiB a rank: a
+# microbatch's residuals at 4 layers, ~1.1 GiB).
+PP_RING_PEAK_RTOL = 0.10
+PP_GPIPE_GROWTH_MIN = 1 << 30
+
+
+def _pp_bytes(n_layers: int) -> list:
+    """Each pp=2 rank's parameter bytes (f32) of 0.3b at ``n_layers``: its
+    layers, the final norm and half the head; rank 0 the embedding too."""
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+
+    model = llama_lib.Llama(llama_lib.llama_0_3b(n_layers=n_layers), device="meta")
+    sizes = {n: 4 * p.numel() for n, p in model.named_parameters()}
+    stage = sum(v for n, v in sizes.items() if n.startswith("layers.")) // 2
+    tail = sizes["final_norm.weight"] + sizes["lm_head.weight"] // 2
+    return [sizes["embed.weight"] + stage + tail, stage + tail]
+
+
+def _pp_launches(kernels, path: str, r: dict, microbatches: int) -> None:
+    """Each rank launched each kernel once a layer of its stage a
+    microbatch a step; the ranks' sum into the kernels line."""
+    total = PP_RUN["warmup"] + PP_RUN["steps"]
+    per = PP_RUN["n_layers"] // 2 * microbatches * total
+    want = {"flash_fwd": per, "flash_bwd_dq": per, "flash_bwd_dkv": per}
+    for q in r["per_rank"]:
+        if q["flash_launches"] != want:
+            _fail(f"pp {path}: rank {q['rank']} launched {q['flash_launches']}, expected {want}")
+    _record_launches(kernels, path, {k: 2 * v for k, v in want.items()})
+
+
+def _pp_describe(tag: str, r: dict) -> None:
+    per = r["per_rank"]
+    _log(
+        f"pp {tag}: mesh {r['mesh']}, {r['pp_schedule']} over {r['pp_microbatches']} microbatches, "
+        f"{r['value'] * r['world']:.1f} tokens/s over {r['world']} ranks sharing one card, step "
+        f"{r['step_s']:.4f} s, losses {[round(x, 5) for x in r['losses']]}; per rank (data, pp) "
+        f"{[(q['data_index'], q['pp_index']) for q in per]}, param bytes {[q['param_bytes'] for q in per]}, "
+        f"optimizer bytes {[q['optimizer_state_bytes'] for q in per]}, peak memory GiB "
+        f"{[round((q['peak_mem_bytes'] or 0) / 2**30, 3) for q in per]}"
+    )
+
+
+def phase_pp(kernels):
+    """Phase 15: (a) 0.3b at 8 layers, pp=2 with GPipe and 1F1B at 4
+    microbatches against one process; (b) both at 8 microbatches of the same
+    size, their peaks; (c) the planted shifted-cotangent fault; (d) the pp=2
+    checkpoint restored by one process. The kernels at the microbatch's
+    shape (``PP_SHAPE``) are held and timed in phases 2-3."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from pytorch_operator_tpu_torch.checkpoint import CheckpointManager
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+    from pytorch_operator_tpu_torch.ops import flash_attention as fa
+    from pytorch_operator_tpu_torch.workloads import llama_train
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fa.reset_launch_count()
+    one = llama_train.run(device="cuda", log=_log, **PP_RUN)
+    _record_launches(kernels, "pp_one_process", fa.launch_counts())
+    torch.cuda.empty_cache()
+    td = tempfile.mkdtemp(prefix="chip_smoke_pp_")
+    try:
+        ck = Path(td) / "ck"
+        outs = _rank_world("runs", "(a)-(d) pp=2", env={"TPUJOB_CHECKPOINT_DIR": str(ck)}, runs=[
+            dict(PP_RUN, mesh_spec="pp=2", pp_schedule="gpipe"),
+            dict(PP_RUN, mesh_spec="pp=2", pp_schedule="1f1b", digest=True, checkpoint_every=1000),
+            dict(PP_DEEP, mesh_spec="pp=2", pp_schedule="gpipe"),
+            dict(PP_DEEP, mesh_spec="pp=2", pp_schedule="1f1b"),
+            dict(PP_RUN, mesh_spec="pp=2", pp_schedule="1f1b", plant="pp_shifted_cotangent"),
+        ])
+        t_restore = time.perf_counter()
+        step, params = CheckpointManager(ck, create=False).restore_subtree("params")
+        order = llama_lib.Llama(llama_lib.llama_0_3b(n_layers=PP_RUN["n_layers"]), device="meta").state_dict()
+        restored = _params_digest((name, params[name]) for name in order)
+        del params
+        t_restore = time.perf_counter() - t_restore
+    finally:
+        shutil.rmtree(td, ignore_errors=True)
+    runs = [r["result"] for r in outs[0]["runs"]]
+    gpipe, f1b, gpipe8, f1b8, fault = runs
+    total = PP_RUN["warmup"] + PP_RUN["steps"]
+
+    # (a) GPipe and 1F1B at 4 microbatches against one process.
+    want_bytes = _pp_bytes(PP_RUN["n_layers"])
+    _log(f"pp (a): one process {[round(x, 5) for x in one['losses']]}, step {one['step_s']:.4f} s, "
+         f"param bytes {one['param_bytes']}, peak {(one['peak_mem_bytes'] or 0) / 2**30:.3f} GiB; "
+         f"param bytes a rank want {want_bytes}")
+    for tag, r in (("gpipe", gpipe), ("1f1b", f1b)):
+        _pp_describe(f"(a) pp=2 {tag}", r)
+        _pp_launches(kernels, f"pp_{tag}_m4", r, 4)
+        gap = _loss_gap(r["losses"], one["losses"])
+        _log(f"pp (a) {tag}: losses within {gap:.3e} of one process's (limit {PP_LOSS_ATOL:.0e})")
+        if gap > PP_LOSS_ATOL or len(r["losses"]) != total:
+            _fail(f"pp (a) {tag}: losses {gap:.3e} from one process's")
+        if (r["world"], r["backend"], r["mesh"], r["pp_schedule"], r["pp_microbatches"]) != (
+            2, "gloo", {"pp": 2}, tag, 4
+        ):
+            _fail(f"pp (a) {tag}: world, backend, mesh or schedule wrong")
+        if [(q["data_index"], q["pp_index"]) for q in r["per_rank"]] != [(0, 0), (0, 1)]:
+            _fail(f"pp (a) {tag}: rank coordinates {r['per_rank']}")
+        if [q["param_bytes"] for q in r["per_rank"]] != want_bytes:
+            _fail(f"pp (a) {tag}: per-rank parameter bytes {[q['param_bytes'] for q in r['per_rank']]}")
+
+    # (b) 8 microbatches of the same size: GPipe holds every one's graph,
+    # 1F1B's ring at most 2(P-1)+1.
+    for tag, r in (("gpipe", gpipe8), ("1f1b", f1b8)):
+        _pp_describe(f"(b) pp=2 {tag} B16", r)
+        _pp_launches(kernels, f"pp_{tag}_m8", r, 8)
+    peaks = {tag: [q["peak_mem_bytes"] or 0 for q in r["per_rank"]]
+             for tag, r in (("gpipe4", gpipe), ("1f1b4", f1b), ("gpipe8", gpipe8), ("1f1b8", f1b8))}
+    growth = [b - a for a, b in zip(peaks["gpipe4"], peaks["gpipe8"])]
+    ring = [b / max(a, 1) - 1 for a, b in zip(peaks["1f1b4"], peaks["1f1b8"])]
+    _log(f"pp (b): peak GiB a rank {({k: [round(x / 2**30, 3) for x in v] for k, v in peaks.items()})}; "
+         f"GPipe's growth from 4 to 8 microbatches {[round(g / 2**30, 3) for g in growth]} GiB (at least "
+         f"{PP_GPIPE_GROWTH_MIN / 2**30:.0f}), 1F1B's {[f'{x:+.2%}' for x in ring]} (within "
+         f"{PP_RING_PEAK_RTOL:.0%})")
+    if min(growth) < PP_GPIPE_GROWTH_MIN or max(ring) > PP_RING_PEAK_RTOL:
+        _fail(f"pp (b): GPipe's peak grew {growth} bytes, 1F1B's by {ring}")
+
+    # (c) the planted fault, then (d) the checkpoint.
+    fault_gap = _loss_gap(fault["losses"], one["losses"])
+    _log(f"pp (c): planted shifted-cotangent fault {fault_gap:.3e} from one process's "
+         f"({[round(x, 5) for x in fault['losses']]}; limit {PP_LOSS_ATOL:.0e})")
+    if fault_gap <= PP_LOSS_ATOL:
+        _fail(f"pp (c): the planted fault's losses are within {fault_gap:.3e} of one process's")
+    digests = {o["runs"][1]["params"] for o in outs}
+    _log(f"pp (d): step {step} restored by one process in {t_restore:.1f} s, digest {restored}; the "
+         f"ranks' gathered parameters {sorted(digests)}; phase {time.perf_counter() - t0:.1f} s")
+    if step != total or digests != {restored}:
+        _fail("pp (d): the one-process restore differs from the ranks' gathered parameters")
+    return None
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = phase_identity_and_build()
@@ -4254,7 +4378,7 @@ def main() -> int:
     # a profiler session.
     profiles = []
     for phase in (phase_generate, phase_train, phase_serve, phase_int8, phase_journey, phase_rest,
-                  phase_moe, phase_dist, phase_image, phase_tp, phase_sp_ep):
+                  phase_moe, phase_dist, phase_image, phase_tp, phase_sp_ep, phase_pp):
         t0 = time.perf_counter()
         profiles.append(phase(kernels))
         _log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")

@@ -35,8 +35,12 @@ sidecar, which clears the fence: blocking or asynchronous alike. Restore
 memory-maps the ranks' files and, for a DTensor or a Block in the caller's
 ``state_like``, copies only the block this rank holds in the new layout out
 of the records that overlap it (a rank reads its share of the step, not
-the whole of it); elsewhere it assembles the whole tensor. A step restores
-at any world size, a single process included.
+the whole of it); elsewhere it assembles the whole tensor. The ranks' trees
+merge by name, so a pp stage writes (and reads) its own layers alone; its
+``state_like`` names the other stages' tensors as
+:class:`~..parallel.sharding.Elsewhere`, so that the step must still hold
+the whole model's names. A step restores at any world size, a single
+process included.
 
 ``save(block=False)`` commits on the background pipeline of
 ``async_writer.py`` — every step still verified, a ``checkpoint_committed``
@@ -59,7 +63,7 @@ import torch
 
 from .. import faults, obs
 from ..backoff import Backoff, retry_call
-from ..parallel.sharding import Block
+from ..parallel.sharding import Block, Elsewhere
 from ..runtime.rendezvous import report, report_checkpoint_committed
 from . import integrity
 from .async_writer import AsyncCheckpointWriter, snapshot_to_host, stage_mutable_leaves
@@ -100,11 +104,12 @@ def _shape(v) -> tuple:
 
 
 def _check_like(key: str, got, like) -> None:
-    """Raise ValueError when a restored flat tensor dict (or one rank's
+    """Raise ValueError when a restored flat tensor dict (or the ranks'
     records of it) does not have the names and (whole) shapes of ``like``
-    (what the caller will load it into)."""
+    (what the caller will load it into; a pp stage's names the other
+    stages' tensors as :class:`Elsewhere`)."""
     if not (isinstance(like, dict) and like
-            and all(isinstance(v, (torch.Tensor, Block)) for v in like.values())):
+            and all(isinstance(v, (torch.Tensor, Block, Elsewhere)) for v in like.values())):
         return
     for name in sorted(set(like) | set(got)):
         a, b = got.get(name), like.get(name)
@@ -129,7 +134,7 @@ def _rank_part(tree):
         return {SHARD: tree.data if tree.writer else None, "offset": list(tree.offsets),
                 "shape": list(tree.shape)}
     if isinstance(tree, dict):
-        return {k: _rank_part(v) for k, v in tree.items()}
+        return {k: _rank_part(v) for k, v in tree.items() if not isinstance(v, Elsewhere)}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_rank_part(v) for v in tree)
     return tree
@@ -188,12 +193,35 @@ def _rows(trees, like):
     )
 
 
+def _union(trees) -> dict:
+    """The names of the ranks' dicts, each with the first rank's value of
+    it (a pp stage writes its own layers only)."""
+    out = {}
+    for t in trees:
+        for k, v in t.items():
+            out.setdefault(k, v)
+    return out
+
+
+def _holds_tensor(tree) -> bool:
+    if isinstance(tree, (torch.Tensor, Block)):
+        return True
+    if isinstance(tree, dict):
+        return any(map(_holds_tensor, tree.values()))
+    if isinstance(tree, (list, tuple)):
+        return any(map(_holds_tensor, tree))
+    return False
+
+
 def _fit(trees, like):
     """One tree from the ranks' trees of a step (a single-process step: its
     one tree), shaped for ``like`` (the caller's tree, or None): each
     :data:`SHARD` record, and a whole tensor where ``like`` holds a DTensor,
     through :func:`_rows`; any other leaf is the same on every rank and
-    taken from the first."""
+    taken from the first. A dict holds ``like``'s names where ``like`` is a
+    dict that holds any (:class:`Elsewhere` ones left out; one that holds a tensor and that
+    no rank wrote raises ValueError), else every rank's, each from the ranks
+    that have it."""
     from torch.distributed.tensor import DTensor
 
     first = trees[0]
@@ -202,8 +230,16 @@ def _fit(trees, like):
     ):
         return _rows(trees, like)
     if isinstance(first, dict):
-        sub = like if isinstance(like, dict) else {}
-        return {k: _fit([t[k] for t in trees], sub.get(k)) for k in first}
+        if not (isinstance(like, dict) and like):
+            return {k: _fit([t[k] for t in trees if k in t], None) for k in _union(trees)}
+        out = {}
+        for k, lk in like.items():
+            held = [t[k] for t in trees if k in t]
+            if held and not isinstance(lk, Elsewhere):
+                out[k] = _fit(held, lk)
+            elif not held and _holds_tensor(lk):
+                raise ValueError(f"the checkpoint has no {k!r}, which this rank holds")
+        return out
     if isinstance(first, (list, tuple)):
         sub = like if isinstance(like, (list, tuple)) and len(like) == len(first) else [None] * len(first)
         return type(first)(_fit([t[i] for t in trees], lk) for i, lk in enumerate(sub))
@@ -512,7 +548,7 @@ class CheckpointManager:
             _check_like(key, tree, like)
             return tree
         trees = [torch.load(p, weights_only=True, map_location="cpu", mmap=True) for p in paths]
-        _check_like(key, trees[0], like)
+        _check_like(key, _union(trees) if isinstance(trees[0], dict) else trees[0], like)
         return _fit(trees, like)
 
     def restore(self, state_like: Dict[str, Any], step: Optional[int] = None) -> Dict[str, Any]:

@@ -27,7 +27,9 @@ F]``); its router ``gate`` is never quantized.
 For a tensor- or expert-parallel model (``tp``, ``ep``),
 :func:`params_from_jax` returns this rank's block of each tensor that tp or
 ep splits (``parallel/sharding.param_splits``: the MoE banks' experts on
-dim 0); FSDP2 takes its rows of the block when the model is sharded.
+dim 0); FSDP2 takes its rows of the block when the model is sharded. For a
+pp stage (``pp``) it returns the stage's tensors: its layers, stage 0's
+embedding, and the final norm and head rows where the stage holds them.
 
 The mapping between the two layouts lives in one place, :func:`jax_leaves`:
 one :class:`JaxLeaf` a JAX param leaf, with the port tensors it holds and the
@@ -106,9 +108,10 @@ class JaxLeaf:
 
     def from_port(self, tensors: Sequence[torch.Tensor], shape=None) -> torch.Tensor:
         """The JAX-layout leaf of the port tensors ``tensors`` (one a name),
-        stacked over layers where the leaf is. ``shape``: the shape of the
-        part of the leaf that ``tensors`` hold, where they are a rank's
-        blocks (default: the whole leaf's)."""
+        stacked over layers where the leaf is (a pp stage's layers stack into
+        the leaf's rows of that stage). ``shape``: the shape of the part of
+        the leaf that ``tensors`` hold, where they are a rank's blocks
+        (default: the whole leaf's)."""
         shape = self.shape if shape is None else tuple(shape)
 
         def one(t):
@@ -164,13 +167,16 @@ def jax_leaves(cfg: LlamaConfig) -> List[JaxLeaf]:
     ]
 
 
-def params_from_jax(tree, cfg: LlamaConfig, tp=None, ep=None) -> Dict[str, torch.Tensor]:
+def params_from_jax(tree, cfg: LlamaConfig, tp=None, ep=None, pp=None) -> Dict[str, torch.Tensor]:
     """The port's state dict for the JAX param ``tree`` of config ``cfg``;
     with ``tp`` (``parallel/sharding.TensorParallel``) and ``ep``
-    (``ExpertParallel``) this rank's block of each tensor that they split.
-    Raises ``ValueError`` naming the first leaf whose shape disagrees, or
-    whose quantization disagrees with ``cfg.quantize``."""
-    from ..parallel.sharding import param_splits
+    (``ExpertParallel``) this rank's block of each tensor that they split;
+    with ``pp`` (``PipelineParallel``) this stage's tensors only: its layers
+    (rows of the stacked leaves), the embedding on stage 0, the final norm
+    and its head rows (the head kernel's vocabulary columns). Raises
+    ``ValueError`` naming the first leaf whose shape disagrees, or whose
+    quantization disagrees with ``cfg.quantize``."""
+    from ..parallel.sharding import cut_splits, param_splits
 
     sd: Dict[str, torch.Tensor] = {}
 
@@ -195,11 +201,13 @@ def params_from_jax(tree, cfg: LlamaConfig, tp=None, ep=None) -> Dict[str, torch
         else:
             w, scale = torch.from_numpy(np.array(raw, dtype=np.float32)), None
         _check(leaf.path, w.shape, leaf.shape)
-        axes = [ax for ax in (tp, ep) if ax is not None and ax.size > 1]
+        axes = [ax for ax in (tp, ep, pp) if ax is not None and ax.size > 1]
         if axes and quantized:
-            raise NotImplementedError("int8 weights of a tensor- or expert-parallel model")
-        splits = [(ax, d) for ax, d in param_splits(leaf.names[0], axes) if d is not None]
+            raise NotImplementedError("int8 weights of a tensor-, expert- or pipeline-parallel model")
+        splits = cut_splits(param_splits(leaf.names[0], axes, cfg.vocab_size))
         for i, name in enumerate(leaf.names):
+            if pp is not None and not pp.holds(name, cfg.n_layers, cfg.vocab_size):
+                continue
             if splits:
                 t = leaf.to_port(w, i)
                 for ax, d in splits:

@@ -66,7 +66,20 @@ model-parallel axes, as JAX's ``Llama(cfg, mesh=mesh)``:
   error), and, under tp, ``(n_kv_heads/tp) % sp != 0`` (ROADMAP.md item
   3c-2d: JAX's ulysses sees the global heads).
 
-Pipeline parallelism has no config field (ROADMAP.md item 3c-3).
+- **pp** (``PipelineParallel``): the model is one stage of the pipeline
+  (``parallel/pipeline.py``): layers ``[s·L/P, (s+1)·L/P)`` under their
+  global state-dict names (``layers.<i>``; the other entries of
+  ``layers`` are None), the embedding on stage 0, and, where P divides the
+  vocabulary, the final norm on every stage and ``V/P`` head rows each
+  (the vocab-parallel tail of JAX's 1F1B, for both schedules), else the
+  final norm and the whole head on the last stage. It trains through
+  :meth:`Llama.pp_value_and_grad` (:func:`train_value_and_grad_pp`) and
+  evaluates through :meth:`Llama.pp_forward` (:func:`forward_pp`); its
+  embedding, stage and tail are methods that ``shard_model`` registers as
+  FSDP2 forward methods, so that FSDP2 gathers the root's parameters
+  around them. JAX's refusals are
+  kept (int8 weights, ``n_layers % pp``, ring or ulysses attention in the
+  pipeline); pp beside tp, ep or sp waits for ROADMAP.md item 3c-3b.
 """
 
 from __future__ import annotations
@@ -81,18 +94,22 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
+from ..ops.chunked_xent import chunked_softmax_xent, vocab_parallel_xent
 from ..ops.flash_attention import flash_attention
 from ..ops.quantize import dequantize, quantize, scale_name
-from ..parallel.collectives import all_gather
+from ..parallel.collectives import all_gather, broadcast, psum
 from ..parallel.moe import load_balance_loss, moe_mlp, moe_mlp_reference, moe_mlp_sparse
+from ..parallel.pipeline import pipeline_apply, pipeline_value_and_grad
 from ..parallel.ring import _single_shard, ring_attention_shard
 from ..parallel.sharding import (
     ExpertParallel,
+    PipelineParallel,
     SequenceParallel,
     TensorParallel,
     check_tp_divides,
-    model_axes,
-    param_splits,
+    cut_splits,
+    local_tensor,
+    model_splits,
 )
 from ..parallel.ulysses import check_kv_heads, ulysses_attention_shard
 from .common import remat_policy
@@ -594,10 +611,20 @@ class Llama(nn.Module):
         super().__init__()
         if tp is None:
             tp = TensorParallel.of(mesh)
-        ep, sp = ExpertParallel.of(mesh), SequenceParallel.of(mesh)
+        ep, sp, pp = ExpertParallel.of(mesh), SequenceParallel.of(mesh), PipelineParallel.of(mesh)
         if mesh is None and tp is not None:
             mesh = tp.mesh
-        for ax, kind in ((tp, "tensor-parallel"), (ep, "expert-parallel"), (sp, "sequence-parallel")):
+        if pp is not None:
+            check_pp(cfg, pp.size)
+            beside = [ax.axis for ax in (tp, ep, sp) if ax is not None]
+            if beside:
+                raise NotImplementedError(
+                    f"pp={pp.size} with {', '.join(f'{a}' for a in beside)} is not ported yet "
+                    "(ROADMAP.md item 3c-3b: pipeline stages beside tp, ep or sp; JAX's stages leave "
+                    "them to XLA)"
+                )
+        for ax, kind in ((tp, "tensor-parallel"), (ep, "expert-parallel"), (sp, "sequence-parallel"),
+                         (pp, "pipeline-parallel")):
             if ax is None:
                 continue
             for what, refused in (
@@ -609,23 +636,46 @@ class Llama(nn.Module):
         if tp is not None:
             check_tp_divides(cfg, tp.size)
         self.cfg = cfg
-        self.tp, self.ep, self.sp = tp, ep, sp
+        self.tp, self.ep, self.sp, self.pp = tp, ep, sp, pp
         # The axes that split the tokens (the MoE load-balance loss's).
         sizes = {} if mesh is None else dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+        self.mesh_axes = sizes
         token_axes = tuple(a for a in ("dp", "fsdp", "sp") if sizes.get(a, 1) > 1)
         V = _local(cfg.vocab_size, tp, "vocab_size")
         # The first vocabulary id of this rank's rows of the embedding and
         # columns of the head.
         self.vocab_offset = 0 if tp is None else tp.index * V
-        self.embed = nn.Embedding(V, cfg.d_model, device=device, dtype=cfg.param_dtype)
+        # This rank's layers (a pp stage's), and whether it holds the
+        # embedding and the tail (final norm and head).
+        self.layer_ids = range(cfg.n_layers) if pp is None else pp.layers(cfg.n_layers)
+        first = pp is None or pp.index == 0
+        tail = pp is None or pp.holds_tail(cfg.vocab_size)
+        if self.vocab_parallel:
+            V = cfg.vocab_size // pp.size
+            self.vocab_offset = pp.index * V
+        self.embed = nn.Embedding(V if tp is not None else cfg.vocab_size, cfg.d_model, device=device,
+                                  dtype=cfg.param_dtype) if first else None
         self.layers = nn.ModuleList(
-            Block(cfg, device, tp, ep, sp, mesh, token_axes) for _ in range(cfg.n_layers)
+            Block(cfg, device, tp, ep, sp, mesh, token_axes) if i in self.layer_ids else None
+            for i in range(cfg.n_layers)
         )
-        self.final_norm = RMSNorm(cfg.d_model, cfg.rms_eps, device)
-        self.lm_head = nn.Linear(cfg.d_model, V, bias=False, device=device, dtype=cfg.param_dtype)
+        self.final_norm = RMSNorm(cfg.d_model, cfg.rms_eps, device) if tail else None
+        self.lm_head = nn.Linear(cfg.d_model, V, bias=False, device=device,
+                                 dtype=cfg.param_dtype) if tail else None
         if cfg.quantize:
             _hold_int8(self.embed)
             _hold_int8(self.lm_head)
+
+    @property
+    def vocab_parallel(self) -> bool:
+        """A pp stage holding ``V/P`` head rows (P divides the vocabulary)."""
+        return self.pp is not None and self.pp.vocab_parallel(self.cfg.vocab_size)
+
+    def whole(self) -> "Llama":
+        """One process's model of this config on the meta device: the whole
+        of a pp stage's model, every stage's tensors in one process's
+        order."""
+        return Llama(self.cfg, device="meta")
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "Llama":
@@ -636,22 +686,29 @@ class Llama(nn.Module):
         seed gives the same weights to a model on the host as on the card
         when both draw with the card's generator. A tensor- or
         expert-parallel model draws each whole tensor and keeps its block,
-        so that its ranks together hold the one-process init."""
+        and a pp stage draws every tensor and keeps its own, so that the
+        ranks together hold the one-process init."""
         if self.cfg.quantize:
             raise ValueError(
                 "a quantize-mode model cannot init: init the full-precision "
                 "model and quantize its state dict with "
                 "ops.quantize.quantize_state_dict"
             )
-        axes = model_axes(self)
-        for name, p in self.named_parameters():
+        mine = dict(self.named_parameters())
+        # A pp stage draws every tensor of the whole model in order (the
+        # generator's sequence is one process's) and keeps its own.
+        whole = self.whole() if self.pp is not None else self
+        for name, ref in whole.named_parameters():
+            p = mine.get(name)
             if name.endswith("norm.weight"):
-                p.fill_(1.0)
+                if p is not None:
+                    p.fill_(1.0)
                 continue
-            splits = [(ax, d) for ax, d in param_splits(name, axes) if d is not None]
-            shape = list(p.shape)
-            for ax, d in splits:
-                shape[d] *= ax.size
+            splits = cut_splits(model_splits(self, name))
+            shape = list(ref.shape)
+            if whole is self:
+                for ax, d in splits:
+                    shape[d] *= ax.size
             w = torch.empty(shape, dtype=torch.float32, device=generator.device)
             if name == "embed.weight":
                 w.normal_(0.0, 1.0, generator=generator)
@@ -664,6 +721,8 @@ class Llama(nn.Module):
                 fan_in = w.numel() // w.shape[-1] if ".moe_mlp." in name else w.shape[1]
                 std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
                 nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+            if p is None:
+                continue
             for ax, d in splits:
                 w = w.narrow(d, ax.index * p.shape[d], p.shape[d])
             p.copy_(w)
@@ -715,6 +774,11 @@ class Llama(nn.Module):
 
         Over sp (:meth:`seq_block`) ``tokens`` and ``positions`` are whole
         rows, and the output is this rank's block of positions."""
+        if self.pp is not None:
+            raise ValueError(
+                "a pipeline-parallel Llama holds one stage: run it through pp_forward and "
+                "pp_value_and_grad"
+            )
         want_aux = return_aux and self.cfg.n_experts > 0 and self.cfg.moe_aux_weight > 0
         S = tokens.shape[-1]
         if positions is None:
@@ -744,21 +808,8 @@ class Llama(nn.Module):
             x = F.embedding(local.clamp(0, self.embed.weight.shape[0] - 1), self.embed.weight)
             x = self.tp.leave(torch.where(mine[..., None], x, 0).to(self.cfg.dtype))
         else:
-            x = F.embedding(tokens, self.embed.weight).to(self.cfg.dtype)
-        auxes = []
-        if self.cfg.remat and cache is None and torch.is_grad_enabled():
-            context_fn = remat_policy(self.cfg) or noop_context_fn
-            for block in self.layers:
-                x, aux = checkpoint(
-                    block, x, positions, None, want_aux, seq_split, use_reentrant=False,
-                    context_fn=context_fn,
-                )
-                auxes.append(aux)
-        else:
-            for i, block in enumerate(self.layers):
-                layer_cache = None if cache is None else cache[f"layer_{i}"]["attn"]
-                x, aux = block(x, positions, layer_cache, want_aux, seq_split)
-                auxes.append(aux)
+            x = self._embed(tokens)
+        x, auxes = self.run_layers(x, positions, cache, want_aux, seq_split)
         x = self.final_norm(x)
         if self.tp is not None and not return_hidden:
             raise ValueError(
@@ -776,6 +827,74 @@ class Llama(nn.Module):
         if return_aux:
             return out, torch.stack(auxes).mean() if want_aux else None
         return out
+
+    # The pp stage's parts (_embed on stage 0, _pp_stage, _pp_head and
+    # _pp_xent on the stages that hold the tail) are FSDP2 forward methods
+    # (PP_FORWARD_METHODS, registered by shard_model): FSDP2 gathers the
+    # root's parameters around each and reduces their gradients after its
+    # backward.
+    def _embed(self, tokens):
+        return F.embedding(tokens, self.embed.weight).to(self.cfg.dtype)
+
+    def run_layers(self, x, positions, cache=None, want_aux: bool = False, seq_split: bool = False):
+        """``x`` through this model's layers (a pp stage's own), each under
+        ``torch.utils.checkpoint`` when ``cfg.remat`` and training. Returns
+        ``(x, auxes)``, each layer's MoE aux (or None)."""
+        auxes = []
+        remat = self.cfg.remat and cache is None and torch.is_grad_enabled()
+        context_fn = (remat_policy(self.cfg) or noop_context_fn) if remat else None
+        for i in self.layer_ids:
+            block = self.layers[i]
+            if remat:
+                x, aux = checkpoint(
+                    block, x, positions, None, want_aux, seq_split, use_reentrant=False,
+                    context_fn=context_fn,
+                )
+            else:
+                layer_cache = None if cache is None else cache[f"layer_{i}"]["attn"]
+                x, aux = block(x, positions, layer_cache, want_aux, seq_split)
+            auxes.append(aux)
+        return x, auxes
+
+    def _pp_stage(self, act):
+        """A pp stage: ``act`` [b, S, D] through this stage's layers."""
+        positions = torch.arange(act.shape[1], device=act.device).expand(act.shape[:2])
+        return self.run_layers(act, positions)[0]
+
+    def pp_forward(self, tokens, *, microbatches: int, return_hidden: bool = False):
+        """The pipeline forward (the hook the trainer's loss calls on a pp
+        mesh): :func:`forward_pp`."""
+        return forward_pp(self, tokens, microbatches=microbatches, return_hidden=return_hidden)
+
+    def pp_value_and_grad(self, tokens, *, microbatches: int, schedule: str = "1f1b"):
+        """The pipeline's loss and gradients (the trainer's hook for a pp
+        step): :func:`train_value_and_grad_pp`."""
+        return train_value_and_grad_pp(self, tokens, microbatches=microbatches, schedule=schedule)
+
+    def _pp_head(self, y, return_hidden: bool = False):
+        """The pipeline's output ``y`` through the final norm and, unless
+        ``return_hidden``, this stage's head rows as f32 logits."""
+        h = self.final_norm(y)
+        return h if return_hidden else F.linear(h.float(), self.lm_head.weight.float())
+
+    def _pp_xent(self, y, tokens, norm: bool = True):
+        """:func:`_xent` of the pipeline's output ``y`` (``norm``: through the
+        final norm first; else ``y`` is already normed) against ``tokens``."""
+        return _xent(self, self.final_norm(y) if norm else y, tokens)
+
+    def pp_xent(self, hidden, tokens):
+        """The mean next-token cross-entropy of :meth:`pp_forward`'s hidden
+        states (None on a stage without the tail) against ``tokens``, the
+        same on every stage: vocab-parallel over the stages' head rows, or
+        the last stage's whole head's, broadcast."""
+        pp = self.pp
+        if self.vocab_parallel:
+            return self._pp_xent(hidden, tokens, norm=False)
+        if pp.index == pp.size - 1:
+            loss = self._pp_xent(hidden, tokens, norm=False).float()
+        else:
+            loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        return broadcast(loss, "pp", pp.mesh, src=pp.size - 1)
 
 
 def init_decode_cache(cfg: LlamaConfig, batch: int, device=None):
@@ -857,3 +976,147 @@ def _debug_check_decode_positions(positions: torch.Tensor, cfg: LlamaConfig) -> 
             f"starts {pos[:, 0]}: prefill_mode='self' attends over the incoming "
             "tokens only. Chunked prefill needs prefill_mode='cache'."
         )
+
+
+# The methods of a pp stage that run as calls of the model under FSDP2.
+PP_FORWARD_METHODS = ("_embed", "_pp_stage", "_pp_head", "_pp_xent")
+
+
+def check_pp(cfg: LlamaConfig, n_stages: int) -> None:
+    """JAX's refusals of a model that cannot run the pp pipeline (its
+    ``_pp_parts``, l.1058-1071), with its messages."""
+    if cfg.quantize:
+        raise ValueError("quantize-mode params (inference) cannot run the pp pipeline")
+    if cfg.n_layers % n_stages:
+        raise ValueError(f"n_layers={cfg.n_layers} not divisible by pp={n_stages}")
+    if cfg.attn_impl in ("ring", "ulysses"):
+        raise ValueError(f"attn_impl={cfg.attn_impl!r} cannot run inside the pp pipeline")
+
+
+def _pp_parts(model: Llama):
+    """The stage of JAX's ``_pp_parts``: ``stage(None, act)``, this stage's
+    layers (each rematerialised under ``cfg.remat``) on ``act`` [b, S, D].
+    (JAX regroups the scan-stacked layers into P stages here, and refuses
+    what :func:`check_pp` refuses; a port stage holds its own layers, and
+    its constructor ran :func:`check_pp`.)"""
+
+    def stage(_, act):
+        return model._pp_stage(act)
+
+    return stage
+
+
+def _pp_input(model: Llama, tokens):
+    """The pipeline's input: stage 0's embedded tokens (with their graph
+    when training), and on the other stages an empty tensor of that shape
+    (they read only its shape and dtype)."""
+    cfg = model.cfg
+    if model.pp.index == 0:
+        return model._embed(tokens)
+    return torch.empty((), dtype=cfg.dtype, device=tokens.device).expand(*tokens.shape, cfg.d_model)
+
+
+def forward_pp(model: Llama, tokens, *, microbatches: int, return_hidden: bool = False):
+    """The pipeline-parallel forward (JAX l.1000-1044): the embedding on
+    stage 0, the layers through ``parallel.pipeline.pipeline_apply`` over the
+    mesh's ``pp`` axis (without autograd), then on each stage that holds the
+    tail the final norm and, unless ``return_hidden``, the f32 logits of its
+    head rows (its ``V/P`` vocabulary columns where P divides the
+    vocabulary, else the last stage's whole head). None on a stage without
+    the tail."""
+    stage = _pp_parts(model)
+    y = pipeline_apply(stage, None, _pp_input(model, tokens), mesh=model.pp.mesh, microbatches=microbatches)
+    if model.final_norm is None:
+        return None
+    return model._pp_head(y, return_hidden)
+
+
+def _xent(model: Llama, hidden, tokens):
+    """The mean next-token cross-entropy of final-norm ``hidden`` [b, S, D]
+    against ``tokens`` [b, S] over this stage's head: vocab-parallel over pp
+    (``chunked_vocab_stats`` in 8192-column chunks under ``xent_impl=
+    "chunked"``, one chunk of the stage's ``V/P`` else, combined with one
+    pmax and two psums; the gradient of ``hidden`` is this stage's part,
+    which the pipeline sums), or the whole head's (chunked or dense f32
+    logits, as one process's loss)."""
+    cfg = model.cfg
+    h = hidden[:, :-1].reshape(-1, cfg.d_model)
+    labels = tokens[:, 1:].reshape(-1)
+    w = model.head_kernel()
+    if model.vocab_parallel:
+        per = vocab_parallel_xent(h, w, labels, tp=model.pp, col_offset=model.vocab_offset,
+                                  chunk=8192 if cfg.xent_impl == "chunked" else w.shape[1], enter=False)
+    elif cfg.xent_impl == "chunked":
+        per = chunked_softmax_xent(h, w, labels)
+    else:
+        return F.cross_entropy(F.linear(h.float(), model.lm_head.weight.float()), labels)
+    return per.mean()
+
+
+def train_value_and_grad_pp(model: Llama, tokens, *, microbatches: int, schedule: str = "1f1b"):
+    """The pp train step's loss and gradients (JAX l.1105-1277): the
+    embedding on stage 0, the layers through
+    ``parallel.pipeline.pipeline_value_and_grad`` (``backward="stored"``),
+    the final norm and the head's xent as its loss tail (:func:`_xent`, a
+    call of the model): with ``sharded_loss`` where P divides the vocabulary
+    (every stage's head rows over the last stage's output broadcast to all),
+    else at the last stage; the embedding's gradient from the input
+    cotangent the pipeline returns on stage 0. Returns the loss, the same on
+    every stage; the gradients are left in ``.grad``, each the mean over the
+    microbatches, the final norm's copies summed over the stages (each
+    stage's loss chunk read its own copy) as JAX's ``reassemble`` sums them,
+    so that the copies stay equal.
+
+    Under FSDP2 each microbatch's backward keeps its gradients unreduced
+    (``set_requires_gradient_sync(False)``) until this rank's last backward
+    of the step, which reduces them all. Refused as in JAX: a MoE aux loss
+    (``moe_aux_weight``); JAX's warning, where 1F1B's vocabulary does not
+    divide, says that the tail runs on the last stage alone (JAX's runs
+    replicated on every stage)."""
+    cfg = model.cfg
+    if getattr(cfg, "moe_aux_weight", 0.0):
+        raise ValueError(
+            "moe_aux_weight is not supported on a pp mesh (the pipeline "
+            "path bypasses flax sow collections)"
+        )
+    pp = model.pp
+    stage = _pp_parts(model)
+    sharded = model.vocab_parallel
+    if schedule == "1f1b" and pp.size > 1 and not sharded:
+        import warnings
+
+        # JAX's text up to where the port differs: its tail runs on the
+        # last stage alone, not replicated on every stage.
+        warnings.warn(
+            f"vocab_size={cfg.vocab_size} does not divide pp={pp.size}: the pipeline "
+            "loss tail cannot be vocab-parallel and will run on the last stage alone "
+            "(the whole head there). Prefer a vocab/pp pairing that divides.",
+            stacklevel=2,
+        )
+    fsdp = hasattr(model, "set_requires_gradient_sync")
+    if fsdp:
+        model.set_requires_gradient_sync(False)
+
+    def last_backward():
+        model.set_requires_gradient_sync(True)
+
+    def loss_fn(_, y, tok):
+        return model._pp_xent(y, tok)
+
+    x = _pp_input(model, tokens)
+    loss, (_, _, dx) = pipeline_value_and_grad(
+        stage, loss_fn, None, None, x, tokens, mesh=pp.mesh, microbatches=microbatches,
+        schedule=schedule, sharded_loss=sharded, backward="stored",
+        on_last_backward=last_backward if fsdp and pp.index > 0 else None,
+    )
+    if pp.index == 0:
+        if fsdp:
+            last_backward()
+        x.backward(dx)  # dx is the mean over the microbatches already
+    for name, p in model.named_parameters():
+        if p.grad is not None and name != "embed.weight":
+            local_tensor(p.grad).div_(microbatches)
+    if sharded:
+        g = local_tensor(model.final_norm.weight.grad)
+        g.copy_(psum(g, "pp", pp.mesh))
+    return loss

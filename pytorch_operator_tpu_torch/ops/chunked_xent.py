@@ -19,7 +19,8 @@ Pallas kernel), so the port is plain PyTorch: each chunk's products go to
   gradient, not a one-hot.
 
 The vocab-parallel loss of a tensor-parallel model (the head split over
-``tp`` by vocabulary) is built on :func:`chunked_vocab_stats`, the JAX
+``tp`` by vocabulary), and of a pipeline's tail (split over ``pp``), is
+built on :func:`chunked_vocab_stats`, the JAX
 op's combinable form: each rank takes its head columns' online-softmax
 stats ``(m, s, lab_logit)`` chunk by chunk, and one pmax and two psums over
 tp combine them (:func:`vocab_parallel_xent`). Its backward recomputes each
@@ -156,11 +157,12 @@ def chunked_vocab_stats(hidden, w, labels, *, chunk: int = 8192, col_offset: int
 
 def combine_vocab_stats(m, s, lab_logit, tp):
     """The logsumexp and the per-token loss ``lse − lab_logit`` of the whole
-    vocabulary from each rank's :func:`chunked_vocab_stats` over ``tp``
-    (``sharding.TensorParallel``): one pmax, two psums."""
-    M = pmax(m, "tp", tp.mesh)
-    lse = M + torch.log(psum(s * torch.exp(m - M), "tp", tp.mesh))
-    return lse, lse - psum(lab_logit, "tp", tp.mesh)
+    vocabulary from each rank's :func:`chunked_vocab_stats` over the axis of
+    ``tp`` (``sharding.TensorParallel``, or pp's ``PipelineParallel``): one
+    pmax, two psums."""
+    M = pmax(m, tp.axis, tp.mesh)
+    lse = M + torch.log(psum(s * torch.exp(m - M), tp.axis, tp.mesh))
+    return lse, lse - psum(lab_logit, tp.axis, tp.mesh)
 
 
 class VocabParallelXent(torch.autograd.Function):
@@ -199,15 +201,18 @@ class VocabParallelXent(torch.autograd.Function):
         return dh.to(hidden.dtype), dw.to(w.dtype), None, None, None, None
 
 
-def vocab_parallel_xent(hidden, w, labels, *, tp, col_offset: int, chunk: int = 8192):
+def vocab_parallel_xent(hidden, w, labels, *, tp, col_offset: int, chunk: int = 8192,
+                        enter: bool = True):
     """Per-token ``-log p(label)`` f32 ``[N]`` of a head split over ``tp``
+    (an ``AxisParallel``: tp's, or pp's on a pipeline's vocab-parallel tail)
     by vocabulary: ``w`` ``[D, V/tp]`` is this rank's block of columns,
     starting at id ``col_offset``; ``hidden`` ``[N, D]`` is the same on every
-    rank of tp. Equal to :func:`chunked_softmax_xent` on the whole head, in
-    value and gradients (hidden's through ``tp_enter``). Labels clamp to
-    ``[0, V)`` as there."""
+    rank of the axis. Equal to :func:`chunked_softmax_xent` on the whole
+    head, in value and gradients (hidden's summed over the axis by
+    ``tp_enter``; with ``enter=False`` hidden's gradient is this rank's part,
+    which the caller sums). Labels clamp to ``[0, V)`` as there."""
     V = w.shape[1] * tp.size
     if hidden.shape[1] != w.shape[0]:
         raise ValueError(f"hidden D={hidden.shape[1]} vs w D={w.shape[0]}")
     labels = labels.long().clamp(0, V - 1)
-    return VocabParallelXent.apply(tp.enter(hidden), w, labels, chunk, col_offset, tp)
+    return VocabParallelXent.apply(tp.enter(hidden) if enter else hidden, w, labels, chunk, col_offset, tp)

@@ -22,6 +22,11 @@ over an axis of size 1).
   under gloo a CUDA tensor goes through a host copy each way. Autograd
   differentiates it: the gradient goes back by the shift the other way
   (the ring attention of ``ring.py`` rotates K/V with it).
+- :func:`neighbour_exchange`: a pipeline tick's two hops, rank i's
+  activation to i+1 and its cotangent to i−1 (the ``ppermute`` s of JAX's
+  ``pipeline.py``, without the wrap-around nobody reads), on the same
+  staged point-to-point path as :func:`ring_shift`; :func:`broadcast`, one
+  rank's tensor to every rank of the axis (JAX's masked ``psum``).
 - :func:`all_to_all`: ``jax.lax.all_to_all(tiled=True)``: ``split_dim``
   cut into one block a rank, block j sent to rank j, the blocks received
   concatenated along ``concat_dim`` in rank order; its gradient is the
@@ -190,28 +195,84 @@ def reduce_scatter(x: torch.Tensor, axis: str, mesh=None, *, scatter_dimension: 
     return out.movedim(0, scatter_dimension)
 
 
-def _ring_shift(x: torch.Tensor, axis: str, mesh, shift: int) -> torch.Tensor:
+def _p2p(sends, recvs, axis: str, mesh) -> list:
+    """Point-to-point transfers over ``axis`` in one ``batch_isend_irecv``:
+    ``sends`` ``(tensor, peer, tag)``, ``recvs`` ``(like, peer, tag)`` (a
+    buffer shaped, typed and placed like ``like``), peers by coordinate on
+    the axis. Returns the received tensors in ``recvs``' order. gloo's
+    point-to-point moves host memory only (a CUDA tensor aborts it), so
+    under gloo a CUDA tensor is staged through a host copy each way."""
     import torch.distributed as dist
 
-    n = axis_size(axis, mesh)
-    if n == 1 or shift % n == 0:
-        return x.clone()
     group = _group(axis, mesh)
-    i = axis_index(axis, mesh)
 
     def global_rank(r: int) -> int:
         return r if group is None else dist.get_global_rank(group, r)
 
+    staged = dist.get_backend(group) == "gloo"
+
+    def host(t):
+        return t.cpu() if staged and t.is_cuda else t
+
+    bufs = [torch.empty(like.shape, dtype=like.dtype, device="cpu" if staged and like.is_cuda else like.device)
+            for like, _, _ in recvs]
+    ops = [dist.P2POp(dist.isend, host(t).contiguous(), global_rank(peer), group, tag)
+           for t, peer, tag in sends]
+    ops += [dist.P2POp(dist.irecv, buf, global_rank(peer), group, tag)
+            for buf, (_, peer, tag) in zip(bufs, recvs)]
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return [buf.to(like.device) for buf, (like, _, _) in zip(bufs, recvs)]
+
+
+def _ring_shift(x: torch.Tensor, axis: str, mesh, shift: int) -> torch.Tensor:
+    n = axis_size(axis, mesh)
+    if n == 1 or shift % n == 0:
+        return x.clone()
+    i = axis_index(axis, mesh)
+    (out,) = _p2p([(x, (i + shift) % n, 0)], [(x, (i - shift) % n, 0)], axis, mesh)
+    return out
+
+
+def neighbour_exchange(fwd, bwd, axis: str, mesh=None) -> tuple:
+    """One tick of a pipeline's hops along ``axis`` (JAX's two ``ppermute``
+    s of a schedule tick, in one batch of point-to-point transfers): rank i
+    sends ``fwd`` to i+1 and ``bwd`` to i−1, and returns ``(from i−1, from
+    i+1)``, None where it has no such neighbour. Not a ring: the last rank's
+    ``fwd`` and the first's ``bwd`` go nowhere. Either argument may be None
+    on every rank (that hop is skipped); a received tensor is shaped like the
+    local one of its direction. Every rank of the axis must call it."""
+    n, i = axis_size(axis, mesh), axis_index(axis, mesh)
+    sends, recvs, slots = [], [], []
+    for t, to, frm, tag in ((fwd, i + 1, i - 1, 0), (bwd, i - 1, i + 1, 1)):
+        if t is None:
+            slots.append(False)
+            continue
+        if 0 <= to < n:
+            sends.append((t, to, tag))
+        slots.append(0 <= frm < n)
+        if slots[-1]:
+            recvs.append((t, frm, tag))
+    got = iter(_p2p(sends, recvs, axis, mesh)) if n > 1 else iter(())
+    return tuple(next(got) if has else None for has in slots)
+
+
+def broadcast(x: torch.Tensor, axis: str, mesh=None, *, src: int = 0) -> torch.Tensor:
+    """A new tensor: the value of ``x`` on the rank at coordinate ``src`` of
+    ``axis``, on every rank of it (JAX's masked ``psum`` of one rank's value).
+    Under gloo a CUDA tensor goes through a host copy, as
+    :func:`ring_shift`'s."""
+    import torch.distributed as dist
+
+    if axis_size(axis, mesh) == 1:
+        return x.clone()
+    group = _group(axis, mesh)
     staged = x.is_cuda and dist.get_backend(group) == "gloo"
-    send = (x.cpu() if staged else x).contiguous()
-    recv = torch.empty_like(send)
-    ops = [
-        dist.P2POp(dist.isend, send, global_rank((i + shift) % n), group),
-        dist.P2POp(dist.irecv, recv, global_rank((i - shift) % n), group),
-    ]
-    for work in dist.batch_isend_irecv(ops):
-        work.wait()
-    return recv.to(x.device) if staged else recv
+    buf = (x.cpu() if staged else x.clone()).contiguous()
+    root = src if group is None else dist.get_global_rank(group, src)
+    dist.broadcast(buf, root, group=group)
+    return buf.to(x.device) if staged else buf
 
 
 class _Shift(torch.autograd.Function):

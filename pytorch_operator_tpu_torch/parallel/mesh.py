@@ -15,9 +15,10 @@ Canonical axis names: ``dp`` (replicated parameters, sharded batch),
 parameter split by the rule table's tensor-parallel axes, the batch
 replicated), ``sp`` (the sequence split into one block a rank, the
 parameters whole), ``ep`` (the MoE experts split, the batch replicated),
-``pp``. This package trains on all but ``pp``, which parses and resolves and
-which ``llama_train`` refuses (ROADMAP.md item 3c-3). :func:`train_coords`
-gives a rank its place on the data axes, on ``tp``, ``sp`` and ``ep``.
+``pp`` (the layers split into stages, the batch replicated: each stage's
+rank of one data coordinate reads the same rows). :func:`train_coords`
+gives a rank its place on the data axes, on ``tp``, ``sp``, ``ep`` and
+``pp``.
 """
 
 from __future__ import annotations
@@ -200,10 +201,11 @@ class TrainCoords:
     over the data axes (row-major over ``dp`` then ``fsdp``: which rows of
     the global batch it trains on), ``tp_index`` of ``tp_size`` (which
     block of each tensor-parallel parameter it holds), ``sp_index`` of
-    ``sp_size`` (which block of ``S/sp`` positions of its rows it computes)
-    and ``ep_index`` of ``ep_size`` (which ``E/ep`` experts it holds). The
-    ranks of one tp, sp or ep group share their data coordinate: they read
-    the same rows."""
+    ``sp_size`` (which block of ``S/sp`` positions of its rows it computes),
+    ``ep_index`` of ``ep_size`` (which ``E/ep`` experts it holds) and
+    ``pp_index`` of ``pp_size`` (which pipeline stage it runs). The ranks of
+    one tp, sp, ep or pp group share their data coordinate: they read the
+    same rows."""
 
     data_index: int = 0
     data_extent: int = 1
@@ -213,11 +215,14 @@ class TrainCoords:
     sp_size: int = 1
     ep_index: int = 0
     ep_size: int = 1
+    pp_index: int = 0
+    pp_size: int = 1
 
 
 def train_coords(mesh=None) -> TrainCoords:
     """This rank's :class:`TrainCoords` on ``mesh`` (a ``DeviceMesh``); a
-    world of one process (``mesh=None``) is ``(0, 1, 0, 1, 0, 1, 0, 1)``."""
+    world of one process (``mesh=None``) is ``(0, 1, 0, 1, 0, 1, 0, 1, 0,
+    1)``."""
     if mesh is None:
         return TrainCoords()
     sizes = axis_sizes(mesh)
@@ -231,4 +236,4 @@ def train_coords(mesh=None) -> TrainCoords:
         n = sizes.get(axis, 1)
         return (mesh.get_local_rank(axis) if n > 1 else 0), n
 
-    return TrainCoords(index, extent, *coord("tp"), *coord("sp"), *coord("ep"))
+    return TrainCoords(index, extent, *coord("tp"), *coord("sp"), *coord("ep"), *coord("pp"))

@@ -223,16 +223,74 @@ class SequenceParallel(AxisParallel):
     axis = "sp"
 
 
+# param_splits' dim for a tensor that one pp stage holds whole and alone (a
+# layer of its stage, stage 0's embedding, the last stage's whole head): the
+# rule table's ("stage", "pp") splits the JAX leaf's layer axis, which the
+# port's state-dict names carry (``layers.<i>``).
+STAGE = "stage"
+
+
+class PipelineParallel(AxisParallel):
+    """The ``pp`` axis: stage ``index`` of ``size``. The Llama's layout on a
+    stage (``models/llama.py``): layers ``[s·L/P, (s+1)·L/P)`` under their
+    global names, the embedding on stage 0; where P divides the vocabulary
+    (:meth:`vocab_parallel`) every stage holds the final norm and its
+    ``V/P`` head rows, else the last stage holds both whole."""
+
+    axis = "pp"
+
+    def layers(self, n_layers: int) -> range:
+        """The global indices of this stage's layers."""
+        start, n = self.block(n_layers, "n_layers")
+        return range(start, start + n)
+
+    def vocab_parallel(self, vocab: int) -> bool:
+        return vocab % self.size == 0
+
+    def holds_tail(self, vocab: int) -> bool:
+        """Whether this stage holds the final norm and (part of) the head."""
+        return self.vocab_parallel(vocab) or self.index == self.size - 1
+
+    def holds(self, name: str, n_layers: int, vocab: int) -> bool:
+        """Whether this stage holds the Llama's parameter ``name``."""
+        if name.startswith("layers."):
+            return int(name.split(".")[1]) in self.layers(n_layers)
+        if name.startswith("embed."):
+            return self.index == 0
+        return self.holds_tail(vocab)
+
+    def split(self, name: str, vocab: int):
+        """:func:`param_splits`' dim of parameter ``name`` under pp: the head's
+        vocabulary rows (dim 0) and None for the final norm (every stage holds
+        a copy) on the vocab-parallel layout, else :data:`STAGE`."""
+        if self.vocab_parallel(vocab):
+            if name == "lm_head.weight":
+                return 0
+            if name == "final_norm.weight":
+                return None
+        return STAGE
+
+
 def model_axes(model) -> tuple:
-    """The model-parallel axes a model holds (its ``tp``, ``ep`` and ``sp``
-    attributes that are set), in that order."""
-    return tuple(ax for ax in (getattr(model, a, None) for a in ("tp", "ep", "sp")) if ax is not None)
+    """The model-parallel axes a model holds (its ``tp``, ``ep``, ``sp`` and
+    ``pp`` attributes that are set), in that order."""
+    return tuple(ax for ax in (getattr(model, a, None) for a in ("tp", "ep", "sp", "pp"))
+                 if ax is not None)
 
 
-def param_splits(name: str, axes) -> tuple:
+def param_splits(name: str, axes, vocab: Optional[int] = None) -> tuple:
     """``(axis, dim)`` for each of ``axes`` (:class:`AxisParallel` s): the
-    dim of parameter ``name`` it splits, or None where it replicates it."""
-    return tuple((ax, axis_dim(name, ax.axis)) for ax in axes)
+    dim of parameter ``name`` it splits, None where it replicates it, or
+    :data:`STAGE` where it is this pp stage's alone (pp needs ``vocab``, the
+    model's vocabulary, which decides its layout)."""
+    return tuple((ax, ax.split(name, vocab) if isinstance(ax, PipelineParallel)
+                  else axis_dim(name, ax.axis)) for ax in axes)
+
+
+def cut_splits(splits) -> list:
+    """The ``(axis, dim)`` of ``splits`` that cut a tensor into blocks along
+    a dim (neither replicated nor a stage's own)."""
+    return [(ax, d) for ax, d in splits if ax.size > 1 and d is not None and d != STAGE]
 
 
 def check_tp_divides(cfg, size: int) -> None:
@@ -300,7 +358,7 @@ class Block:
             writer = all(t.device_mesh.get_local_rank(i) == 0
                          for i, pl in enumerate(t.placements) if pl.is_replicate())
         for ax, d in splits:
-            if ax.size <= 1:
+            if ax.size <= 1 or d == STAGE:
                 continue
             if d is None:
                 writer = writer and ax.index == 0
@@ -310,13 +368,34 @@ class Block:
         return cls(t, tuple(offsets), tuple(shape), writer)
 
 
+def model_splits(model, name: str) -> tuple:
+    """:func:`param_splits` of ``model``'s parameter ``name`` over the
+    model-parallel axes it holds."""
+    return param_splits(name, model_axes(model), model.cfg.vocab_size)
+
+
+class Elsewhere:
+    """A tensor of the whole model that another pp stage holds, by its whole
+    ``shape``: in :func:`model_blocks` it holds a stage's tree to the whole
+    model's names, and a checkpoint neither writes nor reads it."""
+
+    def __init__(self, shape):
+        self.shape = tuple(shape)
+
+
 def model_blocks(model) -> dict:
     """A model's state dict as :class:`Block` s (name: its block), the
     layout a checkpoint writes: each tp and ep parameter's block of the
-    whole, FSDP2's rows of it; a part that a tp, ep or sp coordinate other
-    than 0 also holds is written by coordinate 0."""
-    axes = model_axes(model)
-    return {name: Block.of(t, param_splits(name, axes)) for name, t in model.state_dict().items()}
+    whole, FSDP2's rows of it, pp's head rows; a part that a tp, ep, sp or
+    pp coordinate other than 0 also holds is written by coordinate 0; a pp
+    stage's own tensors by that stage, and every other stage's tensor as
+    :class:`Elsewhere`, so that a restore holds the step to the whole
+    model's names (one process's order)."""
+    blocks = {name: Block.of(t, model_splits(model, name)) for name, t in model.state_dict().items()}
+    if getattr(model, "pp", None) is None:
+        return blocks
+    return {name: blocks[name] if name in blocks else Elsewhere(t.shape)
+            for name, t in model.whole().state_dict().items()}
 
 
 def shard_model(model, mesh):
@@ -324,7 +403,9 @@ def shard_model(model, mesh):
     the mesh's tp and ep blocks already: built with ``Llama(cfg,
     mesh=mesh)``), then FSDP2 over the data axes, each decoder block of
     ``model.layers`` and then the root (embedding, final norm, LM head), one
-    data mesh a coordinate of the other axes (tp, ep, sp). Returns the model, whose parameters are then DTensors (none
+    data mesh a coordinate of the other axes (tp, ep, sp, pp); a pp stage's
+    parts (``llama.PP_FORWARD_METHODS``) become FSDP2 forward methods of the
+    root. Returns the model, whose parameters are then DTensors (none
     on a mesh whose data axes hold one rank). Every rank of a tp coordinate
     must hold the same values before the call (the same seeded init or the
     same ``init_params``): each keeps its own shard of them."""
@@ -362,14 +443,21 @@ def shard_model(model, mesh):
     # its unit gathers it), leaving the matmul weights in the blocks and
     # the embedding and head in the root.
     mixed = len({p.dtype for p in model.parameters()}) > 1
-    for block in model.layers:
+    for block in filter(None, model.layers):  # a pp stage holds its layers only
         if mixed:
             for norm in (block.attn_norm, block.mlp_norm):
                 fully_shard(norm, mesh=data_mesh)
         fully_shard(block, mesh=data_mesh)
-    if mixed:
+    if mixed and model.final_norm is not None:
         fully_shard(model.final_norm, mesh=data_mesh)
     fully_shard(model, mesh=data_mesh)
+    if getattr(model, "pp", None) is not None:
+        from torch.distributed.fsdp import register_fsdp_forward_method
+
+        from ..models.llama import PP_FORWARD_METHODS
+
+        for name in PP_FORWARD_METHODS:
+            register_fsdp_forward_method(model, name)
     return model
 
 
@@ -382,7 +470,7 @@ def full_tensor(t, splits: Sequence = ()):
     gathered along it. ``t`` itself if it is neither. ``DTensor.full_tensor`` would gather
     through functional collectives, which crash over gloo on CUDA tensors
     (torch 2.11)."""
-    splits = [(ax, d) for ax, d in splits if ax.size > 1 and d is not None]
+    splits = cut_splits(splits)
     if splits:
         from .collectives import all_gather
 
@@ -415,12 +503,19 @@ def full_tensor(t, splits: Sequence = ()):
 def full_state_dict(model) -> dict:
     """The whole of each tensor of ``model.state_dict()`` on every rank (CPU
     tensors, in state-dict order), gathered from FSDP2's shards and tp's
-    and ep's blocks."""
-    axes = model_axes(model)
-    return {
-        name: full_tensor(t, param_splits(name, axes)).detach().cpu()
-        for name, t in model.state_dict().items()
-    }
+    and ep's blocks; on a pp mesh, pp's head rows too, and the tensors of
+    every stage, in one process's state-dict order."""
+    whole = {name: full_tensor(t, model_splits(model, name)).detach().cpu()
+             for name, t in model.state_dict().items()}
+    pp = getattr(model, "pp", None)
+    if pp is None:
+        return whole
+    import torch.distributed as dist
+
+    stages = [None] * pp.size
+    dist.all_gather_object(stages, whole, group=pp.mesh.get_group("pp"))
+    merged = {k: v for stage in stages for k, v in stage.items()}
+    return {name: merged[name] for name in model.whole().state_dict()}
 
 
 def local_tensor(t):

@@ -29,24 +29,27 @@ layer's heads and ``d_ff``, the embedding's and the head's vocabulary
 ``ep`` splits the MoE layers' experts; ``sp`` splits the sequence, each rank
 computing its block of ``S/sp`` positions with ``--attn-impl ring`` or
 ``ulysses`` (``parallel/ring.py``, ``parallel/ulysses.py``), its gradients
-averaged over sp; ``fsdp`` shards parameters (tp's and ep's blocks), gradients
-and the optimizer's state with FSDP2, ``dp`` replicates them (both together:
-HSDP; ``@dcn`` axes outermost). ``--batch-size`` is the global batch; each
-data coordinate (``parallel/mesh.train_coords``) trains on its rows of it,
-the ranks of one tp, ep or sp group on the same rows, and the losses
-reported are the global batch's. AdamW and adafactor both run in a world, in
-f32 or bf16 parameters (``--param-dtype``).
+averaged over sp; ``pp`` splits the layers into stages (``parallel/pipeline.py``:
+``--pp-schedule gpipe`` or ``1f1b`` over ``--pp-microbatches``, default 2·pp),
+the embedding on stage 0 and the head's vocabulary rows over the stages;
+``fsdp`` shards parameters (tp's and ep's blocks, a stage's tensors),
+gradients and the optimizer's state with FSDP2, ``dp`` replicates them (both
+together: HSDP; ``@dcn`` axes outermost). ``--batch-size`` is the global
+batch; each data coordinate (``parallel/mesh.train_coords``) trains on its
+rows of it, the ranks of one tp, ep, sp or pp group on the same rows, and the
+losses reported are the global batch's. AdamW and adafactor both run in a
+world, in f32 or bf16 parameters (``--param-dtype``).
 
     python -m pytorch_operator_tpu_torch.workloads.llama_train --config 0.3b \\
         --batch-size 4 --seq-len 4096 --steps 5 --json
 
 It runs on ``cuda`` unless ``--device cpu`` or ``TPUJOB_PLATFORM=cpu`` asks
 for the host; with neither and no GPU it raises. What waits for ROADMAP.md
-is refused by name: the ``pp`` mesh axis and the pipeline flags
-(:data:`REFUSED_FLAGS`, item 3c-3); sparse MoE dispatch whose token groups
-would differ from the reference's global ones (item 3c-2c); ulysses under tp
-where ``(n_kv_heads/tp) % sp != 0`` (item 3c-2d); a tp that does not divide
-the heads, kv heads, ``d_ff`` or the vocabulary.
+is refused by name: ``pp`` beside ``tp``, ``ep`` or ``sp`` (item 3c-3b);
+sparse MoE dispatch whose token groups would differ from the reference's
+global ones (item 3c-2c); ulysses under tp where ``(n_kv_heads/tp) % sp !=
+0`` (item 3c-2d); a tp that does not divide the heads, kv heads, ``d_ff`` or
+the vocabulary.
 """
 
 from __future__ import annotations
@@ -68,7 +71,7 @@ from ..data.device_prefetch import DevicePrefetcher, to_device
 from ..models import llama as llama_lib
 from ..models.convert import params_from_jax
 from ..parallel.moe import token_group
-from ..parallel.sharding import check_tp_divides, model_axes, param_splits
+from ..parallel.sharding import check_tp_divides, model_axes
 from ..ops import flash_attention as flash_lib
 from ..parallel import data as data_lib
 from ..parallel import mesh as mesh_lib
@@ -103,12 +106,8 @@ CONFIGS = llama_lib.CONFIGS
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-# The mesh axes a run can train on: the rule table's batch axes, ep, sp, tp.
-TRAIN_AXES = (*mesh_lib.DATA_AXES, "ep", "sp", "tp")
 ITEM_3C2C = "ROADMAP.md item 3c-2c: sparse MoE dispatch over token groups that cross ranks"
-ITEM_3C3 = "ROADMAP.md item 3c-3: pipeline parallelism"
-# The item each refused axis waits for.
-WAITING_AXES = {"pp": ITEM_3C3}
+ITEM_3C3B = "ROADMAP.md item 3c-3b: pipeline stages beside tp, ep or sp"
 
 
 def check_sparse_groups(batch: int, seq_len: int, data_extent: int, sp: int) -> None:
@@ -133,15 +132,13 @@ def check_sparse_groups(batch: int, seq_len: int, data_extent: int, sp: int) -> 
 
 def resolve_train_mesh(spec: str, world: int) -> dict:
     """The axes and sizes, in layout order, of mesh ``spec`` resolved
-    against ``world`` ranks (one device a process). Naming ``pp`` raises,
-    naming the item it waits for."""
-    beyond = sorted(set(mesh_lib.parse_mesh_spec(spec)) - set(TRAIN_AXES))
-    if beyond:
-        raise NotImplementedError(
-            f"mesh axes {beyond} are not ported yet ("
-            f"{'; '.join(sorted({WAITING_AXES[a] for a in beyond}))}); this port trains on "
-            f"{', '.join(TRAIN_AXES)}"
-        )
+    against ``world`` ranks (one device a process). ``pp`` beside ``tp``,
+    ``ep`` or ``sp`` (each of more than one rank, or a ``-1``) raises before
+    the sizes are resolved, naming the item it waits for."""
+    sizes = mesh_lib.parse_mesh_spec(spec)
+    beside = [a for a in ("tp", "ep", "sp") if sizes.get(a, 1) != 1]
+    if sizes.get("pp", 1) != 1 and beside:
+        raise NotImplementedError(f"pp with {', '.join(beside)} is not ported yet ({ITEM_3C3B})")
     return mesh_lib.hybrid_axis_sizes(spec, world)
 
 
@@ -184,6 +181,8 @@ def run(
     preempt_at: int | None = None,
     profile_dir: str | None = None,
     mesh_spec: str | None = None,
+    pp_microbatches: int | None = None,
+    pp_schedule: str = "gpipe",
     device=None,
     seed: int = 0,
     init_params=None,
@@ -245,10 +244,13 @@ def run(
     (rounded to a multiple of the ranks, as the JAX workload rounds it to
     its devices); each data coordinate takes its rows
     (``parallel/data.global_batch``), and ``losses``/``eval_loss`` are the
-    global batch's means. The result adds ``world``, ``mesh``, ``backend``,
-    this rank's ``param_bytes`` and ``optimizer_state_bytes``, and
-    ``per_rank`` (each rank's data and tp coordinates, bytes, peak memory
-    and flash launches). A resize record from the supervisor is
+    global batch's means. On a pp mesh each step runs ``pp_schedule``
+    ("gpipe" or "1f1b") over ``pp_microbatches`` microbatches of each data
+    coordinate's rows (default 2·pp). The result adds ``world``, ``mesh``,
+    ``backend``, this rank's ``param_bytes`` and ``optimizer_state_bytes``,
+    and ``per_rank`` (each rank's data, tp, sp, ep and pp coordinates, bytes,
+    peak memory and flash launches); on a pp mesh also ``pp_schedule`` and
+    ``pp_microbatches``. A resize record from the supervisor is
     polled every step (``rendezvous.poll_resize``): the rank drains its
     loader, feed and saves, then re-executes into the new world.
     ``keep_params`` adds ``params``: the trained parameters whole on every
@@ -346,12 +348,22 @@ def run(
             f"--grad-accum {grad_accum} must divide each data coordinate's "
             f"{batch_size // coords.data_extent} rows"
         )
+    pp = axes.get("pp", 1)
+    if pp > 1:
+        pp_microbatches = pp_microbatches or 2 * pp
+        rows = batch_size // coords.data_extent
+        if rows % pp_microbatches:
+            raise ValueError(
+                f"--pp-microbatches {pp_microbatches} must divide each data coordinate's "
+                f"{rows} rows (the batch {batch_size} over the data extent {coords.data_extent})"
+            )
     if cfg.n_experts > 0 and cfg.moe_dispatch == "sparse":
         # A microbatch's tokens are what the dispatch groups.
         check_sparse_groups(batch_size // grad_accum, seq_len, data_extent, axes.get("sp", 1))
     log(
         f"[llama] config={config} d_model={cfg.d_model} layers={cfg.n_layers} "
-        f"mesh={axes} attn={cfg.attn_impl} xent={cfg.xent_impl} "
+        f"mesh={axes}{f' pp_schedule={pp_schedule} microbatches={pp_microbatches}' if pp > 1 else ''} "
+        f"attn={cfg.attn_impl} xent={cfg.xent_impl} "
         f"remat={cfg.remat and cfg.remat_policy} batch={batch_size} seq={seq_len} "
         f"({device_name(dev)}{f', {backend}' if backend else ''})"
     )
@@ -407,19 +419,17 @@ def run(
     t_init = time.time()
     # Every rank of a tp or ep coordinate builds the same values (one seed,
     # or the same tree) before sharding: each then keeps its shard of them.
-    # A tp or ep rank builds its blocks only.
+    # A tp or ep rank builds its blocks only, a pp rank its stage's tensors.
     model = llama_lib.Llama(cfg, device=dev, mesh=mesh)
     if init_params is not None:
-        model.load_state_dict(params_from_jax(init_params, cfg, model.tp, model.ep))
+        model.load_state_dict(params_from_jax(init_params, cfg, model.tp, model.ep, model.pp))
     else:
         model.init_weights(torch.Generator(device=dev).manual_seed(seed))
     model.train()
-    # Whole parameters: a split tensor counts its tp and ep blocks.
     parallel = model_axes(model)
-    n_params = sum(
-        p.numel() * math.prod(ax.size for ax, d in param_splits(n, parallel) if d is not None)
-        for n, p in model.named_parameters()
-    )
+    # The whole model's parameters (every rank's blocks and stages).
+    whole = dict(llama_lib.Llama(cfg, device="meta").named_parameters())
+    n_params = sum(p.numel() for p in whole.values())
     if mesh is not None:
         shard_model(model, mesh)
     log(
@@ -437,13 +447,14 @@ def run(
         grad_clip=grad_clip, weight_decay=0.1, mesh=mesh,
     )
     aux_values = []  # one device scalar a loss_fn call
-    rank_step = make_lm_train_step(model, opt, grad_accum=grad_accum, on_aux=aux_values.append)
+    rank_step = make_lm_train_step(model, opt, grad_accum=grad_accum, on_aux=aux_values.append,
+                                   microbatches=pp_microbatches, pp_schedule=pp_schedule)
 
     def train_step(tokens):
         return world_mean(rank_step(tokens), world, mesh)
 
     def train_state():
-        # Under tp, ep or sp each tensor as the Block of its layout (its
+        # Under tp, ep, sp or pp each tensor as the Block of its layout (its
         # offsets in the whole, written by one rank of its copies), which
         # the checkpoint writes and restores by.
         params = model_blocks(model) if parallel else model.state_dict()
@@ -647,6 +658,7 @@ def run(
         "tp_index": coords.tp_index,
         "sp_index": coords.sp_index,
         "ep_index": coords.ep_index,
+        "pp_index": coords.pp_index,
         "expert_param_bytes": local_nbytes(
             p for n, p in model.named_parameters() if n.endswith(("moe_mlp.w_in", "moe_mlp.w_out"))
         ),
@@ -693,14 +705,13 @@ def run(
         result["params"] = kept
     if donate is not None:
         result["donate"] = "no-op (torch has no buffer donation)"
+    if pp > 1:
+        result["pp_schedule"] = pp_schedule
+        result["pp_microbatches"] = pp_microbatches
     if cfg.n_experts > 1:
         # FLOPs-active parameters: sparse dispatch computes about top_k/E of
         # the expert banks a token (capacity padding excluded), dense all.
-        expert = sum(
-            p.numel() * math.prod(ax.size for ax, d in param_splits(n, parallel) if d is not None)
-            for n, p in model.named_parameters()
-            if n.endswith(("moe_mlp.w_in", "moe_mlp.w_out"))
-        )
+        expert = sum(p.numel() for n, p in whole.items() if n.endswith(("moe_mlp.w_in", "moe_mlp.w_out")))
         frac = cfg.moe_top_k / cfg.n_experts if cfg.moe_dispatch == "sparse" else 1.0
         result["n_experts"] = cfg.n_experts
         result["moe_dispatch"] = cfg.moe_dispatch
@@ -713,7 +724,7 @@ def run(
         # updates.
         eval_loader, eval_meta = open_token_file(eval_file, "--eval-file", seed=1)
         try:
-            eval_step = make_lm_eval_step(model)
+            eval_step = make_lm_eval_step(model, microbatches=pp_microbatches)
             n_eval = max(1, min(eval_batches, eval_meta.n_records // batch_size))
             eval_losses = [
                 float(world_mean(eval_step(next_tokens(eval_loader)), world, mesh))
@@ -728,14 +739,6 @@ def run(
         result["eval_loss"] = round(eval_loss, 4)
         result["eval_perplexity"] = round(ppl, 2)
     return result
-
-
-# Flags of the JAX workload that wait for pipeline parallelism, with the
-# ROADMAP item. main() accepts them so that it can refuse them by name.
-REFUSED_FLAGS = {
-    "--pp-microbatches": ITEM_3C3,
-    "--pp-schedule": ITEM_3C3,
-}
 
 
 def _preempt_at(args):
@@ -753,8 +756,8 @@ def main(argv=None) -> int:
     p.add_argument(
         "--mesh", default=None,
         help='axes over the world\'s ranks, e.g. "fsdp=2", "dp=2", "tp=2", "fsdp=2,tp=2", '
-        '"sp=2", "dp=2,ep=2", "dp=2@dcn,fsdp=-1" (default: TPUJOB_MESH or fsdp=-1); pp is '
-        'refused (ROADMAP.md item 3c-3)',
+        '"sp=2", "dp=2,ep=2", "pp=2", "dp=2,pp=2", "dp=2@dcn,fsdp=-1" (default: TPUJOB_MESH or '
+        'fsdp=-1); pp beside tp, ep or sp is refused (ROADMAP.md item 3c-3b)',
     )
     p.add_argument("--batch-size", type=int, default=8, help="the global batch, over every rank")
     p.add_argument("--seq-len", type=int, default=128)
@@ -881,14 +884,19 @@ def main(argv=None) -> int:
         help="cuda (default) or cpu; TPUJOB_PLATFORM=cpu also selects the CPU",
     )
     p.add_argument("--json", action="store_true")
+    p.add_argument(
+        "--pp-microbatches", type=int, default=None,
+        help="pipeline microbatches of each data coordinate's rows when the mesh has a pp "
+        "axis (default 2 x pp extent; must be a multiple of it)",
+    )
+    p.add_argument(
+        "--pp-schedule", choices=("gpipe", "1f1b"), default="gpipe",
+        help="pipeline schedule on a pp mesh: gpipe (every microbatch's graph kept, then the "
+        "reverse ticks) or 1f1b (one forward one backward: a stage holds at most 2(pp-1)+1 "
+        "microbatches)",
+    )
     add_feed_tuning_args(p)
-    refused = p.add_argument_group("pipeline parallelism (refused)")
-    for flag in REFUSED_FLAGS:
-        refused.add_argument(flag, default=None)
     args = p.parse_args(argv)
-    for flag, item in REFUSED_FLAGS.items():
-        if getattr(args, flag[2:].replace("-", "_")) not in (None, False):
-            raise NotImplementedError(f"{flag} is not ported yet ({item})")
 
     env_async, env_prefetch = data_plane_env_defaults()
     feed_tuning = resolve_feed_tuning(args)
@@ -931,6 +939,8 @@ def main(argv=None) -> int:
         preempt_at=_preempt_at(args),
         profile_dir=args.profile_dir,
         mesh_spec=args.mesh,
+        pp_microbatches=args.pp_microbatches,
+        pp_schedule=args.pp_schedule,
         device=args.device,
         seed=args.seed,
         log=lambda msg: print(

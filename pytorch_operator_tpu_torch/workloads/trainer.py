@@ -38,7 +38,12 @@ once), the accumulation buffers are laid out like the gradients, the
 adafactor statistics are reduced over the axes that split each JAX leaf
 (:class:`Adafactor`), a tensor-parallel model's loss is the vocab-parallel
 one, and :func:`world_mean` turns a rank's loss into the global batch's.
-Not ported here: pipeline parallelism (ROADMAP.md item 3c-3).
+On a pp mesh the loss and the step run through the model's pipeline hooks
+(``pp_forward``, ``pp_value_and_grad``: GPipe or 1F1B over ``microbatches``,
+default 2·pp); the clip sums each stage's tensors over pp and counts the
+final norm's copies once, AdamW's state is keyed by each parameter's index in
+the whole model (a stage holds some of them), and adafactor reduces over pp
+the means of the leaves whose layers pp splits.
 """
 
 from __future__ import annotations
@@ -256,15 +261,19 @@ class Optimizer:
 
     def __init__(self, params, lr: float, *, schedule: str, warmup_steps: int,
                  decay_steps, grad_clip: Optional[float], weight_decay: float,
-                 layouts=None):
+                 layouts=None, keys=None):
         params = list(params)
         # layouts: each parameter's (axis, dim) pairs of the model-parallel
         # axes (sharding.param_splits; dim None where the axis replicates
-        # it), for the clip's norm and the checkpoint's blocks.
+        # it), for the clip's norm and the checkpoint's blocks. keys: each
+        # trainable parameter's index in the whole model's order of them
+        # (one process's), which keys AdamW's state in every layout; a pp
+        # stage holds some of them. Default: their order here.
         lays = layouts if layouts is not None else [()] * len(params)
         kept = [(p, lay) for p, lay in zip(params, lays) if p.requires_grad]
         self.params = [p for p, _ in kept]
         self.layouts = [lay for _, lay in kept]
+        self.keys = list(keys) if keys is not None else list(range(len(kept)))
         self.split_axes = [tuple(ax for ax, d in lay if d is not None) for lay in self.layouts]
         self.lr = lr
         self.schedule = dict(schedule=schedule, warmup_steps=warmup_steps,
@@ -290,8 +299,10 @@ class Optimizer:
     def state_dict(self) -> dict:
         """The optimizer state a checkpoint carries: the update count (the
         schedule's step, optax's ``count``) and AdamW's moments and
-        bias-correction steps; under tp, ep or sp each moment as the
-        ``sharding.Block`` of its parameter's layout."""
+        bias-correction steps, keyed by :attr:`keys` (the parameter groups
+        carry no list of them: the ranks' lists differ under pp); under tp,
+        ep, sp or pp each moment as the ``sharding.Block`` of its
+        parameter's layout."""
         sd = self.adamw.state_dict()
         if any(self.layouts):
             from ..parallel.sharding import Block
@@ -301,11 +312,23 @@ class Optimizer:
                     for k, t in st.items()}
                 for i, st in sd["state"].items()
             }
+        sd["state"] = {self.keys[i]: st for i, st in sd["state"].items()}
+        sd["param_groups"] = [{k: v for k, v in g.items() if k != "params"} for g in sd["param_groups"]]
         return {"count": self.count, "adamw": sd}
 
     def load_state_dict(self, state: dict) -> None:
+        """Load :meth:`state_dict`'s state (that of this layout, or a
+        restore's in it); a parameter whose key the state lacks raises
+        ValueError."""
         self.count = int(state["count"])
-        self.adamw.load_state_dict(state["adamw"])
+        sd = state["adamw"]
+        missing = [k for k in self.keys if k not in sd["state"]]
+        if sd["state"] and missing:
+            raise ValueError(f"the optimizer state has no moments of the parameters keyed {missing}")
+        self.adamw.load_state_dict({
+            "state": {i: sd["state"][k] for i, k in enumerate(self.keys) if k in sd["state"]},
+            "param_groups": [dict(g, params=list(range(len(self.keys)))) for g in sd["param_groups"]],
+        })
 
     def state_nbytes(self) -> int:
         """Bytes of the optimizer's state tensors on this rank (AdamW: two
@@ -355,35 +378,47 @@ def _in_dtype(x: float, dtype: torch.dtype) -> float:
 
 class _LeafLayout:
     """Where a rank's part of one JAX leaf of shape ``whole`` sits
-    (``offsets``, ``sizes`` in the leaf), and, for each dim of the leaf, the
-    mesh axes that split it."""
+    (``offsets``, ``sizes`` in the leaf), for each dim of the leaf the mesh
+    axes that split it, and the axes on which this rank's coordinate alone
+    holds the leaf (``owned``: pp, for a leaf of one stage)."""
 
-    def __init__(self, offsets, sizes, split, whole):
+    def __init__(self, offsets, sizes, split, whole, owned=()):
         self.offsets, self.sizes, self.split, self.whole = tuple(offsets), tuple(sizes), split, tuple(whole)
+        self.owned = tuple(owned)
 
     @classmethod
     def of_whole(cls, shape) -> "_LeafLayout":
         return cls([0] * len(shape), shape, [()] * len(shape), shape)
 
 
-def _leaf_layout(leaf, param, name: str, axes, mesh) -> _LeafLayout:
-    """The :class:`_LeafLayout` of ``leaf`` on this rank, ``param`` the
-    port tensor of its first name (each layer's alike): the block of the
-    port tensor that the model-parallel ``axes`` (``sharding.AxisParallel``
-    s: tp, ep) cut, then FSDP2's rows of that block, mapped into the leaf;
-    an axis splits a leaf dim when another coordinate on it holds another
-    range of that dim. An axis that would split two dims raises
+def _leaf_layout(leaf, params, names, model, mesh) -> _LeafLayout:
+    """The :class:`_LeafLayout` of ``leaf`` on this rank, ``params`` the
+    port tensors of it this rank holds (``names``; each layer's alike): the
+    block of the port tensor that the model-parallel axes (tp, ep, pp's head
+    rows) cut, then FSDP2's rows of that block, mapped into the leaf; an axis
+    splits a leaf dim when another coordinate on it holds another range of
+    that dim. A pp stage's layers are the leaf's rows of that stage (pp
+    splits dim 0). An axis that would split two dims raises
     NotImplementedError."""
     from ..parallel.mesh import axis_sizes
-    from ..parallel.sharding import Block, param_splits
+    from ..parallel.sharding import STAGE, Block, cut_splits, model_splits
 
     sizes = axis_sizes(mesh)
     fsdp = sizes.get("fsdp", 1)
-    layout = param_splits(name, axes)
-    cuts = [(ax, d) for ax, d in layout if d is not None]
+    layout = model_splits(model, names[0])
+    cuts = cut_splits(layout)
+    staged = [ax for ax, d in layout if d == STAGE and ax.size > 1]
+    param = params[0]
     whole = list(param.shape)  # FSDP2's global shape: the block's
     for ax, d in cuts:
         whole[d] *= ax.size
+
+    def in_leaf(offs, size):
+        box = leaf.box(offs, size)
+        if staged and leaf.stacked:  # this stage's layers: rows of dim 0
+            first = int(names[0].split(".")[1])
+            box = ((first,) + box[0][1:], (len(names),) + box[1][1:])
+        return box
 
     def port_box(at: dict, f: int):
         offs, size = [0] * len(whole), list(whole)
@@ -395,13 +430,13 @@ def _leaf_layout(leaf, param, name: str, axes, mesh) -> _LeafLayout:
             chunk = -(-rows // fsdp)
             start = min(f * chunk, rows)
             offs[0], size[0] = offs[0] + start, min(start + chunk, rows) - start
-        return leaf.box(offs, size)
+        return in_leaf(offs, size)
 
     at = {ax.axis: ax.index for ax, _ in cuts}
     f_idx = mesh.get_local_rank("fsdp") if fsdp > 1 else 0
     mine = port_box(at, f_idx)
     block = Block.of(param, layout)
-    if leaf.box(block.offsets, block.data.shape) != mine:
+    if in_leaf(block.offsets, block.data.shape) != mine:
         raise RuntimeError(f"{leaf.path}: the parameter's layout is not FSDP2's rows of its block")
     split = [[] for _ in leaf.shape]
     for axis, n in [(ax.axis, ax.size) for ax, _ in cuts] + [("fsdp", fsdp)]:
@@ -414,7 +449,13 @@ def _leaf_layout(leaf, param, name: str, axes, mesh) -> _LeafLayout:
             raise NotImplementedError(f"{leaf.path}: {axis} splits dims {sorted(varied)} of the leaf")
         for d in varied:
             split[d].append(axis)
-    return _LeafLayout(mine[0], mine[1], [tuple(a) for a in split], leaf.shape)
+    owned = ()
+    for ax in staged:
+        if leaf.stacked:
+            split[0].append(ax.axis)
+        else:
+            owned += (ax.axis,)
+    return _LeafLayout(mine[0], mine[1], [tuple(a) for a in split], leaf.shape, owned)
 
 
 class Adafactor:
@@ -439,8 +480,10 @@ class Adafactor:
     **Under a mesh** (``mesh``: the world's ``DeviceMesh``) each rank
     computes on its own part of each leaf (its tp and ep blocks, FSDP2's
     rows of them: a box of the leaf; an expert leaf ``[L, E, M, F]`` cut on
-    its E by ep) and holds the statistics of that part; no leaf is
-    gathered. The row and column means sum this rank's part and
+    its E by ep; a pp stage's layers, the leaf's rows ``[s·L/P, (s+1)·L/P)``,
+    and its head rows, the kernel's columns) and holds the statistics of
+    that part; no leaf is gathered, and a stage without a leaf's tensors
+    (the embedding beyond stage 0) keeps none of it. The row and column means sum this rank's part and
     all-reduce over the axes that split the dim they reduce; the two block
     RMS values all-reduce their sums of squares over the axes that split
     the leaf. ``state_dict`` gives each statistic as the
@@ -449,25 +492,27 @@ class Adafactor:
     def __init__(self, model, lr: float, *, schedule: str, warmup_steps: int,
                  decay_steps, grad_clip: Optional[float], mesh=None):
         from ..models.convert import jax_leaves
-        from ..parallel.sharding import model_axes, param_splits
+        from ..parallel.sharding import model_splits
 
         self.mesh = mesh
-        axes = model_axes(model)
         named = dict(model.named_parameters())
         self.leaves = []  # (JaxLeaf, its port parameters, its factored dims, _LeafLayout)
-        covered = set()
+        covered, names = set(), []
         for leaf in jax_leaves(model.cfg):
-            params = [named[n] for n in leaf.names]
-            covered.update(leaf.names)
+            held = [n for n in leaf.names if n in named]  # a pp stage's
+            if not held:
+                continue
+            params = [named[n] for n in held]
+            covered.update(held)
+            names += held
             layout = (_LeafLayout.of_whole(leaf.shape) if mesh is None
-                      else _leaf_layout(leaf, params[0], leaf.names[0], axes, mesh))
+                      else _leaf_layout(leaf, params, held, model, mesh))
             self.leaves.append((leaf, params, _factored_dims(leaf.shape), layout))
         missing = sorted(n for n, q in named.items() if q.requires_grad and n not in covered)
         if missing:
             raise ValueError(f"adafactor maps the Llama's JAX leaves only; not covered: {missing}")
         self.params = [q for _, ps, _, _ in self.leaves for q in ps]
-        self.split_axes = [tuple(ax for ax, d in param_splits(n, axes) if d is not None)
-                           for leaf, _, _, _ in self.leaves for n in leaf.names]
+        self.split_axes = [tuple(ax for ax, d in model_splits(model, n) if d is not None) for n in names]
         self.lr = lr
         self.schedule = dict(schedule=schedule, warmup_steps=warmup_steps, decay_steps=decay_steps)
         lr_at(0, lr, **self.schedule)  # validate the schedule name now
@@ -561,7 +606,7 @@ class Adafactor:
                 kept = list(range(len(lay.whole)))
             else:
                 kept = [d for d in range(len(lay.whole)) if d != dims[1 if key == "v_row" else 0]]
-            axes = {a for d in kept for a in lay.split[d]}
+            axes = {a for d in kept for a in lay.split[d]} | set(lay.owned)
             writer = all(self.mesh.get_local_rank(a) == 0 for a, n in sizes.items()
                           if n > 1 and a not in axes)
             if not kept:
@@ -639,19 +684,24 @@ def make_optimizer(
             raise TypeError("optimizer='adafactor' needs the model, not its parameters")
         return Adafactor(params, lr, mesh=mesh, **sched)
     if isinstance(params, torch.nn.Module):
-        from ..parallel.sharding import model_axes, param_splits
+        from ..parallel.sharding import model_axes, model_splits
 
-        axes = model_axes(params)
-        if axes:
+        if model_axes(params):
             named = list(params.named_parameters())
+            keys = None
+            if getattr(params, "pp", None) is not None:  # the stage's places in the whole model
+                whole = [n for n, p in params.whole().named_parameters() if p.requires_grad]
+                order = {n: i for i, n in enumerate(whole)}
+                keys = [order[n] for n, p in named if p.requires_grad]
             return Optimizer([p for _, p in named], lr, weight_decay=weight_decay,
-                             layouts=[param_splits(n, axes) for n, _ in named], **sched)
+                             layouts=[model_splits(params, n) for n, _ in named], keys=keys, **sched)
         params = params.parameters()
     return Optimizer(params, lr, weight_decay=weight_decay, **sched)
 
 
 def make_lm_loss_fn(
     model, *, include_aux: bool = True, on_aux: Optional[Callable[[torch.Tensor], None]] = None,
+    microbatches: Optional[int] = None,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Next-token cross-entropy ``loss_fn(tokens [B,S] int64) -> scalar``:
     ``logits[:, :-1]`` against ``tokens[:, 1:]``, mean over tokens. With
@@ -674,9 +724,27 @@ def make_lm_loss_fn(
     row's last position has none). The rank's loss is the sum over its
     positions divided by all ``B·(S−1)`` of the rows, times sp: the mean of
     the sp ranks' losses (``world_mean``) is the rows' mean, and so is the
-    gradient averaged over sp (:func:`make_lm_train_step`)."""
+    gradient averaged over sp (:func:`make_lm_train_step`).
+
+    On a pp mesh (``model.pp``) the loss runs the pipeline forward
+    (``model.pp_forward``, GPipe's ticks over ``microbatches``, default 2·pp)
+    and the tail's cross-entropy (``model.pp_xent``), the same on every
+    stage; a MoE aux term is refused there, as in JAX."""
     chunked = model.cfg.xent_impl == "chunked"
     aux_w = model.cfg.moe_aux_weight if include_aux else 0.0
+    pp = getattr(model, "pp", None)
+    if pp is not None:
+        if aux_w > 0:
+            raise ValueError(
+                "moe_aux_weight is not supported on a pp mesh (the "
+                "pipeline path bypasses flax sow collections)"
+            )
+        mb = microbatches or 2 * pp.size
+
+        def pp_loss(tokens):
+            return model.pp_xent(model.pp_forward(tokens, microbatches=mb, return_hidden=True), tokens)
+
+        return pp_loss
     tp = getattr(model, "tp", None)
     seq_block = getattr(model, "seq_block", lambda S: None)
     hidden = chunked or tp is not None
@@ -725,12 +793,13 @@ def make_lm_loss_fn(
     return loss_fn
 
 
-def make_lm_eval_step(model) -> Callable[[torch.Tensor], torch.Tensor]:
+def make_lm_eval_step(model, microbatches: Optional[int] = None) -> Callable[[torch.Tensor], torch.Tensor]:
     """``eval_step(tokens) -> loss``: the training cross-entropy of
     :func:`make_lm_loss_fn` without gradients, without an update and without
     a MoE model's aux term (the reference's ``include_aux=False``), so
-    ``exp`` of it is a perplexity."""
-    loss_fn = make_lm_loss_fn(model, include_aux=False)
+    ``exp`` of it is a perplexity. On a pp mesh, the pipeline forward over
+    ``microbatches``."""
+    loss_fn = make_lm_loss_fn(model, include_aux=False, microbatches=microbatches)
 
     @torch.no_grad()
     def eval_step(tokens):
@@ -739,10 +808,17 @@ def make_lm_eval_step(model) -> Callable[[torch.Tensor], torch.Tensor]:
     return eval_step
 
 
-def make_lm_train_step(model, optimizer, grad_accum: int = 1, on_aux=None):
+def make_lm_train_step(model, optimizer, grad_accum: int = 1, on_aux=None,
+                       microbatches: Optional[int] = None, pp_schedule: str = "gpipe"):
     """``train_step(tokens) -> loss``: gradients of :func:`make_lm_loss_fn`
     and one optimizer update, in place (``on_aux`` as there, once a
     microbatch).
+
+    On a pp mesh (``model.pp``) the gradients come from the model's
+    ``pp_value_and_grad`` with ``pp_schedule`` "gpipe" (every microbatch's
+    graph kept, then the reverse ticks) or "1f1b" (a ring of 2·pp), over
+    ``microbatches`` (default 2·pp). JAX's checks, in its order: grad_accum
+    with pp, an unknown schedule, 1f1b without a pp axis.
 
     ``grad_accum=N`` splits the batch into N sequential microbatches: their
     gradients are summed in f32 buffers (whatever the parameter dtype),
@@ -752,8 +828,30 @@ def make_lm_train_step(model, optimizer, grad_accum: int = 1, on_aux=None):
     Over sp (``model.sp``) the gradients are then averaged over the sp
     ranks (:func:`mean_all_reduce_`) before the update: each sp rank holds
     the parameters whole and its own positions' part of the gradient."""
+    pp = getattr(model, "pp", None)
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    if grad_accum > 1 and pp is not None:
+        raise ValueError(
+            "grad_accum does not compose with a pp mesh — the pipeline "
+            "schedules already microbatch (use pp_microbatches)"
+        )
+    if pp_schedule not in ("gpipe", "1f1b"):
+        raise ValueError(f"pp_schedule={pp_schedule!r} not in ('gpipe', '1f1b')")
+    if pp_schedule == "1f1b" and pp is None:
+        raise ValueError(
+            "pp_schedule='1f1b' requested but the mesh has no pp axis "
+            f"(mesh axes: {dict(getattr(model, 'mesh_axes', {}))})"
+        )
+    if pp is not None:
+        mb = microbatches or 2 * pp.size
+
+        def pp_step(tokens):
+            loss = model.pp_value_and_grad(tokens, microbatches=mb, schedule=pp_schedule)
+            optimizer.step()
+            return loss.detach()
+
+        return pp_step
     loss_fn = make_lm_loss_fn(model, on_aux=on_aux)
     params = optimizer.params
     sp = getattr(model, "sp", None)

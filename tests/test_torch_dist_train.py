@@ -109,13 +109,14 @@ def port_runs(init_tree):
 
 # What a world of more than one process still refuses, naming its item:
 # sparse dispatch whose token groups would cross ranks (3c-2c), over fsdp and
-# over sp, and the pp axis (3c-3). Experts, ring and ulysses run in a world
+# over sp, and pp beside tp (3c-3b). Experts, ring and ulysses run in a world
 # since sequence and expert parallelism's slice (tests/test_torch_ep.py,
-# test_torch_sp_train.py).
+# test_torch_sp_train.py), pp since pipeline parallelism's
+# (tests/test_torch_pp_train.py).
 REFUSED = [
     dict(n_experts=4, moe_dispatch="sparse", moe_aux_weight=1e-2),
     dict(n_experts=4, moe_dispatch="sparse", moe_aux_weight=1e-2, mesh_spec="sp=2", attn_impl="ring"),
-    dict(mesh_spec="pp=2"),
+    dict(mesh_spec="pp=2,tp=2"),
 ]
 
 
@@ -123,19 +124,18 @@ def test_what_waits_for_item_3c_is_refused_in_a_world(port_runs):
     msgs = port_runs["refused"]
     assert len(msgs) == len(REFUSED)
     assert all("ROADMAP.md item 3c-2c" in m for m in msgs[:2]), msgs
-    assert "ROADMAP.md item 3c-3" in msgs[2]
+    assert "ROADMAP.md item 3c-3b" in msgs[2]
     assert "sparse" in msgs[0] and "sp=2" in msgs[1]
 
 
 @pytest.mark.parametrize(
     "spec,error",
     [("fsdp=2", ValueError), ("dp=2", ValueError), ("fsdp=-1", None), ("dp=1,fsdp=1", None),
-     ("dp=1@dcn,fsdp=-1", None), ("ep=1", None), ("sp=-1", None), ("pp=1", NotImplementedError)],
+     ("dp=1@dcn,fsdp=-1", None), ("ep=1", None), ("sp=-1", None), ("pp=1", None)],
 )
 def test_mesh_specs_in_a_world_of_one(spec, error):
-    """One process: a mesh of one rank runs as before (ep and sp too); a
-    spec that wants more ranks than the world has raises as JAX's does; pp
-    is refused whatever its size."""
+    """One process: a mesh of one rank runs as before (ep, sp and pp too); a
+    spec that wants more ranks than the world has raises as JAX's does."""
     if error is None:
         r = llama_train.run(device="cpu", mesh_spec=spec, log=lambda m: None,
                             **dict(KW, steps=1, batch_size=2, seq_len=8))

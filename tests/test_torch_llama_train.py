@@ -206,23 +206,27 @@ def test_run_cpu_flash_chunked_and_bf16_params():
 @pytest.mark.parametrize(
     "argv",
     [
-        ["--pp-schedule", "1f1b"],
-        ["--mesh", "pp=2"],
-        ["--attn-impl", "ring", "--mesh", "dp=1,pp=2"],
+        ["--pp-schedule", "1f1b", "--mesh", "pp=2,tp=2"],
+        ["--mesh", "pp=2,ep=2", "--experts", "4"],
+        ["--attn-impl", "ring", "--mesh", "dp=1,pp=2,sp=2"],
     ],
     ids=lambda a: a[0].lstrip("-"),
 )
 def test_main_refuses_unported_flags(argv):
-    """What waits for item 3c-3 is refused by name: the pipeline flags, the
-    pp mesh axis (before its size is resolved), also beside ring attention
-    (which runs since sequence parallelism's slice)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 3c-3"):
+    """What waits for item 3c-3b is refused by name: the pp mesh axis beside
+    tp, ep or sp, with the pipeline flags or ring attention, before the
+    sizes are resolved (pp alone runs since pipeline parallelism's slice)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 3c-3b"):
         llama_train.main(["--device", "cpu", "--steps", "1", "--seq-len", "8", *argv])
 
 
 def test_only_multi_gpu_flags_are_refused():
-    """``--mesh`` is accepted now; only the pipeline flags are refused."""
-    assert set(llama_train.REFUSED_FLAGS) == {"--pp-microbatches", "--pp-schedule"}
+    """No flag is refused any more: the pipeline flags reach the train
+    step, which refuses 1F1B without a pp axis with JAX's message."""
+    assert not hasattr(llama_train, "REFUSED_FLAGS")
+    with pytest.raises(ValueError, match="pp_schedule='1f1b' requested but the mesh has no pp axis"):
+        llama_train.main(["--device", "cpu", "--steps", "1", "--seq-len", "8", "--pp-schedule", "1f1b",
+                          "--pp-microbatches", "2"])
 
 
 @pytest.mark.parametrize(

@@ -97,19 +97,41 @@ def test_blocks_say_where_a_rank_part_sits():
     "spec,item", [("sp=2", "3c-2"), ("ep=2", "3c-2"), ("pp=2", "3c-3"), ("dp=1,pp=2", "3c-3")]
 )
 def test_sp_ep_and_pp_are_refused_naming_their_item(spec, item):
-    """Item 3c-2's axes (sp, ep) resolve since they were ported; 3c-3's pp
-    is still refused by name."""
-    if item == "3c-2":
-        assert llama_train.resolve_train_mesh(spec, 2) == mesh_lib.parse_mesh_spec(spec)
-    else:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
-            llama_train.resolve_train_mesh(spec, 2)
+    """Item 3c-2's axes (sp, ep) and 3c-3's pp resolve since they were
+    ported; pp beside tp, ep or sp is refused naming item 3c-3b, before the
+    sizes are resolved."""
+    assert llama_train.resolve_train_mesh(spec, 2) == mesh_lib.parse_mesh_spec(spec)
+    if item == "3c-3":
+        for beside in ("tp=2", "ep=2", "sp=-1"):
+            with pytest.raises(NotImplementedError, match="ROADMAP.md item 3c-3b"):
+                llama_train.resolve_train_mesh(f"{spec},{beside}", 2)
+        assert llama_train.resolve_train_mesh(f"{spec},tp=1", 2)["pp"] == 2
     assert llama_train.resolve_train_mesh("fsdp=2,tp=2", 4) == {"fsdp": 2, "tp": 2}
 
 
 def test_the_pipeline_flags_are_refused_naming_3c3():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 3c-3"):
-        llama_train.main(["--device", "cpu", "--pp-microbatches", "4"])
+    """The pipeline flags run now (tests/test_torch_pp_train.py); beside a
+    tp axis they are refused naming item 3c-3b, as the Llama refuses a pp
+    stage beside tp."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 3c-3b"):
+        llama_train.main(["--device", "cpu", "--pp-microbatches", "4", "--mesh", "pp=2,tp=2"])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 3c-3b"):
+        port_llama.Llama(port_llama.llama_tiny(), tp=TensorParallel(2, 0),
+                         mesh=_FakeMesh({"pp": 2, "tp": 2}))
+
+
+class _FakeMesh:
+    """The sizes and this rank's coordinates (all 0) of a mesh, as the
+    model's axes read them."""
+
+    def __init__(self, sizes):
+        import torch
+
+        self.mesh_dim_names = tuple(sizes)
+        self.mesh = torch.zeros(tuple(sizes.values()))
+
+    def get_local_rank(self, axis):
+        return 0
 
 
 def test_a_tp_that_does_not_divide_is_refused_by_name():

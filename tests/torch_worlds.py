@@ -122,7 +122,10 @@ def planted(name):
       ``s`` without the shift by ``exp(m - M)``;
     - ``"unreduced_rows"``: adafactor's row statistics (the means over a
       factored leaf's largest dim) left unreduced over the axes that split
-      that dim."""
+      that dim;
+    - ``"pp_shifted_cotangent"``: each pipeline stage backwarding a
+      microbatch's stored graph with the previous microbatch's cotangent
+      (the first with its own)."""
     import contextlib
 
     @contextlib.contextmanager
@@ -146,6 +149,15 @@ def planted(name):
                 M = collectives.pmax(m, "tp", tp.mesh)
                 lse = M + torch.log(collectives.psum(s, "tp", tp.mesh))
                 return lse, lse - collectives.psum(lab_logit, "tp", tp.mesh)
+        elif name == "pp_shifted_cotangent":
+            from pytorch_operator_tpu_torch.parallel import pipeline
+
+            where, attr = pipeline._Stage, "backward"
+            sound_backward = pipeline._Stage.backward
+
+            def fault(self, j, cot):
+                prev, self.prev_cot = getattr(self, "prev_cot", None), cot
+                return sound_backward(self, j, cot if prev is None else prev)
         elif name == "unreduced_rows":
             where, attr = trainer.Adafactor, "_mean"
             sound = trainer.Adafactor._mean
@@ -384,16 +396,21 @@ def rank_entry_devices(world, eval_file: str, spool_root: str) -> dict:
 
 
 def _blocks_out(tree):
-    """``tree`` with each ``sharding.Block`` as a dict of its offsets, whole
-    shape, writer flag and data (numpy, f32 for bf16), for the test process
-    to assemble the whole from the ranks' parts."""
-    from pytorch_operator_tpu_torch.parallel.sharding import Block
+    """``tree`` with each ``sharding.Block`` (and each DTensor, as its
+    block) as a dict of its offsets, whole shape, writer flag and data
+    (numpy, f32 for bf16), for the test process to assemble the whole from
+    the ranks' parts."""
+    from torch.distributed.tensor import DTensor
 
+    from pytorch_operator_tpu_torch.parallel.sharding import Block, Elsewhere
+
+    if isinstance(tree, DTensor):
+        tree = Block.of(tree)
     if isinstance(tree, Block):
         return {"offsets": tuple(tree.offsets), "shape": tuple(tree.shape), "writer": tree.writer,
                 "data": tree.data.detach().float().numpy().copy()}
-    if isinstance(tree, dict):
-        return {k: _blocks_out(v) for k, v in tree.items()}
+    if isinstance(tree, dict):  # another pp stage's tensors left out
+        return {k: _blocks_out(v) for k, v in tree.items() if not isinstance(v, Elsewhere)}
     return tree
 
 
@@ -477,12 +494,12 @@ def rank_vocab_parallel(world, h, w, labels, ct, chunk: int, plants: list) -> di
 def rank_restore_layout(world, root: str, step: int, mesh_spec: str, optimizer: str,
                         cfg_over=None) -> dict:
     """Restore step ``step`` of ``root`` (the tiny Llama, with the config's
-    ``cfg_over``, and its ``optimizer`` state, written under any layout)
-    into this world's ``mesh_spec`` layout, built as ``llama_train`` builds
-    it. Every record
-    read is counted: the elements copied out of the ranks' files (a record
-    memory-mapped, so only those are read). Returns the restored parameters
-    and optimizer state as blocks, and the elements read."""
+    ``cfg_over``, and its ``optimizer`` state, written under any layout,
+    one process's included) into this world's ``mesh_spec`` layout, built as
+    ``llama_train`` builds it. Every record read is counted: the elements
+    copied out of the ranks' files, or out of a single-process step's whole
+    tensors (memory-mapped, so only those are read). Returns the restored
+    parameters and optimizer state as blocks, and the elements read."""
     import torch
 
     from pytorch_operator_tpu_torch.checkpoint import CheckpointManager, manager
@@ -510,11 +527,21 @@ def rank_restore_layout(world, root: str, step: int, mesh_spec: str, optimizer: 
             read.append(part.numel())
             return part
 
+    class WholeSpy(torch.Tensor):
+        """A single-process step's whole tensor, counting likewise."""
+
+        def __getitem__(self, idx):
+            part = torch.Tensor.__getitem__(self, idx)
+            read.append(part.numel())
+            return part.as_subclass(torch.Tensor)
+
     def spy(tree):
         if isinstance(tree, dict) and manager.SHARD in tree and tree[manager.SHARD] is not None:
             return {**tree, manager.SHARD: Spy(tree[manager.SHARD])}
         if isinstance(tree, dict):
             return {k: spy(v) for k, v in tree.items()}
+        if isinstance(tree, torch.Tensor) and tree.dim():
+            return tree.as_subclass(WholeSpy)
         return tree
 
     real_load = torch.load
@@ -530,6 +557,17 @@ def rank_restore_layout(world, root: str, step: int, mesh_spec: str, optimizer: 
     opt.load_state_dict(restored["opt_state"])
     return {"params": _blocks_out(model_blocks(model)), "opt": _blocks_out(opt.state_dict()),
             "read": sum(read)}
+
+
+def rank_restore_refused(world, root: str, step: int, mesh_spec: str, cfg_over=None) -> str:
+    """The message of the ValueError that restoring step ``step`` of
+    ``root`` into this world's ``mesh_spec`` layout (AdamW,
+    :func:`rank_restore_layout`) must raise."""
+    try:
+        rank_restore_layout(world, root, step, mesh_spec, "adamw", cfg_over)
+    except ValueError as e:
+        return str(e)
+    raise AssertionError(f"step {step} of {root} restored into {mesh_spec}")
 
 
 def rank_attention(world, cases: list) -> list:
@@ -612,6 +650,149 @@ def rank_moe(world, spec: str, cases: list) -> list:
         out.append({"out": y.detach().numpy(), "x": x.grad.numpy(), "block": (e0, en, f0, fn),
                     **{k: t.grad.numpy() for k, t in params.items()}})
     return out
+
+
+def _toy_stage(params, x):
+    """``tests/test_pipeline.py``'s stage: x + tanh(x @ w + b)."""
+    import torch
+
+    return x + torch.tanh(x @ params["w"] + params["b"])
+
+
+def _toy_loss(lp, y, tgt):
+    """``tests/test_pipeline.py``'s tail: a linear head, squared error."""
+    return ((y @ lp["head"] - tgt) ** 2).mean()
+
+
+def _sharded_toy_loss(kp: int, mesh):
+    """``tests/test_pipeline.py``'s column-chunked tail: each stage's
+    ``kp`` head columns against its columns of the targets, the partial
+    sums combined over pp (``tp_leave``: the sum, its gradient passed to
+    each stage's part)."""
+    from pytorch_operator_tpu_torch.parallel.collectives import axis_index, tp_leave
+
+    def loss(lp, y, tgt):
+        off = axis_index("pp", mesh) * kp
+        partial = ((y @ lp["head"] - tgt[:, off:off + kp]) ** 2).sum()
+        return tp_leave(partial, "pp", mesh) / (tgt.shape[0] * tgt.shape[1])
+
+    return loss
+
+
+def rank_pipeline(world, cases: list) -> list:
+    """Each case of ``cases`` through the port's ``parallel/pipeline.py`` on
+    a ``pp`` mesh of the whole world: ``kind`` "apply" (``pipeline_apply``),
+    "grad" (``pipeline_value_and_grad``, ``schedule``, ``backward``,
+    ``sharded``), or "error" (the message of the ValueError a call with
+    ``call`` raises). The stacked parameters come whole (``layout``
+    "stacked") or as this rank's slice with a leading axis of 1 ("local").
+    Each grad case also reports the most tensors autograd kept saved at once
+    (``saved_max``, counted through ``saved_tensors_hooks``), those still
+    saved after the call (``saved_after``), and the tensors one forward of
+    this stage on one microbatch saves (``per_mb``) and one call of the
+    last stage's loss (``per_tail``; None with ``sharded``)."""
+    import torch
+
+    from pytorch_operator_tpu_torch.parallel import pipeline
+    from pytorch_operator_tpu_torch.parallel.mesh import make_mesh
+
+    n, r = world.num_processes, world.process_id
+    mesh = make_mesh(f"pp={n}", "cpu")
+
+    def tensors(tree, local):
+        return {k: torch.tensor(v[r:r + 1] if local else v, requires_grad=True) for k, v in tree.items()}
+
+    out = []
+    for case in cases:
+        local = case.get("layout") == "local"
+        params = tensors(case["params"], local)
+        x = torch.tensor(case["x"], requires_grad=False)
+        M = case["M"]
+        if case["kind"] == "apply":
+            y = pipeline.pipeline_apply(_toy_stage, params, x, mesh=mesh, microbatches=M)
+            out.append({"y": y.numpy()})
+            continue
+        sharded = case.get("sharded", False)
+        lp = tensors(case["lp"], local and sharded)
+        loss_fn = _sharded_toy_loss(case["kp"], mesh) if sharded else _toy_loss
+        kw = dict(mesh=mesh, microbatches=M, schedule=case.get("schedule", "1f1b"),
+                  sharded_loss=sharded, backward=case.get("backward", "recompute"))
+        if case["kind"] == "error":
+            try:
+                if case["call"] == "apply":
+                    pipeline.pipeline_apply(_toy_stage, params, x, mesh=mesh, microbatches=M)
+                else:
+                    pipeline.pipeline_value_and_grad(_toy_stage, loss_fn, params, lp, x,
+                                                     torch.tensor(case["tgt"]), **kw)
+            except ValueError as e:
+                out.append(str(e))
+                continue
+            raise AssertionError(f"case {case} did not raise")
+        live, peak = [0], [0]
+
+        class Saved:
+            def __init__(self, t):
+                self.t = t
+                live[0] += 1
+                peak[0] = max(peak[0], live[0])
+
+            def __del__(self):
+                live[0] -= 1
+
+        def saved_by(fn):
+            live[0] = peak[0] = 0
+            with torch.autograd.graph.saved_tensors_hooks(Saved, lambda h: h.t), torch.enable_grad():
+                fn()
+            return peak[0]
+
+        mb = x.shape[0] // M
+        act = x[:mb].clone().requires_grad_()
+        per_mb = saved_by(lambda: _toy_stage({k: v[0 if local else r] for k, v in params.items()}, act))
+        per_tail = None if sharded else saved_by(
+            lambda: _toy_loss(lp, act, torch.tensor(case["tgt"][:mb])))
+        live[0] = peak[0] = 0
+        with torch.autograd.graph.saved_tensors_hooks(Saved, lambda h: h.t):
+            loss, (dsp, dlp, dx) = pipeline.pipeline_value_and_grad(
+                _toy_stage, loss_fn, params, lp, x, torch.tensor(case["tgt"]), **kw)
+        out.append({
+            "loss": float(loss), "dsp": {k: v.numpy() for k, v in dsp.items()},
+            "dlp": None if dlp is None else {k: v.numpy() for k, v in dlp.items()},
+            "dx": None if dx is None else dx.numpy(),
+            "saved_max": peak[0], "saved_after": live[0], "per_mb": per_mb, "per_tail": per_tail,
+        })
+    return out
+
+
+def rank_pp_vocab(world, vocab: int, steps: int, M: int) -> dict:
+    """A tiny Llama (2 layers, ``vocab``) as one pp stage of the world's
+    ``pp=n`` mesh, seed-0 init, ``steps`` 1F1B steps of AdamW (lr 1e-3) over
+    ``M`` microbatches of the synthetic bigram batch of each step: the
+    losses, the warnings raised, this stage's head shape and the whole
+    trained parameters."""
+    import warnings
+
+    import torch
+
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+    from pytorch_operator_tpu_torch.parallel.mesh import make_mesh
+    from pytorch_operator_tpu_torch.parallel.sharding import full_state_dict
+    from pytorch_operator_tpu_torch.workloads import trainer
+    from pytorch_operator_tpu_torch.workloads.llama_train import synthetic_bigram_batch
+
+    mesh = make_mesh(f"pp={world.num_processes}", "cpu")
+    model = llama_lib.Llama(llama_lib.llama_tiny(vocab_size=vocab), mesh=mesh)
+    model.init_weights(torch.Generator().manual_seed(0))
+    opt = trainer.make_optimizer(model, 1e-3)
+    step = trainer.make_lm_train_step(model, opt, microbatches=M, pp_schedule="1f1b")
+    losses = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for i in range(steps):
+            tokens = torch.from_numpy(synthetic_bigram_batch(8, 16, vocab, i)).long()
+            losses.append(float(step(tokens)))
+    return {"losses": losses, "warnings": [str(w.message) for w in caught],
+            "head": None if model.lm_head is None else tuple(model.lm_head.weight.shape),
+            "params": {k: v.numpy() for k, v in full_state_dict(model).items()}}
 
 
 # Runs the JAX package's llama_train.run of each case in a process whose XLA
