@@ -1,21 +1,23 @@
 """Pack a dataset into the native loader's array-file format — the port of
-``pytorch_operator_tpu/data/pack.py`` (``--dataset text`` and ``synthetic``).
+``pytorch_operator_tpu/data/pack.py``.
 
 Usage::
 
+    python -m pytorch_operator_tpu_torch.data.pack --out digits.bin --dataset digits
     python -m pytorch_operator_tpu_torch.data.pack --dataset text \\
         --input corpus.txt --seq-len 512 --out corpus.bin
     python -m pytorch_operator_tpu_torch.data.pack --dataset synthetic \\
         --n 4096 --height 32 --width 32 --classes 10 --out syn.bin
 
-The output is ``<out>`` plus a ``<out>.meta.json`` sidecar. ``text``: int32
-byte-level token records (vocab 256) of ``--seq-len`` tokens, the data of
-``llama_train --data-file``/``--eval-file``. ``synthetic``: ``--n`` records
-of an f32 ``x`` image (H×W×3) and an int32 ``y`` label from
-``workloads.datasets.synthetic_images`` (the same bytes as the JAX tool's for
-the same arguments), the data of ``resnet_bench``/``vit_bench
---data-file``. ``--dataset digits`` needs scikit-learn and is refused
-(:data:`REFUSED_DATASETS`).
+The output is ``<out>`` plus a ``<out>.meta.json`` sidecar, the same bytes
+as the JAX tool's for the same arguments. ``digits``: the ``--split``
+(train or test) of ``workloads.datasets.digits``, an f32 ``x`` image
+(8×8×1) and an int32 ``y`` label a record, the data of ``mnist_train
+--data-file``. ``text``: int32 byte-level token records (vocab 256) of
+``--seq-len`` tokens, the data of ``llama_train --data-file``/
+``--eval-file``. ``synthetic``: ``--n`` records of an f32 ``x`` image
+(H×W×3) and an int32 ``y`` label from ``workloads.datasets.synthetic_images``,
+the data of ``resnet_bench``/``vit_bench --data-file``.
 """
 
 from __future__ import annotations
@@ -28,20 +30,12 @@ import numpy as np
 
 from .array_file import pack_arrays
 
-# Datasets of the JAX tool that the port does not pack yet, with the ROADMAP
-# item each waits for.
-REFUSED_DATASETS = {
-    "digits": "Queue 1 item 2, the MNIST slice (scikit-learn's digits)",
-}
-
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--out", required=True)
-    p.add_argument(
-        "--dataset", choices=("digits", "synthetic", "text"), default="digits",
-        help="text and synthetic are ported; digits is refused",
-    )
+    p.add_argument("--dataset", choices=("digits", "synthetic", "text"), default="digits")
+    p.add_argument("--split", default="train", choices=("train", "test"), help="digits: the split")
     p.add_argument("--n", type=int, default=4096, help="synthetic: record count")
     p.add_argument("--height", type=int, default=32)
     p.add_argument("--width", type=int, default=32)
@@ -56,16 +50,14 @@ def main(argv=None) -> int:
         help="text: tokens per record (byte-level, vocab 256)",
     )
     args = p.parse_args(argv)
-    if args.dataset in REFUSED_DATASETS:
-        raise NotImplementedError(
-            f"--dataset {args.dataset} is not ported yet "
-            f"(ROADMAP.md: {REFUSED_DATASETS[args.dataset]})"
-        )
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-    if args.dataset == "synthetic":
-        from ..workloads.datasets import synthetic_images
+    if args.dataset in ("digits", "synthetic"):
+        from ..workloads.datasets import digits, synthetic_images
 
-        x, y = synthetic_images(args.n, args.height, args.width, args.classes, seed=args.seed)
+        if args.dataset == "digits":
+            x, y = digits(args.split)
+        else:
+            x, y = synthetic_images(args.n, args.height, args.width, args.classes, seed=args.seed)
         meta = pack_arrays(args.out, {"x": x, "y": y})
         print(f"packed {meta.n_records} records ({meta.record_bytes} B each) -> {args.out}")
         return 0

@@ -1,6 +1,8 @@
 """Load a JAX param tree into the port's models: the Llama
-(:func:`params_from_jax`), ResNet (:func:`resnet_params_from_jax`) and ViT
-(:func:`vit_params_from_jax`, at the end of the module).
+(:func:`params_from_jax`), ResNet (:func:`resnet_params_from_jax`), ViT
+(:func:`vit_params_from_jax`), the digit CNN (:func:`mnist_params_from_jax`)
+and BERT (:func:`bert_params_from_jax`), the last four at the end of the
+module.
 
 The JAX package's ``Llama.init`` yields nested dicts whose layer leaves are
 stacked ``[n_layers, ...]`` (flax ``nn.scan``) and whose matmul kernels keep
@@ -318,4 +320,44 @@ def vit_params_from_jax(params) -> Dict[str, torch.Tensor]:
             linear(f"layers.{i}.{n}", layers[n], i)
     norm("final_norm", params["final_norm"])
     linear("head", params["head"])
+    return sd
+
+
+def mnist_params_from_jax(params) -> Dict[str, torch.Tensor]:
+    """The port ``DigitCNN``'s state dict (f32) for the JAX ``DigitCNN``'s
+    ``params`` tree (``Conv_0``, ``Conv_1``, ``Dense_0``, ``Dense_1``):
+    conv kernels HWIO become OIHW, Dense kernels ``[in, out]`` become
+    ``[out, in]``. ``Dense_0``'s rows keep flax's (h, w, c) flatten order,
+    which the port's forward follows."""
+    return resnet_params_from_jax(params, {})
+
+
+def bert_params_from_jax(params) -> Dict[str, torch.Tensor]:
+    """The state dict (f32) of the port's ``BertClassifier`` or ``BertMLM``
+    for the JAX model's ``params`` tree. flax's ``Partitioned`` leaves are
+    unboxed (``embed_ln``, ``mlm_ln`` and the classifier's bias are raw);
+    the ``layers`` leaves, stacked ``[L, ...]`` by ``nn.scan``, become
+    ``layers.<i>``; a ``DenseGeneral`` kernel ``[in, *out]`` becomes the
+    ``[prod(out), in]`` weight (q, k and v ``[d, H, D]`` → ``[H·D, d]``) and
+    its bias ``[*out]`` a vector; ``embedding`` is an ``nn.Embedding``'s
+    ``weight``, LayerNorm ``scale`` its ``weight``."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(path, a: np.ndarray) -> None:
+        leaf = path[-1]
+        if leaf == "kernel":
+            a = a.reshape(a.shape[0], -1).T
+        elif leaf == "bias":
+            a = a.reshape(-1)
+        port = {"embedding": "weight", "kernel": "weight", "scale": "weight"}.get(leaf, leaf)
+        sd[".".join(path[:-1] + (port,))] = torch.from_numpy(np.ascontiguousarray(a))
+
+    for path, leaf in _walk(params):
+        a = _np32(leaf)
+        if "layers" in path:
+            at = path.index("layers") + 1
+            for i in range(a.shape[0]):
+                put(path[:at] + (str(i),) + path[at:], a[i])
+        else:
+            put(path, a)
     return sd

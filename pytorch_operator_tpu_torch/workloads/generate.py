@@ -212,7 +212,8 @@ def _restore_params(restore: str, like, config: str):
     for name in sorted(expected.keys() | got.keys()):
         if expected.get(name) != got.get(name):
             raise ValueError(
-                f"checkpoint params don't match --config {config}: first mismatch at "
+                f"checkpoint params don't match --config {config} at {like.cfg.n_layers} "
+                f"layers: first mismatch at "
                 f"{name}: checkpoint has {got.get(name, 'nothing')}, config expects "
                 f"{expected.get(name, 'nothing')}"
             )
@@ -222,6 +223,7 @@ def _restore_params(restore: str, like, config: str):
 def run(
     *,
     config: str = "tiny",
+    n_layers: int | None = None,
     batch_size: int = 8,
     prompt_len: int = 64,
     max_new_tokens: int = 64,
@@ -245,6 +247,7 @@ def run(
         max_decode_len=max_decode_len or (prompt_len + max_new_tokens),
         quantize=quantize,
         kv_quantize=kv_quantize,
+        **({} if n_layers is None else {"n_layers": n_layers}),
     )
     log(
         f"[generate] config={config} d_model={cfg.d_model} "
@@ -354,6 +357,11 @@ def run(
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--config", choices=sorted(llama_lib.CONFIGS), default="tiny")
+    p.add_argument(
+        "--layers", type=int, default=None, dest="n_layers",
+        help="the preset's depth cut to this many layers (as llama_train --layers; "
+        "a checkpoint must have been trained at the same depth)",
+    )
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--prompt-len", type=int, default=64)
     p.add_argument("--max-new-tokens", type=int, default=64)
@@ -412,6 +420,7 @@ def main(argv=None) -> int:
     world = rendezvous.initialize_from_env(device=args.device)
     result = run(
         config=args.config,
+        n_layers=args.n_layers,
         batch_size=args.batch_size,
         prompt_len=args.prompt_len,
         max_new_tokens=args.max_new_tokens,

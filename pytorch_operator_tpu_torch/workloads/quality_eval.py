@@ -81,6 +81,7 @@ def eval_serving_stream(cfg, params, tokens, *, chunk: int = 128):
 def run(
     *,
     config: str = "tiny",
+    n_layers: int | None = None,
     restore: str,
     eval_file: str,
     eval_batches: int = 2,
@@ -119,7 +120,8 @@ def run(
     L = max(S, drift_prompt + drift_tokens)
 
     cfg_q = getattr(llama_lib, llama_lib.CONFIGS[config])(
-        decode=True, max_decode_len=L, quantize="int8"
+        decode=True, max_decode_len=L, quantize="int8",
+        **({} if n_layers is None else {"n_layers": n_layers}),
     )
     # One restore, one set of f32 weights: the bf16 control cast from them
     # and the int8 model quantized from them, as JAX's quantize_tree of the
@@ -195,6 +197,11 @@ def run(
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--config", choices=sorted(llama_lib.CONFIGS), default="tiny")
+    p.add_argument(
+        "--layers", type=int, default=None, dest="n_layers",
+        help="the preset's depth cut to this many layers (as llama_train --layers; "
+        "a checkpoint must have been trained at the same depth)",
+    )
     p.add_argument("--restore", required=True, metavar="CKPT_DIR")
     p.add_argument("--eval-file", required=True)
     p.add_argument("--eval-batches", type=int, default=2)
@@ -212,6 +219,7 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     result = run(
         config=args.config,
+        n_layers=args.n_layers,
         restore=args.restore,
         eval_file=args.eval_file,
         eval_batches=args.eval_batches,

@@ -47,6 +47,7 @@ from ..runtime.device import device_name, world_device
 def run(
     *,
     config: str = "tiny",
+    n_layers: int | None = None,
     spool_dir: str,
     slots: int = 8,
     chunk: int = 64,
@@ -82,9 +83,10 @@ def run(
     dev = world_device(device)
     cfg = getattr(llama_lib, llama_lib.CONFIGS[config])(
         decode=True, max_decode_len=max_decode_len, quantize=quantize, kv_quantize=kv_quantize,
+        **({} if n_layers is None else {"n_layers": n_layers}),
     )
     log(
-        f"[serve] config={config} slots={slots} chunk={chunk} "
+        f"[serve] config={config} layers={cfg.n_layers} slots={slots} chunk={chunk} "
         f"block={block} L={max_decode_len} quantize={quantize} "
         f"kv_quantize={kv_quantize} spool={spool_dir} ({device_name(dev)})"
     )
@@ -277,6 +279,11 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--config", choices=sorted(llama_lib.CONFIGS), default="tiny")
     p.add_argument(
+        "--layers", type=int, default=None, dest="n_layers",
+        help="the preset's depth cut to this many layers (as llama_train --layers; "
+        "a checkpoint must have been trained at the same depth)",
+    )
+    p.add_argument(
         "--spool",
         default=os.environ.get("TPUJOB_SPOOL_DIR") or None,
         help="spool directory (requests/ claimed/ responses/); defaults to "
@@ -333,6 +340,7 @@ def main(argv=None) -> int:
     world = rendezvous.initialize_from_env(device=args.device)
     stats = run(
         config=args.config,
+        n_layers=args.n_layers,
         spool_dir=args.spool,
         slots=args.slots,
         chunk=args.chunk,

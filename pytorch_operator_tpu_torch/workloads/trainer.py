@@ -903,6 +903,12 @@ class ProgressHeartbeat:
         self._step = start_step
         self._excl = 0.0
 
+    def reset(self, step: int) -> None:
+        """Restart the interval clock at ``step`` (after the first step: a
+        clock started before the data load and the kernels' build would
+        report that wait as a near-zero rate)."""
+        self._t, self._step, self._excl = time.time(), step, 0.0
+
     def exclude(self, dt: float) -> None:
         self._excl += dt
 

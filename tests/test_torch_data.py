@@ -154,10 +154,12 @@ def test_pack_text_equals_jax_and_refuses_image_datasets(tmp_path):
     assert (tmp_path / "p.bin").read_bytes() == (tmp_path / "j.bin").read_bytes()
     meta = port_array_file.read_meta(tmp_path / "p.bin")
     assert meta.n_records == 7 and meta.fields[0].shape == (100,)
-    # digits needs scikit-learn (the MNIST slice); synthetic is ported and
-    # writes the JAX tool's bytes.
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_pack.main(["--dataset", "digits", "--out", str(tmp_path / "x.bin")])
+    # digits (the port's own copy of scikit-learn's data file) and synthetic
+    # write the JAX tool's bytes.
+    digits = ["--dataset", "digits", "--split", "test"]
+    assert port_pack.main(digits + ["--out", str(tmp_path / "pd.bin")]) == 0
+    assert jax_pack.main(digits + ["--out", str(tmp_path / "jd.bin")]) == 0
+    assert (tmp_path / "pd.bin").read_bytes() == (tmp_path / "jd.bin").read_bytes()
     syn = ["--dataset", "synthetic", "--n", "6", "--height", "4", "--width", "6", "--classes", "5"]
     assert port_pack.main(syn + ["--out", str(tmp_path / "ps.bin")]) == 0
     assert jax_pack.main(syn + ["--out", str(tmp_path / "js.bin")]) == 0

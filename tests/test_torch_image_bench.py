@@ -8,17 +8,12 @@ CPU.
   ``--classes``, a bad label past the first chunk, a file smaller than the
   batch) and of ViT (non-square images), each before any batch is drawn.
 - ``trainer.timed_windows``: JAX's protocol, call for call.
-- ``resnet_bench``, ``vit_bench`` and ``resnet_ab``: the JAX result keys
-  (plus the port's ``device``, ``peak_mem_bytes``, ``losses`` and ResNet's
-  ``memory_format``), losses that fall, the file path inline and prefetched
-  with equal losses step for step.
-- ``latency_probe`` and the three ``examples/*-torch.yaml`` jobs under the
-  unchanged supervisor: each job succeeds; the probe's
-  ``schedule_to_first_step_latency`` and ``latency_phases`` record.
-"""
 
-import json
-from pathlib import Path
+The benches' runs are in ``tests/test_torch_image_bench_resnet.py`` and
+``tests/test_torch_image_bench_vit.py``, the examples under the supervisor
+in ``tests/test_torch_image_examples.py``: one file each, so that no file
+holds a worker of a ``--dist loadfile`` run much longer than the others.
+"""
 
 import numpy as np
 import pytest
@@ -32,9 +27,8 @@ from pytorch_operator_tpu.workloads import datasets as jax_datasets
 from pytorch_operator_tpu.workloads import trainer as jax_trainer
 from pytorch_operator_tpu_torch.data import pack as port_pack
 from pytorch_operator_tpu_torch.workloads import datasets as port_datasets
-from pytorch_operator_tpu_torch.workloads import resnet_ab, resnet_bench, trainer, vit_bench
+from pytorch_operator_tpu_torch.workloads import resnet_bench, trainer, vit_bench
 
-ROOT = Path(__file__).resolve().parents[1]
 SMALL = dict(batch_size=8, image_size=32, classes=10, steps=2, warmup=1, device="cpu",
              log=lambda m: None)
 
@@ -45,8 +39,6 @@ def test_synthetic_images_equal_jax(args):
     for got, want in zip(port_datasets.synthetic_images(*shape, seed=seed),
                          jax_datasets.synthetic_images(*shape, seed=seed)):
         assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
-    with pytest.raises(NotImplementedError, match="MNIST"):
-        port_datasets.digits()
 
 
 def test_pack_synthetic_equals_jax(tmp_path):
@@ -172,110 +164,3 @@ def test_chunk_plan_follows_jax():
         chunk = min(30, max(steps, 1))
         want = (chunk, math.ceil(max(steps, 1) / chunk) * chunk, max(1, round(max(warmup, 1) / chunk)))
         assert trainer.chunk_plan(steps, warmup) == want
-
-
-@pytest.fixture(scope="module")
-def jax_results():
-    from pytorch_operator_tpu.workloads import resnet_ab as jax_ab
-    from pytorch_operator_tpu.workloads import resnet_bench as jax_resnet
-    from pytorch_operator_tpu.workloads import vit_bench as jax_vit
-
-    kw = dict(batch_size=8, image_size=32, classes=10, steps=1, warmup=1, log=lambda m: None)
-    return {
-        "resnet": jax_resnet.run_benchmark(depth=18, **kw),
-        "vit": jax_vit.run_benchmark(variant="s16", **kw),
-        "ab": jax_ab.run_ab(variant_names=["plain", "s2d@16"], depth=18, batch_size=8,
-                            image_size=32, steps=1, rounds=1, log=lambda m: None),
-    }
-
-
-def test_resnet_bench_result_keys_and_training(jax_results):
-    r = resnet_bench.run_benchmark(depth=18, windows=2, **dict(SMALL, steps=4))
-    want = jax_results["resnet"]
-    assert set(r) - set(want) == {"device", "peak_mem_bytes", "memory_format", "losses"}
-    assert set(want) <= set(r)
-    assert r["metric"] == want["metric"] == "resnet18_train_images_per_sec_per_chip"
-    assert (r["global_batch"], r["devices"], r["input"], r["device"]) == (8, 1, "synthetic", "cpu")
-    assert np.isfinite(r["final_loss"]) and r["final_loss"] < np.log(10)
-    assert r["value"] > 0 and r["min_window_images_per_sec_per_chip"] > 0
-
-
-def test_resnet_bench_file_inline_equals_prefetched(tmp_path):
-    f = _packed(tmp_path, n=32)
-    runs = [resnet_bench.run_benchmark(depth=18, data_file=str(f), prefetch=p, **dict(SMALL, steps=3))
-            for p in (0, 2)]
-    assert runs[0]["input"] == "file" and runs[0]["losses"] == runs[1]["losses"]
-    assert len(runs[0]["losses"]) == 3 + 3  # one warm chunk of 3, one window of 3
-
-
-def test_vit_bench_result_keys_and_training(jax_results, tmp_path):
-    want = jax_results["vit"]
-    for attn in ("dense", "flash"):
-        r = vit_bench.run_benchmark(variant="s16", attn_impl=attn, **dict(SMALL, steps=4))
-        assert set(r) - set(want) == {"device", "peak_mem_bytes", "losses"} and set(want) <= set(r)
-        assert r["metric"] == want["metric"] and r["params_m"] == want["params_m"]
-        assert np.isfinite(r["final_loss"]) and r["final_loss"] < np.log(10)
-    f = _packed(tmp_path, n=16)
-    r = vit_bench.run_benchmark(variant="s16", data_file=str(f), **dict(SMALL, image_size=None))
-    assert r["input"] == "file"
-    with pytest.raises(ValueError, match="no effect without --remat"):
-        vit_bench.run_benchmark(variant="s16", remat_policy="dots", **SMALL)
-
-
-def test_resnet_ab_result_follows_jax(jax_results):
-    """Per variant the JAX fields, a batch override, and the first step's
-    loss, equal for the plain and space-to-depth stems (one function, one
-    seed)."""
-    r = resnet_ab.run_ab(variant_names=["plain", "s2d@16"], depth=18, batch_size=8, image_size=32,
-                         steps=2, rounds=2, device="cpu", log=lambda m: None)
-    want = jax_results["ab"]
-    assert set(r) - set(want) == {"device"} and set(want) <= set(r)
-    for spec in ("plain", "s2d@16"):
-        assert set(r[spec]) - set(want[spec]) == {"first_loss"} and set(want[spec]) <= set(r[spec])
-    assert (r["plain"]["batch"], r["s2d@16"]["batch"], r["plain"]["vs_first"]) == (8, 16, 1.0)
-    same = resnet_ab.run_ab(variant_names=["plain", "s2d"], depth=18, batch_size=8, image_size=32,
-                            steps=1, rounds=1, device="cpu", log=lambda m: None)
-    assert same["s2d"]["first_loss"] == pytest.approx(same["plain"]["first_loss"], abs=2e-3)
-    with pytest.raises(SystemExit, match="unknown variant"):
-        resnet_ab.parse_variant("nope@8")
-
-
-def _supervise(tmp_path, job):
-    from pytorch_operator_tpu.controller import Supervisor
-    from pytorch_operator_tpu.controller.progress import job_status_dir
-    from pytorch_operator_tpu.controller.store import job_key
-
-    job.spec.port = None
-    sup = Supervisor(state_dir=tmp_path / "state", poll_interval=0.1)
-    try:
-        done = sup.run(job, timeout=240)
-    finally:
-        sup.shutdown()
-    name = job.metadata.name
-    log = (tmp_path / "state" / "logs" / f"default_{name}-master-0.log").read_text()
-    status = job_status_dir(tmp_path / "state" / "status", job_key(done)) / "master-0.jsonl"
-    records = [json.loads(x) for x in status.read_text().splitlines()] if status.exists() else []
-    return done, log, records
-
-
-@pytest.mark.parametrize("example", ["resnet-torch", "vit-torch", "latency-probe-torch"])
-def test_example_runs_under_the_supervisor(tmp_path, example):
-    """Each new example, as written (on the host: cpu_devices), runs to
-    success under the unchanged supervisor and reports its first step."""
-    from pytorch_operator_tpu.api import load_job
-    from pytorch_operator_tpu.controller.supervisor import schedule_to_first_step_latency
-
-    done, log, records = _supervise(tmp_path, load_job(ROOT / "examples" / f"{example}.yaml"))
-    assert done.is_succeeded(), log[-3000:]
-    assert schedule_to_first_step_latency(done) is not None
-    events = {r["event"] for r in records}
-    assert "first_step" in events, records
-    if example == "latency-probe-torch":
-        (phases,) = [r for r in records if r["event"] == "latency_phases"]
-        assert set(phases) - {"event", "ts"} == {
-            "main_entry", "rendezvous_s", "import_torch_s", "client_init_s", "first_exec_s"}
-        assert "first step done on cpu" in log
-    else:
-        result = json.loads(log.strip().splitlines()[-1])
-        assert result["device"] == "cpu" and result["unit"] == "images/sec/chip"
-        assert "metrics" in events

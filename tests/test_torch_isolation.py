@@ -1,9 +1,10 @@
 """The port stands alone and never falls back to the CPU on its own.
 
 - No module of pytorch_operator_tpu_torch/ (nor chip_smoke.py) imports jax,
-  flax, optax, orbax or the JAX package — by AST scan, and by importing every
-  port module in a subprocess where those imports are poisoned; the int8
-  module ``ops/quantize.py`` runs there too.
+  flax, optax, orbax, scikit-learn or the JAX package — by AST scan, and by
+  importing every port module in a subprocess where those imports are
+  poisoned, where ``datasets.digits`` reads both splits; the int8 module
+  ``ops/quantize.py`` runs there too.
 - Entry points resolve to CUDA unless the caller asks for the CPU; without a
   GPU they raise. The kernel wrapper raises for tensors it cannot serve, and
   the build raises when nvcc is missing.
@@ -22,7 +23,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "pytorch_operator_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "pytorch_operator_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "sklearn", "pytorch_operator_tpu"}
 
 
 def _port_files():
@@ -56,6 +57,8 @@ mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for m in mods:
     importlib.import_module(m)
 import chip_smoke
+from pytorch_operator_tpu_torch.workloads.datasets import digits
+assert len(digits("train")[0]) + len(digits("test")[0]) == 1797
 print(len(mods))
 """
     out = subprocess.run(

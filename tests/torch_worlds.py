@@ -20,6 +20,22 @@ from pathlib import Path
 import numpy as np
 
 
+def _share_the_host() -> None:
+    """Under pytest-xdist, give each worker's torch an equal share of the
+    host's cores. Every worker imports this module while it collects, before
+    any test runs. torch's default intra-op pool, one thread a core in every
+    worker, oversubscribes the host many times over, and a test of many
+    small ops then runs tens of times slower than alone."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    if workers > 1:
+        import torch
+
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+
+
+_share_the_host()
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -847,3 +863,34 @@ def rank_many(world, calls: list) -> list:
     """Run each ``(name, args)`` of ``calls`` as ``rank_<name>(world,
     *args)`` in this one world, in order; their results."""
     return [globals()[f"rank_{name}"](world, *args) for name, args in calls]
+
+
+def rank_workload(world, module: str, kw: dict) -> dict:
+    """``pytorch_operator_tpu_torch.workloads.<module>.run(**kw)`` in this
+    world, on the CPU (``mnist_train``, ``bert_fsdp``)."""
+    import importlib
+
+    mod = importlib.import_module(f"pytorch_operator_tpu_torch.workloads.{module}")
+    return mod.run(device="cpu", log=lambda m: None, **kw)
+
+
+def supervise(tmp_path, job, timeout: float = 240):
+    """Run ``job`` to its end under the unchanged supervisor (state under
+    ``tmp_path``): the finished job, Master 0's log and its status records."""
+    import json
+
+    from pytorch_operator_tpu.controller import Supervisor
+    from pytorch_operator_tpu.controller.progress import job_status_dir
+    from pytorch_operator_tpu.controller.store import job_key
+
+    job.spec.port = None
+    sup = Supervisor(state_dir=tmp_path / "state", poll_interval=0.1)
+    try:
+        done = sup.run(job, timeout=timeout)
+    finally:
+        sup.shutdown()
+    name = job.metadata.name
+    log = (tmp_path / "state" / "logs" / f"default_{name}-master-0.log").read_text()
+    status = job_status_dir(tmp_path / "state" / "status", job_key(done)) / "master-0.jsonl"
+    records = [json.loads(x) for x in status.read_text().splitlines()] if status.exists() else []
+    return done, log, records
