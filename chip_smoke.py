@@ -15,7 +15,9 @@ Phases, in order; any failure exits non-zero before the result line:
    absolute error); kernel, plain-version and library
    (``scaled_dot_product_attention``, timed only) times at the generate
    prefill's shape, at the training shape, at phase 7's 1b prefill shape
-   (B8 S128 H16 KH8 D128), at phase 8's training shape (B16 S1024), at
+   (B8 S128 H16 KH8 D128), at phase 17's prefill from the imported
+   Llama-3-8B-width weights (B4 S128 H32 KH8 D128), at phase 8's training
+   shape (B16 S1024), at
    phase 10's (B8 S2048), at phase 11's per-rank shape (B2 S4096), at
    phase 12's ViT-B/16 shape (B128 S197 H12 D64, non-causal: the kernel
    alone on S padded to 256 with kv_len 197, the wrapper's time beside it,
@@ -308,7 +310,26 @@ Phases, in order; any failure exits non-zero before the result line:
    S128, 1 + 3 steps: every step's loss within ``WORLD16_LOSS_ATOL`` of
    (e)'s, each rank's parameter and AdamW bytes within ``BERT_HALF_RTOL``
    of half of (e)'s, its peak memory.
-17. One ``{"kernels": [...]}`` line, the card's line, and as the last line
+17. The HF weight import, the FLOP count and the data-plane bench: (a) an
+   HF-layout state dict at Llama-3-8B's width (``IMPORT_LAYERS`` of its 32
+   layers) drawn in bf16 on the card from a seed, imported by
+   ``models/llama_import.py``; the port's ``Llama`` on it in f32 against the
+   plain HF-convention forward in f32 (TF32 off) within
+   ``IMPORT_LOGITS_ATOL``, a planted mapping fault (two layers' q_proj
+   swapped) above it; the bf16 import's seconds and peak memory; generate's
+   ``make_generate`` from the imported weights, launch counts set to 0 just
+   before and read just after (the forward kernel once a layer in the
+   prefill); the export round trip bit for bit; (b) ``ops/flop_count`` on
+   phase 5's training step (0.3b, B4 x 4096, AdamW) on meta tensors: the
+   total, the matmul and flash shares, the seconds, no launch; (c)
+   ``dataplane_bench.run`` at ``DATAPLANE_RUN``: each cell's steps/s,
+   stall p50/p99 and verification; every cell verified, no step-thread put
+   in a prefetched cell, no step-thread fetch beyond the loss fences in a
+   staged cell (and one a state tensor a save in the eager async cells), a
+   staged cell with a planted blocking copy counted, the autotuned depth
+   within its budget, and the inline cells' stalls ordered staged < async <
+   blocking.
+18. One ``{"kernels": [...]}`` line, the card's line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -379,10 +400,14 @@ EDGE_CASES = [
 ]
 # The 1b int8 generate's prefill (phase 7): batch 8, 128-token prompts.
 PREFILL_1B = ("prefill_1b", 8, 128, 16, 8, 128, True, None, "bfloat16")
+# Generate's prefill from the imported Llama-3-8B-width weights (phase
+# 17(a)): batch 4, 128-token prompts, 32 heads over 8 kv heads.
+IMPORT_PREFILL = ("import_prefill", 4, 128, 32, 8, 128, True, None, "bfloat16")
 FLASH_CASES = [
     ("slice", 8, 512, 8, 4, 128, True, None, "bfloat16"),
     TRAIN_SHAPE,
     PREFILL_1B,
+    IMPORT_PREFILL,
     JOURNEY_SHAPE,
     MOE_SHAPE,
     DIST_SHAPE,
@@ -626,7 +651,8 @@ def phase_flash_vs_plain():
         )
         if not a["ok"]:
             _fail(f"flash_fwd disagrees with its plain version in case {name}")
-        if name in ("slice", "train", "prefill_1b", "journey", "moe", "dist", "vit", "tp", "tp8b", "sp", "pp"):
+        if name in ("slice", "train", "prefill_1b", "import_prefill", "journey", "moe", "dist", "vit",
+                    "tp", "tp8b", "sp", "pp"):
             qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             call = functools.partial(fa.flash_attention_with_lse, q, k, v, causal=causal, kv_len=kv_len)
             wrapper_ms = None
@@ -4711,6 +4737,328 @@ def phase_mnist_bert(kernels):
     return None
 
 
+# Phase 17: (a) an HF-layout state dict at Llama-3-8B's width (d_model
+# 4096, 32/8 heads, head_dim 128, d_ff 14336, vocabulary 128256, rope theta
+# 500000), cut to IMPORT_LAYERS of its 32 layers so that the f32 reference
+# fits the time and memory budget; bf16 weights drawn on the card with HF's
+# initializer range, the norm scales 1 + 0.1 N(0, 1).
+IMPORT_LAYERS = 4
+IMPORT_STD = 0.02
+IMPORT_CHECK = (2, 128)  # B, S of the logits check
+# Generate's batch and prompt length are IMPORT_PREFILL's, the shape at
+# which phase 2 holds and times the forward kernel.
+IMPORT_GEN = dict(batch=IMPORT_PREFILL[1], prompt_len=IMPORT_PREFILL[2], new_tokens=8)
+# The port's Llama in f32 on the imported weights against the plain
+# HF-convention forward in f32 on the same bf16 values (TF32 off): the
+# largest absolute logit difference (logits ~1.3 std). Predictions
+# (PERF.md §6): 1e-6 to 1e-4; a planted mapping fault (layers 0 and 1's
+# q_proj swapped) 1e-1 or more.
+IMPORT_LOGITS_ATOL = 1e-3
+# (b) phase 5's training step counted on meta tensors.
+FLOP_COUNT_SHAPE = (4, 4096)
+# (c) dataplane_bench.run at a size whose save interval (100 steps of a
+# few ms) clears a 24 MB commit (~140 ms blocking), so the stalls order by
+# the submit protocol, not by the writer's backpressure; batch 512 keeps
+# the host's batch generation (numpy's normals, ~45 ms a step at 4096)
+# from setting the step.
+DATAPLANE_RUN = dict(steps=400, checkpoint_every=100, dim=512, batch=512, feed_steps=60)
+# The fused Adam's state on the card: two weights, two moments each, two
+# step counts; an eager async save reads each back on the step thread.
+DATAPLANE_STATE_TENSORS = 8
+# The staged cell with a planted blocking copy: two saves.
+DATAPLANE_PLANTED = dict(steps=4, checkpoint_every=2, dim=512, batch=512, prefetch_depth=2)
+
+
+def _hf_state_dict(cfg, seed: int = 0):
+    """A seeded HF-layout ``LlamaForCausalLM`` state dict of ``cfg``'s
+    shapes, bf16 on the card."""
+    import torch
+
+    g = torch.Generator("cuda").manual_seed(seed)
+
+    def w(*shape, mean=0.0, std=IMPORT_STD):
+        return (mean + std * torch.randn(*shape, generator=g, device="cuda")).to(torch.bfloat16)
+
+    H, K, hd, D, F = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model, cfg.d_ff
+    sd = {
+        "model.embed_tokens.weight": w(cfg.vocab_size, D),
+        "model.norm.weight": w(D, mean=1.0, std=0.1),
+        "lm_head.weight": w(cfg.vocab_size, D),
+    }
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        sd[p + "input_layernorm.weight"] = w(D, mean=1.0, std=0.1)
+        sd[p + "post_attention_layernorm.weight"] = w(D, mean=1.0, std=0.1)
+        sd[p + "self_attn.q_proj.weight"] = w(H * hd, D)
+        sd[p + "self_attn.k_proj.weight"] = w(K * hd, D)
+        sd[p + "self_attn.v_proj.weight"] = w(K * hd, D)
+        sd[p + "self_attn.o_proj.weight"] = w(D, H * hd)
+        sd[p + "mlp.gate_proj.weight"] = w(F, D)
+        sd[p + "mlp.up_proj.weight"] = w(F, D)
+        sd[p + "mlp.down_proj.weight"] = w(D, F)
+    return sd
+
+
+def _hf_forward(sd, cfg, tokens):
+    """The plain HF-convention Llama forward in f32 (tests/test_llama_import.py:
+    66-109 on the card): RMSNorm, rotate-half RoPE, GQA causal softmax
+    attention, SwiGLU, the head; each weight widened to f32 where used."""
+    import torch
+
+    B, S = tokens.shape
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def W(name):
+        return sd[name].float()
+
+    def rms(x, name):
+        return x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + cfg.rms_eps) * W(name)
+
+    half = hd // 2
+    freqs = cfg.rope_theta ** (-torch.arange(0, half, dtype=torch.float32, device="cuda") / half)
+    ang = torch.arange(S, dtype=torch.float32, device="cuda")[:, None] * freqs[None, :]
+    cos, sin = torch.cos(ang)[None, :, None, :], torch.sin(ang)[None, :, None, :]
+
+    def rope(x):
+        x1, x2 = x[..., :half], x[..., half:]
+        return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+    x = W("model.embed_tokens.weight")[tokens]
+    mask = torch.tril(torch.ones(S, S, dtype=torch.bool, device="cuda"))
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        y = rms(x, p + "input_layernorm.weight")
+        q = rope((y @ W(p + "self_attn.q_proj.weight").T).view(B, S, H, hd))
+        k = rope((y @ W(p + "self_attn.k_proj.weight").T).view(B, S, K, hd))
+        v = (y @ W(p + "self_attn.v_proj.weight").T).view(B, S, K, hd)
+        s = torch.einsum("bskgd,btkd->bkgst", q.view(B, S, K, H // K, hd), k) / hd ** 0.5
+        probs = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+        out = torch.einsum("bkgst,btkd->bskgd", probs, v).reshape(B, S, H * hd)
+        x = x + out @ W(p + "self_attn.o_proj.weight").T
+        y = rms(x, p + "post_attention_layernorm.weight")
+        h = torch.nn.functional.silu(y @ W(p + "mlp.gate_proj.weight").T) * (y @ W(p + "mlp.up_proj.weight").T)
+        x = x + h @ W(p + "mlp.down_proj.weight").T
+    return rms(x, "model.norm.weight") @ W("lm_head.weight").T
+
+
+def _imported_model(sd, cfg):
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+    from pytorch_operator_tpu_torch.models.llama_import import import_hf_llama_state_dict
+
+    model = llama_lib.Llama(cfg, device="meta")
+    model.load_state_dict(import_hf_llama_state_dict(sd, cfg), assign=True)
+    return model.requires_grad_(False).eval()
+
+
+def _import_parts(kernels):
+    """(a): import at the 8B's width, logits against the HF forward, generate,
+    the export round trip."""
+    import dataclasses
+
+    import torch
+
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+    from pytorch_operator_tpu_torch.models.llama_import import (
+        export_hf_llama_state_dict,
+        import_hf_llama_state_dict,
+    )
+    from pytorch_operator_tpu_torch.ops import flash_attention as fa
+    from pytorch_operator_tpu_torch.workloads import generate
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = llama_lib.llama3_8b(n_layers=IMPORT_LAYERS, dtype=torch.float32)
+    sd = _hf_state_dict(cfg32)
+    B, S = IMPORT_CHECK
+    toks = torch.randint(0, cfg32.vocab_size, (B, S), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(1))
+    gaps = {}
+    with torch.no_grad():
+        ref = _hf_forward(sd, cfg32, toks)
+        swapped = dict(sd)
+        a, b = (f"model.layers.{i}.self_attn.q_proj.weight" for i in (0, 1))
+        swapped[a], swapped[b] = sd[b], sd[a]
+        for tag, weights in (("sound", sd), ("q_proj of layers 0 and 1 swapped", swapped)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model = _imported_model(weights, cfg32)
+            torch.cuda.synchronize()
+            import_s = time.perf_counter() - t0
+            logits = model(toks)
+            if logits.shape != ref.shape or not torch.isfinite(logits).all():
+                _fail(f"imported 8B-width logits of shape {tuple(logits.shape)}, or non-finite")
+            gaps[tag] = (logits - ref).abs().max().item()
+            agree = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+            _log(f"import f32 ({tag}): {import_s:.3f} s, logits vs the HF forward max_abs_err "
+                 f"{gaps[tag]:.3e} (tol {IMPORT_LOGITS_ATOL}), argmax agreement {agree:.4f}, "
+                 f"logit scale {ref.abs().max().item():.3f}")
+            del model, logits
+    del ref, swapped
+    if gaps["sound"] > IMPORT_LOGITS_ATOL:
+        _fail("the imported 8B-width Llama disagrees with the HF forward")
+    if gaps["q_proj of layers 0 and 1 swapped"] <= IMPORT_LOGITS_ATOL:
+        _fail("a swapped mapping read within the import's tolerance")
+    torch.cuda.empty_cache()
+
+    # The serving path: the import into the serving model's config (f32
+    # parameters, as generate.load_params builds it) timed with its peak,
+    # the matmul weights cast to bf16 once, then generate.
+    G = IMPORT_GEN
+    cfg = llama_lib.llama3_8b(n_layers=IMPORT_LAYERS, decode=True,
+                              max_decode_len=G["prompt_len"] + G["new_tokens"])
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = import_hf_llama_state_dict(sd, cfg)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    n_bytes = sum(t.numel() * t.element_size() for t in params.values())
+    _log(f"import at Llama-3-8B width ({IMPORT_LAYERS} layers) into f32 parameters on the card: "
+         f"{import_s:.4f} s, {n_bytes / 2**30:.3f} GiB written, peak {peak / 2**30:.3f} GiB "
+         f"above the bf16 state dict")
+    model = llama_lib.Llama(cfg, device="meta")
+    model.load_state_dict(params, assign=True)
+    del params
+    model.cast_matmul_weights_().requires_grad_(False).eval()
+    prompt = torch.randint(0, cfg.vocab_size, (G["batch"], G["prompt_len"]), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(2))
+    gen = generate.make_generate(model, max_new_tokens=G["new_tokens"])
+    cache = generate.init_cache(model, G["batch"])
+    fa.reset_launch_count()
+    t0 = time.perf_counter()
+    out, _ = gen(cache, prompt, torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = fa.launch_counts()
+    _record_launches(kernels, "import_generate", launches)
+    _log(f"generate from imported weights: {tuple(out.shape)} tokens in {gen_s:.3f} s "
+         f"(first call), launches {launches}")
+    if out.shape != (G["batch"], G["new_tokens"]) or not (
+            0 <= int(out.min()) and int(out.max()) < cfg.vocab_size):
+        _fail(f"generated tokens of shape {tuple(out.shape)} outside [0, {cfg.vocab_size})")
+    if launches["flash_fwd"] != IMPORT_LAYERS:
+        _fail(f"flash_fwd launched {launches['flash_fwd']} times in generate's prefill, "
+              f"expected {IMPORT_LAYERS} (one a layer)")
+
+    # The export round trip, bit for bit, on the card: the serving model's
+    # weights back to the HF dict's values, and imported again (bf16
+    # parameters: no widening) equal to the import of the HF dict.
+    exported = export_hf_llama_state_dict(model, cfg)
+    bad = [k for k in sd if exported[k].dtype != torch.float32 or not torch.equal(exported[k], sd[k].float())]
+    cfg16 = dataclasses.replace(cfg, param_dtype=torch.bfloat16)
+    back, want = import_hf_llama_state_dict(exported, cfg16), import_hf_llama_state_dict(sd, cfg16)
+    bad += [k for k in want if not torch.equal(back[k], want[k])]
+    if bad or set(exported) != set(sd):
+        _fail(f"the export round trip is not exact: {bad[:4]}")
+    _log(f"export round trip exact on the card: {len(exported)} tensors")
+    del exported, back, want
+    del model, cache, gen, sd
+    torch.cuda.empty_cache()
+
+
+def _flop_count_part():
+    """(b): phase 5's training step counted on meta tensors."""
+    import torch
+
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+    from pytorch_operator_tpu_torch.ops import flash_attention as fa
+    from pytorch_operator_tpu_torch.ops.flop_count import count_flops
+    from pytorch_operator_tpu_torch.workloads import trainer
+
+    cfg = llama_lib.llama_0_3b()
+    model = llama_lib.Llama(cfg, device="meta")
+    step = trainer.make_lm_train_step(model, trainer.make_optimizer(model.parameters(), 3e-4))
+    launches = fa.launch_counts()
+    t0 = time.perf_counter()
+    fc = count_flops(step, torch.empty(*FLOP_COUNT_SHAPE, dtype=torch.long, device="meta"))
+    count_s = time.perf_counter() - t0
+    flash = sum(fc.by_kernel.values())
+    _log(f"count_flops of phase 5's step (0.3b, B{FLOP_COUNT_SHAPE[0]} x {FLOP_COUNT_SHAPE[1]}, "
+         f"AdamW) on meta tensors: total {fc.total:.6e} FLOPs, matmul share "
+         f"{fc.by_primitive['dot_general'] / fc.total:.4f}, flash share {flash / fc.total:.4f} "
+         f"({ {k: f'{v:.4e}' for k, v in fc.by_kernel.items()} }), {count_s:.2f} s")
+    if fa.launch_counts() != launches:
+        _fail("the FLOP count launched a kernel")
+    if set(fc.by_kernel) != {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"} or not fc.total > 0:
+        _fail(f"the FLOP count missed the flash calls: {fc.by_kernel}")
+
+
+def _dataplane_part():
+    """(c): dataplane_bench.run once on the card."""
+    from pytorch_operator_tpu_torch.workloads import dataplane_bench
+
+    r = dataplane_bench.run(**DATAPLANE_RUN, device="cuda", log=_log)
+    for c in r["cells"]:
+        _log(f"dataplane {c['ckpt']}/{c['feed']}: {c['steps_per_sec']} steps/s, stall p50 "
+             f"{c['stall_ms_p50']} ms p99 {c['stall_ms_p99']} ms, verified step "
+             f"{c['last_verified_step']} of {c['last_saved_step']}, step-thread puts "
+             f"{c['step_thread_device_puts']}, fetches beyond budget "
+             f"{c['step_thread_gets_beyond_budget']}")
+    _log(f"dataplane comparisons: {json.dumps(r['comparisons'])}")
+    by = {(c["ckpt"], c["feed"]): c for c in r["cells"]}
+    if not all(c["all_saves_verified"] for c in r["cells"]):
+        _fail("a data-plane cell ended with an unverified save")
+    if any(by[(ck, "prefetched")]["step_thread_device_puts"] for ck in ("blocking", "async", "staged")):
+        _fail("a prefetched cell put on the step thread")
+    eager = {fd: by[("async", fd)] for fd in ("inline", "prefetched")}
+    if r["comparisons"]["staged_step_thread_gets_beyond_budget"] or any(
+            c["step_thread_gets_beyond_budget"] != DATAPLANE_STATE_TENSORS * c["saves"]
+            for c in eager.values()):
+        _fail("the staged cells fetched on the step thread, or the eager ones did not fetch "
+              f"each of the {DATAPLANE_STATE_TENSORS} state tensors a save")
+    if not r["comparisons"]["autotuned_depth_within_max"]:
+        _fail("the autotuned feed outgrew depth_max")
+    stall = {ck: by[(ck, "inline")]["stall_ms_p50"] for ck in ("blocking", "async", "staged")}
+    if not stall["staged"] < stall["async"] < stall["blocking"]:
+        _fail(f"checkpoint stalls out of order (staged < async < blocking expected): {stall}")
+
+    # The meter can fail on the card: the staged submit regressed to a
+    # blocking copy into its pinned buffers (``copy_`` without
+    # ``non_blocking``), one read a state tensor a save on the step thread.
+    import torch
+
+    from pytorch_operator_tpu_torch.checkpoint import manager
+
+    def blocking_stage(tree):
+        def stage(x):
+            if isinstance(x, dict):
+                return {k: stage(v) for k, v in x.items()}
+            if isinstance(x, torch.Tensor):
+                return torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(x)
+            return x
+
+        held = stage(tree)
+        return lambda: held
+
+    real_stage = manager.stage_mutable_leaves
+    manager.stage_mutable_leaves = blocking_stage
+    try:
+        c = dataplane_bench.bench_cell(ckpt_mode="staged", feed_mode="inline", **DATAPLANE_PLANTED,
+                                       work_dir=None, device="cuda", log=_log)
+    finally:
+        manager.stage_mutable_leaves = real_stage
+    _log(f"dataplane planted blocking staged copy: fetches beyond budget "
+         f"{c['step_thread_gets_beyond_budget']} over {c['saves']} saves, verified step "
+         f"{c['last_verified_step']} of {c['last_saved_step']}")
+    if c["step_thread_gets_beyond_budget"] != DATAPLANE_STATE_TENSORS * c["saves"] or not c["saves"]:
+        _fail("the meter missed the planted blocking copies in the staged submit")
+
+
+def phase_import_flops_dataplane(kernels):
+    """Phase 17: (a) the HF weight import through generate at Llama-3-8B's
+    width, (b) the FLOP count of phase 5's step, (c) the data-plane bench."""
+    t_phase = time.perf_counter()
+    for part, run in (("(a)", lambda: _import_parts(kernels)), ("(b)", _flop_count_part),
+                      ("(c)", _dataplane_part)):
+        t0 = time.perf_counter()
+        run()
+        _log(f"import/flops/dataplane {part}: {time.perf_counter() - t0:.1f} s")
+    _log(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
+    return None
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = phase_identity_and_build()
@@ -4721,7 +5069,7 @@ def main() -> int:
     profiles = []
     for phase in (phase_generate, phase_train, phase_serve, phase_int8, phase_journey, phase_rest,
                   phase_moe, phase_dist, phase_image, phase_tp, phase_sp_ep, phase_pp,
-                  phase_mnist_bert):
+                  phase_mnist_bert, phase_import_flops_dataplane):
         t0 = time.perf_counter()
         profiles.append(phase(kernels))
         _log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")

@@ -1,5 +1,5 @@
 """Observability, writer side: span records in the JAX package's format."""
 
-from .trace import serve_span, span, tracer
+from .trace import records_emitted, serve_span, span, trace_enabled, tracer
 
-__all__ = ["serve_span", "span", "tracer"]
+__all__ = ["records_emitted", "serve_span", "span", "trace_enabled", "tracer"]

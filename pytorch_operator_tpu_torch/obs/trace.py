@@ -66,6 +66,8 @@ _NULL = contextlib.nullcontext()
 _TRACER: Optional["SpanRecorder"] = None
 _RESOLVED = False
 _LOCK = threading.Lock()
+# Span records this process emitted (under _LOCK).
+_RECORDS = 0
 
 
 def _default_process_name() -> str:
@@ -97,6 +99,16 @@ def tracer() -> Optional["SpanRecorder"]:
             )
             _RESOLVED = True
     return _TRACER
+
+
+def trace_enabled() -> bool:
+    return tracer() is not None
+
+
+def records_emitted() -> int:
+    """Span records emitted by this process so far (0 when disabled: the
+    zero-overhead pin of ``workloads/dataplane_bench.py``)."""
+    return _RECORDS
 
 
 def reset_tracer() -> None:
@@ -200,7 +212,10 @@ class SpanRecorder:
         }
         if args:
             rec["args"] = args
+        global _RECORDS
         line = json.dumps(rec).encode() + b"\n"
+        with _LOCK:
+            _RECORDS += 1
         with self._lock:
             if self._f.closed:
                 return

@@ -21,6 +21,9 @@ rows get a zero output gradient, so they add nothing to dk and dv.
   backward kernels' arithmetic, densely: p recomputed from lse, ``ds`` and
   ``p`` cast to the input type before their products, dk and dv summed over
   the query heads of each kv head).
+- A meta tensor (``ops/flop_count.py``'s counting run) launches nothing and
+  runs no plain version: the wrapper records each kernel's FLOPs by
+  :func:`kernel_flops` and returns empty outputs of the right shapes.
 
 ``launch_count``, ``dq_launch_count`` and ``dkv_launch_count`` count kernel
 launches, so a run can show that its main path went through the kernels.
@@ -35,7 +38,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, flop_count
 
 _NEG = -1e30  # finite mask value: exp(_NEG - m) underflows to exactly 0.0
 KERNEL_TILE = 64  # the CUDA kernels take S in multiples of this (csrc/flash_*.cu)
@@ -348,6 +351,84 @@ def _launch_bwd(q, k, v, o, lse, do, *, causal: bool, kv_len: int, scale: float)
     return dq, dk, dv
 
 
+LANES = 128  # the reference's lse, m and l blocks carry a 128-lane dim
+
+
+def kernel_flops(kernel: str, *, B: int, H: int, KH: int, S: int, D: int, block_q: int,
+                 block_k: int, causal: bool, kv_masked: bool) -> dict:
+    """FLOPs of one call of ``kernel`` (``flash_fwd``, ``flash_bwd_dq``,
+    ``flash_bwd_dkv``) on padded ``[B, S, H, D]`` inputs, by the counting
+    rule of ``ops/flop_count.py``: JAX's ``pallas_call`` rule, the kernel
+    body's FLOPs times the grid ``(B·H, S/block_q, S/block_k)``, whatever
+    runs the call. The body's counts are those of the reference's
+    ``_fwd_kernel``, ``_dq_kernel`` and ``_dkv_kernel`` (every ``pl.when``
+    branch counted, as the reference's walker takes a cond's larger branch;
+    its ref reads ``get`` and writes ``swap`` at one a element; the
+    ``_mask_scores`` and ``_live_block`` terms where ``causal`` or the
+    ``kv_len`` mask ``kv_masked`` apply). dkv's sum over each kv head's G
+    query heads, inside this port's kernel and after the reference's, adds
+    its ``reduce_sum``."""
+    bq, bk, P = block_q, block_k, block_q * block_k
+    if kernel == "flash_fwd":
+        c = {"dot_general": 4 * P * D, "mul": P + bq + bq * D, "sub": P + bq, "exp": P + bq,
+             "add": 2 * bq + bq * D, "div": bq * D, "log": bq, "max": bq, "reduce_max": bq,
+             "reduce_sum": bq, "get": 3 * bq * D + 2 * bk * D + 4 * bq,
+             "swap": 5 * bq * LANES + 3 * bq * D}
+    elif kernel == "flash_bwd_dq":
+        c = {"dot_general": 6 * P * D, "mul": 2 * P + bq * D, "sub": 2 * P, "exp": P,
+             "add": bq * D, "get": 4 * bq * D + 2 * bk * D + 2 * bq, "swap": 3 * bq * D}
+    elif kernel == "flash_bwd_dkv":
+        c = {"dot_general": 8 * P * D, "mul": 2 * P + bk * D, "sub": 2 * P, "exp": P,
+             "add": 2 * bk * D, "get": 2 * bq * D + 6 * bk * D + 2 * bq, "swap": 6 * bk * D}
+    else:
+        raise ValueError(f"no kernel {kernel!r}")
+    c.update(eq=2, program_id=2)
+
+    def more(name, n):
+        c[name] = c.get(name, 0) + n
+
+    if causal or kv_masked:  # the row and column indices of the block
+        more("add", 2 * P)
+        more("mul", 2)
+    if causal:
+        more("le", P + 1)
+        more("mul", 2)
+        more("add", 1)
+        more("sub", 1)
+    if kv_masked:
+        more("lt", P + 1)
+        more("mul", 1)
+        more("and", P + int(causal))
+    cells = B * H * (S // bq) * (S // bk)
+    out = {k: float(v * cells) for k, v in c.items()}
+    if kernel == "flash_bwd_dkv" and H != KH:
+        out["reduce_sum"] = 2.0 * B * KH * S * D
+    return out
+
+
+def _count_call(kernel: str, q, k, tiling: dict) -> None:
+    c = flop_count.counter()
+    if c is not None:
+        B, S, H, D = q.shape
+        c.kernel(kernel, kernel_flops(kernel, B=B, H=H, KH=k.shape[2], S=S, D=D, **tiling))
+
+
+def _count_fwd(q, k, tiling: dict):
+    """The forward on meta tensors: its FLOPs recorded, nothing run."""
+    _count_call("flash_fwd", q, k, tiling)
+    B, S, H, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B * H, S), dtype=torch.float32)
+
+
+def _count_bwd(q, k, v, o, do, tiling: dict):
+    """The backward on meta tensors: delta (outside the kernels, as on the
+    card) and both kernels' FLOPs recorded, nothing run."""
+    bwd_delta(o, do)
+    _count_call("flash_bwd_dq", q, k, tiling)
+    _count_call("flash_bwd_dkv", q, k, tiling)
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """Flash attention with the flash backward, on unpadded ``[B,S,H,D]`` /
     ``[B,S,KH,D]`` inputs; ``apply(q, k, v, causal, kv_len, block_q,
@@ -356,24 +437,31 @@ class FlashAttentionFunction(torch.autograd.Function):
     q, k, v, o and the ``[B*H, S_pad]`` lse — the JAX residual without its
     128-lane broadcast. Backward pads ``do`` the same way and runs the two
     backward kernels (CUDA) or :func:`flash_attention_backward_reference`
-    (CPU), then slices the padding off. lse is not differentiable."""
+    (CPU), then slices the padding off. lse is not differentiable. On meta
+    tensors it counts (``_count_fwd``, ``_count_bwd``) with the CPU's
+    tiling, the reference's."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, kv_len, block_q, block_k):
         B, S, H, D = q.shape
         on_cuda = q.device.type == "cuda"
-        _, _, S_pad, D_pad = _plan_tiling(S, D, block_q, block_k, on_cuda)
+        bq, bk, S_pad, D_pad = _plan_tiling(S, D, block_q, block_k, on_cuda)
         if S_pad != S and kv_len is None:
             kv_len = S  # padded key columns must not attend
+        tiling = dict(block_q=bq, block_k=bk, causal=causal, kv_masked=kv_len is not None)
         kv_len = S_pad if kv_len is None else kv_len
         scale = 1.0 / math.sqrt(D)
         pad = (0, D_pad - D, 0, 0, 0, S_pad - S)
         if S_pad != S or D_pad != D:
             q, k, v = (F.pad(x, pad) for x in (q, k, v))
-        run = _launch if on_cuda else flash_attention_reference
-        o, lse = run(q, k, v, causal=causal, kv_len=kv_len, scale=scale)
+        if q.is_meta:
+            o, lse = _count_fwd(q, k, tiling)
+        else:
+            run = _launch if on_cuda else flash_attention_reference
+            o, lse = run(q, k, v, causal=causal, kv_len=kv_len, scale=scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = dict(causal=causal, kv_len=kv_len, scale=scale)
+        ctx.tiling = tiling
         ctx.pad, ctx.S, ctx.D = pad, S, D
         lse_out = lse[:, :S]
         ctx.mark_non_differentiable(lse_out)
@@ -384,8 +472,11 @@ class FlashAttentionFunction(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         S, D = ctx.S, ctx.D
         do = F.pad(do, ctx.pad) if do.shape != o.shape else do
-        run = _launch_bwd if q.device.type == "cuda" else flash_attention_backward_reference
-        dq, dk, dv = run(q, k, v, o, lse, do, **ctx.args)
+        if q.is_meta:
+            dq, dk, dv = _count_bwd(q, k, v, o, do, ctx.tiling)
+        else:
+            run = _launch_bwd if q.device.type == "cuda" else flash_attention_backward_reference
+            dq, dk, dv = run(q, k, v, o, lse, do, **ctx.args)
         return (
             dq[:, :S, :, :D], dk[:, :S, :, :D], dv[:, :S, :, :D], None, None, None, None,
         )
@@ -417,10 +508,11 @@ def flash_attention_with_lse(
         raise ValueError(f"H={H} not a multiple of KH={KH}")
     if kv_len is not None and not 0 < kv_len <= S:
         raise ValueError(f"kv_len={kv_len} outside (0, S={S}]")
-    if q.device.type not in ("cuda", "cpu") or k.device != q.device or v.device != q.device:
+    if q.device.type not in ("cuda", "cpu", "meta") or k.device != q.device or v.device != q.device:
         raise ValueError(
             f"q/k/v on {q.device}/{k.device}/{v.device}: the kernel takes CUDA "
-            "tensors and the plain version CPU tensors, all on one device"
+            "tensors, the plain version CPU tensors and the FLOP count meta "
+            "tensors, all on one device"
         )
     return FlashAttentionFunction.apply(q, k, v, causal, kv_len, block_q, block_k)
 

@@ -33,6 +33,11 @@ over an axis of size 1).
   inverse swap (ulysses' head/sequence swap in ``ulysses.py``).
 - :func:`axis_index`, :func:`axis_size`.
 - :func:`pmax`: the all-reduce max (``jax.lax.pmax``).
+- Counting mode (``ops/flop_count.count_collectives`` and ``count_flops``):
+  the axis sizes and this rank's coordinates come from the counter, each
+  collective records its JAX primitive name and the bytes it sends, and
+  returns an output of the right shape (its values unset) without a process
+  group.
 - Tensor parallelism's pair (Megatron's f and g): :func:`tp_enter`, the
   identity whose backward all-reduces, before a column-parallel product;
   :func:`tp_leave`, the all-reduce whose backward is the identity, after a
@@ -47,6 +52,8 @@ over an axis of size 1).
 from __future__ import annotations
 
 import torch
+
+from ..ops.flop_count import counter
 
 
 def _group(axis: str, mesh):
@@ -76,6 +83,9 @@ def axis_size(axis: str, mesh=None) -> int:
     """Ranks along ``axis`` (the world's size for ``mesh=None``)."""
     import torch.distributed as dist
 
+    c = counter()
+    if c is not None:
+        return c.axis_size(axis)
     if mesh is None:
         return world()[1]
     return dist.get_world_size(_group(axis, mesh))
@@ -85,6 +95,9 @@ def axis_index(axis: str, mesh=None) -> int:
     """This rank's coordinate along ``axis``."""
     import torch.distributed as dist
 
+    c = counter()
+    if c is not None:
+        return c.axis_index(axis)
     if mesh is None:
         return world()[0]
     _group(axis, mesh)  # validates the name
@@ -96,7 +109,11 @@ def _all_reduce(x: torch.Tensor, axis: str, mesh, op: str) -> torch.Tensor:
     import torch.distributed as dist
 
     out = x.clone()
-    if axis_size(axis, mesh) > 1:
+    c = counter()
+    if c is not None:
+        if axis_size(axis, mesh) > 1:
+            c.collective({"SUM": "psum", "MAX": "pmax"}[op], x)
+    elif axis_size(axis, mesh) > 1:
         dist.all_reduce(out, op=getattr(dist.ReduceOp, op), group=_group(axis, mesh))
     return out
 
@@ -173,6 +190,8 @@ def all_gather(x: torch.Tensor, axis: str, mesh=None, *, tiled: bool = True) -> 
     stacked = torch.empty((n, *x.shape), dtype=x.dtype, device=x.device)
     if n == 1:
         stacked[0] = x
+    elif (c := counter()) is not None:
+        c.collective("all_gather", x)
     else:
         dist.all_gather_into_tensor(stacked, x.unsqueeze(0).contiguous(), group=_group(axis, mesh))
     return stacked.flatten(0, 1) if tiled else stacked
@@ -191,6 +210,9 @@ def reduce_scatter(x: torch.Tensor, axis: str, mesh=None, *, scatter_dimension: 
     if n == 1:
         return moved.movedim(0, scatter_dimension).clone()
     out = torch.empty((moved.shape[0] // n, *moved.shape[1:]), dtype=x.dtype, device=x.device)
+    if (c := counter()) is not None:
+        c.collective("reduce_scatter", x)
+        return out.movedim(0, scatter_dimension)
     dist.reduce_scatter_tensor(out, moved, op=dist.ReduceOp.SUM, group=_group(axis, mesh))
     return out.movedim(0, scatter_dimension)
 
@@ -230,6 +252,9 @@ def _ring_shift(x: torch.Tensor, axis: str, mesh, shift: int) -> torch.Tensor:
     n = axis_size(axis, mesh)
     if n == 1 or shift % n == 0:
         return x.clone()
+    if (c := counter()) is not None:
+        c.collective("ppermute", x)
+        return torch.empty_like(x)
     i = axis_index(axis, mesh)
     (out,) = _p2p([(x, (i + shift) % n, 0)], [(x, (i - shift) % n, 0)], axis, mesh)
     return out
@@ -254,7 +279,16 @@ def neighbour_exchange(fwd, bwd, axis: str, mesh=None) -> tuple:
         slots.append(0 <= frm < n)
         if slots[-1]:
             recvs.append((t, frm, tag))
-    got = iter(_p2p(sends, recvs, axis, mesh)) if n > 1 else iter(())
+    c = counter()
+    if c is not None:
+        # Every rank takes part in each hop, as in JAX's SPMD ppermute.
+        if n > 1:
+            for t in (fwd, bwd):
+                if t is not None:
+                    c.collective("ppermute", t)
+        got = iter([torch.empty_like(like) for like, _, _ in recvs])
+    else:
+        got = iter(_p2p(sends, recvs, axis, mesh)) if n > 1 else iter(())
     return tuple(next(got) if has else None for has in slots)
 
 
@@ -266,6 +300,9 @@ def broadcast(x: torch.Tensor, axis: str, mesh=None, *, src: int = 0) -> torch.T
     import torch.distributed as dist
 
     if axis_size(axis, mesh) == 1:
+        return x.clone()
+    if (c := counter()) is not None:
+        c.collective("psum", x)  # JAX's masked psum
         return x.clone()
     group = _group(axis, mesh)
     staged = x.is_cuda and dist.get_backend(group) == "gloo"
@@ -309,7 +346,10 @@ def _all_to_all(x: torch.Tensor, axis: str, mesh, split_dim: int, concat_dim: in
     blocks = x.movedim(split_dim, 0)
     blocks = blocks.reshape(n, blocks.shape[0] // n, *blocks.shape[1:]).contiguous()
     out = torch.empty_like(blocks)
-    dist.all_to_all_single(out, blocks, group=_group(axis, mesh))
+    if (c := counter()) is not None:
+        c.collective("all_to_all", x)
+    else:
+        dist.all_to_all_single(out, blocks, group=_group(axis, mesh))
     # out[j] is rank j's block: put split_dim back, then rank j's blocks
     # side by side along concat_dim.
     out = out.movedim(1, split_dim + 1).movedim(0, concat_dim)

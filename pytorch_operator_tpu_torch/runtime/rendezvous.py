@@ -316,13 +316,28 @@ def _join(world: WorldInfo, dev, timeout_s: float, retry_interval_s: float):
     return store, backend, reason
 
 
+def fenced_world_from_env() -> WorldInfo:
+    """The world the environment describes, after the ``stall_rendezvous``
+    fault site and the resize fence (an environment older than the status
+    dir's resize record adopts its new coordinates; one absent from the new
+    member map exits). It joins nothing: :func:`initialize_from_env` joins
+    it, and a process that needs no process group (a serve replica) takes it
+    as it is."""
+    fault_stall_if_armed()
+    world = world_from_env()
+    sig = poll_resize(world)
+    if sig is not None:
+        if sig.evicted:
+            exit_for_resize(sig)
+        world = adopt_resize(sig)
+    return world
+
+
 def initialize_from_env(
     timeout_s: float = 60.0, retry_interval_s: float = 1.0, device=None
 ) -> WorldInfo:
-    """Join the world the environment describes, after the
-    ``stall_rendezvous`` fault site and the resize fence (an environment
-    older than the status dir's resize record adopts its new coordinates
-    before the join; one absent from the new member map exits).
+    """Join the world :func:`fenced_world_from_env` describes (the
+    ``stall_rendezvous`` fault site and the resize fence come first).
 
     A single-process world needs no process group and returns at once. A
     multi-process world joins at the coordinator with explicit arguments
@@ -333,13 +348,7 @@ def initialize_from_env(
     raises ``TimeoutError``; a failed gloo or NCCL init raises too. Nothing
     falls back to a world of one process."""
     t_join = time.time()
-    fault_stall_if_armed()
-    world = world_from_env()
-    sig = poll_resize(world)
-    if sig is not None:
-        if sig.evicted:
-            exit_for_resize(sig)
-        world = adopt_resize(sig)
+    world = fenced_world_from_env()
     if world.num_processes <= 1:
         return world
 

@@ -42,7 +42,7 @@ from ..obs.trace import serve_span, tracer as _span_tracer
 from ..ops.quantize import state_bytes
 from ..runtime import rendezvous
 from ..parallel.collectives import world as joined_world
-from ..runtime.device import device_name, world_device
+from ..runtime.device import device_name, rank_device, world_device
 
 def run(
     *,
@@ -337,7 +337,14 @@ def main(argv=None) -> int:
     if not args.spool:
         p.error("--spool is required (no TPUJOB_SPOOL_DIR in the environment)")
 
-    world = rendezvous.initialize_from_env(device=args.device)
+    # Every serve process is an engine of its own: it joins no process group
+    # (serving issues no collective), so a replica of a serving fleet that
+    # is restarted alone serves again at once. In a world of several it
+    # takes its rank's card.
+    world = rendezvous.fenced_world_from_env()
+    device = args.device
+    if world.num_processes > 1:
+        device = rank_device(world.process_id, device)
     stats = run(
         config=args.config,
         n_layers=args.n_layers,
@@ -359,12 +366,11 @@ def main(argv=None) -> int:
         report_every=args.report_every,
         transport=args.transport,
         seed=args.seed,
-        device=args.device,
+        device=device,
         log=lambda msg: print(msg, flush=True),
     )
     if args.json and world.process_id == 0:
         print(json.dumps(stats), flush=True)
-    rendezvous.finalize(world)
     return 0
 
 

@@ -121,6 +121,42 @@ print(read_meta({str(tmp_path / "t.bin")!r}).n_records, mgr.restore_subtree("par
     assert out.stdout.split() == ["3", "5", "None"]
 
 
+def test_slice17_modules_stand_alone(tmp_path):
+    """The HF import, the FLOP and collective counters and the data-plane
+    bench are among the scanned files, and import and run (an import and
+    export, a counted step, a counted ring hop, one bench cell) where jax and
+    the JAX package are poisoned."""
+    for rel in ("models/llama_import.py", "ops/flop_count.py", "workloads/dataplane_bench.py"):
+        assert PKG / rel in _port_files()
+    code = f"""
+import sys
+for name in {sorted(FORBIDDEN)!r}:
+    sys.modules[name] = None
+import torch
+from pytorch_operator_tpu_torch.models import llama
+from pytorch_operator_tpu_torch.models.llama_import import export_hf_llama_state_dict, import_hf_llama_state_dict
+from pytorch_operator_tpu_torch.ops.flop_count import count_collectives, count_flops
+from pytorch_operator_tpu_torch.parallel.collectives import ring_shift
+from pytorch_operator_tpu_torch.workloads import dataplane_bench
+cfg = llama.llama_tiny()
+model = llama.Llama(cfg).init_weights(torch.Generator().manual_seed(0))
+sd = export_hf_llama_state_dict(model, cfg)
+back = import_hf_llama_state_dict(sd, cfg)
+assert all(torch.equal(back[k], v) for k, v in model.state_dict().items())
+fc = count_flops(lambda t: llama.Llama(cfg, device="meta")(t).sum().backward(), torch.zeros(2, 8, dtype=torch.long))
+cc = count_collectives(lambda x: ring_shift(x, "sp"), torch.zeros(4), axes={{"sp": 2}})
+cell = dataplane_bench.bench_cell(ckpt_mode="staged", feed_mode="inline", steps=2, checkpoint_every=1,
+                                  dim=8, batch=4, prefetch_depth=2, work_dir={str(tmp_path)!r},
+                                  device="cpu", log=lambda m: None)
+print(len(sd), fc.by_primitive["dot_general"] > 0, cc.calls, cell["all_saves_verified"])
+"""
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["21", "True", "{'ppermute':", "1.0}", "True"]
+
+
 def test_slice8_modules_stand_alone(tmp_path):
     """The async writer, the device feed and its autotuner, the profile
     report and adafactor are among the scanned files, and import and run (an
@@ -308,15 +344,28 @@ def test_cuda_requests_raise_without_gpu(monkeypatch):
         resolve_device("meta")
 
 
-def test_kernel_wrapper_never_falls_back():
+def test_kernel_wrapper_never_falls_back(monkeypatch):
     """A tensor that is not on the CPU never reaches the plain version: the
-    wrapper raises for a device the kernel does not serve, and the kernel
-    path raises for a dtype it does not take."""
+    wrapper raises for tensors on devices it does not serve together, a meta
+    tensor (the FLOP count's) runs neither the plain version nor a kernel,
+    and the kernel path raises for a dtype it does not take."""
     from pytorch_operator_tpu_torch.ops import flash_attention as fa
 
     meta = [torch.empty(1, 64, 2, 64, device="meta") for _ in range(3)]
     with pytest.raises(ValueError, match="kernel takes CUDA"):
-        fa.flash_attention(*meta)
+        fa.flash_attention(meta[0], *(torch.empty(1, 64, 2, 64) for _ in range(2)))
+
+    def plain(*a, **kw):
+        raise AssertionError("a meta tensor reached the plain version")
+
+    monkeypatch.setattr(fa, "flash_attention_reference", plain)
+    monkeypatch.setattr(fa, "flash_attention_backward_reference", plain)
+    counts = fa.launch_counts()
+    q = meta[0].requires_grad_()
+    o = fa.flash_attention(q, *meta[1:])
+    o.sum().backward()
+    assert o.is_meta and o.shape == q.shape and q.grad.is_meta
+    assert fa.launch_counts() == counts
     half = [torch.zeros(1, 64, 2, 64, dtype=torch.float16) for _ in range(3)]
     before = fa.launch_count
     with pytest.raises(TypeError, match="float32 or bfloat16"):

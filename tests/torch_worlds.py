@@ -894,3 +894,70 @@ def supervise(tmp_path, job, timeout: float = 240):
     status = job_status_dir(tmp_path / "state" / "status", job_key(done)) / "master-0.jsonl"
     records = [json.loads(x) for x in status.read_text().splitlines()] if status.exists() else []
     return done, log, records
+
+
+def rank_sp_cost(world, cases: list) -> list:
+    """Each ``(scheme, S)`` of ``cases``: one forward and backward of this
+    rank's sequence block through ``ring_attention_shard`` or
+    ``ulysses_attention_shard`` over the whole world (f32, seeded values),
+    with the collectives it really issued (``batch_isend_irecv`` for a
+    ``ppermute``, ``all_to_all_single`` for an ``all_to_all``: calls and the
+    bytes this rank sent) beside ``count_collectives`` of the same call at
+    this rank's coordinate."""
+    import torch
+    import torch.distributed as dist
+
+    from pytorch_operator_tpu_torch.ops.flop_count import count_collectives
+    from pytorch_operator_tpu_torch.parallel.ring import ring_attention_shard
+    from pytorch_operator_tpu_torch.parallel.ulysses import ulysses_attention_shard
+
+    n, r = world.num_processes, world.process_id
+    B, K, G, D = 1, 4, 2, 8
+    real = {}
+
+    def record(name, n_bytes):
+        calls, sent = real.get(name, (0, 0))
+        real[name] = (calls + 1, sent + n_bytes)
+
+    p2p, a2a = dist.batch_isend_irecv, dist.all_to_all_single
+
+    def counting_p2p(ops):
+        record("ppermute", sum(op.tensor.numel() * op.tensor.element_size()
+                               for op in ops if op.op is dist.isend))
+        return p2p(ops)
+
+    def counting_a2a(out, inp, *a, **kw):
+        record("all_to_all", inp.numel() * inp.element_size())
+        return a2a(out, inp, *a, **kw)
+
+    def attend(scheme, S, q, k, v):
+        blk = S // n
+        if scheme == "ring":
+            pos = torch.arange(r * blk, (r + 1) * blk, dtype=torch.int32, device=q.device)[None]
+            if q.is_meta:
+                pos = pos.to("meta")
+            out = ring_attention_shard(q, k, v, pos, pos, axis_name="sp")
+        else:
+            pos = torch.arange(S, dtype=torch.int32)[None]
+            out = ulysses_attention_shard(q, k, v, pos.to(q.device), axis_name="sp")
+        out.float().sum().backward()
+        return out
+
+    results = []
+    for scheme, S in cases:
+        blk = S // n
+        g = torch.Generator().manual_seed(r)
+        q = torch.randn(B, blk, K, G, D, generator=g).requires_grad_()
+        k = torch.randn(B, blk, K, D, generator=g).requires_grad_()
+        v = torch.randn(B, blk, K, D, generator=g).requires_grad_()
+        real.clear()
+        dist.batch_isend_irecv, dist.all_to_all_single = counting_p2p, counting_a2a
+        try:
+            attend(scheme, S, q, k, v)
+        finally:
+            dist.batch_isend_irecv, dist.all_to_all_single = p2p, a2a
+        counted = count_collectives(lambda *t: attend(scheme, S, *t), q, k, v, axes={"sp": n},
+                                    coords={"sp": r})
+        results.append({"real": dict(real), "calls": counted.calls, "bytes": counted.bytes,
+                        "grad_finite": bool(torch.isfinite(q.grad).all())})
+    return results
