@@ -23,14 +23,16 @@ Phases, in order; any failure exits non-zero before the result line:
    alone on S padded to 256 with kv_len 197, the wrapper's time beside it,
    SDPA on S 197), at phase 13's per-rank tp=2 shapes (0.3b B4 S2048 H4
    KH2; Llama-3-8B B1 S2048 H16 KH4), at phase 14's one-process shape
-   (B2 S8192) and at phase 15's microbatch (B2 S2048), with achieved
-   TFLOP/s and the wrapper's host time a call.
+   (B2 S8192), at phase 15's microbatch (B2 S2048) and at phase 14(b)'s
+   token-group reference (B2 S512), with achieved TFLOP/s and the wrapper's
+   host time a call.
 3. The two backward kernels against their plain version
    (``flash_attention_backward_reference``) on the same padded inputs, in the
    listed cases, by ``grad_agreement`` (relative L2 error over the whole
    gradient, over its late half and per row); at the training shape, at
    phase 8's, at phase 10's, at phase 11's, at phase 12's ViT shape, at
-   phase 13's two tp shapes, at phase 14's and at phase 15's each kernel's time, the plain backward's, SDPA's backward on the unpadded S
+   phase 13's two tp shapes, at phase 14's, at phase 15's and at phase
+   14(b)'s token-group shape each kernel's time, the plain backward's, SDPA's backward on the unpadded S
    (timed only) and each bound (over the pairs the unpadded S needs), and each kernel's host time a call. Then the bf16 gradients of the public, differentiable
    ``flash_attention`` on the card against the plain forward and backward, at
    the training shape and at a padded one.
@@ -268,7 +270,17 @@ Phases, in order; any failure exits non-zero before the result line:
    process's, the moves of two tensors upstream of the experts within
    ``EP_MOVE_RTOL`` of one process's, a planted fault (ep's leave written
    with ``psum_autograd``) above it, each rank's flash launches (each kernel
-   once a layer a step) into the kernels line.
+   once a layer a step) into the kernels line; in the same world, sparse
+   dispatch over token groups that cross ranks (``EP_GROUPS``: capacity 0.5,
+   aux 1e-2): one process at B2 x 512 (N 1,024, one group) and at B4 x 512
+   with ``grad_accum=2``, then (i) ``fsdp=2`` at B2 x 512 with flash (each
+   rank one row; the group spans both), (ii) ``sp=2`` ring at B2 x 512 (each
+   rank blocks of 256; the group interleaves them), (iii) ``fsdp=2`` at B4 x
+   512 with ``grad_accum=2``, (iv) a planted fault, (i) with each rank
+   grouping its own tokens: every step's loss and aux loss of (i)-(iii)
+   within ``GROUPS_LOSS_ATOL`` of its one process's, (iv)'s losses above it,
+   (i)'s and (iii)'s flash launches (each kernel once a layer a microbatch)
+   into the kernels line, (ii)'s none.
 15. Pipeline parallelism, two ranks sharing ``cuda:0`` over gloo in one
    world: ``llama_0_3b`` at full width and 8 of its 16 layers (4 a stage),
    global B8 x 2048, AdamW, 1 + 3 steps. (a) One process, then ``pp=2``
@@ -390,6 +402,9 @@ TP8B_SHAPE = ("tp8b", 1, 2048, 16, 4, 128, True, None, "bfloat16")
 SP_SHAPE = ("sp", 2, 8192, 8, 4, 128, True, None, "bfloat16")
 # A pipeline microbatch of phase 15: 0.3b's global B8 x 2048 in 4.
 PP_SHAPE = ("pp", 2, 2048, 8, 4, 128, True, None, "bfloat16")
+# Phase 14(b)'s sparse token groups over ranks: the one-process reference's
+# B2 x 512 (and a microbatch of its B4 in two); a world rank holds one row.
+GROUPS_SHAPE = ("groups", 2, 512, 8, 4, 128, True, None, "bfloat16")
 EDGE_CASES = [
     ("S192_causal", 2, 192, 8, 4, 128, True, None, "bfloat16"),
     ("S64_one_tile", 2, 64, 8, 4, 128, True, None, "bfloat16"),
@@ -416,6 +431,7 @@ FLASH_CASES = [
     TP8B_SHAPE,
     SP_SHAPE,
     PP_SHAPE,
+    GROUPS_SHAPE,
     ("unaligned_S500", 8, 500, 8, 4, 128, True, None, "bfloat16"),
     ("kv_len_noncausal", 4, 512, 8, 4, 128, False, 300, "bfloat16"),
     ("G1", 4, 256, 8, 8, 128, True, None, "bfloat16"),
@@ -447,6 +463,7 @@ BWD_CASES = [
     TP8B_SHAPE,
     SP_SHAPE,
     PP_SHAPE,
+    GROUPS_SHAPE,
     ("unaligned_S500", 2, 500, 8, 4, 128, True, None, "bfloat16"),
     ("kv_len_noncausal", 2, 512, 8, 4, 128, False, 300, "bfloat16"),
     ("G1", 2, 256, 8, 8, 128, True, None, "bfloat16"),
@@ -652,7 +669,7 @@ def phase_flash_vs_plain():
         if not a["ok"]:
             _fail(f"flash_fwd disagrees with its plain version in case {name}")
         if name in ("slice", "train", "prefill_1b", "import_prefill", "journey", "moe", "dist", "vit",
-                    "tp", "tp8b", "sp", "pp"):
+                    "tp", "tp8b", "sp", "pp", "groups"):
             qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             call = functools.partial(fa.flash_attention_with_lse, q, k, v, causal=causal, kv_len=kv_len)
             wrapper_ms = None
@@ -743,7 +760,7 @@ def phase_backward_vs_plain():
             for gname, g, r in zip(("dq", "dk", "dv"), grads, refs)
         }
         del refs
-        if name not in ("train", "journey", "moe", "dist", "vit", "tp", "tp8b", "sp", "pp"):
+        if name not in ("train", "journey", "moe", "dist", "vit", "tp", "tp8b", "sp", "pp", "groups"):
             continue
         lse_c, delta = lse.contiguous(), fa.bwd_delta(o, do)
         kin = (q, k, v, do, lse_c, delta)
@@ -3892,7 +3909,9 @@ def _planted(name):
     by each rank's local positions (rank 0 sees later blocks, the others
     lose earlier ones); ``"ep_leave_psum_autograd"``, the MoE layer's leave
     over ep written with ``psum_autograd`` (the experts' upstream gradients
-    multiplied by ep); ``"pp_shifted_cotangent"``, each pipeline stage
+    multiplied by ep); ``"moe_rank_groups"``, sparse MoE dispatch grouping
+    each rank's own tokens (the groups the reference forms over every rank's
+    tokens not formed); ``"pp_shifted_cotangent"``, each pipeline stage
     backwarding a microbatch's stored graph with the previous microbatch's
     cotangent (the first with its own)."""
     import contextlib
@@ -3924,6 +3943,12 @@ def _planted(name):
         elif name == "ep_leave_psum_autograd":
             where, attr = moe, "tp_leave"
             fault = lambda x, axis, mesh=None: collectives.psum_autograd(x, axis, mesh)  # noqa: E731
+        elif name == "moe_rank_groups":
+            where, attr = llama_lib, "moe_mlp_sparse"
+            sound_sparse = llama_lib.moe_mlp_sparse
+
+            def fault(params, x, tokens=None, **kw):
+                return sound_sparse(params, x, **kw)
         elif name == "leave_psum_autograd":
             where, attr = collectives, "tp_leave"
             fault = lambda x, axis="tp", mesh=None: collectives.psum_autograd(x, axis, mesh)  # noqa: E731
@@ -4174,6 +4199,22 @@ SP_RUN = dict(config="0.3b", n_layers=4, batch_size=2, seq_len=8192, warmup=1, s
 EP_RUN = dict(config="0.3b", n_layers=4, batch_size=8, seq_len=2048, warmup=1, steps=3,
               n_experts=8, moe_top_k=2, attn_impl="flash")
 EP_SPARSE = dict(moe_dispatch="sparse", moe_aux_weight=1e-2)
+# (b)'s sparse dispatch over token groups that cross ranks: EP_RUN's model
+# at B2 x 512 (N 1,024, one group, that fsdp=2 splits by rows and sp=2 by
+# blocks) and B4 x 512 in two microbatches (a group each), at capacity 0.5:
+# about half the routings drop, which ones set by the group's global order.
+# 1 + 2 steps (the script's time limit: an fsdp=2 step of the two ranks
+# gathers and scatters the f32 parameters through the host under gloo).
+EP_GROUPS = dict(EP_RUN, batch_size=2, seq_len=512, steps=2, moe_capacity_factor=0.5, **EP_SPARSE)
+EP_GROUPS_ACCUM = dict(EP_GROUPS, batch_size=4, grad_accum=2)
+# Their losses and aux losses against one process's, in nats. At 1,024
+# tokens a step the loss falls from about 11 to about 4.4 in two steps, and
+# a world's bf16 noise, carried through routings that flip near a tie and
+# another reduction order, grows with it to about 1e-2 by the third step
+# (PERF.md §6; the ep=2 runs' 16,384 tokens a step stay within
+# EP_LOSS_ATOL); each rank grouping its own tokens drops other routings
+# and reads about 0.17. The limit sits a factor 3 from both.
+GROUPS_LOSS_ATOL = 5e-2
 # The worlds' losses against one process's over every step, in nats (the
 # largest absolute difference). Predictions (PERF.md §6): sp 1e-4 to
 # 2e-3 (the ring and ulysses attend in f32, the one process's flash rounds
@@ -4208,9 +4249,12 @@ def phase_sp_ep(kernels):
     """Phase 14: (a) 0.3b at sp=2, ring and ulysses, against one process with
     the flash kernels, and the planted local-position fault; (b) the MoE
     Llama at ep=2, dense and sparse, against one process, and the planted
-    ep leave fault. The kernels at (a)'s one-process shape (B2 S8192) and
-    at (b)'s per-rank shape (B8 S2048, ``MOE_SHAPE``) are held and timed in
-    phases 2-3."""
+    ep leave fault; then sparse dispatch over token groups that cross ranks
+    (fsdp=2, sp=2 ring, fsdp=2 with grad_accum=2) against one process, and
+    the planted per-rank grouping. The kernels at (a)'s one-process shape
+    (B2 S8192), at (b)'s per-rank shape (B8 S2048, ``MOE_SHAPE``) and at the
+    token groups' one-process shape (B2 S512, ``GROUPS_SHAPE``) are held and
+    timed in phases 2-3."""
     import shutil
     import tempfile
 
@@ -4235,6 +4279,11 @@ def phase_sp_ep(kernels):
                                          **EP_RUN, **over)
         _record_launches(kernels, f"ep_one_{dispatch}", fa.launch_counts())
         torch.cuda.empty_cache()
+    for tag, kw in (("groups", EP_GROUPS), ("groups_accum", EP_GROUPS_ACCUM)):
+        fa.reset_launch_count()
+        ones[tag] = llama_train.run(device="cuda", log=_log, **kw)
+        _record_launches(kernels, f"ep_one_{tag}", fa.launch_counts())
+        torch.cuda.empty_cache()
     whole = ones["dense"].pop("params")
     one_params = {name: whole[name] for name in EP_MOVE_TENSORS}
     del whole
@@ -4250,6 +4299,10 @@ def phase_sp_ep(kernels):
             dict(EP_RUN, mesh_spec="ep=2", **EP_SPARSE),
             dict(EP_RUN, mesh_spec="ep=2", plant="ep_leave_psum_autograd",
                  save=[f"{tdb}/fault.pt", EP_MOVE_TENSORS]),
+            dict(EP_GROUPS, mesh_spec="fsdp=2"),
+            dict(EP_GROUPS, mesh_spec="sp=2", attn_impl="ring"),
+            dict(EP_GROUPS_ACCUM, mesh_spec="fsdp=2"),
+            dict(EP_GROUPS, mesh_spec="fsdp=2", plant="moe_rank_groups"),
         ])
         moved = {tag: _move_error(torch.load(f"{tdb}/{tag}.pt"), one_params, init)
                  for tag in ("sound", "fault")}
@@ -4282,7 +4335,7 @@ def phase_sp_ep(kernels):
 
     # (b) ep=2, dense then sparse, against one process; the planted leave
     # fault, read on the moves of two tensors upstream of the experts.
-    runs = [r["result"] for r in outs[0]["runs"][3:]]
+    runs = [r["result"] for r in outs[0]["runs"][3:6]]
     for dispatch, r in zip(("dense", "sparse"), runs):
         _world_describe(f"ep (b) ep=2 {dispatch}", r)
         _tp_launches(kernels, f"ep_{dispatch}_ep2", r["per_rank"], total, EP_RUN["n_layers"], remat=False)
@@ -4308,6 +4361,40 @@ def phase_sp_ep(kernels):
     if moved["sound"] > EP_MOVE_RTOL or moved["fault"] <= EP_MOVE_RTOL:
         _fail(f"ep (b): the moves differ from one process's by {moved['sound']:.3e}, the fault's by "
               f"{moved['fault']:.3e} (limit {EP_MOVE_RTOL:.0e})")
+
+    # (b) sparse dispatch over token groups that cross ranks, against one
+    # process; the planted fault groups each rank's own tokens.
+    fsdp, ring, accum, fault = (r["result"] for r in outs[0]["runs"][6:10])
+    g_total = EP_GROUPS["warmup"] + EP_GROUPS["steps"]
+    for tag, r, ref, mesh, coords, steps in (
+        ("(i) fsdp=2", fsdp, ones["groups"], {"fsdp": 2}, "data_index", g_total),
+        ("(ii) sp=2 ring", ring, ones["groups"], {"sp": 2}, "sp_index", g_total),
+        ("(iii) fsdp=2 grad_accum=2", accum, ones["groups_accum"], {"fsdp": 2}, "data_index", 2 * g_total),
+    ):
+        _world_describe(f"ep (b) groups {tag}", r)
+        gap, aux_gap = _loss_gap(r["losses"], ref["losses"]), _loss_gap(r["aux_losses"], ref["aux_losses"])
+        _log(f"ep (b) groups {tag}: one process {[round(x, 5) for x in ref['losses']]} (aux "
+             f"{[round(x, 5) for x in ref['aux_losses']]}), step {ref['step_s']:.4f} s; the world's "
+             f"losses within {gap:.3e}, aux within {aux_gap:.3e} (limit {GROUPS_LOSS_ATOL:.0e})")
+        if max(gap, aux_gap) > GROUPS_LOSS_ATOL:
+            _fail(f"ep (b) groups {tag}: losses {gap:.3e}, aux {aux_gap:.3e} from one process's")
+        if (r["world"], r["mesh"], len(r["losses"])) != (2, mesh, g_total):
+            _fail(f"ep (b) groups {tag}: world, mesh or step count wrong")
+        if [q[coords] for q in r["per_rank"]] != [0, 1]:
+            _fail(f"ep (b) groups {tag}: rank coordinates {r['per_rank']}")
+        if tag.startswith("(ii)"):
+            if any(any(q["flash_launches"].values()) for q in r["per_rank"]):
+                _fail(f"ep (b) groups {tag}: a flash kernel launched on the ring path")
+            _record_launches(kernels, "ep_groups_sp2_ring", {k: 0 for k in fa.launch_counts()})
+        else:
+            _tp_launches(kernels, f"ep_groups_{'accum_' if steps > g_total else ''}fsdp2",
+                         r["per_rank"], steps, EP_RUN["n_layers"], remat=False)
+    fault_gap = _loss_gap(fault["losses"], ones["groups"]["losses"])
+    _log(f"ep (b) groups (iv): each rank grouping its own tokens, losses "
+         f"{[round(x, 5) for x in fault['losses']]}, {fault_gap:.3e} from one process's (limit "
+         f"{GROUPS_LOSS_ATOL:.0e})")
+    if fault_gap <= GROUPS_LOSS_ATOL:
+        _fail(f"ep (b) groups (iv): the planted rank grouping reads {fault_gap:.3e}, within the limit")
     return None
 
 

@@ -97,8 +97,8 @@ from torch.utils.checkpoint import checkpoint, noop_context_fn
 from ..ops.chunked_xent import chunked_softmax_xent, vocab_parallel_xent
 from ..ops.flash_attention import flash_attention
 from ..ops.quantize import dequantize, quantize, scale_name
-from ..parallel.collectives import all_gather, broadcast, psum
-from ..parallel.moe import load_balance_loss, moe_mlp, moe_mlp_reference, moe_mlp_sparse
+from ..parallel.collectives import all_gather, axis_size, broadcast, psum
+from ..parallel.moe import TokenSplit, load_balance_loss, moe_mlp, moe_mlp_reference, moe_mlp_sparse
 from ..parallel.pipeline import pipeline_apply, pipeline_value_and_grad
 from ..parallel.ring import _single_shard, ring_attention_shard
 from ..parallel.sharding import (
@@ -505,8 +505,11 @@ class MoEMLP(nn.Module):
     dispatch (``moe_mlp_reference``, or ``moe_mlp`` over the mesh) or
     capacity-factor sparse dispatch (``moe_mlp_sparse``). Under ``ep`` it
     holds this rank's ``E/ep`` experts, under ``tp`` each expert's
-    ``d_ff/tp``; ``token_axes`` are the axes of ``mesh`` that split the
-    tokens, over which the load-balance loss takes its statistics.
+    ``d_ff/tp``; ``token_axes`` are the axes of ``mesh`` that may split the
+    tokens (the data axes, and sp where the call's ``seq_split`` says it
+    does): the load-balance loss takes its statistics over them, and sparse
+    dispatch groups their tokens as the reference groups the global batch
+    (``moe_mlp_sparse(tokens=)``).
 
     Parameters in the reference's layout and names, in ``cfg.param_dtype``:
     the router ``gate`` [D, E], used as stored (the router computes in f32),
@@ -544,21 +547,25 @@ class MoEMLP(nn.Module):
             return dequantize(w, getattr(self, scale_name(name)), self.cfg.dtype)
         return w.to(self.cfg.dtype)
 
-    def forward(self, x, want_aux: bool = False):
+    def forward(self, x, want_aux: bool = False, seq_split: bool = False):
         """``(out, aux)``: the layer's output in ``x``'s shape and dtype, and
         its load-balance loss when ``want_aux`` and ``cfg.moe_aux_weight > 0``
-        (else None)."""
+        (else None). ``x`` [b, s, D] holds this rank's rows, and with
+        ``seq_split`` its sp block of each row."""
         cfg = self.cfg
         params = {"gate": self.gate, "w_in": self._bank("w_in"), "w_out": self._bank("w_out")}
         x2d = x.reshape(-1, cfg.d_model)
+        # An sp rank that computes the whole sequence holds no block of it.
+        axes = tuple(a for a in self.token_axes if a != "sp" or seq_split)
         aux = None
         if want_aux and cfg.moe_aux_weight > 0:
             aux = load_balance_loss(params, x2d, cfg.moe_top_k, mesh=self.token_mesh,
-                                    token_axes=self.token_axes)
+                                    token_axes=axes)
         if cfg.moe_dispatch == "sparse":
+            S = x.shape[1] * (axis_size("sp", self.token_mesh) if "sp" in axes else 1)
             out = moe_mlp_sparse(
                 params, x2d, top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor,
-                mesh=self.mesh,
+                mesh=self.mesh, tokens=TokenSplit(axes, x.shape[0], S, self.token_mesh),
             )
         elif self.mesh is not None:
             out = moe_mlp(params, x2d, mesh=self.mesh, top_k=cfg.moe_top_k)
@@ -590,9 +597,15 @@ class Block(nn.Module):
         x = x + self.attn(self.attn_norm(x), positions, cache, seq_split)
         h = self.mlp_norm(x)
         if self.moe:
-            out, aux = self.moe_mlp(h, want_aux)
+            out, aux = self.moe_mlp(h, want_aux, seq_split)
             return x + out, aux
         return x + self.mlp(h), None
+
+
+ITEM_3C3C = (
+    "ROADMAP.md item 3c-3c: sparse MoE dispatch in pp microbatches over data ranks; a pp "
+    "microbatch holds each data coordinate's rows, JAX's the global batch's"
+)
 
 
 class Llama(nn.Module):
@@ -637,10 +650,15 @@ class Llama(nn.Module):
             check_tp_divides(cfg, tp.size)
         self.cfg = cfg
         self.tp, self.ep, self.sp, self.pp = tp, ep, sp, pp
-        # The axes that split the tokens (the MoE load-balance loss's).
+        # The axes that may split the tokens (the MoE layers').
         sizes = {} if mesh is None else dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
         self.mesh_axes = sizes
         token_axes = tuple(a for a in ("dp", "fsdp", "sp") if sizes.get(a, 1) > 1)
+        if pp is not None and token_axes and cfg.n_experts > 0 and cfg.moe_dispatch == "sparse":
+            raise NotImplementedError(
+                f"sparse MoE dispatch on a pp mesh with {', '.join(f'{a}={sizes[a]}' for a in token_axes)} "
+                f"is not ported yet ({ITEM_3C3C})"
+            )
         V = _local(cfg.vocab_size, tp, "vocab_size")
         # The first vocabulary id of this rank's rows of the embedding and
         # columns of the head.

@@ -60,9 +60,17 @@ def same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
 
 
 def _conv(x, w, stride: int, pads) -> torch.Tensor:
-    """``F.conv2d`` with ``pads = ((top, bottom), (left, right))``."""
+    """``F.conv2d`` with ``pads = ((top, bottom), (left, right))``.
+
+    On the CPU the pads are always zeros written into the input (``F.pad``):
+    the CPU's bf16 weight gradient of a conv given ``padding`` reads memory
+    that it never wrote for a tap that sees only padding (a 1×1 input under
+    a 3×3 kernel at stride 2 and pad 1, as ResNet-18's last stage meets at
+    16 px), and returns non-finite values there in some calls on the same
+    inputs (torch 2.13 on the CPU; the card's cuDNN convs take
+    ``padding``)."""
     (t, b), (left, r) = pads
-    if t == b and left == r:
+    if t == b and left == r and x.device.type != "cpu":
         return F.conv2d(x, w, stride=stride, padding=(t, left))
     return F.conv2d(F.pad(x, (left, r, t, b)), w, stride=stride)
 

@@ -19,26 +19,38 @@ def _world(process_index, process_count) -> tuple:
     return int(process_index), int(process_count)
 
 
-def global_batch(batch, process_index=None, process_count=None) -> np.ndarray:
+def global_batch(batch, process_index=None, process_count=None, microbatches: int = 1) -> np.ndarray:
     """This process's rows of a host batch that every process holds: rows
     ``pid·per:(pid+1)·per`` with ``per = rows / processes`` (the JAX
-    function's process slice). The world defaults to the joined one."""
+    function's process slice). The world defaults to the joined one.
+
+    ``microbatches=A`` > 1: the batch is A consecutive microbatches (the
+    reference's gradient accumulation, ``tokens.reshape(A, B/A, ...)``) and
+    the process takes its slice of each, in order: its rows of microbatch m
+    are the m-th of its A equal blocks, so that the processes' m-th blocks
+    together are the reference's microbatch m."""
     batch = np.asarray(batch)
     pid, pcount = _world(process_index, process_count)
     if pcount == 1:
         return batch
     n = batch.shape[0]
-    if n % pcount != 0:
-        raise ValueError(f"global batch size {n} must divide evenly across {pcount} processes")
-    per = n // pcount
-    return batch[pid * per : (pid + 1) * per]
+    if n % (pcount * microbatches) != 0:
+        raise ValueError(
+            f"global batch size {n} must divide evenly across {pcount} processes"
+            + (f" in each of {microbatches} microbatches" if microbatches > 1 else "")
+        )
+    per = n // (pcount * microbatches)
+    blocks = batch.reshape(microbatches, pcount, per, *batch.shape[1:])[:, pid]
+    return blocks.reshape(microbatches * per, *batch.shape[1:])
 
 
-def put_global(batch, device, process_index=None, process_count=None):
-    """This process's rows of the host batch as a tensor on ``device``."""
+def put_global(batch, device, process_index=None, process_count=None, microbatches: int = 1):
+    """This process's rows of the host batch (:func:`global_batch`) as a
+    tensor on ``device``."""
     import torch
 
-    return torch.from_numpy(np.ascontiguousarray(global_batch(batch, process_index, process_count))).to(device)
+    rows = global_batch(batch, process_index, process_count, microbatches)
+    return torch.from_numpy(np.ascontiguousarray(rows)).to(device)
 
 
 def shard_batch_size(global_size: int, mesh, axis: str = "dp") -> int:

@@ -49,17 +49,40 @@ them; ep and tp do not).
 mean probabilities over the tokens of every rank of those axes (the
 reference computes it on the global batch): the counts are summed, the
 probabilities summed with ``psum_autograd``.
+
+**Token groups over ranks** (:func:`moe_mlp_sparse` with ``tokens=``, a
+:class:`TokenSplit`): the reference groups the global ``[B·S]`` tokens of
+the step (or of the microbatch) in row-major order, and fills each group's
+slots choice-major over the whole group, so whether a token is dropped
+depends on tokens that other ranks hold. Each rank routes its own tokens;
+only their top-k expert indices cross ranks, in one all-gather a token axis
+(int8 when the experts fit, no gradient). From them every rank rebuilds the
+global order (:func:`global_token_index`: a rank's rows are its data
+coordinate's, its positions its sp block's), computes each routing's slot
+with the reference's cumsum, and keeps its own tokens' slots. Its dispatch
+and combine then run over the groups its tokens touch, the other ranks'
+slots empty. The probabilities, and so the gradients, stay with the token's
+own rank, as the reference's ``combine`` carries a token's gradient only
+through its own row. Where every group that a rank's tokens touch lies
+whole on the rank, the rank groups its own tokens as without ``tokens``
+(the same values, bit for bit) and nothing is gathered.
 """
 
 from __future__ import annotations
 
+import functools
+import itertools
 import math
+from dataclasses import dataclass
+from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from .collectives import axis_index, axis_size, psum, psum_autograd, tp_enter, tp_leave
+from .collectives import all_gather, axis_index, axis_size, psum, psum_autograd, tp_enter, tp_leave
+from .mesh import DATA_AXES
 
 
 def _router_topk(params, x, top_k: int):
@@ -169,6 +192,42 @@ def moe_mlp_reference(params, x, *, top_k: int = 2):
     return _expert_ffn(params["w_in"], params["w_out"], _gates(params, x, top_k), x)
 
 
+def _slot_positions(top_idx, E: int):
+    """Each routing's place in its expert's arrival order within its group:
+    ``top_idx`` [..., g, K] (groups leading) → [..., g, K], choice 0 of every
+    token of the group before choice 1 (GShard's order, the reference's
+    loop over k)."""
+    counts = torch.zeros(top_idx.shape[:-2] + (1, E), dtype=torch.int64, device=top_idx.device)
+    pos = []
+    for k in range(top_idx.shape[-1]):
+        onehot_k = F.one_hot(top_idx[..., k], E)  # [..., g, E]
+        pos_in_e = torch.cumsum(onehot_k, dim=-2) - onehot_k + counts
+        pos.append((pos_in_e * onehot_k).sum(-1))  # [..., g]
+        counts = counts + onehot_k.sum(dim=-2, keepdim=True)
+    return torch.stack(pos, dim=-1)
+
+
+def _slot_masks(top_idx, pos, probs, E: int, capacity: int):
+    """(dispatch, combine) [..., E, C], both f32, of routings ``top_idx``
+    [..., K] at slots ``pos`` [..., K] with gates ``probs`` [..., K]: token
+    n in slot (e, c) of each routed expert; a slot past ``capacity`` drops
+    the routing (its rows are zero)."""
+    slots = torch.arange(capacity, device=top_idx.device)
+    dispatch = torch.zeros(top_idx.shape[:-1] + (E, capacity), dtype=torch.float32,
+                           device=top_idx.device)
+    combine = torch.zeros_like(dispatch)
+    for k in range(top_idx.shape[-1]):
+        onehot_k = F.one_hot(top_idx[..., k], E)
+        pos_k = pos[..., k]
+        keep = (pos_k < capacity).float()
+        # jax.nn.one_hot: an all-zero row for a position past capacity.
+        slot = (pos_k.unsqueeze(-1) == slots).float()
+        mask = onehot_k.float().unsqueeze(-1) * slot.unsqueeze(-2) * keep[..., None, None]
+        dispatch = dispatch + mask
+        combine = combine + mask * probs[..., k, None, None]
+    return dispatch, combine
+
+
 def _dispatch_tensors(params, x, top_k: int, capacity: int):
     """GShard dispatch and combine one-hots of token groups ``x`` [..., g, D]:
     (dispatch [..., g, E, C], combine [..., g, E, C]), both f32. Token n goes
@@ -179,23 +238,118 @@ def _dispatch_tensors(params, x, top_k: int, capacity: int):
     logits, top_idx, probs = _router_topk(params, x, top_k)
     with record_function("moe.slots"):
         E = logits.shape[-1]
-        counts = torch.zeros(logits.shape[:-2] + (1, E), dtype=torch.int64, device=x.device)
-        slots = torch.arange(capacity, device=x.device)
-        dispatch = torch.zeros(logits.shape + (capacity,), dtype=torch.float32, device=x.device)
-        combine = torch.zeros_like(dispatch)
-        for k in range(top_k):
-            onehot_k = F.one_hot(top_idx[..., k], E)  # [..., g, E]
-            # Each token's position in its expert's arrival order.
-            pos_in_e = torch.cumsum(onehot_k, dim=-2) - onehot_k + counts
-            pos_k = (pos_in_e * onehot_k).sum(-1)  # [..., g]
-            counts = counts + onehot_k.sum(dim=-2, keepdim=True)
-            keep = (pos_k < capacity).float()
-            # jax.nn.one_hot: an all-zero row for a position past capacity.
-            slot = (pos_k.unsqueeze(-1) == slots).float()
-            mask = onehot_k.float().unsqueeze(-1) * slot.unsqueeze(-2) * keep[..., None, None]
-            dispatch = dispatch + mask
-            combine = combine + mask * probs[..., k, None, None]
-        return dispatch, combine
+        return _slot_masks(top_idx, _slot_positions(top_idx, E), probs, E, capacity)
+
+
+@dataclass(frozen=True)
+class TokenSplit:
+    """How a rank's tokens lie in the token order that the reference
+    groups: the step's (or microbatch's) ``[B, S]`` tokens row-major, of
+    which this rank holds ``rows`` rows (its data coordinate's, over the
+    data axes among ``axes``) and, with ``"sp"`` among ``axes``, the block of
+    ``seq_len/sp`` positions of its sp coordinate; its tokens ``x`` [N, D]
+    are row-major over those rows and positions. ``axes``: the axes of
+    ``mesh`` that split the tokens (of ``dp``, ``fsdp``, ``sp``); ``mesh``
+    None means the world (or the counting mode's axes)."""
+
+    axes: tuple
+    rows: int
+    seq_len: int
+    mesh: object = None
+
+
+def global_token_index(rows: int, seq_len: int, data_index: int, block=None) -> np.ndarray:
+    """The places in the reference's row-major ``[B·S]`` token order of a
+    rank's tokens: rows ``data_index·rows`` on of the batch and, with
+    ``block=(offset, length)``, positions ``offset`` on of each (all of the
+    row without); row-major over the rank's rows and positions, as
+    ``x.reshape(-1, D)`` orders them. int64 [rows·length]."""
+    off, n = block if block is not None else (0, seq_len)
+    r = data_index * rows + np.arange(rows, dtype=np.int64)
+    return (r[:, None] * seq_len + off + np.arange(n, dtype=np.int64)).reshape(-1)
+
+
+def _coords_index(axes, sizes, coords, rows: int, seq_len: int) -> np.ndarray:
+    """:func:`global_token_index` of the rank at ``coords`` (a value for
+    each of ``axes``): its data index mixed-radix over the data axes among
+    ``axes`` in :data:`DATA_AXES` order, its sp block by its sp index."""
+    d = 0
+    for a in DATA_AXES:
+        if a in axes:
+            d = d * sizes[a] + coords[a]
+    block = None
+    if "sp" in axes:
+        n = seq_len // sizes["sp"]
+        block = (coords["sp"] * n, n)
+    return global_token_index(rows, seq_len, d, block)
+
+
+@dataclass(frozen=True, eq=False)
+class _GroupLayout:
+    """A rank's share of the global token groups of ``g`` tokens:
+    ``order`` the global index of each gathered token (in the gather's
+    order, the last of the axes outermost), ``own`` the rank's tokens'
+    global indices, ``slot`` each own token's row of the ``[T, width]``
+    buffer of the ``T`` groups that its tokens touch (``width`` the most
+    own tokens in one of them)."""
+
+    g: int
+    T: int
+    width: int
+    order: np.ndarray
+    own: np.ndarray
+    slot: np.ndarray
+
+
+@functools.lru_cache(maxsize=64)
+def _group_layout(axes: tuple, sizes: tuple, coords: tuple, rows: int, seq_len: int,
+                  group_size: int) -> Optional[_GroupLayout]:
+    """The rank's :class:`_GroupLayout`, or None where every group that
+    its tokens touch lies whole on it (it then groups its own tokens, as
+    the reference's groups)."""
+    sizes, coords = dict(zip(axes, sizes)), dict(zip(axes, coords))
+    if "sp" in axes and seq_len % sizes["sp"]:
+        raise ValueError(f"sp={sizes['sp']} does not divide the sequence of {seq_len}")
+    own = _coords_index(axes, sizes, coords, rows, seq_len)
+    g = token_group(own.size * math.prod(sizes.values()), group_size)
+    group = own // g
+    touched, first, counts = np.unique(group, return_index=True, return_counts=True)
+    if (counts == g).all():
+        return None
+    # Gathered over axes[0] first: the stacked dims are axes reversed.
+    order = np.concatenate([
+        _coords_index(axes, sizes, dict(zip(axes[::-1], c)), rows, seq_len)
+        for c in itertools.product(*(range(sizes[a]) for a in axes[::-1]))
+    ])
+    # A rank's tokens rise in global order, so those of one group are a run.
+    t = np.searchsorted(touched, group)
+    width = int(counts.max())
+    slot = t * width + (np.arange(own.size) - first[t])
+    return _GroupLayout(g, touched.size, width, order, own, slot)
+
+
+@functools.lru_cache(maxsize=64)
+def _layout_tensors(lay: _GroupLayout, device: torch.device) -> tuple:
+    """(the inverse of ``lay.order``, ``lay.own``, ``lay.slot``) as int64
+    tensors on ``device``, made once a layout and device."""
+    inv = np.empty_like(lay.order)
+    inv[lay.order] = np.arange(lay.order.size)
+    return tuple(torch.from_numpy(a).to(device) for a in (inv, lay.own, lay.slot))
+
+
+def _global_positions(top_idx, E: int, tokens: TokenSplit, lay: _GroupLayout):
+    """The slots [N, K] of this rank's routings in the reference's global
+    groups: the ranks' expert indices gathered over ``tokens.axes`` (int8
+    where E fits, int32 else), put in global order, slotted group by group,
+    and this rank's picked out."""
+    inv, own, _ = _layout_tensors(lay, top_idx.device)
+    routes = top_idx.to(torch.int8 if E <= 127 else torch.int32)
+    for a in tokens.axes:
+        routes = all_gather(routes, a, tokens.mesh, tiled=False)
+    K = top_idx.shape[-1]
+    glob = routes.reshape(-1, K).index_select(0, inv).long()
+    pos = _slot_positions(glob.view(-1, lay.g, K), E).view(-1, K)
+    return pos.index_select(0, own)
 
 
 def moe_mlp_sparse(
@@ -207,6 +361,7 @@ def moe_mlp_sparse(
     group_size: int = 1024,
     mesh=None,
     axis: str = "ep",
+    tokens: Optional[TokenSplit] = None,
 ):
     """Capacity-factor sparse MoE dispatch (GShard's one-hot product form).
 
@@ -218,19 +373,49 @@ def moe_mlp_sparse(
     output dtype before their products, as in the reference. With ``mesh``
     (expert parallelism, the module docstring) the dispatch and combine
     tensors are computed whole on every rank, each rank takes its experts'
-    columns of both, runs its experts and the parts are summed over ep."""
+    columns of both, runs its experts and the parts are summed over ep.
+
+    ``tokens`` (a :class:`TokenSplit`): ``x`` is this rank's share of the
+    tokens of every rank of ``tokens.axes``, and N, the groups and their
+    slots are those of all of them (the module docstring)."""
     n_exp, d_model = params["gate"].shape[1], params["w_in"].shape[1]
     if not (1 <= top_k <= n_exp):
         raise ValueError(f"top_k={top_k} outside [1, {n_exp}]")
     e_local, e0, split = _expert_axes(params, mesh, axis)
     N = x.shape[0]
-    g = token_group(N, group_size)
-    G, C = N // g, math.ceil(g * capacity_factor * top_k / n_exp)
-    dispatch, combine = _dispatch_tensors(params, x.reshape(G, g, d_model), top_k, C)
+    lay = None
+    if tokens is not None and tokens.axes:
+        axes = tuple(tokens.axes)
+        sizes = tuple(axis_size(a, tokens.mesh) for a in axes)
+        coords = tuple(axis_index(a, tokens.mesh) for a in axes)
+        lay = _group_layout(axes, sizes, coords, tokens.rows, tokens.seq_len, group_size)
+        if lay is not None and lay.own.size != N:
+            raise ValueError(f"x holds {N} tokens; {tokens} gives a rank {lay.own.size}")
+    if lay is None:
+        g = token_group(N, group_size)
+        G, C = N // g, math.ceil(g * capacity_factor * top_k / n_exp)
+        dispatch, combine = _dispatch_tensors(params, x.reshape(G, g, d_model), top_k, C)
+        xg = _enter(x, split, mesh)
+    else:
+        G, g, C = lay.T, lay.width, math.ceil(lay.g * capacity_factor * top_k / n_exp)
+        _, top_idx, probs = _router_topk(params, x, top_k)
+        with record_function("moe.slots"):
+            pos = _global_positions(top_idx, n_exp, tokens, lay)
+            dispatch, combine = _slot_masks(top_idx, pos, probs, n_exp, C)
+        # Each own token to its row of the [groups touched, width] buffer;
+        # the rows of other ranks' tokens stay zero.
+        slot = _layout_tensors(lay, x.device)[2]
+
+        def place(t):
+            return t.new_zeros((G * g,) + t.shape[1:]).index_copy(0, slot, t)
+
+        dispatch, combine = place(dispatch), place(combine)
+        dispatch, combine = (t.view(G, g, n_exp, C) for t in (dispatch, combine))
+        xg = place(_enter(x, split, mesh))
     if split:
         dispatch = dispatch[:, :, e0:e0 + e_local]
         combine = _enter(combine, split, mesh)[:, :, e0:e0 + e_local]
-    xg = _enter(x, split, mesh).reshape(G, g, d_model)
+    xg = xg.reshape(G, g, d_model)
     with record_function("moe.dispatch"):
         # gnec,gnd->gecd, then the expert-major layout [E, G·C, D].
         x_e = torch.bmm(dispatch.to(x.dtype).reshape(G, g, e_local * C).transpose(1, 2), xg)
@@ -241,8 +426,10 @@ def moe_mlp_sparse(
     with record_function("moe.dispatch"):
         # gnec,gecd->gnd
         y = y.view(e_local, G, C, d_model).transpose(0, 1).reshape(G, e_local * C, d_model)
-        out = torch.bmm(combine.to(y.dtype).reshape(G, g, e_local * C), y)
-        return _leave(out.reshape(N, d_model), split, mesh)
+        out = torch.bmm(combine.to(y.dtype).reshape(G, g, e_local * C), y).reshape(G * g, d_model)
+        if lay is not None:
+            out = out.index_select(0, _layout_tensors(lay, x.device)[2])
+        return _leave(out, split, mesh)
 
 
 def moe_mlp(params, x, *, mesh, top_k: int = 2, axis: str = "ep"):

@@ -36,8 +36,12 @@ the embedding on stage 0 and the head's vocabulary rows over the stages;
 gradients and the optimizer's state with FSDP2, ``dp`` replicates them (both
 together: HSDP; ``@dcn`` axes outermost). ``--batch-size`` is the global
 batch; each data coordinate (``parallel/mesh.train_coords``) trains on its
-rows of it, the ranks of one tp, ep, sp or pp group on the same rows, and the
-losses reported are the global batch's. AdamW and adafactor both run in a
+rows of it (with ``--grad-accum A``, its rows of each of the global batch's A
+microbatches, as JAX's accumulation splits it), the ranks of one tp, ep, sp
+or pp group on the same rows, and the losses reported are the global
+batch's. Sparse MoE dispatch groups the tokens of every data and sp rank of
+the step (or of the microbatch) as JAX groups the global batch's
+(``parallel/moe.py``). AdamW and adafactor both run in a
 world, in f32 or bf16 parameters (``--param-dtype``).
 
     python -m pytorch_operator_tpu_torch.workloads.llama_train --config 0.3b \\
@@ -46,9 +50,8 @@ world, in f32 or bf16 parameters (``--param-dtype``).
 It runs on ``cuda`` unless ``--device cpu`` or ``TPUJOB_PLATFORM=cpu`` asks
 for the host; with neither and no GPU it raises. What waits for ROADMAP.md
 is refused by name: ``pp`` beside ``tp``, ``ep`` or ``sp`` (item 3c-3b);
-sparse MoE dispatch whose token groups would differ from the reference's
-global ones (item 3c-2c); ulysses under tp where ``(n_kv_heads/tp) % sp !=
-0`` (item 3c-2d); a tp that does not divide the heads, kv heads, ``d_ff`` or
+sparse MoE dispatch on ``pp`` beside a data axis (item 3c-3c); ulysses under
+tp where ``(n_kv_heads/tp) % sp != 0`` (item 3c-2d); a tp that does not divide the heads, kv heads, ``d_ff`` or
 the vocabulary.
 """
 
@@ -70,7 +73,6 @@ from ..data import field_range, open_training_loader, read_meta
 from ..data.device_prefetch import DevicePrefetcher, to_device
 from ..models import llama as llama_lib
 from ..models.convert import params_from_jax
-from ..parallel.moe import token_group
 from ..parallel.sharding import check_tp_divides, model_axes
 from ..ops import flash_attention as flash_lib
 from ..parallel import data as data_lib
@@ -106,28 +108,7 @@ CONFIGS = llama_lib.CONFIGS
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-ITEM_3C2C = "ROADMAP.md item 3c-2c: sparse MoE dispatch over token groups that cross ranks"
 ITEM_3C3B = "ROADMAP.md item 3c-3b: pipeline stages beside tp, ep or sp"
-
-
-def check_sparse_groups(batch: int, seq_len: int, data_extent: int, sp: int) -> None:
-    """Refuse, by name, sparse MoE dispatch on a mesh whose ranks would
-    group their tokens otherwise than the reference groups the global
-    ``[B·S]`` tokens (moe.py l.167-172): a rank holds ``batch/data_extent``
-    rows of ``seq_len/sp`` positions, and its groups are the reference's only
-    if they have the same size and none crosses a row's block."""
-    if data_extent * sp == 1:
-        return
-    rows, block = batch // data_extent, seq_len // sp
-    g, g_rank = token_group(batch * seq_len), token_group(rows * block)
-    run = block if sp > 1 else rows * seq_len  # a rank's contiguous tokens
-    if g != g_rank or run % g:
-        raise NotImplementedError(
-            f"--moe-dispatch sparse with {rows} rows of {block} positions a rank (data "
-            f"extent {data_extent}, sp={sp}): the reference groups the global {batch}x{seq_len} "
-            f"tokens in groups of {g}, a rank's would be {g_rank} or cross ranks, and "
-            f"capacity would drop other tokens ({ITEM_3C2C})"
-        )
 
 
 def resolve_train_mesh(spec: str, world: int) -> dict:
@@ -305,7 +286,6 @@ def run(
     # workload rounds it to its devices (every device of the mesh, tp's too).
     if batch_size % world:
         batch_size = max(batch_size // world, 1) * world
-    data_extent = math.prod(axes.get(a, 1) for a in mesh_lib.DATA_AXES)
     if cfg.n_experts > 0:
         if cfg.moe_dispatch == "sparse" and not cfg.moe_aux_weight:
             # LlamaConfig warns library users; repeat it in the job log.
@@ -357,9 +337,6 @@ def run(
                 f"--pp-microbatches {pp_microbatches} must divide each data coordinate's "
                 f"{rows} rows (the batch {batch_size} over the data extent {coords.data_extent})"
             )
-    if cfg.n_experts > 0 and cfg.moe_dispatch == "sparse":
-        # A microbatch's tokens are what the dispatch groups.
-        check_sparse_groups(batch_size // grad_accum, seq_len, data_extent, axes.get("sp", 1))
     log(
         f"[llama] config={config} d_model={cfg.d_model} layers={cfg.n_layers} "
         f"mesh={axes}{f' pp_schedule={pp_schedule} microbatches={pp_microbatches}' if pp > 1 else ''} "
@@ -559,7 +536,7 @@ def run(
             feed_steps = itertools.count(start_step)
             prefetcher = DevicePrefetcher(
                 lambda: data_lib.global_batch(
-                    host_batch(next(feed_steps)), coords.data_index, coords.data_extent
+                    host_batch(next(feed_steps)), coords.data_index, coords.data_extent, grad_accum
                 ),
                 put=lambda toks: to_device(toks.astype(np.int64), dev),
                 depth=prefetch,
@@ -579,7 +556,7 @@ def run(
                 maybe_preempt(step)
                 maybe_resize(step)
                 return data_lib.put_global(
-                    host_batch(step), dev, coords.data_index, coords.data_extent
+                    host_batch(step), dev, coords.data_index, coords.data_extent, grad_accum
                 ).long()
 
         def save(step: int):
@@ -757,7 +734,8 @@ def main(argv=None) -> int:
         "--mesh", default=None,
         help='axes over the world\'s ranks, e.g. "fsdp=2", "dp=2", "tp=2", "fsdp=2,tp=2", '
         '"sp=2", "dp=2,ep=2", "pp=2", "dp=2,pp=2", "dp=2@dcn,fsdp=-1" (default: TPUJOB_MESH or '
-        'fsdp=-1); pp beside tp, ep or sp is refused (ROADMAP.md item 3c-3b)',
+        'fsdp=-1); pp beside tp, ep or sp is refused (ROADMAP.md item 3c-3b), and '
+        '--moe-dispatch sparse on pp beside dp or fsdp (item 3c-3c)',
     )
     p.add_argument("--batch-size", type=int, default=8, help="the global batch, over every rank")
     p.add_argument("--seq-len", type=int, default=128)

@@ -353,3 +353,33 @@ def test_resnet50_f32_conditioning_at_the_card_check_shape():
     limits = chip_smoke.IMAGE_CARD_CPU_RTOL
     assert 1e-3 < gap["grad"] < limits["grad"], gap
     assert gap["logits"] < limits["logits"] and gap["buffers"] < limits["buffers"], gap
+
+
+def test_padded_conv_weight_gradient_is_finite_where_a_tap_sees_only_padding():
+    """The bf16 weight gradient of a 3×3, stride-2 SAME conv on a 1×1 input
+    (ResNet-18's last stage at 16 px): only the centre tap meets the input,
+    so every other tap's gradient is exactly 0. The CPU's conv given
+    ``padding`` read unwritten memory for those taps and returned non-finite
+    values in some calls on the same inputs (the file bench's ``nan`` losses,
+    ROADMAP Queue 3); 200 calls of the port's conv must all be finite and
+    exact."""
+    gen = torch.Generator().manual_seed(0)
+    conv = port_resnet.Conv(256, 512, 3, stride=2)
+    with torch.no_grad():
+        conv.weight.normal_(0.0, 0.05, generator=gen)
+    x = torch.randn(8, 256, 1, 1, generator=gen).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    g = torch.randn(8, 512, 1, 1, generator=gen).to(torch.bfloat16)
+    g = g.contiguous(memory_format=torch.channels_last)
+    centre = None
+    for _ in range(200):
+        conv.weight.grad = None
+        conv(x).backward(g)
+        gw = conv.weight.grad
+        assert torch.isfinite(gw).all()
+        off = gw.clone()
+        off[:, :, 1, 1] = 0
+        assert not off.any()
+        if centre is None:
+            centre = gw[:, :, 1, 1].clone()
+        assert torch.equal(gw[:, :, 1, 1], centre)

@@ -668,6 +668,50 @@ def rank_moe(world, spec: str, cases: list) -> list:
     return out
 
 
+def rank_moe_groups(world, cases: list) -> list:
+    """The sparse MoE layer over tokens that a mesh splits
+    (``moe_mlp_sparse(tokens=)``): for each case (``spec`` the mesh,
+    ``params`` whole, ``x`` the global ``[B, S, D]`` tokens,
+    ``capacity_factor``, ``group_size``, ``plant``: "rank_groups" groups the
+    rank's own tokens, the call without ``tokens``), this rank takes its
+    data coordinate's rows (``train_coords``), its sp block of each, and its
+    experts' block of the banks, and returns the output, the gradients of
+    ``sum(out²) / (B·S·D)`` (the global ``mean(out²)``'s share of its rows)
+    of x, the router and its blocks, and where its tokens and experts lie."""
+    import torch
+
+    from pytorch_operator_tpu_torch.parallel import moe
+    from pytorch_operator_tpu_torch.parallel.mesh import axis_sizes, make_mesh, train_coords
+    from pytorch_operator_tpu_torch.parallel.sharding import ExpertParallel
+
+    out = []
+    for case in cases:
+        mesh = make_mesh(case["spec"], "cpu")
+        sizes, c = axis_sizes(mesh), train_coords(mesh)
+        B, S, D = case["x"].shape
+        rows, n = B // c.data_extent, S // c.sp_size
+        r0, s0 = c.data_index * rows, c.sp_index * n
+        ep = ExpertParallel.of(mesh)
+        p = case["params"]
+        e0, en = ep.block(p["w_in"].shape[0], "experts") if ep is not None else (0, p["w_in"].shape[0])
+        params = {
+            "gate": torch.tensor(p["gate"], requires_grad=True),
+            "w_in": torch.tensor(p["w_in"][e0:e0 + en], requires_grad=True),
+            "w_out": torch.tensor(p["w_out"][e0:e0 + en], requires_grad=True),
+        }
+        x = torch.tensor(case["x"][r0:r0 + rows, s0:s0 + n].reshape(-1, D), requires_grad=True)
+        axes = tuple(a for a in ("dp", "fsdp", "sp") if sizes.get(a, 1) > 1)
+        tokens = None if case.get("plant") == "rank_groups" else moe.TokenSplit(axes, rows, S, mesh)
+        y = moe.moe_mlp_sparse(params, x, top_k=2, capacity_factor=case["capacity_factor"],
+                               group_size=case["group_size"], mesh=mesh if ep is not None else None,
+                               tokens=tokens)
+        ((y ** 2).sum() / (B * S * D)).backward()
+        out.append({"out": y.detach().numpy(), "x": x.grad.numpy(), "rows": (r0, rows),
+                    "block": (s0, n), "experts": (e0, en), "data_index": c.data_index,
+                    **{k: t.grad.numpy() for k, t in params.items()}})
+    return out
+
+
 def _toy_stage(params, x):
     """``tests/test_pipeline.py``'s stage: x + tanh(x @ w + b)."""
     import torch
