@@ -280,7 +280,18 @@ Phases, in order; any failure exits non-zero before the result line:
    grouping its own tokens: every step's loss and aux loss of (i)-(iii)
    within ``GROUPS_LOSS_ATOL`` of its one process's, (iv)'s losses above it,
    (i)'s and (iii)'s flash launches (each kernel once a layer a microbatch)
-   into the kernels line, (ii)'s none.
+   into the kernels line, (ii)'s none; (c) ulysses under tp over the
+   global kv heads: ``llama_0_3b`` (4 kv heads) at full width and 4 of its
+   16 layers, global B8 x 2048, AdamW, 1 + 2 steps: one process with
+   ``attn_impl="flash"`` (its launches into the kernels line), then eight
+   ranks at ``sp=2,tp=4`` with ulysses (one kv head a tp rank, gathered over
+   tp with q and v before the swap), and a planted fault (the output's
+   heads kept at the sp coordinate instead of the tp coordinate): every
+   step's loss within ``SP_LOSS_ATOL`` of the one process's and the fault's
+   above it, the ranks' gathered parameters equal (a digest), each rank's
+   parameter bytes exactly its tp blocks and the whole norms, each rank's
+   tp gathers (q, k and v a layer a step), no flash launch, each rank's
+   peak memory and step time.
 15. Pipeline parallelism, two ranks sharing ``cuda:0`` over gloo in one
    world: ``llama_0_3b`` at full width and 8 of its 16 layers (4 a stage),
    global B8 x 2048, AdamW, 1 + 3 steps. (a) One process, then ``pp=2``
@@ -3913,7 +3924,9 @@ def _planted(name):
     each rank's own tokens (the groups the reference forms over every rank's
     tokens not formed); ``"pp_shifted_cotangent"``, each pipeline stage
     backwarding a microbatch's stored graph with the previous microbatch's
-    cotangent (the first with its own)."""
+    cotangent (the first with its own); ``"ulysses_sp_heads"``, ulysses
+    under tp keeping, of the global heads' output, the block at the rank's
+    sp coordinate instead of its tp coordinate."""
     import contextlib
 
     @contextlib.contextmanager
@@ -3949,6 +3962,13 @@ def _planted(name):
 
             def fault(params, x, tokens=None, **kw):
                 return sound_sparse(params, x, **kw)
+        elif name == "ulysses_sp_heads":
+            from pytorch_operator_tpu_torch.parallel import ulysses
+
+            where, attr = ulysses, "own_heads"
+
+            def fault(out, n, axis, mesh):
+                return out.narrow(2, collectives.axis_index("sp", mesh) * n, n)
         elif name == "leave_psum_autograd":
             where, attr = collectives, "tp_leave"
             fault = lambda x, axis="tp", mesh=None: collectives.psum_autograd(x, axis, mesh)  # noqa: E731
@@ -4230,6 +4250,15 @@ EP_LOSS_ATOL = 5e-3
 # to 0.3; the CPU's tiny f32 readings 1.5e-6 and 0.15).
 EP_MOVE_TENSORS = ["layers.0.attn.q_proj.weight", "layers.0.moe_mlp.gate"]
 EP_MOVE_RTOL = 5e-2
+# (c) ulysses under tp over the global kv heads: 0.3b's 4 kv heads at tp=4
+# leave one a tp rank, which sp=2 cannot split, so each rank gathers q, k
+# and v over tp and swaps the global heads. Eight ranks share the card;
+# global B8 x 2048 (the workload rounds the global batch up to a multiple
+# of the ranks, as JAX's does; a rank's f32 scores a layer, [8, 2, 2, 2048,
+# 2048], are B2 x 4096's), AdamW, 1 + 2 steps, held to SP_LOSS_ATOL against
+# one process with flash (at MOE_SHAPE, held and timed in phases 2-3).
+SP_TP_RUN = dict(config="0.3b", n_layers=4, batch_size=8, seq_len=2048, warmup=1, steps=2)
+SP_TP_MESH = {"sp": 2, "tp": 4}
 
 
 def _world_describe(tag: str, r: dict) -> None:
@@ -4251,10 +4280,12 @@ def phase_sp_ep(kernels):
     Llama at ep=2, dense and sparse, against one process, and the planted
     ep leave fault; then sparse dispatch over token groups that cross ranks
     (fsdp=2, sp=2 ring, fsdp=2 with grad_accum=2) against one process, and
-    the planted per-rank grouping. The kernels at (a)'s one-process shape
-    (B2 S8192), at (b)'s per-rank shape (B8 S2048, ``MOE_SHAPE``) and at the
-    token groups' one-process shape (B2 S512, ``GROUPS_SHAPE``) are held and
-    timed in phases 2-3."""
+    the planted per-rank grouping; (c) 0.3b at sp=2,tp=4 with ulysses over
+    the global kv heads (:func:`_sp_tp_part`). The kernels at (a)'s
+    one-process shape (B2 S8192), at (b)'s per-rank shape (B8 S2048,
+    ``MOE_SHAPE``), at the token groups' one-process shape (B2 S512,
+    ``GROUPS_SHAPE``) and at (c)'s one-process shape (B8 S2048,
+    ``MOE_SHAPE``) are held and timed in phases 2-3."""
     import shutil
     import tempfile
 
@@ -4395,7 +4426,70 @@ def phase_sp_ep(kernels):
          f"{GROUPS_LOSS_ATOL:.0e})")
     if fault_gap <= GROUPS_LOSS_ATOL:
         _fail(f"ep (b) groups (iv): the planted rank grouping reads {fault_gap:.3e}, within the limit")
+    _sp_tp_part(kernels)
     return None
+
+
+def _sp_tp_part(kernels):
+    """Phase 14(c): 0.3b at sp=2,tp=4 with ulysses over the global kv heads
+    (eight ranks sharing the card) against one process with flash, and the
+    planted fault that keeps the output's heads at the sp coordinate."""
+    import torch
+
+    from pytorch_operator_tpu_torch.ops import flash_attention as fa
+    from pytorch_operator_tpu_torch.workloads import llama_train
+
+    t0 = time.perf_counter()
+    total = SP_TP_RUN["warmup"] + SP_TP_RUN["steps"]
+    n_layers = SP_TP_RUN["n_layers"]
+    spec = ",".join(f"{a}={n}" for a, n in SP_TP_MESH.items())
+    torch.cuda.empty_cache()
+    fa.reset_launch_count()
+    one = llama_train.run(device="cuda", log=_log, attn_impl="flash", **SP_TP_RUN)
+    _record_launches(kernels, "sp_tp_one_process", fa.launch_counts())
+    torch.cuda.empty_cache()
+    world = dict(SP_TP_RUN, mesh_spec=spec, attn_impl="ulysses")
+    outs = _rank_world("runs", f"(c) {spec} ulysses", n=8, runs=[
+        dict(world, digest=True), dict(world, plant="ulysses_sp_heads"),
+    ])
+    sound, fault = (outs[0]["runs"][i]["result"] for i in range(2))
+    gap, fault_gap = _loss_gap(sound["losses"], one["losses"]), _loss_gap(fault["losses"], one["losses"])
+    per = sound["per_rank"]
+    _log(
+        f"sp (c) {spec} ulysses: step {sound['step_s']:.4f} s, losses "
+        f"{[round(x, 5) for x in sound['losses']]}; per rank (sp, tp) "
+        f"{[(q['sp_index'], q['tp_index']) for q in per]}, param bytes {[q['param_bytes'] for q in per]}, "
+        f"tp gathers {[q['tp_head_gathers'] for q in per]}, peak memory GiB "
+        f"{[round((q['peak_mem_bytes'] or 0) / 2**30, 2) for q in per]}"
+    )
+    _, want_bytes = _tp_bytes("0.3b", "float32", SP_TP_MESH["tp"], n_layers=n_layers)
+    # q, k and v gathered over tp once a layer a step (no remat).
+    want_gathers = 3 * n_layers * total
+    digests = {o["runs"][0]["params"] for o in outs}
+    _log(
+        f"sp (c): one process (flash) {[round(x, 5) for x in one['losses']]}, step {one['step_s']:.4f} s, "
+        f"peak {(one['peak_mem_bytes'] or 0) / 2**30:.2f} GiB; {spec} ulysses within {gap:.3e} (limit "
+        f"{SP_LOSS_ATOL:.0e}); planted sp-coordinate heads {fault_gap:.3e} "
+        f"({[round(x, 5) for x in fault['losses']]}), step {fault['step_s']:.4f} s; param bytes a rank "
+        f"want {want_bytes}, tp gathers a rank want {want_gathers}; parameter digests {sorted(digests)}; "
+        f"{time.perf_counter() - t0:.1f} s"
+    )
+    if gap > SP_LOSS_ATOL or fault_gap <= SP_LOSS_ATOL:
+        _fail(f"sp (c): losses {gap:.3e} from one process's, the planted fault {fault_gap:.3e} "
+              f"(limit {SP_LOSS_ATOL:.0e})")
+    if len(digests) != 1:
+        _fail(f"sp (c): the sp ranks' parameters differ after the last step: {digests}")
+    if (sound["world"], sound["backend"], sound["mesh"], len(sound["losses"])) != (8, "gloo", SP_TP_MESH, total):
+        _fail("sp (c): world, backend, mesh or step count wrong")
+    if [(q["sp_index"], q["tp_index"]) for q in per] != [(i, t) for i in range(2) for t in range(4)]:
+        _fail(f"sp (c): rank coordinates {per}")
+    if any(q["param_bytes"] != want_bytes for q in per):
+        _fail(f"sp (c): a rank's parameter bytes are not its tp blocks and the norms ({want_bytes})")
+    if any(q["tp_head_gathers"] != want_gathers for q in per):
+        _fail(f"sp (c): tp gathers a rank {[q['tp_head_gathers'] for q in per]}, want {want_gathers}")
+    if any(any(q["flash_launches"].values()) for q in per):
+        _fail("sp (c): a flash kernel launched on the ulysses path")
+    _record_launches(kernels, "sp_tp_ulysses", {k: 0 for k in fa.launch_counts()})
 
 
 # Phase 15: pipeline parallelism.

@@ -63,8 +63,10 @@ model-parallel axes, as JAX's ``Llama(cfg, mesh=mesh)``:
   ulysses run the dense f32 ``_single_shard`` over the whole sequence, as
   JAX's do; with another ``attn_impl`` every sp rank computes the whole
   sequence. Ulysses refuses a kv-head count that sp does not divide (JAX's
-  error), and, under tp, ``(n_kv_heads/tp) % sp != 0`` (ROADMAP.md item
-  3c-2d: JAX's ulysses sees the global heads).
+  error). Under tp, where sp does not divide a tp rank's ``n_kv_heads/tp``,
+  ulysses gathers q, k and v over tp and swaps the global heads, as JAX's
+  (whose ulysses sees the global heads), keeping this rank's of the output
+  (``ulysses_attention_tp``).
 
 - **pp** (``PipelineParallel``): the model is one stage of the pipeline
   (``parallel/pipeline.py``): layers ``[s·L/P, (s+1)·L/P)`` under their
@@ -111,7 +113,7 @@ from ..parallel.sharding import (
     local_tensor,
     model_splits,
 )
-from ..parallel.ulysses import check_kv_heads, ulysses_attention_shard
+from ..parallel.ulysses import check_kv_heads, ulysses_attention_tp
 from .common import remat_policy
 
 
@@ -348,13 +350,6 @@ class Attention(nn.Module):
         H, K, D = _local(cfg.n_heads, tp, "n_heads"), _local(cfg.n_kv_heads, tp, "n_kv_heads"), cfg.head_dim
         if cfg.attn_impl == "ulysses" and sp is not None:
             check_kv_heads(cfg.n_kv_heads, sp.size)
-            if K % sp.size:
-                raise NotImplementedError(
-                    f"attn_impl='ulysses' with {K} kv heads a tp rank (n_kv_heads={cfg.n_kv_heads} "
-                    f"over tp={tp.size}) and sp={sp.size}: this port swaps a tp rank's own heads "
-                    "over sp, which needs (n_kv_heads/tp) % sp == 0 (JAX's swaps the global heads: "
-                    "ROADMAP.md item 3c-2d)"
-                )
         self.n_heads, self.n_kv_heads = H, K
         self.q_proj = _Linear(cfg.d_model, H * D, cfg, device)
         self.k_proj = _Linear(cfg.d_model, K * D, cfg, device)
@@ -417,7 +412,7 @@ class Attention(nn.Module):
         else:
             # The mask needs the whole rows' positions.
             full = all_gather(positions.t().contiguous(), "sp", mesh).t()
-            out = ulysses_attention_shard(qg, k, v, full, mesh=mesh)
+            out = ulysses_attention_tp(qg, k, v, full, mesh=mesh)
         return out.reshape(B, S, H, D)
 
     def _decode_attend(self, q, k, v, positions, cache):

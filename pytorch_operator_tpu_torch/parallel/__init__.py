@@ -5,7 +5,8 @@
   layout), and a rank's data, tp, sp, ep and pp coordinates
   (``train_coords``).
 - ``collectives.py``: psum, pmax, pmean, all-gather, reduce-scatter, the
-  ring shift and the all-to-all (both differentiable), the broadcast and a
+  ring shift and the all-to-all (the last two, and an all-gather along any
+  dim, differentiable), the broadcast and a
   pipeline's neighbour exchange, over the process group of one mesh axis;
   tp's (and ep's) enter and leave as autograd functions.
 - ``data.py``: each rank's rows of the identical host batch.
@@ -13,7 +14,8 @@
   the Llama's tensors, pp's stages, and FSDP2 over the data axes (``fsdp`` shards,
   ``dp`` replicates).
 - ``ring.py`` / ``ulysses.py``: sequence parallelism over ``sp`` (K/V
-  rotated around the ring; the all-to-all head/sequence swap).
+  rotated around the ring; the all-to-all head/sequence swap, under tp
+  over the global heads where a tp rank's own do not split over sp).
 - ``moe.py``: the mixture-of-experts layer, on one device or with its
   experts over ``ep``.
 - ``pipeline.py``: pipeline parallelism over ``pp`` (GPipe and 1F1B).
@@ -21,6 +23,7 @@
 
 from .collectives import (  # noqa: F401
     all_gather,
+    all_gather_autograd,
     all_to_all,
     axis_index,
     axis_size,

@@ -14,6 +14,10 @@ over an axis of size 1).
   sums the ranks' gradients, as JAX differentiates ``psum``).
 - :func:`all_gather`: ``tiled`` concatenates the ranks' tensors along dim 0,
   else stacks them on a new leading dim (``jax.lax.all_gather``).
+  :func:`all_gather_autograd` concatenates along any dim and is
+  differentiable: each rank's gradient is its own block of the output's
+  gradient (for a whole that every rank reads alike, or of which each rank
+  reads only its own block downstream).
 - :func:`reduce_scatter`: sum, then this rank's block of
   ``scatter_dimension`` (``psum_scatter(tiled=True)``).
 - :func:`ring_shift`: rank i's output is rank i-shift's input
@@ -195,6 +199,28 @@ def all_gather(x: torch.Tensor, axis: str, mesh=None, *, tiled: bool = True) -> 
     else:
         dist.all_gather_into_tensor(stacked, x.unsqueeze(0).contiguous(), group=_group(axis, mesh))
     return stacked.flatten(0, 1) if tiled else stacked
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh, dim):
+        ctx.block = (dim, axis_index(axis, mesh) * x.shape[dim], x.shape[dim])
+        return all_gather(x.movedim(dim, 0).contiguous(), axis, mesh).movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(*ctx.block), None, None, None
+
+
+def all_gather_autograd(x: torch.Tensor, axis: str, mesh=None, *, dim: int = 0) -> torch.Tensor:
+    """The ranks' tensors concatenated along ``dim`` in rank order
+    (:func:`all_gather`, tiled), differentiable: the gradient of this rank's
+    ``x`` is its own block of the output's gradient, not summed over the
+    axis. Right where the gradient of another rank's block is that rank's
+    to take: every rank's loss reads the same whole (the global views of
+    ``ring.py`` and ``ulysses.py``), or each rank keeps only its own block
+    of what it computes from the whole (ulysses' heads under tp)."""
+    return _AllGather.apply(x, axis, mesh, dim)
 
 
 def reduce_scatter(x: torch.Tensor, axis: str, mesh=None, *, scatter_dimension: int = 0) -> torch.Tensor:

@@ -36,7 +36,7 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .collectives import all_gather, axis_index, axis_size, ring_shift
+from .collectives import all_gather_autograd, axis_index, axis_size, ring_shift
 
 
 def _block(m, l, o, q32, k_blk, v_blk, q_pos, kv_pos, causal: bool):
@@ -92,21 +92,6 @@ def ring_attention_shard(
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)
 
 
-class _GatherSeq(torch.autograd.Function):
-    """The ranks' blocks of dim 1 gathered in rank order; each rank's loss
-    reads the same whole, so the gradient of a block is its rows of the
-    whole's gradient."""
-
-    @staticmethod
-    def forward(ctx, x, axis, mesh):
-        ctx.block = (axis_index(axis, mesh) * x.shape[1], x.shape[1])
-        return all_gather(x.movedim(1, 0).contiguous(), axis, mesh).movedim(0, 1)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g.narrow(1, *ctx.block), None, None
-
-
 def _sp_size(mesh, axis_name: str) -> int:
     if mesh is None:
         return 1
@@ -132,7 +117,7 @@ def ring_self_attention(q, k, v, positions, mesh, *, axis_name: str = "sp", caus
         q[:, mine], k[:, mine], v[:, mine], positions[:, mine], positions[:, mine],
         axis_name=axis_name, mesh=mesh, causal=causal,
     )
-    return _GatherSeq.apply(out, axis_name, mesh)
+    return all_gather_autograd(out, axis_name, mesh, dim=1)
 
 
 def _single_shard(q, k, v, positions, *, causal: bool):

@@ -295,16 +295,17 @@ def cut_splits(splits) -> list:
 
 def check_tp_divides(cfg, size: int) -> None:
     """Refuse a tp that does not divide a dimension it splits, naming it.
-    (JAX runs such a mesh, XLA replicating what does not divide: ROADMAP.md
-    Queue 1 lists the port's counterpart as still to do.)"""
+    JAX's ``llama_train`` refuses such a mesh too: its partitioner raises a
+    ValueError that an output (the optimizer state of ``k_proj`` at tp=4 on
+    the tiny config, the embedding at tp=3) is not divisible by tp."""
     if size <= 1:
         return
     for what in ("n_heads", "n_kv_heads", "d_ff", "vocab_size"):
         n = getattr(cfg, what)
         if n % size:
-            raise NotImplementedError(
-                f"tp={size} does not divide {what}={n}: this port splits only dimensions tp "
-                "divides (replicating the rest, as XLA does, is still to do: ROADMAP.md Queue 1)"
+            raise ValueError(
+                f"tp={size} does not divide {what}={n}: tp splits the heads, kv heads, d_ff and "
+                "the vocabulary, so it must divide each (JAX's llama_train refuses such a mesh too)"
             )
 
 

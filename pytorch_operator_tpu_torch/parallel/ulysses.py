@@ -7,16 +7,34 @@ whole sequence for ``1/sp`` of the kv heads a rank (``ring._single_shard``,
 the same oracle as the ring's), and one all-to-all swaps back. The heads are
 the resharding currency: ``n_kv_heads % sp`` must be 0.
 
+Under tensor parallelism a rank holds ``n_kv_heads/tp`` of the kv heads.
+Where sp divides those, :func:`ulysses_attention_tp` swaps them as they
+are. Where it does not (``llama_0_3b``'s 4 kv heads at tp=4, sp=2: one a
+tp rank), it swaps the global heads, as the reference's ``shard_map``
+(manual over sp only) does: q, k and v are gathered over tp along the head
+dim, the swap and the attention run on all ``n_kv_heads``, and the rank
+keeps its own heads of the output. Heads are independent, so this is the
+reference's function; it costs each tp rank the attention of every head's
+``1/sp`` (the tp ranks of one sp coordinate compute the same) and the
+gather's bytes. The gather's gradient is the rank's own block of the
+cotangent, with no sum over tp: the rank keeps only its own heads of the
+output, so the other heads' cotangent is zero there.
+
 Layout as in ``models/llama.py``: q ``[B,S,K,G,D]``, k/v ``[B,S,K,D]``,
 positions ``[B,S]``. The swaps are ``collectives.all_to_all`` (gloo and NCCL
 carry ``all_to_all_single`` on CUDA tensors), differentiated by the inverse
-swap.
+swap; the tp gather is ``collectives.all_gather_autograd``.
 """
 
 from __future__ import annotations
 
-from .collectives import all_to_all, axis_index
-from .ring import _GatherSeq, _single_shard, _sp_size
+from .collectives import all_gather_autograd, all_to_all, axis_index, axis_size
+from .ring import _single_shard, _sp_size
+
+# The tp gathers of q, k and v issued by :func:`ulysses_attention_tp` in
+# this process (three a layer a forward, the recompute of a rematerialised
+# block included), as the flash wrappers count their launches.
+tp_gather_count = 0
 
 
 def ulysses_attention_shard(q, k, v, positions_full, *, axis_name: str = "sp", mesh=None,
@@ -32,6 +50,32 @@ def ulysses_attention_shard(q, k, v, positions_full, *, axis_name: str = "sp", m
     out = _single_shard(qh, kh, vh, positions_full, causal=causal)
     # Head-sharded -> sequence-sharded (the inverse swap).
     return all_to_all(out, axis_name, 1, 2, mesh)
+
+
+def own_heads(out, n: int, axis: str, mesh):
+    """This rank's ``n`` heads (dim 2) of ``out``, which holds every rank of
+    ``axis``'s heads in rank order."""
+    return out.narrow(2, axis_index(axis, mesh) * n, n)
+
+
+def ulysses_attention_tp(q, k, v, positions_full, *, mesh=None, axis_name: str = "sp",
+                         tp_axis: str = "tp", causal: bool = True):
+    """:func:`ulysses_attention_shard` for a rank that holds its block of
+    the heads over ``tp_axis`` (q ``[B,S/P,K/tp,G,D]``, k/v ``[B,S/P,K/tp,D]``;
+    all of them without tp): its own heads swapped where ``axis_name``
+    divides them, else the global heads gathered over ``tp_axis`` first and
+    this rank's kept of the output (the module docstring). Returns
+    ``[B,S/P,K/tp,G,D]``."""
+    global tp_gather_count
+    K = k.shape[2]
+    if K % axis_size(axis_name, mesh) == 0:
+        return ulysses_attention_shard(q, k, v, positions_full, axis_name=axis_name, mesh=mesh,
+                                       causal=causal)
+    q, k, v = (all_gather_autograd(t, tp_axis, mesh, dim=2) for t in (q, k, v))
+    tp_gather_count += 3
+    out = ulysses_attention_shard(q, k, v, positions_full, axis_name=axis_name, mesh=mesh,
+                                  causal=causal)
+    return own_heads(out, K, tp_axis, mesh)
 
 
 def check_kv_heads(n_kv_heads: int, sp: int, axis_name: str = "sp") -> None:
@@ -62,4 +106,4 @@ def ulysses_self_attention(q, k, v, positions, mesh, *, axis_name: str = "sp", c
     mine = slice(i * blk, (i + 1) * blk)
     out = ulysses_attention_shard(q[:, mine], k[:, mine], v[:, mine], positions,
                                   axis_name=axis_name, mesh=mesh, causal=causal)
-    return _GatherSeq.apply(out, axis_name, mesh)
+    return all_gather_autograd(out, axis_name, mesh, dim=1)

@@ -50,9 +50,9 @@ world, in f32 or bf16 parameters (``--param-dtype``).
 It runs on ``cuda`` unless ``--device cpu`` or ``TPUJOB_PLATFORM=cpu`` asks
 for the host; with neither and no GPU it raises. What waits for ROADMAP.md
 is refused by name: ``pp`` beside ``tp``, ``ep`` or ``sp`` (item 3c-3b);
-sparse MoE dispatch on ``pp`` beside a data axis (item 3c-3c); ulysses under
-tp where ``(n_kv_heads/tp) % sp != 0`` (item 3c-2d); a tp that does not divide the heads, kv heads, ``d_ff`` or
-the vocabulary.
+sparse MoE dispatch on ``pp`` beside a data axis (item 3c-3c). A tp that
+does not divide the heads, kv heads, ``d_ff`` or the vocabulary is refused
+as JAX's ``llama_train`` refuses it (its partitioner's ValueError).
 """
 
 from __future__ import annotations
@@ -77,6 +77,7 @@ from ..parallel.sharding import check_tp_divides, model_axes
 from ..ops import flash_attention as flash_lib
 from ..parallel import data as data_lib
 from ..parallel import mesh as mesh_lib
+from ..parallel import ulysses as ulysses_lib
 from ..parallel.collectives import world as joined_world
 from ..parallel.sharding import full_state_dict, local_nbytes, model_blocks, shard_model
 from ..runtime import rendezvous
@@ -230,7 +231,8 @@ def run(
     coordinate's rows (default 2·pp). The result adds ``world``, ``mesh``,
     ``backend``, this rank's ``param_bytes`` and ``optimizer_state_bytes``,
     and ``per_rank`` (each rank's data, tp, sp, ep and pp coordinates, bytes,
-    peak memory and flash launches); on a pp mesh also ``pp_schedule`` and
+    peak memory, flash launches and ``tp_head_gathers``, ulysses' gathers of
+    q, k and v over tp); on a pp mesh also ``pp_schedule`` and
     ``pp_microbatches``. A resize record from the supervisor is
     polled every step (``rendezvous.poll_resize``): the rank drains its
     loader, feed and saves, then re-executes into the new world.
@@ -566,7 +568,7 @@ def run(
 
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
-        counts = {"run": flash_lib.launch_counts()}
+        counts = {"run": flash_lib.launch_counts(), "tp_gathers": ulysses_lib.tp_gather_count}
 
         def on_first():
             rendezvous.report_first_step(start_step)
@@ -643,6 +645,7 @@ def run(
         "optimizer_state_bytes": opt.state_nbytes(),
         "peak_mem_bytes": peak,
         "flash_launches": {k: done[k] - counts["run"][k] for k in done},
+        "tp_head_gathers": ulysses_lib.tp_gather_count - counts["tp_gathers"],
     }
     per_rank = [mine]
     if world > 1:

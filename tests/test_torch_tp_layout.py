@@ -136,9 +136,9 @@ class _FakeMesh:
 
 def test_a_tp_that_does_not_divide_is_refused_by_name():
     cfg = port_llama.llama_tiny()  # 4 heads, 2 kv heads
-    with pytest.raises(NotImplementedError, match="tp=4 does not divide n_kv_heads=2"):
+    with pytest.raises(ValueError, match="tp=4 does not divide n_kv_heads=2"):
         port_llama.Llama(cfg, tp=TensorParallel(4, 0))
-    with pytest.raises(NotImplementedError, match="d_ff=128"):
+    with pytest.raises(ValueError, match="d_ff=128"):
         sharding.check_tp_divides(port_llama.llama_tiny(n_kv_heads=3, n_heads=3, vocab_size=255), 3)
 
 

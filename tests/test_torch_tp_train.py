@@ -57,8 +57,13 @@ FOUR = {
 }
 CASES = {**TWO, **FOUR}
 
+# JAX's refusal of a tp that does not divide the tiny config's 2 kv heads,
+# run in the four-device subprocess.
+JAX_REFUSED = dict(KW, mesh_spec="tp=4", refused=True)
+
 # Runs JAX's llama_train.run of each case; its final parameters come back
-# through its checkpoint.
+# through its checkpoint. A case with ``refused`` must raise ValueError: its
+# message is the result.
 JAX_RUNS = """
 import os, pickle, sys
 import tests.jaxenv
@@ -69,6 +74,13 @@ cases, out_dir, n = pickle.load(open(sys.argv[1], "rb")), sys.argv[2], int(sys.a
 assert jax.device_count() == n, jax.devices()
 out = {}
 for name, kw in cases.items():
+    if kw.pop("refused", False):
+        try:
+            llama_train.run(log=lambda m: None, **kw)
+        except ValueError as e:
+            out[name] = {"refused": str(e)}
+            continue
+        raise SystemExit(f"{name}: JAX's run did not refuse {kw}")
     ck = os.path.join(out_dir, "ck_" + name)
     os.environ["TPUJOB_CHECKPOINT_DIR"] = ck
     r = llama_train.run(log=lambda m: None, checkpoint_every=1000, **kw)
@@ -113,7 +125,8 @@ def runs(tmp_path_factory, init_tree):
     port's (a two-rank world, then a four-rank one), and the planted
     fault's run in the two-rank world."""
     d = tmp_path_factory.mktemp("tp_runs")
-    procs = {2: start_jax_runs(TWO, 2, d / "two"), 4: start_jax_runs(FOUR, 4, d / "four")}
+    procs = {2: start_jax_runs(TWO, 2, d / "two"),
+             4: start_jax_runs({**FOUR, "tp4_refused": JAX_REFUSED}, 4, d / "four")}
     try:
         two = torch_worlds.run_world("train", [
             *(dict(kw, init_params=init_tree) for kw in TWO.values()),
@@ -121,7 +134,7 @@ def runs(tmp_path_factory, init_tree):
         ])
         four = torch_worlds.run_world(
             "train", [dict(kw, init_params=init_tree) for kw in FOUR.values()]
-            + [dict(KW, mesh_spec="tp=4", raises=NotImplementedError)], n=4, timeout=300,
+            + [dict(KW, mesh_spec="tp=4", raises=ValueError)], n=4, timeout=300,
         )
         jax_runs = {**finish_jax_runs(procs[2], d / "two"), **finish_jax_runs(procs[4], d / "four")}
     finally:
@@ -215,8 +228,11 @@ def test_planted_leave_fault_breaks_the_parameters(runs):
 
 
 def test_a_tp_that_does_not_divide_the_kv_heads_is_refused_by_name(runs):
-    """tp=4 over the tiny Llama's 2 kv heads: refused, naming the dimension
-    and the Queue 1 item (JAX runs it, XLA replicating what does not
-    divide)."""
+    """tp=4 over the tiny Llama's 2 kv heads: the port refuses it with a
+    ValueError naming the dimension, and JAX's llama_train on four devices
+    refuses it too (its partitioner: an output of k_proj's shape is not
+    divisible by 4)."""
     msg = runs["refused"]
-    assert "tp=4 does not divide n_kv_heads=2" in msg and "ROADMAP.md Queue 1" in msg, msg
+    assert "tp=4 does not divide n_kv_heads=2" in msg and "JAX's llama_train refuses" in msg, msg
+    jax_msg = runs["jax"]["tp4_refused"]["refused"]
+    assert "k_proj" in jax_msg and "should be divisible by 4" in jax_msg, jax_msg

@@ -141,7 +141,10 @@ def planted(name):
       that dim;
     - ``"pp_shifted_cotangent"``: each pipeline stage backwarding a
       microbatch's stored graph with the previous microbatch's cotangent
-      (the first with its own)."""
+      (the first with its own);
+    - ``"ulysses_sp_heads"``: ulysses under tp keeping, of the global heads'
+      output, the block at the rank's sp coordinate instead of its tp
+      coordinate."""
     import contextlib
 
     @contextlib.contextmanager
@@ -174,6 +177,13 @@ def planted(name):
             def fault(self, j, cot):
                 prev, self.prev_cot = getattr(self, "prev_cot", None), cot
                 return sound_backward(self, j, cot if prev is None else prev)
+        elif name == "ulysses_sp_heads":
+            from pytorch_operator_tpu_torch.parallel import ulysses
+
+            where, attr = ulysses, "own_heads"
+
+            def fault(out, n, axis, mesh):
+                return out.narrow(2, collectives.axis_index("sp", mesh) * n, n)
         elif name == "unreduced_rows":
             where, attr = trainer.Adafactor, "_mean"
             sound = trainer.Adafactor._mean
@@ -630,6 +640,37 @@ def rank_attention(world, cases: list) -> list:
     return {"cases": out, "all_to_all": collectives.all_to_all(x, "sp", 1, 2, mesh).numpy()}
 
 
+def rank_ulysses_tp(world, cases: list) -> list:
+    """Ulysses under tp on an ``sp=2,tp=2`` mesh of the four-rank world
+    (``ulysses.ulysses_attention_tp``): for each case (``q``, ``k``, ``v``,
+    ``pos`` whole numpy arrays; ``causal``; ``plant`` a :func:`planted`
+    fault or None) this rank takes its sp block of the sequence and its tp
+    block of the heads, and returns the output and the gradients of q, k
+    and v of the loss ``sum(out²)/numel(q)`` (its share of the global
+    ``mean(out²)``), its blocks, and the tp gathers it issued."""
+    import torch
+
+    from pytorch_operator_tpu_torch.parallel import collectives, ulysses
+    from pytorch_operator_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh("sp=2,tp=2", "cpu")
+    i, t = collectives.axis_index("sp", mesh), collectives.axis_index("tp", mesh)
+    out = []
+    for case in cases:
+        B, S, K = case["k"].shape[:3]
+        rows, heads = slice(i * S // 2, (i + 1) * S // 2), slice(t * K // 2, (t + 1) * K // 2)
+        q, k, v = (torch.tensor(case[a][:, rows, heads], requires_grad=True) for a in "qkv")
+        before = ulysses.tp_gather_count
+        with planted(case.get("plant")):
+            o = ulysses.ulysses_attention_tp(q, k, v, torch.from_numpy(case["pos"]), mesh=mesh,
+                                             causal=case["causal"])
+            ((o.float() ** 2).sum() / case["q"].size).backward()
+        out.append({"out": o.detach().numpy(), "dq": q.grad.numpy(), "dk": k.grad.numpy(),
+                    "dv": v.grad.numpy(), "rows": (rows.start, rows.stop),
+                    "heads": (heads.start, heads.stop), "tp_gathers": ulysses.tp_gather_count - before})
+    return out
+
+
 def rank_moe(world, spec: str, cases: list) -> list:
     """The MoE layer's mesh paths on mesh ``spec`` (``ep``, with or without
     ``tp``): for each case (``fn``: ``"dense"`` for ``moe_mlp``,
@@ -944,16 +985,20 @@ def rank_sp_cost(world, cases: list) -> list:
     """Each ``(scheme, S)`` of ``cases``: one forward and backward of this
     rank's sequence block through ``ring_attention_shard`` or
     ``ulysses_attention_shard`` over the whole world (f32, seeded values),
-    with the collectives it really issued (``batch_isend_irecv`` for a
-    ``ppermute``, ``all_to_all_single`` for an ``all_to_all``: calls and the
-    bytes this rank sent) beside ``count_collectives`` of the same call at
-    this rank's coordinate."""
+    or (``("ulysses_tp", S, K)``, four ranks) through
+    ``ulysses_attention_tp`` on an ``sp=2,tp=2`` mesh of the world with
+    ``K`` global kv heads (this rank's ``K/2``), with the collectives it
+    really issued (``batch_isend_irecv`` for a ``ppermute``,
+    ``all_to_all_single`` for an ``all_to_all``, ``all_gather_into_tensor``
+    for an ``all_gather``: calls and the bytes this rank sent) beside
+    ``count_collectives`` of the same call at this rank's coordinates."""
     import torch
     import torch.distributed as dist
 
     from pytorch_operator_tpu_torch.ops.flop_count import count_collectives
+    from pytorch_operator_tpu_torch.parallel.mesh import make_mesh
     from pytorch_operator_tpu_torch.parallel.ring import ring_attention_shard
-    from pytorch_operator_tpu_torch.parallel.ulysses import ulysses_attention_shard
+    from pytorch_operator_tpu_torch.parallel.ulysses import ulysses_attention_shard, ulysses_attention_tp
 
     n, r = world.num_processes, world.process_id
     B, K, G, D = 1, 4, 2, 8
@@ -963,7 +1008,7 @@ def rank_sp_cost(world, cases: list) -> list:
         calls, sent = real.get(name, (0, 0))
         real[name] = (calls + 1, sent + n_bytes)
 
-    p2p, a2a = dist.batch_isend_irecv, dist.all_to_all_single
+    p2p, a2a, gather = dist.batch_isend_irecv, dist.all_to_all_single, dist.all_gather_into_tensor
 
     def counting_p2p(ops):
         record("ppermute", sum(op.tensor.numel() * op.tensor.element_size()
@@ -974,9 +1019,18 @@ def rank_sp_cost(world, cases: list) -> list:
         record("all_to_all", inp.numel() * inp.element_size())
         return a2a(out, inp, *a, **kw)
 
+    def counting_gather(out, inp, *a, **kw):
+        record("all_gather", inp.numel() * inp.element_size())
+        return gather(out, inp, *a, **kw)
+
+    tp_mesh = make_mesh("sp=2,tp=2", "cpu") if any(c[0] == "ulysses_tp" for c in cases) else None
+
     def attend(scheme, S, q, k, v):
         blk = S // n
-        if scheme == "ring":
+        if scheme == "ulysses_tp":
+            pos = torch.arange(S, dtype=torch.int32)[None]
+            out = ulysses_attention_tp(q, k, v, pos.to(q.device), mesh=tp_mesh)
+        elif scheme == "ring":
             pos = torch.arange(r * blk, (r + 1) * blk, dtype=torch.int32, device=q.device)[None]
             if q.is_meta:
                 pos = pos.to("meta")
@@ -988,20 +1042,27 @@ def rank_sp_cost(world, cases: list) -> list:
         return out
 
     results = []
-    for scheme, S in cases:
-        blk = S // n
+    for scheme, S, *heads in cases:
+        if scheme == "ulysses_tp":
+            sizes = {"sp": 2, "tp": 2}
+            coords = {a: tp_mesh.get_local_rank(a) for a in sizes}
+            blk, kh = S // 2, heads[0] // 2
+        else:
+            sizes, coords, blk, kh = {"sp": n}, {"sp": r}, S // n, K
         g = torch.Generator().manual_seed(r)
-        q = torch.randn(B, blk, K, G, D, generator=g).requires_grad_()
-        k = torch.randn(B, blk, K, D, generator=g).requires_grad_()
-        v = torch.randn(B, blk, K, D, generator=g).requires_grad_()
+        q = torch.randn(B, blk, kh, G, D, generator=g).requires_grad_()
+        k = torch.randn(B, blk, kh, D, generator=g).requires_grad_()
+        v = torch.randn(B, blk, kh, D, generator=g).requires_grad_()
         real.clear()
         dist.batch_isend_irecv, dist.all_to_all_single = counting_p2p, counting_a2a
+        dist.all_gather_into_tensor = counting_gather
         try:
             attend(scheme, S, q, k, v)
         finally:
             dist.batch_isend_irecv, dist.all_to_all_single = p2p, a2a
-        counted = count_collectives(lambda *t: attend(scheme, S, *t), q, k, v, axes={"sp": n},
-                                    coords={"sp": r})
+            dist.all_gather_into_tensor = gather
+        counted = count_collectives(lambda *t: attend(scheme, S, *t), q, k, v, axes=sizes,
+                                    coords=coords)
         results.append({"real": dict(real), "calls": counted.calls, "bytes": counted.bytes,
                         "grad_finite": bool(torch.isfinite(q.grad).all())})
     return results
