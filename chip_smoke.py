@@ -23,7 +23,8 @@ Phases, in order; any failure exits non-zero before the result line:
    alone on S padded to 256 with kv_len 197, the wrapper's time beside it,
    SDPA on S 197), at phase 13's per-rank tp=2 shapes (0.3b B4 S2048 H4
    KH2; Llama-3-8B B1 S2048 H16 KH4), at phase 14's one-process shape
-   (B2 S8192), at phase 15's microbatch (B2 S2048) and at phase 14(b)'s
+   (B2 S8192), at phase 15's microbatch (B2 S2048), at a pp=2,tp=2 rank's
+   microbatch of 15(e) (B2 S2048 H4 KH2) and at phase 14(b)'s
    token-group reference (B2 S512), with achieved TFLOP/s and the wrapper's
    host time a call.
 3. The two backward kernels against their plain version
@@ -31,7 +32,7 @@ Phases, in order; any failure exits non-zero before the result line:
    listed cases, by ``grad_agreement`` (relative L2 error over the whole
    gradient, over its late half and per row); at the training shape, at
    phase 8's, at phase 10's, at phase 11's, at phase 12's ViT shape, at
-   phase 13's two tp shapes, at phase 14's, at phase 15's and at phase
+   phase 13's two tp shapes, at phase 14's, at phase 15's two and at phase
    14(b)'s token-group shape each kernel's time, the plain backward's, SDPA's backward on the unpadded S
    (timed only) and each bound (over the pairs the unpadded S needs), and each kernel's host time a call. Then the bf16 gradients of the public, differentiable
    ``flash_attention`` on the card against the plain forward and backward, at
@@ -186,7 +187,7 @@ Phases, in order; any failure exits non-zero before the result line:
    backend and card, and each collective of ``parallel/collectives.py`` on
    CUDA tensors against its value (first, in (c)'s world); (b) ``workloads.smoke_dist`` in both
    ranks, both exit 0; (c) ``llama_train.run`` at ``llama_0_3b`` full width
-   and 4 of its 16 layers (the budget of phase 13), global batch 4 x 4096,
+   and 2 of its 16 layers (the script's time limit), global batch 4 x 4096,
    AdamW, clip 1.0, 1 warmup + 5 steps:
    one process in this one, then two ranks with ``mesh_spec="fsdp=2"`` and
    ``"dp=2"``, each rank's flash launches read from its result (each kernel
@@ -236,18 +237,19 @@ Phases, in order; any failure exits non-zero before the result line:
    ``cuda:0`` over gloo as in phase 11 (several runs in one world of
    ranks), each rank's flash launches read from its result (each kernel
    once a layer a step, the forward twice under remat): (a) ``llama_0_3b``
-   at 4 of its 16 layers, tp=2, B4 x 2048, AdamW, 1 + 3 steps, against one
+   at 2 of its 16 layers, tp=2, B4 x 2048, AdamW, 1 + 3 steps, against one
    process: losses
    within ``TP_LOSS_ATOL``, a planted fault (tp's leave written with
    ``psum_autograd``, whose backward sums too) above it, each rank's
    parameter bytes exactly its blocks plus the whole norms, peak memory
-   and step time; (b) ``llama_0_3b`` at 4 of its 16 layers, fsdp=2 with
+   and step time; (b) ``llama_0_3b`` at 2 of its 16 layers, fsdp=2 with
    adafactor, f32 and bf16 parameters, against one process's adafactor: losses within
    ``TP_LOSS_ATOL``, each rank's state a part of one process's, and the
    moves of two tensors whose row statistics fsdp splits within
    ``TP_ADA_MOVE_RTOL`` of one process's, a planted fault (the row
    statistics left unreduced over fsdp) above it; (c) ``llama_0_3b`` at 4
-   layers on four ranks, fsdp=2,tp=2, 1 + 1 steps, the ranks' coordinates,
+   layers on four ranks, fsdp=2,tp=2, 1 + 1 steps (run in phase 15's world
+   of four ranks, whose start-up it shares), the ranks' coordinates,
    its checkpoint restored by one process equal (a digest) to the ranks'
    gathered parameters; (d) Llama-3-8B's full width (d_model 4096, 32
    layers, 32/8 heads, d_ff 14336, vocab 128256) at tp=2, bf16
@@ -256,8 +258,8 @@ Phases, in order; any failure exits non-zero before the result line:
    ``params_m`` 8030.3, 8,031,059,968 parameter bytes a rank, peak memory
    and step time.
 14. Sequence and expert parallelism, ranks sharing ``cuda:0`` over gloo as
-   in phase 13: (a) ``llama_0_3b`` at full width and 4 of its 16 layers,
-   global B2 x 8192, AdamW, 1 + 3 steps: one process with
+   in phase 13: (a) ``llama_0_3b`` at full width and 2 of its 16 layers,
+   global B2 x 8192, AdamW, 1 + 1 steps: one process with
    ``attn_impl="flash"``, then two ranks at ``sp=2`` with ring attention and
    with ulysses (each rank its 4,096 positions): losses within
    ``SP_LOSS_ATOL`` of the one process's, a planted fault (the ring masking
@@ -273,7 +275,7 @@ Phases, in order; any failure exits non-zero before the result line:
    once a layer a step) into the kernels line; in the same world, sparse
    dispatch over token groups that cross ranks (``EP_GROUPS``: capacity 0.5,
    aux 1e-2): one process at B2 x 512 (N 1,024, one group) and at B4 x 512
-   with ``grad_accum=2``, then (i) ``fsdp=2`` at B2 x 512 with flash (each
+   with ``grad_accum=2`` (at 2 layers), then (i) ``fsdp=2`` at B2 x 512 with flash (each
    rank one row; the group spans both), (ii) ``sp=2`` ring at B2 x 512 (each
    rank blocks of 256; the group interleaves them), (iii) ``fsdp=2`` at B4 x
    512 with ``grad_accum=2``, (iv) a planted fault, (i) with each rank
@@ -281,8 +283,8 @@ Phases, in order; any failure exits non-zero before the result line:
    within ``GROUPS_LOSS_ATOL`` of its one process's, (iv)'s losses above it,
    (i)'s and (iii)'s flash launches (each kernel once a layer a microbatch)
    into the kernels line, (ii)'s none; (c) ulysses under tp over the
-   global kv heads: ``llama_0_3b`` (4 kv heads) at full width and 4 of its
-   16 layers, global B8 x 2048, AdamW, 1 + 2 steps: one process with
+   global kv heads: ``llama_0_3b`` (4 kv heads) at full width and 2 of its
+   16 layers, global B8 x 2048, AdamW, 1 + 1 steps: one process with
    ``attn_impl="flash"`` (its launches into the kernels line), then eight
    ranks at ``sp=2,tp=4`` with ulysses (one kv head a tp rank, gathered over
    tp with q and v before the swap), and a planted fault (the output's
@@ -294,9 +296,9 @@ Phases, in order; any failure exits non-zero before the result line:
    peak memory and step time.
 15. Pipeline parallelism, two ranks sharing ``cuda:0`` over gloo in one
    world: ``llama_0_3b`` at full width and 8 of its 16 layers (4 a stage),
-   global B8 x 2048, AdamW, 1 + 3 steps. (a) One process, then ``pp=2``
-   with GPipe and with 1F1B at 4 microbatches (B2 x 2048 each): every
-   step's loss within ``PP_LOSS_ATOL`` of one process's, each rank's stage
+   global B8 x 2048, AdamW, 1 + 2 steps (the world is phase 14's). (a)
+   One process, then ``pp=2`` with GPipe and with 1F1B at 4 microbatches
+   (B2 x 2048 each): every step's loss within ``PP_LOSS_ATOL`` of one process's, each rank's stage
    (rank 0 the embedding) and parameter bytes exactly its stage's (its 4
    layers, the final norm, half the head's vocabulary rows), step time and
    peak memory a rank, each rank's flash launches (each kernel once a layer
@@ -307,7 +309,23 @@ Phases, in order; any failure exits non-zero before the result line:
    (each stage backwarding a microbatch's stored graph with the previous
    microbatch's cotangent) above ``PP_LOSS_ATOL``; (d) (a)'s 1F1B run's
    checkpoint (each rank its layers and head rows) restored by one process
-   equal (a digest) to the ranks' gathered parameters.
+   equal (a digest) to the ranks' gathered parameters. Then four ranks in
+   one world: (e) ``pp=2,tp=2``, (a)'s model, seed and rows, 1F1B at 4
+   microbatches, 1 + 2 steps: every step's loss within ``PP_LOSS_ATOL`` of
+   (a)'s one process at the same step, each rank's parameter bytes exactly
+   its blocks (its stage's 4 layers as tp blocks with the norms whole, the
+   final norm, a quarter of the head's rows nested pp outer and tp inner,
+   stage 0 half the embedding), each rank's flash launches (each kernel
+   once a layer a microbatch, at ``PPTP_SHAPE``) into the kernels line, a
+   planted fault (the head rows of the tp-outer nesting under the loss's
+   pp-outer offsets) above ``PP_LOSS_ATOL``, the world's checkpoint
+   restored by one process equal (a digest) to the ranks' gathered
+   parameters; (f) ``pp=2,ep=2``, the MoE Llama at 0.3b width (phase 10's
+   8 experts, top 2, capacity 1.25, aux weight 0, sparse dispatch) at 4
+   layers, B8 x 2048, 1 + 2 steps: every loss within ``EP_LOSS_ATOL`` of its
+   own one process's, each rank's expert bytes exactly E/ep of its stage's
+   layers, the launches (at ``PP_SHAPE``) into the kernels line. Step time
+   and peak memory a rank.
 16. The digit CNN and BERT, random weights from seed 0 (neither path
    launches a flash kernel, as in JAX: 0 launches on their paths): (a) the
    digit CNN in f32 on the card against the CPU (B128 of the digits, TF32
@@ -411,8 +429,12 @@ TP8B_SHAPE = ("tp8b", 1, 2048, 16, 4, 128, True, None, "bfloat16")
 # Phase 14(a)'s one-process reference: 0.3b at B2 x 8192 (the sp runs' global
 # batch). The ep ranks of 14(b) attend at MOE_SHAPE (ep splits no batch).
 SP_SHAPE = ("sp", 2, 8192, 8, 4, 128, True, None, "bfloat16")
-# A pipeline microbatch of phase 15: 0.3b's global B8 x 2048 in 4.
+# A pipeline microbatch of phase 15: 0.3b's global B8 x 2048 in 4 (also a
+# pp=2,ep=2 rank's of 15(f): ep splits no batch).
 PP_SHAPE = ("pp", 2, 2048, 8, 4, 128, True, None, "bfloat16")
+# One pp=2,tp=2 rank's microbatch of phase 15(e): 4 of the 8 heads and 2 of
+# the 4 kv heads of B2 x 2048.
+PPTP_SHAPE = ("pptp", 2, 2048, 4, 2, 128, True, None, "bfloat16")
 # Phase 14(b)'s sparse token groups over ranks: the one-process reference's
 # B2 x 512 (and a microbatch of its B4 in two); a world rank holds one row.
 GROUPS_SHAPE = ("groups", 2, 512, 8, 4, 128, True, None, "bfloat16")
@@ -442,6 +464,7 @@ FLASH_CASES = [
     TP8B_SHAPE,
     SP_SHAPE,
     PP_SHAPE,
+    PPTP_SHAPE,
     GROUPS_SHAPE,
     ("unaligned_S500", 8, 500, 8, 4, 128, True, None, "bfloat16"),
     ("kv_len_noncausal", 4, 512, 8, 4, 128, False, 300, "bfloat16"),
@@ -474,6 +497,7 @@ BWD_CASES = [
     TP8B_SHAPE,
     SP_SHAPE,
     PP_SHAPE,
+    PPTP_SHAPE,
     GROUPS_SHAPE,
     ("unaligned_S500", 2, 500, 8, 4, 128, True, None, "bfloat16"),
     ("kv_len_noncausal", 2, 512, 8, 4, 128, False, 300, "bfloat16"),
@@ -680,7 +704,7 @@ def phase_flash_vs_plain():
         if not a["ok"]:
             _fail(f"flash_fwd disagrees with its plain version in case {name}")
         if name in ("slice", "train", "prefill_1b", "import_prefill", "journey", "moe", "dist", "vit",
-                    "tp", "tp8b", "sp", "pp", "groups"):
+                    "tp", "tp8b", "sp", "pp", "pptp", "groups"):
             qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             call = functools.partial(fa.flash_attention_with_lse, q, k, v, causal=causal, kv_len=kv_len)
             wrapper_ms = None
@@ -771,7 +795,7 @@ def phase_backward_vs_plain():
             for gname, g, r in zip(("dq", "dk", "dv"), grads, refs)
         }
         del refs
-        if name not in ("train", "journey", "moe", "dist", "vit", "tp", "tp8b", "sp", "pp", "groups"):
+        if name not in ("train", "journey", "moe", "dist", "vit", "tp", "tp8b", "sp", "pp", "pptp", "groups"):
             continue
         lse_c, delta = lse.contiguous(), fa.bwd_delta(o, do)
         kin = (q, k, v, do, lse_c, delta)
@@ -3007,8 +3031,9 @@ def _profile_moe_step():
 # (runtime/rendezvous.choose_backend): this proves the multi-process path
 # with the real kernels in every rank, and measures no scaling.
 # At 4 of 0.3b's 16 layers (the script's time budget; PERF.md §7).
+# 2 layers, for the script's time limit.
 DIST_RUN = dict(config="0.3b", batch_size=4, seq_len=4096, warmup=1, steps=5, grad_clip=1.0,
-                n_layers=4)
+                n_layers=2)
 # The fsdp=2 run saves asynchronously at step 4 and blocking at its end (6).
 DIST_CKPT_EVERY = 4
 # The two-rank runs' losses against the one-process run of the same global
@@ -3099,7 +3124,9 @@ def _rank_world(task: str, tag: str, env=None, n: int = 2, **kw) -> list:
 def _rank_main(task: str, kw: dict) -> int:
     """One rank of a phase-11, 12, 13, 14, 15 or 16 world: join from the env, run
     ``task``, write this rank's output, leave through
-    ``rendezvous.finalize``."""
+    ``rendezvous.finalize``. A run of ``"runs"`` may set environment
+    variables first (its ``env``)."""
+    import os
     from pathlib import Path
 
     import torch
@@ -3122,8 +3149,11 @@ def _rank_main(task: str, kw: dict) -> int:
         out["runs"] = []
         for run_kw in kw["runs"]:
             run_kw = dict(run_kw)
+            os.environ.update(run_kw.pop("env", {}))
+            t_run = time.perf_counter()
             with _planted(run_kw.pop("plant", None)):
                 out["runs"].append(_rank_train(run_kw))
+            out["runs"][-1]["wall_s"] = time.perf_counter() - t_run
             gc.collect()  # a run's FSDP2 modules hold reference cycles
             torch.cuda.empty_cache()
     elif task == "bert":
@@ -3884,8 +3914,9 @@ def phase_image(kernels):
 # not scaling. Each world runs its runs in one pair of processes.
 # (a) at 4 of 0.3b's 16 layers (the script's budget: 1,064.6 s with it at
 # 16 layers; PERF.md §7).
-TP_RUN = dict(config="0.3b", n_layers=4, batch_size=4, seq_len=2048, warmup=1, steps=3)
-# (b) at 4 layers too: gloo's fsdp=2 traffic is the step.
+# 2 layers, for the script's time limit.
+TP_RUN = dict(config="0.3b", n_layers=2, batch_size=4, seq_len=2048, warmup=1, steps=3)
+# (b) at 2 layers too: gloo's fsdp=2 traffic is the step.
 TP_ADA_RUN = dict(TP_RUN, optimizer="adafactor", lr=ADAFACTOR_LR)
 TP_FOUR_RUN = dict(config="0.3b", n_layers=4, batch_size=4, seq_len=2048, warmup=1, steps=1)
 TP_8B_RUN = dict(config="8b", batch_size=1, seq_len=2048, warmup=1, steps=1, param_dtype="bfloat16",
@@ -3900,8 +3931,8 @@ TP_LOSS_ATOL = 5e-3
 # by fsdp), held between the sound reading and the planted unreduced-row
 # fault's on the card (the losses of four steps barely show that fault:
 # the row factor is normalised by its own mean). Readings on the NVIDIA
-# H100 80GB HBM3 at 700 W: sound 5.9e-3 at 16 layers, 3.3e-3 at 8; the
-# fault 3.9e-2 and 4.1e-2.
+# H100 80GB HBM3 at 700 W: sound 5.9e-3 at 16 layers, 3.3e-3 at 8, 1.9e-3
+# at 4; the fault 3.9e-2, 4.1e-2 and 4.2e-2.
 TP_ADA_TENSORS = ["lm_head.weight", "layers.0.mlp.gate_proj.weight"]
 TP_ADA_MOVE_RTOL = 1.5e-2
 # (d): the first loss of random weights sits near ln V (the head's logits
@@ -3926,7 +3957,10 @@ def _planted(name):
     backwarding a microbatch's stored graph with the previous microbatch's
     cotangent (the first with its own); ``"ulysses_sp_heads"``, ulysses
     under tp keeping, of the global heads' output, the block at the rank's
-    sp coordinate instead of its tp coordinate."""
+    sp coordinate instead of its tp coordinate; ``"pp_tp_outer_head"``, the
+    seeded init taking each rank's blocks with the axes nested tp outer, pp
+    inner (the head's rows of stage s, tp rank t at ``t·V/tp + s·V/(tp·P)``)
+    while the loss's column offset stays pp-outer."""
     import contextlib
 
     @contextlib.contextmanager
@@ -3969,6 +4003,15 @@ def _planted(name):
 
             def fault(out, n, axis, mesh):
                 return out.narrow(2, collectives.axis_index("sp", mesh) * n, n)
+        elif name == "pp_tp_outer_head":
+            from pytorch_operator_tpu_torch.parallel import sharding
+
+            where, attr = llama_lib, "take_block"
+
+            def fault(t, splits):
+                for ax, d in sharding.cut_splits(splits):
+                    t = t.narrow(d, *ax.block(t.shape[d], "a planted block"))
+                return t
         elif name == "leave_psum_autograd":
             where, attr = collectives, "tp_leave"
             fault = lambda x, axis="tp", mesh=None: collectives.psum_autograd(x, axis, mesh)  # noqa: E731
@@ -4064,21 +4107,42 @@ def _tp_describe(tag: str, r: dict) -> None:
     )
 
 
+def _tp_four_checks(kernels, outs, ck) -> None:
+    """Phase 13(c)'s checks of its run (``outs``' first, run in phase 15's
+    world of four ranks): fsdp=2,tp=2 at 4 layers, the ranks' coordinates,
+    launches and gathered parameters against the checkpoint in ``ck``
+    restored by one process."""
+    from pytorch_operator_tpu_torch.checkpoint import CheckpointManager
+
+    r = outs[0]["runs"][0]["result"]
+    _tp_describe("(c) fsdp=2,tp=2", r)
+    four_total = TP_FOUR_RUN["warmup"] + TP_FOUR_RUN["steps"]
+    _tp_launches(kernels, "tp_0.3b_fsdp2_tp2", r["per_rank"], four_total, 4, remat=False)
+    step, params = CheckpointManager(ck, create=False).restore_subtree("params")
+    restored = _params_digest(params.items())
+    del params
+    digests = {o["runs"][0]["params"] for o in outs}
+    _log(f"tp (c): step {step} restored by one process, digest {restored}; the four ranks' "
+         f"gathered parameters {sorted(digests)}; the run {outs[0]['runs'][0]['wall_s']:.1f} s on rank 0")
+    if step != four_total or digests != {restored}:
+        _fail("tp (c): the one-process restore differs from the ranks' gathered parameters")
+    if [(q["data_index"], q["tp_index"]) for q in r["per_rank"]] != [(0, 0), (0, 1), (1, 0), (1, 1)]:
+        _fail(f"tp (c): rank coordinates {r['per_rank']}")
+
+
 def phase_tp(kernels):
     """Phase 13: (a) 0.3b at tp=2 against one process, and the planted
     leave fault; (b) 0.3b at fsdp=2 with adafactor in f32 and bf16 against
     one process's adafactor, and the planted unreduced-row fault; (c) 0.3b
     at 4 layers on four ranks, fsdp=2,tp=2, its checkpoint restored by one
-    process; (d) Llama-3-8B's full width at tp=2, bf16, adafactor, remat.
+    process (in phase 15's world, :func:`_tp_four_checks`); (d) Llama-3-8B's full width at tp=2, bf16, adafactor, remat.
     The kernels at the per-rank shapes (B4 S2048 H4 KH2, B1 S2048 H16 KH4)
     are held and timed in phases 2-3."""
     import shutil
     import tempfile
-    from pathlib import Path
 
     import torch
 
-    from pytorch_operator_tpu_torch.checkpoint import CheckpointManager
     from pytorch_operator_tpu_torch.ops import flash_attention as fa
     from pytorch_operator_tpu_torch.workloads import llama_train
 
@@ -4165,31 +4229,9 @@ def phase_tp(kernels):
     _log(f"tp (b): planted unreduced-row fault's losses {fault_gap:.3e} from one process's "
          f"({[round(x, 5) for x in runs[2]['losses']]}); {time.perf_counter() - t0:.1f} s")
 
-    # (c) four ranks, fsdp=2,tp=2, at 4 layers; the checkpoint restored by
-    # one process.
-    t0 = time.perf_counter()
-    td = tempfile.mkdtemp(prefix="chip_smoke_tp_")
-    try:
-        ck = Path(td) / "ck"
-        outs = _rank_world("runs", "(c) fsdp=2,tp=2", n=4, env={"TPUJOB_CHECKPOINT_DIR": str(ck)},
-                           runs=[dict(TP_FOUR_RUN, mesh_spec="fsdp=2,tp=2", digest=True,
-                                      checkpoint_every=1000)])
-        r = outs[0]["runs"][0]["result"]
-        _tp_describe("(c) fsdp=2,tp=2", r)
-        four_total = TP_FOUR_RUN["warmup"] + TP_FOUR_RUN["steps"]
-        _tp_launches(kernels, "tp_0.3b_fsdp2_tp2", r["per_rank"], four_total, 4, remat=False)
-        step, params = CheckpointManager(ck, create=False).restore_subtree("params")
-        restored = _params_digest(params.items())
-        del params
-        digests = {o["runs"][0]["params"] for o in outs}
-        _log(f"tp (c): step {step} restored by one process, digest {restored}; the four ranks' "
-             f"gathered parameters {sorted(digests)}; {time.perf_counter() - t0:.1f} s")
-        if step != four_total or digests != {restored}:
-            _fail("tp (c): the one-process restore differs from the ranks' gathered parameters")
-        if [(q["data_index"], q["tp_index"]) for q in r["per_rank"]] != [(0, 0), (0, 1), (1, 0), (1, 1)]:
-            _fail(f"tp (c): rank coordinates {r['per_rank']}")
-    finally:
-        shutil.rmtree(td, ignore_errors=True)
+    # (c), four ranks at fsdp=2,tp=2, runs in phase 15's world of four
+    # ranks (_pp_beside, _tp_four_checks): a world's start-up is time of
+    # the script's limit.
 
     # (d) Llama-3-8B's full width at tp=2 (run in (a)'s world).
     t0 = time.perf_counter()
@@ -4215,7 +4257,9 @@ def phase_tp(kernels):
 # layers beside their other state on one card), and the one-process
 # reference's shape is held against the plain kernels in phases 2-3 (17 GB
 # of f32 scores at 16384).
-SP_RUN = dict(config="0.3b", n_layers=4, batch_size=2, seq_len=8192, warmup=1, steps=3)
+# 2 layers and 1 + 1 steps, for the script's time limit (the planted fault
+# reads 2.4e-2 at the second step).
+SP_RUN = dict(config="0.3b", n_layers=2, batch_size=2, seq_len=8192, warmup=1, steps=1)
 EP_RUN = dict(config="0.3b", n_layers=4, batch_size=8, seq_len=2048, warmup=1, steps=3,
               n_experts=8, moe_top_k=2, attn_impl="flash")
 EP_SPARSE = dict(moe_dispatch="sparse", moe_aux_weight=1e-2)
@@ -4226,7 +4270,10 @@ EP_SPARSE = dict(moe_dispatch="sparse", moe_aux_weight=1e-2)
 # 1 + 2 steps (the script's time limit: an fsdp=2 step of the two ranks
 # gathers and scatters the f32 parameters through the host under gloo).
 EP_GROUPS = dict(EP_RUN, batch_size=2, seq_len=512, steps=2, moe_capacity_factor=0.5, **EP_SPARSE)
-EP_GROUPS_ACCUM = dict(EP_GROUPS, batch_size=4, grad_accum=2)
+# The accumulating run at 2 layers, for the script's time limit (a step of
+# the two fsdp ranks gathers and scatters the parameters through the host
+# twice).
+EP_GROUPS_ACCUM = dict(EP_GROUPS, batch_size=4, grad_accum=2, n_layers=2)
 # Their losses and aux losses against one process's, in nats. At 1,024
 # tokens a step the loss falls from about 11 to about 4.4 in two steps, and
 # a world's bf16 noise, carried through routings that flip near a tie and
@@ -4256,8 +4303,10 @@ EP_MOVE_RTOL = 5e-2
 # global B8 x 2048 (the workload rounds the global batch up to a multiple
 # of the ranks, as JAX's does; a rank's f32 scores a layer, [8, 2, 2, 2048,
 # 2048], are B2 x 4096's), AdamW, 1 + 2 steps, held to SP_LOSS_ATOL against
-# one process with flash (at MOE_SHAPE, held and timed in phases 2-3).
-SP_TP_RUN = dict(config="0.3b", n_layers=4, batch_size=8, seq_len=2048, warmup=1, steps=2)
+# one process with flash (at MOE_SHAPE, held and timed in phases 2-3); 2
+# layers and 1 + 1 steps, for the script's time limit (the planted fault
+# reads 0.21 at the second step).
+SP_TP_RUN = dict(config="0.3b", n_layers=2, batch_size=8, seq_len=2048, warmup=1, steps=1)
 SP_TP_MESH = {"sp": 2, "tp": 4}
 
 
@@ -4288,6 +4337,7 @@ def phase_sp_ep(kernels):
     ``MOE_SHAPE``) are held and timed in phases 2-3."""
     import shutil
     import tempfile
+    from pathlib import Path
 
     import torch
 
@@ -4321,8 +4371,12 @@ def phase_sp_ep(kernels):
     init = _seeded_tensors(EP_RUN["config"], EP_RUN["n_layers"], EP_MOVE_TENSORS,
                            n_experts=EP_RUN["n_experts"])
     tdb = tempfile.mkdtemp(prefix="chip_smoke_ep_")
+    # Phase 15(a)-(d)'s runs join this world (a world's start-up is time of
+    # the script's limit); phase_pp reads their outputs and (d)'s checkpoint.
+    pp_dir = tempfile.mkdtemp(prefix="chip_smoke_pp_")
+    pp_runs = _pp_world_runs(Path(pp_dir) / "ck")
     try:
-        outs = _rank_world("runs", "(a), (b) sp=2 and ep=2", runs=[
+        outs = _rank_world("runs", "(a), (b) sp=2 and ep=2, and 15(a)-(d) pp=2", runs=[
             dict(SP_RUN, mesh_spec="sp=2", attn_impl="ring", digest=True),
             dict(SP_RUN, mesh_spec="sp=2", attn_impl="ring", plant="ring_local_positions"),
             dict(SP_RUN, mesh_spec="sp=2", attn_impl="ulysses", digest=True),
@@ -4334,7 +4388,9 @@ def phase_sp_ep(kernels):
             dict(EP_GROUPS, mesh_spec="sp=2", attn_impl="ring"),
             dict(EP_GROUPS_ACCUM, mesh_spec="fsdp=2"),
             dict(EP_GROUPS, mesh_spec="fsdp=2", plant="moe_rank_groups"),
+            *pp_runs,
         ])
+        _PP_WORLD.update(dir=pp_dir, outs=[{**o, "runs": o["runs"][-len(pp_runs):]} for o in outs])
         moved = {tag: _move_error(torch.load(f"{tdb}/{tag}.pt"), one_params, init)
                  for tag in ("sound", "fault")}
     finally:
@@ -4369,7 +4425,8 @@ def phase_sp_ep(kernels):
     runs = [r["result"] for r in outs[0]["runs"][3:6]]
     for dispatch, r in zip(("dense", "sparse"), runs):
         _world_describe(f"ep (b) ep=2 {dispatch}", r)
-        _tp_launches(kernels, f"ep_{dispatch}_ep2", r["per_rank"], total, EP_RUN["n_layers"], remat=False)
+        _tp_launches(kernels, f"ep_{dispatch}_ep2", r["per_rank"], EP_RUN["warmup"] + EP_RUN["steps"],
+                     EP_RUN["n_layers"], remat=False)
         g = _loss_gap(r["losses"], ones[dispatch]["losses"])
         half = ones[dispatch]["per_rank"][0]["expert_param_bytes"] // 2
         _log(f"ep (b) {dispatch}: one process {[round(x, 5) for x in ones[dispatch]['losses']]}, step "
@@ -4397,10 +4454,11 @@ def phase_sp_ep(kernels):
     # process; the planted fault groups each rank's own tokens.
     fsdp, ring, accum, fault = (r["result"] for r in outs[0]["runs"][6:10])
     g_total = EP_GROUPS["warmup"] + EP_GROUPS["steps"]
-    for tag, r, ref, mesh, coords, steps in (
-        ("(i) fsdp=2", fsdp, ones["groups"], {"fsdp": 2}, "data_index", g_total),
-        ("(ii) sp=2 ring", ring, ones["groups"], {"sp": 2}, "sp_index", g_total),
-        ("(iii) fsdp=2 grad_accum=2", accum, ones["groups_accum"], {"fsdp": 2}, "data_index", 2 * g_total),
+    for tag, r, ref, mesh, coords, steps, run_kw in (
+        ("(i) fsdp=2", fsdp, ones["groups"], {"fsdp": 2}, "data_index", g_total, EP_GROUPS),
+        ("(ii) sp=2 ring", ring, ones["groups"], {"sp": 2}, "sp_index", g_total, EP_GROUPS),
+        ("(iii) fsdp=2 grad_accum=2", accum, ones["groups_accum"], {"fsdp": 2}, "data_index", 2 * g_total,
+         EP_GROUPS_ACCUM),
     ):
         _world_describe(f"ep (b) groups {tag}", r)
         gap, aux_gap = _loss_gap(r["losses"], ref["losses"]), _loss_gap(r["aux_losses"], ref["aux_losses"])
@@ -4419,7 +4477,7 @@ def phase_sp_ep(kernels):
             _record_launches(kernels, "ep_groups_sp2_ring", {k: 0 for k in fa.launch_counts()})
         else:
             _tp_launches(kernels, f"ep_groups_{'accum_' if steps > g_total else ''}fsdp2",
-                         r["per_rank"], steps, EP_RUN["n_layers"], remat=False)
+                         r["per_rank"], steps, run_kw["n_layers"], remat=False)
     fault_gap = _loss_gap(fault["losses"], ones["groups"]["losses"])
     _log(f"ep (b) groups (iv): each rank grouping its own tokens, losses "
          f"{[round(x, 5) for x in fault['losses']]}, {fault_gap:.3e} from one process's (limit "
@@ -4493,7 +4551,7 @@ def _sp_tp_part(kernels):
 
 
 # Phase 15: pipeline parallelism.
-PP_RUN = dict(config="0.3b", n_layers=8, batch_size=8, seq_len=2048, warmup=1, steps=3)
+PP_RUN = dict(config="0.3b", n_layers=8, batch_size=8, seq_len=2048, warmup=1, steps=2)
 # The pp runs' losses against one process's over every step, in nats (the
 # largest absolute difference), and the planted fault's above it.
 # Predictions (PERF.md §6): 1e-4 to 2e-3 (the stages' gradients are sums of
@@ -4501,6 +4559,36 @@ PP_RUN = dict(config="0.3b", n_layers=8, batch_size=8, seq_len=2048, warmup=1, s
 # sums its chunks' partial statistics over pp); the fault 1e-2 to 0.3 (the
 # CPU's tiny f32: 2.0e-2 to 7.6e-2).
 PP_LOSS_ATOL = 5e-3
+
+
+# (e) pp beside tp: 15(a)'s model, seed and rows at pp=2,tp=2 over four
+# ranks, 1F1B at 4 microbatches, 1 + 2 steps (a rank attends 4 of the 8
+# heads of a microbatch: PPTP_SHAPE); (f) pp beside ep: the MoE Llama at
+# 0.3b width with phase 10's experts (8, top 2, capacity 1.25), aux weight
+# 0 (JAX refuses it on a pp mesh), sparse dispatch, 4 layers, pp=2,ep=2
+# (ep splits no batch: a rank attends at PP_SHAPE). A microbatch's 4,096
+# tokens are four of the sparse layer's 1,024-token groups, the same four
+# as one process's, so (f) holds against its own one process at
+# EP_LOSS_ATOL. Both in one world of four ranks sharing the card.
+PP_TP_RUN = dict(PP_RUN, mesh_spec="pp=2,tp=2", pp_schedule="1f1b")
+PP_EP_RUN = dict(config="0.3b", n_layers=4, batch_size=8, seq_len=2048, warmup=1, steps=2,
+                 n_experts=8, moe_top_k=2, moe_capacity_factor=1.25, moe_dispatch="sparse")
+
+
+# Phase 15(a)-(d)'s runs join phase 14's world of two ranks: their outputs
+# and (d)'s checkpoint directory, for phase_pp.
+_PP_WORLD = {}
+
+
+def _pp_world_runs(ck) -> list:
+    """Phase 15(a)-(d)'s runs in a world of two ranks: GPipe, 1F1B saving
+    (d)'s checkpoint into ``ck``, and the planted fault."""
+    return [
+        dict(PP_RUN, mesh_spec="pp=2", pp_schedule="gpipe"),
+        dict(PP_RUN, mesh_spec="pp=2", pp_schedule="1f1b", digest=True, checkpoint_every=1000,
+             env={"TPUJOB_CHECKPOINT_DIR": str(ck)}),
+        dict(PP_RUN, mesh_spec="pp=2", pp_schedule="1f1b", plant="pp_shifted_cotangent"),
+    ]
 
 
 def _pp_bytes(n_layers: int) -> list:
@@ -4515,16 +4603,37 @@ def _pp_bytes(n_layers: int) -> list:
     return [sizes["embed.weight"] + stage + tail, stage + tail]
 
 
-def _pp_launches(kernels, path: str, r: dict, microbatches: int) -> None:
+def _pp_tp_bytes(n_layers: int) -> list:
+    """Each pp=2,tp=2 rank's parameter bytes (f32) of 0.3b at ``n_layers``,
+    in rank order (pp outer, tp inner): its stage's layers as tp blocks
+    (the norms whole), the final norm and a quarter of the head's rows;
+    stage 0 half the embedding too."""
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+    from pytorch_operator_tpu_torch.parallel.sharding import tp_dim
+
+    model = llama_lib.Llama(llama_lib.llama_0_3b(n_layers=n_layers), device="meta")
+    stages = [0, 0]
+    for name, p in model.named_parameters():
+        b = 4 * p.numel() // (2 if tp_dim(name) is not None else 1)
+        if name.startswith("layers."):
+            stages[2 * int(name.split(".")[1]) // n_layers] += b
+        elif name == "embed.weight":
+            stages[0] += b
+        else:  # the final norm and the head, on both stages
+            stages = [x + (b // 2 if name == "lm_head.weight" else b) for x in stages]
+    return [stages[0]] * 2 + [stages[1]] * 2
+
+
+def _pp_launches(kernels, path: str, r: dict, microbatches: int, run=PP_RUN) -> None:
     """Each rank launched each kernel once a layer of its stage a
     microbatch a step; the ranks' sum into the kernels line."""
-    total = PP_RUN["warmup"] + PP_RUN["steps"]
-    per = PP_RUN["n_layers"] // 2 * microbatches * total
+    total = run["warmup"] + run["steps"]
+    per = run["n_layers"] // 2 * microbatches * total
     want = {"flash_fwd": per, "flash_bwd_dq": per, "flash_bwd_dkv": per}
     for q in r["per_rank"]:
         if q["flash_launches"] != want:
             _fail(f"pp {path}: rank {q['rank']} launched {q['flash_launches']}, expected {want}")
-    _record_launches(kernels, path, {k: 2 * v for k, v in want.items()})
+    _record_launches(kernels, path, {k: len(r["per_rank"]) * v for k, v in want.items()})
 
 
 def _pp_describe(tag: str, r: dict) -> None:
@@ -4532,8 +4641,9 @@ def _pp_describe(tag: str, r: dict) -> None:
     _log(
         f"pp {tag}: mesh {r['mesh']}, {r['pp_schedule']} over {r['pp_microbatches']} microbatches, "
         f"{r['value'] * r['world']:.1f} tokens/s over {r['world']} ranks sharing one card, step "
-        f"{r['step_s']:.4f} s, losses {[round(x, 5) for x in r['losses']]}; per rank (data, pp) "
-        f"{[(q['data_index'], q['pp_index']) for q in per]}, param bytes {[q['param_bytes'] for q in per]}, "
+        f"{r['step_s']:.4f} s, losses {[round(x, 5) for x in r['losses']]}; per rank (data, pp, tp, ep) "
+        f"{[(q['data_index'], q['pp_index'], q['tp_index'], q['ep_index']) for q in per]}, param bytes "
+        f"{[q['param_bytes'] for q in per]}, expert bytes {[q['expert_param_bytes'] for q in per]}, "
         f"optimizer bytes {[q['optimizer_state_bytes'] for q in per]}, peak memory GiB "
         f"{[round((q['peak_mem_bytes'] or 0) / 2**30, 3) for q in per]}"
     )
@@ -4544,10 +4654,10 @@ def phase_pp(kernels):
     microbatches against one process, their peaks; (b), the B16 runs at 8
     microbatches, given up for the time limit; (c) the planted
     shifted-cotangent fault; (d) the pp=2 checkpoint restored by one
-    process. The kernels at the microbatch's
-    shape (``PP_SHAPE``) are held and timed in phases 2-3."""
+    process; (e)-(f) pp beside tp and ep (:func:`_pp_beside`). The kernels
+    at the microbatch's shape (``PP_SHAPE``) and at a pp=2,tp=2 rank's
+    (``PPTP_SHAPE``) are held and timed in phases 2-3."""
     import shutil
-    import tempfile
     from pathlib import Path
 
     import torch
@@ -4563,14 +4673,9 @@ def phase_pp(kernels):
     one = llama_train.run(device="cuda", log=_log, **PP_RUN)
     _record_launches(kernels, "pp_one_process", fa.launch_counts())
     torch.cuda.empty_cache()
-    td = tempfile.mkdtemp(prefix="chip_smoke_pp_")
+    td, outs = _PP_WORLD.pop("dir"), _PP_WORLD.pop("outs")  # phase 14's world ran them
     try:
         ck = Path(td) / "ck"
-        outs = _rank_world("runs", "(a)-(d) pp=2", env={"TPUJOB_CHECKPOINT_DIR": str(ck)}, runs=[
-            dict(PP_RUN, mesh_spec="pp=2", pp_schedule="gpipe"),
-            dict(PP_RUN, mesh_spec="pp=2", pp_schedule="1f1b", digest=True, checkpoint_every=1000),
-            dict(PP_RUN, mesh_spec="pp=2", pp_schedule="1f1b", plant="pp_shifted_cotangent"),
-        ])
         t_restore = time.perf_counter()
         step, params = CheckpointManager(ck, create=False).restore_subtree("params")
         order = llama_lib.Llama(llama_lib.llama_0_3b(n_layers=PP_RUN["n_layers"]), device="meta").state_dict()
@@ -4618,10 +4723,98 @@ def phase_pp(kernels):
         _fail(f"pp (c): the planted fault's losses are within {fault_gap:.3e} of one process's")
     digests = {o["runs"][1]["params"] for o in outs}
     _log(f"pp (d): step {step} restored by one process in {t_restore:.1f} s, digest {restored}; the "
-         f"ranks' gathered parameters {sorted(digests)}; phase {time.perf_counter() - t0:.1f} s")
+         f"ranks' gathered parameters {sorted(digests)}; {time.perf_counter() - t0:.1f} s")
     if step != total or digests != {restored}:
         _fail("pp (d): the one-process restore differs from the ranks' gathered parameters")
+    _pp_beside(kernels, one)
+    _log(f"pp: phase {time.perf_counter() - t0:.1f} s")
     return None
+
+
+def _pp_beside(kernels, one: dict) -> None:
+    """Phase 15(e)-(f): pp beside tp (against (a)'s one process, the
+    planted tp-outer head rows, the checkpoint) and beside ep (against its
+    own one process), in one world of four ranks."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from pytorch_operator_tpu_torch.checkpoint import CheckpointManager
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+    from pytorch_operator_tpu_torch.ops import flash_attention as fa
+    from pytorch_operator_tpu_torch.workloads import llama_train
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    fa.reset_launch_count()
+    one_ep = llama_train.run(device="cuda", log=_log, **PP_EP_RUN)
+    _record_launches(kernels, "pp_ep_one_process", fa.launch_counts())
+    torch.cuda.empty_cache()
+    ep_world = dict(PP_EP_RUN, mesh_spec="pp=2,ep=2", pp_schedule="1f1b")
+    td = tempfile.mkdtemp(prefix="chip_smoke_pp_tp_")
+    try:
+        ck, ck_tp = Path(td) / "ck", Path(td) / "ck_tp"
+        # Phase 13(c)'s run first, each checkpoint into its own directory.
+        outs = _rank_world("runs", "13(c) fsdp=2,tp=2 and 15(e)-(f) pp=2,tp=2 and pp=2,ep=2", n=4, runs=[
+            dict(TP_FOUR_RUN, mesh_spec="fsdp=2,tp=2", digest=True, checkpoint_every=1000,
+                 env={"TPUJOB_CHECKPOINT_DIR": str(ck_tp)}),
+            dict(PP_TP_RUN, digest=True, checkpoint_every=1000, env={"TPUJOB_CHECKPOINT_DIR": str(ck)}),
+            # The fault shows from the first step.
+            dict(PP_TP_RUN, steps=1, plant="pp_tp_outer_head"),
+            ep_world,
+        ])
+        _tp_four_checks(kernels, outs, ck_tp)
+        step, params = CheckpointManager(ck, create=False).restore_subtree("params")
+        order = llama_lib.Llama(llama_lib.llama_0_3b(n_layers=PP_RUN["n_layers"]), device="meta").state_dict()
+        restored = _params_digest((name, params[name]) for name in order)
+        del params
+    finally:
+        shutil.rmtree(td, ignore_errors=True)
+    tp_run, fault, ep_run = (r["result"] for r in outs[0]["runs"][1:])
+    _log(f"pp (e)-(f): the world's runs took {[round(r['wall_s'], 1) for r in outs[0]['runs']]} s on rank 0")
+
+    # (e) pp=2,tp=2 against (a)'s one process at the same steps.
+    total = PP_TP_RUN["warmup"] + PP_TP_RUN["steps"]
+    want_bytes = _pp_tp_bytes(PP_TP_RUN["n_layers"])
+    _pp_describe("(e) pp=2,tp=2", tp_run)
+    _pp_launches(kernels, "pp_tp_1f1b_m4", tp_run, 4, PP_TP_RUN)
+    gap = _loss_gap(tp_run["losses"], one["losses"])
+    fault_gap = _loss_gap(fault["losses"], one["losses"])
+    digests = {o["runs"][1]["params"] for o in outs}
+    _log(f"pp (e): losses within {gap:.3e} of (a)'s one process (limit {PP_LOSS_ATOL:.0e}); param "
+         f"bytes a rank want {want_bytes}; planted tp-outer head rows {fault_gap:.3e} "
+         f"({[round(x, 5) for x in fault['losses']]}), step {fault['step_s']:.4f} s; step {step} "
+         f"restored by one process, digest {restored}, the ranks' gathered parameters {sorted(digests)}")
+    if gap > PP_LOSS_ATOL or len(tp_run["losses"]) != total:
+        _fail(f"pp (e): losses {gap:.3e} from one process's")
+    if fault_gap <= PP_LOSS_ATOL:
+        _fail(f"pp (e): the planted head nesting fault's losses are within {fault_gap:.3e} of one process's")
+    if (tp_run["world"], tp_run["mesh"]) != (4, {"pp": 2, "tp": 2}) or [
+            (q["pp_index"], q["tp_index"]) for q in tp_run["per_rank"]] != [(0, 0), (0, 1), (1, 0), (1, 1)]:
+        _fail(f"pp (e): world, mesh or rank coordinates wrong: {tp_run['mesh']}")
+    if [q["param_bytes"] for q in tp_run["per_rank"]] != want_bytes:
+        _fail(f"pp (e): per-rank parameter bytes {[q['param_bytes'] for q in tp_run['per_rank']]}")
+    if step != total or digests != {restored}:
+        _fail("pp (e): the one-process restore differs from the ranks' gathered parameters")
+
+    # (f) pp=2,ep=2 against its own one process.
+    experts = sum(4 * p.numel() for n, p in llama_lib.Llama(
+        llama_lib.llama_0_3b(n_layers=PP_EP_RUN["n_layers"], n_experts=8), device="meta").named_parameters()
+        if n.endswith(("moe_mlp.w_in", "moe_mlp.w_out")))
+    _pp_describe("(f) pp=2,ep=2", ep_run)
+    _pp_launches(kernels, "pp_ep_1f1b_m4", ep_run, 4, PP_EP_RUN)
+    gap = _loss_gap(ep_run["losses"], one_ep["losses"])
+    _log(f"pp (f): one process {[round(x, 5) for x in one_ep['losses']]}, step {one_ep['step_s']:.4f} s, "
+         f"peak {(one_ep['peak_mem_bytes'] or 0) / 2**30:.3f} GiB; pp=2,ep=2 within {gap:.3e} (limit "
+         f"{EP_LOSS_ATOL:.0e}); expert bytes a rank want {experts // 4}; {time.perf_counter() - t0:.1f} s")
+    if gap > EP_LOSS_ATOL or len(ep_run["losses"]) != len(one_ep["losses"]):
+        _fail(f"pp (f): losses {gap:.3e} from one process's")
+    if [(q["pp_index"], q["ep_index"]) for q in ep_run["per_rank"]] != [(0, 0), (0, 1), (1, 0), (1, 1)]:
+        _fail(f"pp (f): rank coordinates {ep_run['per_rank']}")
+    if [q["expert_param_bytes"] for q in ep_run["per_rank"]] != [experts // 4] * 4:
+        _fail(f"pp (f): expert bytes {[q['expert_param_bytes'] for q in ep_run['per_rank']]}")
 
 
 # Phase 16: the digit CNN through mnist_train (examples/mnist.yaml; BASELINE.json's

@@ -175,10 +175,12 @@ def params_from_jax(tree, cfg: LlamaConfig, tp=None, ep=None, pp=None) -> Dict[s
     (``ExpertParallel``) this rank's block of each tensor that they split;
     with ``pp`` (``PipelineParallel``) this stage's tensors only: its layers
     (rows of the stacked leaves), the embedding on stage 0, the final norm
-    and its head rows (the head kernel's vocabulary columns). Raises
+    and its head rows (the head kernel's vocabulary columns); beside tp or
+    ep the stage's blocks of them, the head's rows nested pp outer, tp inner
+    (``sharding.take_block``). Raises
     ``ValueError`` naming the first leaf whose shape disagrees, or whose
     quantization disagrees with ``cfg.quantize``."""
-    from ..parallel.sharding import cut_splits, param_splits
+    from ..parallel.sharding import cut_splits, param_splits, take_block
 
     sd: Dict[str, torch.Tensor] = {}
 
@@ -206,15 +208,12 @@ def params_from_jax(tree, cfg: LlamaConfig, tp=None, ep=None, pp=None) -> Dict[s
         axes = [ax for ax in (tp, ep, pp) if ax is not None and ax.size > 1]
         if axes and quantized:
             raise NotImplementedError("int8 weights of a tensor-, expert- or pipeline-parallel model")
-        splits = cut_splits(param_splits(leaf.names[0], axes, cfg.vocab_size))
+        splits = param_splits(leaf.names[0], axes, cfg.vocab_size)
         for i, name in enumerate(leaf.names):
             if pp is not None and not pp.holds(name, cfg.n_layers, cfg.vocab_size):
                 continue
-            if splits:
-                t = leaf.to_port(w, i)
-                for ax, d in splits:
-                    t = t.narrow(d, *ax.block(t.shape[d], name))
-                sd[name] = t.to(cfg.param_dtype).contiguous()
+            if cut_splits(splits):
+                sd[name] = take_block(leaf.to_port(w, i), splits).to(cfg.param_dtype).contiguous()
             elif leaf.norm:
                 sd[name] = leaf.to_port(w, i).clone()
             elif scale is None:

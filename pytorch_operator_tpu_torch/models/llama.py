@@ -81,7 +81,16 @@ model-parallel axes, as JAX's ``Llama(cfg, mesh=mesh)``:
   FSDP2 forward methods, so that FSDP2 gathers the root's parameters
   around them. JAX's refusals are
   kept (int8 weights, ``n_layers % pp``, ring or ulysses attention in the
-  pipeline); pp beside tp, ep or sp waits for ROADMAP.md item 3c-3b.
+  pipeline, a MoE aux loss). Beside tp, ep or sp a stage's layers are
+  those axes' blocks, as outside the pipeline (sp with dense or flash
+  attention: every sp rank computes the whole sequence); the head's
+  ``V/P`` rows of a stage are cut again by tp (pp outer, tp inner:
+  ``sharding.param_splits``; tp replicates them where it does not divide
+  ``V/P``), the embedding on stage 0 is tp's vocab-parallel one, and the
+  loss tail is vocab-parallel over tp and pp (:func:`_xent`). The ranks
+  of a tp, ep or sp group share their pp coordinate, so they run the same
+  ticks of the pipeline and post their collectives in the same order
+  (``parallel/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -112,6 +121,7 @@ from ..parallel.sharding import (
     cut_splits,
     local_tensor,
     model_splits,
+    take_block,
 )
 from ..parallel.ulysses import check_kv_heads, ulysses_attention_tp
 from .common import remat_policy
@@ -624,13 +634,6 @@ class Llama(nn.Module):
             mesh = tp.mesh
         if pp is not None:
             check_pp(cfg, pp.size)
-            beside = [ax.axis for ax in (tp, ep, sp) if ax is not None]
-            if beside:
-                raise NotImplementedError(
-                    f"pp={pp.size} with {', '.join(f'{a}' for a in beside)} is not ported yet "
-                    "(ROADMAP.md item 3c-3b: pipeline stages beside tp, ep or sp; JAX's stages leave "
-                    "them to XLA)"
-                )
         for ax, kind in ((tp, "tensor-parallel"), (ep, "expert-parallel"), (sp, "sequence-parallel"),
                          (pp, "pipeline-parallel")):
             if ax is None:
@@ -649,24 +652,33 @@ class Llama(nn.Module):
         sizes = {} if mesh is None else dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
         self.mesh_axes = sizes
         token_axes = tuple(a for a in ("dp", "fsdp", "sp") if sizes.get(a, 1) > 1)
-        if pp is not None and token_axes and cfg.n_experts > 0 and cfg.moe_dispatch == "sparse":
+        # Inside the pipeline sp never splits the sequence (ring and ulysses
+        # are refused there, check_pp): an sp rank's stage groups the same
+        # tokens as one process, so only the data axes wait for item 3c-3c.
+        data_axes = tuple(a for a in token_axes if a != "sp")
+        if pp is not None and data_axes and cfg.n_experts > 0 and cfg.moe_dispatch == "sparse":
             raise NotImplementedError(
-                f"sparse MoE dispatch on a pp mesh with {', '.join(f'{a}={sizes[a]}' for a in token_axes)} "
+                f"sparse MoE dispatch on a pp mesh with {', '.join(f'{a}={sizes[a]}' for a in data_axes)} "
                 f"is not ported yet ({ITEM_3C3C})"
             )
-        V = _local(cfg.vocab_size, tp, "vocab_size")
-        # The first vocabulary id of this rank's rows of the embedding and
-        # columns of the head.
-        self.vocab_offset = 0 if tp is None else tp.index * V
+        # The axes whose blocks the head's vocabulary rows are, innermost
+        # first (sharding.param_splits: a pp stage's V/P rows, cut again by
+        # tp where it divides them), and the first vocabulary id of this
+        # rank's head rows: stage s, tp rank t at s·V/P + t·V/(P·tp). The
+        # embedding's rows are tp's blocks of the whole vocabulary.
+        V = cfg.vocab_size
+        self.head_axes = [ax for ax, _ in cut_splits(model_splits(self, "lm_head.weight"))]
+        self.vocab_offset = 0
+        for ax in reversed(self.head_axes):
+            V //= ax.size
+            self.vocab_offset += ax.index * V
+        self.embed_offset = 0 if tp is None else tp.index * (cfg.vocab_size // tp.size)
         # This rank's layers (a pp stage's), and whether it holds the
         # embedding and the tail (final norm and head).
         self.layer_ids = range(cfg.n_layers) if pp is None else pp.layers(cfg.n_layers)
         first = pp is None or pp.index == 0
         tail = pp is None or pp.holds_tail(cfg.vocab_size)
-        if self.vocab_parallel:
-            V = cfg.vocab_size // pp.size
-            self.vocab_offset = pp.index * V
-        self.embed = nn.Embedding(V if tp is not None else cfg.vocab_size, cfg.d_model, device=device,
+        self.embed = nn.Embedding(_local(cfg.vocab_size, tp, "vocab_size"), cfg.d_model, device=device,
                                   dtype=cfg.param_dtype) if first else None
         self.layers = nn.ModuleList(
             Block(cfg, device, tp, ep, sp, mesh, token_axes) if i in self.layer_ids else None
@@ -717,10 +729,10 @@ class Llama(nn.Module):
                 if p is not None:
                     p.fill_(1.0)
                 continue
-            splits = cut_splits(model_splits(self, name))
+            splits = model_splits(self, name)
             shape = list(ref.shape)
             if whole is self:
-                for ax, d in splits:
+                for ax, d in cut_splits(splits):
                     shape[d] *= ax.size
             w = torch.empty(shape, dtype=torch.float32, device=generator.device)
             if name == "embed.weight":
@@ -736,9 +748,7 @@ class Llama(nn.Module):
                 nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
             if p is None:
                 continue
-            for ax, d in splits:
-                w = w.narrow(d, ax.index * p.shape[d], p.shape[d])
-            p.copy_(w)
+            p.copy_(take_block(w, splits))
         return self
 
     def seq_block(self, S: int):
@@ -813,13 +823,6 @@ class Llama(nn.Module):
                 F.embedding(tokens, self.embed.scale),
                 self.cfg.dtype,
             )
-        elif self.tp is not None:
-            # Vocab-parallel: this rank's rows, zeros for the others' ids,
-            # summed over tp.
-            local = tokens - self.vocab_offset
-            mine = (local >= 0) & (local < self.embed.weight.shape[0])
-            x = F.embedding(local.clamp(0, self.embed.weight.shape[0] - 1), self.embed.weight)
-            x = self.tp.leave(torch.where(mine[..., None], x, 0).to(self.cfg.dtype))
         else:
             x = self._embed(tokens)
         x, auxes = self.run_layers(x, positions, cache, want_aux, seq_split)
@@ -847,7 +850,15 @@ class Llama(nn.Module):
     # root's parameters around each and reduces their gradients after its
     # backward.
     def _embed(self, tokens):
-        return F.embedding(tokens, self.embed.weight).to(self.cfg.dtype)
+        if self.tp is None:
+            return F.embedding(tokens, self.embed.weight).to(self.cfg.dtype)
+        # Vocab-parallel: this rank's rows, zeros for the others' ids,
+        # summed over tp.
+        n = self.embed.weight.shape[0]
+        local = tokens - self.embed_offset
+        mine = (local >= 0) & (local < n)
+        x = F.embedding(local.clamp(0, n - 1), self.embed.weight)
+        return self.tp.leave(torch.where(mine[..., None], x, 0).to(self.cfg.dtype))
 
     def run_layers(self, x, positions, cache=None, want_aux: bool = False, seq_split: bool = False):
         """``x`` through this model's layers (a pp stage's own), each under
@@ -870,7 +881,11 @@ class Llama(nn.Module):
         return x, auxes
 
     def _pp_stage(self, act):
-        """A pp stage: ``act`` [b, S, D] through this stage's layers."""
+        """A pp stage: ``act`` [b, S, D] through this stage's layers. Its tp
+        and ep collectives (``tp_enter``/``tp_leave``, the experts' sums) run
+        inside the tick, forward and in the stored graph's backward: every
+        rank of a tp or ep group holds the same pp index, so all of them
+        run this call at the same ticks on the same microbatch."""
         positions = torch.arange(act.shape[1], device=act.device).expand(act.shape[:2])
         return self.run_layers(act, positions)[0]
 
@@ -1046,18 +1061,22 @@ def forward_pp(model: Llama, tokens, *, microbatches: int, return_hidden: bool =
 
 def _xent(model: Llama, hidden, tokens):
     """The mean next-token cross-entropy of final-norm ``hidden`` [b, S, D]
-    against ``tokens`` [b, S] over this stage's head: vocab-parallel over pp
-    (``chunked_vocab_stats`` in 8192-column chunks under ``xent_impl=
-    "chunked"``, one chunk of the stage's ``V/P`` else, combined with one
-    pmax and two psums; the gradient of ``hidden`` is this stage's part,
-    which the pipeline sums), or the whole head's (chunked or dense f32
-    logits, as one process's loss)."""
+    against ``tokens`` [b, S] over this stage's head: vocab-parallel over
+    the axes that cut its rows (``model.head_axes``: tp inside the stage,
+    then pp; ``chunked_vocab_stats`` in 8192-column chunks under
+    ``xent_impl="chunked"``, one chunk of the rank's rows else, combined
+    with one pmax and two psums an axis, tp's first), or the whole head's
+    (chunked or dense f32 logits, as one process's loss). ``hidden``'s
+    gradient is summed over tp here (``tp_enter``), as the tp model's head
+    sums it; over pp it is this stage's part, which the pipeline sums."""
     cfg = model.cfg
     h = hidden[:, :-1].reshape(-1, cfg.d_model)
     labels = tokens[:, 1:].reshape(-1)
     w = model.head_kernel()
-    if model.vocab_parallel:
-        per = vocab_parallel_xent(h, w, labels, tp=model.pp, col_offset=model.vocab_offset,
+    if model.head_axes:
+        if model.tp in model.head_axes:
+            h = model.tp.enter(h)
+        per = vocab_parallel_xent(h, w, labels, tp=model.head_axes, col_offset=model.vocab_offset,
                                   chunk=8192 if cfg.xent_impl == "chunked" else w.shape[1], enter=False)
     elif cfg.xent_impl == "chunked":
         per = chunked_softmax_xent(h, w, labels)

@@ -30,8 +30,9 @@ no gathered head is built.
 
 from __future__ import annotations
 
-import torch
+import math
 
+import torch
 
 from ..parallel.collectives import pmax, psum
 
@@ -155,14 +156,28 @@ def chunked_vocab_stats(hidden, w, labels, *, chunk: int = 8192, col_offset: int
     return m, s, lab_logit
 
 
+def _axes(tp) -> tuple:
+    """``tp`` as a tuple of axes: one ``AxisParallel``, or several."""
+    return tuple(tp) if isinstance(tp, (tuple, list)) else (tp,)
+
+
 def combine_vocab_stats(m, s, lab_logit, tp):
     """The logsumexp and the per-token loss ``lse − lab_logit`` of the whole
     vocabulary from each rank's :func:`chunked_vocab_stats` over the axis of
     ``tp`` (``sharding.TensorParallel``, or pp's ``PipelineParallel``): one
-    pmax, two psums."""
-    M = pmax(m, tp.axis, tp.mesh)
-    lse = M + torch.log(psum(s * torch.exp(m - M), tp.axis, tp.mesh))
-    return lse, lse - psum(lab_logit, tp.axis, tp.mesh)
+    pmax, two psums; or over several axes (a sequence, innermost first: a
+    pp stage's rows cut again by tp), each reduction over each in turn."""
+    axes = _axes(tp)
+    M = m
+    for ax in axes:
+        M = pmax(M, ax.axis, ax.mesh)
+    total, lab = s * torch.exp(m - M), lab_logit
+    for ax in axes:
+        total = psum(total, ax.axis, ax.mesh)
+    lse = M + torch.log(total)
+    for ax in axes:
+        lab = psum(lab, ax.axis, ax.mesh)
+    return lse, lse - lab
 
 
 class VocabParallelXent(torch.autograd.Function):
@@ -204,14 +219,16 @@ class VocabParallelXent(torch.autograd.Function):
 def vocab_parallel_xent(hidden, w, labels, *, tp, col_offset: int, chunk: int = 8192,
                         enter: bool = True):
     """Per-token ``-log p(label)`` f32 ``[N]`` of a head split over ``tp``
-    (an ``AxisParallel``: tp's, or pp's on a pipeline's vocab-parallel tail)
-    by vocabulary: ``w`` ``[D, V/tp]`` is this rank's block of columns,
+    (an ``AxisParallel``: tp's, or pp's on a pipeline's vocab-parallel tail;
+    or a sequence of axes, innermost first, whose blocks nest) by
+    vocabulary: ``w`` ``[D, V/tp]`` is this rank's block of columns,
     starting at id ``col_offset``; ``hidden`` ``[N, D]`` is the same on every
     rank of the axis. Equal to :func:`chunked_softmax_xent` on the whole
     head, in value and gradients (hidden's summed over the axis by
-    ``tp_enter``; with ``enter=False`` hidden's gradient is this rank's part,
-    which the caller sums). Labels clamp to ``[0, V)`` as there."""
-    V = w.shape[1] * tp.size
+    ``tp_enter``, one axis only; with ``enter=False`` hidden's gradient is
+    this rank's part, which the caller sums). Labels clamp to ``[0, V)`` as
+    there."""
+    V = w.shape[1] * math.prod(ax.size for ax in _axes(tp))
     if hidden.shape[1] != w.shape[0]:
         raise ValueError(f"hidden D={hidden.shape[1]} vs w D={w.shape[0]}")
     labels = labels.long().clamp(0, V - 1)

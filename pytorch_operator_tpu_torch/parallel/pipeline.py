@@ -32,7 +32,10 @@ Every rank takes part in every exchange and collective of every tick,
 bubble ticks included (it computes nothing where it has no valid
 microbatch and sends zeros), so the ranks stay in lock-step. A direction no
 rank uses at a tick (the last tick's hops, the activations during GPipe's
-backward) is skipped on all of them.
+backward) is skipped on all of them. A stage's own collectives (tp's,
+ep's, inside ``fn`` and its stored backward) rely on the same plan: the
+ranks of such a group share one pp index ``s``, so they skip the same
+bubble ticks and forward and backward the same microbatch at each tick.
 
 Deliberate differences from JAX:
 

@@ -235,7 +235,9 @@ class PipelineParallel(AxisParallel):
     stage (``models/llama.py``): layers ``[s·L/P, (s+1)·L/P)`` under their
     global names, the embedding on stage 0; where P divides the vocabulary
     (:meth:`vocab_parallel`) every stage holds the final norm and its
-    ``V/P`` head rows, else the last stage holds both whole."""
+    ``V/P`` head rows, else the last stage holds both whole. Beside tp the
+    same tensors are tp's blocks: a stage's head rows are cut again by tp
+    inside the stage (pp outer, tp inner: :func:`param_splits`)."""
 
     axis = "pp"
 
@@ -279,18 +281,47 @@ def model_axes(model) -> tuple:
 
 
 def param_splits(name: str, axes, vocab: Optional[int] = None) -> tuple:
-    """``(axis, dim)`` for each of ``axes`` (:class:`AxisParallel` s): the
-    dim of parameter ``name`` it splits, None where it replicates it, or
-    :data:`STAGE` where it is this pp stage's alone (pp needs ``vocab``, the
-    model's vocabulary, which decides its layout)."""
-    return tuple((ax, ax.split(name, vocab) if isinstance(ax, PipelineParallel)
-                  else axis_dim(name, ax.axis)) for ax in axes)
+    """``(axis, dim)`` for each of ``axes`` (:class:`AxisParallel` s, in
+    :func:`model_axes`' order): the dim of parameter ``name`` it splits,
+    None where it replicates it, or :data:`STAGE` where it is this pp
+    stage's alone (pp needs ``vocab``, the model's vocabulary, which decides
+    its layout).
+
+    Two axes may cut one dim: the head's vocabulary rows over pp and tp.
+    They nest in the order of ``axes``, the first innermost: a stage holds
+    ``V/P`` rows and its tp ranks their blocks of those, so that stage s, tp
+    rank t holds rows ``[s·V/P + t·V/(P·tp), ...)``. Where tp does not
+    divide a stage's ``V/P`` rows (JAX runs such a vocabulary; only a tp
+    that does not divide V is refused, :func:`check_tp_divides`), tp
+    replicates the stage's rows instead of cutting them."""
+    pp = next((ax for ax in axes if isinstance(ax, PipelineParallel)), None)
+
+    def dim(ax):
+        if ax is pp:
+            return ax.split(name, vocab)
+        d = axis_dim(name, ax.axis)
+        if (d is not None and pp is not None and name == "lm_head.weight" and pp.vocab_parallel(vocab)
+                and (vocab // pp.size) % ax.size):
+            return None
+        return d
+
+    return tuple((ax, dim(ax)) for ax in axes)
 
 
 def cut_splits(splits) -> list:
     """The ``(axis, dim)`` of ``splits`` that cut a tensor into blocks along
-    a dim (neither replicated nor a stage's own)."""
+    a dim (neither replicated nor a stage's own), innermost first."""
     return [(ax, d) for ax, d in splits if ax.size > 1 and d is not None and d != STAGE]
+
+
+def take_block(t, splits):
+    """This rank's block of the whole tensor ``t`` under ``splits``
+    (:func:`param_splits`): each cutting axis narrows its dim to this rank's
+    block, the outermost (last) first, so that axes cutting one dim nest as
+    :class:`Block` and :func:`full_tensor` read them."""
+    for ax, d in reversed(cut_splits(splits)):
+        t = t.narrow(d, *ax.block(t.shape[d], f"dim {d} of a {tuple(t.shape)} block"))
+    return t
 
 
 def check_tp_divides(cfg, size: int) -> None:

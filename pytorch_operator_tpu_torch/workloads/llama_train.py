@@ -47,12 +47,18 @@ world, in f32 or bf16 parameters (``--param-dtype``).
     python -m pytorch_operator_tpu_torch.workloads.llama_train --config 0.3b \\
         --batch-size 4 --seq-len 4096 --steps 5 --json
 
+``pp`` composes with the other axes: a stage's layers are tp, ep or sp
+blocks (sp with ``--attn-impl`` dense or flash, every sp rank computing the
+whole sequence: JAX refuses ring and ulysses inside the pipeline), the
+head's vocabulary rows are cut by pp and then by tp inside each stage, and
+the loss tail is vocab-parallel over both.
+
 It runs on ``cuda`` unless ``--device cpu`` or ``TPUJOB_PLATFORM=cpu`` asks
 for the host; with neither and no GPU it raises. What waits for ROADMAP.md
-is refused by name: ``pp`` beside ``tp``, ``ep`` or ``sp`` (item 3c-3b);
-sparse MoE dispatch on ``pp`` beside a data axis (item 3c-3c). A tp that
-does not divide the heads, kv heads, ``d_ff`` or the vocabulary is refused
-as JAX's ``llama_train`` refuses it (its partitioner's ValueError).
+is refused by name: sparse MoE dispatch on ``pp`` beside a data axis (item
+3c-3c). A tp that does not divide the heads, kv heads, ``d_ff`` or the
+vocabulary is refused as JAX's ``llama_train`` refuses it (its
+partitioner's ValueError).
 """
 
 from __future__ import annotations
@@ -109,18 +115,11 @@ CONFIGS = llama_lib.CONFIGS
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-ITEM_3C3B = "ROADMAP.md item 3c-3b: pipeline stages beside tp, ep or sp"
-
 
 def resolve_train_mesh(spec: str, world: int) -> dict:
     """The axes and sizes, in layout order, of mesh ``spec`` resolved
-    against ``world`` ranks (one device a process). ``pp`` beside ``tp``,
-    ``ep`` or ``sp`` (each of more than one rank, or a ``-1``) raises before
-    the sizes are resolved, naming the item it waits for."""
-    sizes = mesh_lib.parse_mesh_spec(spec)
-    beside = [a for a in ("tp", "ep", "sp") if sizes.get(a, 1) != 1]
-    if sizes.get("pp", 1) != 1 and beside:
-        raise NotImplementedError(f"pp with {', '.join(beside)} is not ported yet ({ITEM_3C3B})")
+    against ``world`` ranks (one device a process), with the JAX package's
+    errors."""
     return mesh_lib.hybrid_axis_sizes(spec, world)
 
 
@@ -736,9 +735,9 @@ def main(argv=None) -> int:
     p.add_argument(
         "--mesh", default=None,
         help='axes over the world\'s ranks, e.g. "fsdp=2", "dp=2", "tp=2", "fsdp=2,tp=2", '
-        '"sp=2", "dp=2,ep=2", "pp=2", "dp=2,pp=2", "dp=2@dcn,fsdp=-1" (default: TPUJOB_MESH or '
-        'fsdp=-1); pp beside tp, ep or sp is refused (ROADMAP.md item 3c-3b), and '
-        '--moe-dispatch sparse on pp beside dp or fsdp (item 3c-3c)',
+        '"sp=2", "dp=2,ep=2", "pp=2", "dp=2,pp=2", "pp=2,tp=2", "pp=2,ep=2", "dp=2@dcn,fsdp=-1" '
+        '(default: TPUJOB_MESH or fsdp=-1); --moe-dispatch sparse on pp beside dp or fsdp is '
+        'refused (ROADMAP.md item 3c-3c)',
     )
     p.add_argument("--batch-size", type=int, default=8, help="the global batch, over every rank")
     p.add_argument("--seq-len", type=int, default=128)

@@ -422,9 +422,9 @@ def _leaf_layout(leaf, params, names, model, mesh) -> _LeafLayout:
 
     def port_box(at: dict, f: int):
         offs, size = [0] * len(whole), list(whole)
-        for ax, d in cuts:
+        for ax, d in reversed(cuts):  # axes that cut one dim nest, the last outermost
             size[d] //= ax.size
-            offs[d] = at[ax.axis] * size[d]
+            offs[d] += at[ax.axis] * size[d]
         if fsdp > 1:
             rows = size[0]
             chunk = -(-rows // fsdp)
@@ -845,9 +845,12 @@ def make_lm_train_step(model, optimizer, grad_accum: int = 1, on_aux=None,
         )
     if pp is not None:
         mb = microbatches or 2 * pp.size
+        sp = getattr(model, "sp", None)
 
         def pp_step(tokens):
             loss = model.pp_value_and_grad(tokens, microbatches=mb, schedule=pp_schedule)
+            if sp is not None:  # each sp rank computed the whole sequence
+                mean_all_reduce_([p.grad for p in optimizer.params], sp.size, sp.mesh.get_group(sp.axis))
             optimizer.step()
             return loss.detach()
 

@@ -107,24 +107,26 @@ def port_runs(init_tree):
     return runs
 
 
-# What a world of more than one process still refuses, naming its item:
-# pp beside tp (3c-3b). Experts, ring and ulysses run in a world since
-# sequence and expert parallelism's slice (tests/test_torch_ep.py,
-# test_torch_sp_train.py), pp since pipeline parallelism's
-# (tests/test_torch_pp_train.py), sparse dispatch over tokens that cross
+# What a world of two processes still refuses on a pp mesh. Experts, ring
+# and ulysses run in a world since sequence and expert parallelism's slice
+# (tests/test_torch_ep.py, test_torch_sp_train.py), pp since pipeline
+# parallelism's (tests/test_torch_pp_train.py), pp beside tp, ep and sp
+# since item 3c-3b (tests/test_torch_pp_tp_train.py,
+# test_torch_pp_ep_sp_train.py), sparse dispatch over tokens that cross
 # ranks since its token groups over ranks (the two sparse cases once here,
 # fsdp=2 and sp=2 ring, run against JAX in tests/test_torch_moe_groups_train.py,
 # which also holds the refusal of sparse dispatch on pp beside a data axis,
-# 3c-3c, in a world of four).
+# item 3c-3c, the one item 3c left, in a world of four). What stays is
+# JAX's own refusal: ring attention inside the pipeline.
 REFUSED = [
-    dict(mesh_spec="pp=2,tp=2"),
+    dict(mesh_spec="pp=2", attn_impl="ring", raises=ValueError),
 ]
 
 
 def test_what_waits_for_item_3c_is_refused_in_a_world(port_runs):
     msgs = port_runs["refused"]
     assert len(msgs) == len(REFUSED)
-    assert "ROADMAP.md item 3c-3b" in msgs[0]
+    assert "attn_impl='ring' cannot run inside the pp pipeline" in msgs[0]
 
 
 @pytest.mark.parametrize(

@@ -213,10 +213,12 @@ def test_run_cpu_flash_chunked_and_bf16_params():
     ids=lambda a: a[0].lstrip("-"),
 )
 def test_main_refuses_unported_flags(argv):
-    """What waits for item 3c-3b is refused by name: the pp mesh axis beside
-    tp, ep or sp, with the pipeline flags or ring attention, before the
-    sizes are resolved (pp alone runs since pipeline parallelism's slice)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 3c-3b"):
+    """Nothing of item 3c-3b waits any more: the pp mesh axis beside tp, ep
+    or sp runs in a world (tests/test_torch_pp_tp_train.py,
+    test_torch_pp_ep_sp_train.py). In a world of one process these meshes
+    are refused by the JAX package's mesh message: their product is not
+    the world's size."""
+    with pytest.raises(ValueError, match="axis product 4 != device count 1"):
         llama_train.main(["--device", "cpu", "--steps", "1", "--seq-len", "8", *argv])
 
 

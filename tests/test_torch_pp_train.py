@@ -84,9 +84,14 @@ REFUSED = {
     "aux": (dict(KW, mesh_spec="pp=2", n_experts=4, moe_aux_weight=1e-2), ValueError,
             "moe_aux_weight is not supported on a pp mesh"),
     "layers": (dict(KW, mesh_spec="pp=2", n_layers=3), ValueError, "n_layers=3 not divisible by pp=2"),
-    "tp": (dict(KW, mesh_spec="pp=2,tp=2"), NotImplementedError, "ROADMAP.md item 3c-3b"),
-    "ep": (dict(KW, mesh_spec="pp=2,ep=2", n_experts=4), NotImplementedError, "ROADMAP.md item 3c-3b"),
+    # Beside tp and ep (which run since pp composes with them,
+    # tests/test_torch_pp_tp_train.py and test_torch_pp_ep_sp_train.py),
+    # JAX's refusals stay: in the world of four ranks.
+    "tp": (dict(KW, mesh_spec="pp=2,tp=2", n_layers=3), ValueError, "n_layers=3 not divisible by pp=2"),
+    "ep": (dict(KW, mesh_spec="pp=2,ep=2", n_experts=4, moe_aux_weight=1e-2), ValueError,
+           "moe_aux_weight is not supported on a pp mesh"),
 }
+REFUSED_FOUR = ("tp", "ep")
 
 _JAX_RUNS = """
 import os, pickle, sys
@@ -185,7 +190,7 @@ def runs(tmp_path_factory):
         train += [dict(saving, env={"TPUJOB_CHECKPOINT_DIR": d}) for d in (ck["pp"], ck["resumed"], ck["resumed"])]
         train.append(dict(KW, mesh_spec="pp=2", pp_schedule="1f1b", init_params=dense,
                           plant="pp_shifted_cotangent", env={"TPUJOB_CHECKPOINT_DIR": ""}))
-        train += [dict(kw, raises=err) for kw, err, _ in REFUSED.values()]
+        train += [dict(kw, raises=err) for name, (kw, err, _) in REFUSED.items() if name not in REFUSED_FOUR]
         two = torch_worlds.run_world("many", [
             ("train", (train,)),
             ("pp_vocab", (255, 3, 4)),
@@ -194,17 +199,18 @@ def runs(tmp_path_factory):
             ("restore_layout", (ck["pp"], 3, "fsdp=2", "adamw", {"n_layers": 4})),
             *[("restore_refused", (ck["extra"], 3, spec, {"n_layers": 4})) for spec in EXTRA_LAYER],
         ], n=2, timeout=300)
-        four = torch_worlds.run_world("train", [dict(kw, init_params=dense) for kw in FOUR.values()],
-                                      n=4, timeout=300)
+        four = torch_worlds.run_world("train", [dict(kw, init_params=dense) for kw in FOUR.values()] + [
+            dict(REFUSED[name][0], raises=REFUSED[name][1]) for name in REFUSED_FOUR], n=4, timeout=300)
         jax_runs = {**torch_worlds.finish_jax_runs(procs[2], d / "two"),
                     **torch_worlds.finish_jax_runs(procs[4], d / "four")}
     finally:
         for p in procs.values():
             if p.poll() is None:
                 p.kill()
-    names = [*TWO, *PORT_ONLY, "eval", "saved", "resumed", "resume", "fault", *REFUSED]
+    names = [*TWO, *PORT_ONLY, "eval", "saved", "resumed", "resume", "fault",
+             *(name for name in REFUSED if name not in REFUSED_FOUR)]
     ranks = {name: [r[0][i] for r in two] for i, name in enumerate(names)}
-    ranks.update({name: [r[i] for r in four] for i, name in enumerate(FOUR)})
+    ranks.update({name: [r[i] for r in four] for i, name in enumerate([*FOUR, *REFUSED_FOUR])})
     ranks["vocab"] = [r[1] for r in two]
     ranks["restored"] = [r[2] for r in two]
     ranks["restored_adamw"] = [r[3] for r in two]

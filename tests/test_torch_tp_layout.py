@@ -98,40 +98,59 @@ def test_blocks_say_where_a_rank_part_sits():
 )
 def test_sp_ep_and_pp_are_refused_naming_their_item(spec, item):
     """Item 3c-2's axes (sp, ep) and 3c-3's pp resolve since they were
-    ported; pp beside tp, ep or sp is refused naming item 3c-3b, before the
-    sizes are resolved."""
+    ported, and since item 3c-3b pp beside tp, ep or sp resolves too, in
+    the mesh's order; a mesh whose product is not the world's size is
+    refused with the JAX package's message."""
     assert llama_train.resolve_train_mesh(spec, 2) == mesh_lib.parse_mesh_spec(spec)
     if item == "3c-3":
-        for beside in ("tp=2", "ep=2", "sp=-1"):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md item 3c-3b"):
-                llama_train.resolve_train_mesh(f"{spec},{beside}", 2)
+        for beside, size in (("tp=2", 2), ("ep=2", 2), ("sp=-1", 2)):
+            got = llama_train.resolve_train_mesh(f"{spec},{beside}", 4)
+            assert got == {**mesh_lib.parse_mesh_spec(spec), beside.split("=")[0]: size}
+            assert list(got) == [a for a in mesh_lib.MESH_AXIS_ORDER if a in got]
+            with pytest.raises(ValueError, match="axis product 4 != device count 2"):
+                llama_train.resolve_train_mesh(f"{spec},{beside.split('=')[0]}=2", 2)
         assert llama_train.resolve_train_mesh(f"{spec},tp=1", 2)["pp"] == 2
     assert llama_train.resolve_train_mesh("fsdp=2,tp=2", 4) == {"fsdp": 2, "tp": 2}
 
 
 def test_the_pipeline_flags_are_refused_naming_3c3():
-    """The pipeline flags run now (tests/test_torch_pp_train.py); beside a
-    tp axis they are refused naming item 3c-3b, as the Llama refuses a pp
-    stage beside tp."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 3c-3b"):
+    """The pipeline flags run (tests/test_torch_pp_train.py), beside a tp
+    axis too (tests/test_torch_pp_tp_train.py): a pp stage beside tp holds
+    tp's blocks of its stage, its head rows nested pp outer and tp inner.
+    What stays refused is JAX's: a depth pp does not divide and int8
+    weights, by the Llama; a pp=2,tp=2 mesh in a world of one process, by
+    the mesh's size."""
+    with pytest.raises(ValueError, match="axis product 4 != device count 1"):
         llama_train.main(["--device", "cpu", "--pp-microbatches", "4", "--mesh", "pp=2,tp=2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 3c-3b"):
-        port_llama.Llama(port_llama.llama_tiny(), tp=TensorParallel(2, 0),
-                         mesh=_FakeMesh({"pp": 2, "tp": 2}))
+    cfg = port_llama.llama_tiny(n_layers=4)  # V 256: a stage 128 rows, a tp rank 64
+    for (p, t), (embed, head) in {(0, 1): (128, 64), (1, 0): (None, 128), (1, 1): (None, 192)}.items():
+        mesh = _FakeMesh({"pp": 2, "tp": 2}, {"pp": p, "tp": t})
+        model = port_llama.Llama(cfg, device="meta", mesh=mesh)
+        assert (model.pp.index, model.tp.index, list(model.layer_ids)) == (p, t, [2 * p, 2 * p + 1])
+        assert tuple(model.lm_head.weight.shape) == (64, 64) and model.vocab_offset == head
+        assert (model.embed_offset if model.embed is not None else None) == embed
+        assert model.embed is None or tuple(model.embed.weight.shape) == (128, 64)
+        assert tuple(model.layers[2 * p].attn.q_proj.weight.shape) == (32, 64)
+    mesh = _FakeMesh({"pp": 2, "tp": 2})
+    with pytest.raises(ValueError, match="n_layers=3 not divisible by pp=2"):
+        port_llama.Llama(port_llama.llama_tiny(n_layers=3), device="meta", mesh=mesh)
+    with pytest.raises(ValueError, match="quantize-mode params"):
+        port_llama.Llama(port_llama.llama_tiny(quantize="int8"), device="meta", mesh=mesh)
 
 
 class _FakeMesh:
-    """The sizes and this rank's coordinates (all 0) of a mesh, as the
-    model's axes read them."""
+    """The sizes and this rank's coordinates (``coords``, default all 0) of
+    a mesh, as the model's axes read them."""
 
-    def __init__(self, sizes):
+    def __init__(self, sizes, coords=None):
         import torch
 
         self.mesh_dim_names = tuple(sizes)
         self.mesh = torch.zeros(tuple(sizes.values()))
+        self.coords = coords or {}
 
     def get_local_rank(self, axis):
-        return 0
+        return self.coords.get(axis, 0)
 
 
 def test_a_tp_that_does_not_divide_is_refused_by_name():

@@ -144,7 +144,11 @@ def planted(name):
       (the first with its own);
     - ``"ulysses_sp_heads"``: ulysses under tp keeping, of the global heads'
       output, the block at the rank's sp coordinate instead of its tp
-      coordinate."""
+      coordinate;
+    - ``"pp_tp_outer_head"``: ``params_from_jax`` taking each rank's
+      blocks with the axes nested the other way (tp outer, pp inner: the
+      head's rows of stage s, tp rank t at ``t·V/tp + s·V/(tp·P)``), while
+      the loss's column offset stays pp-outer."""
     import contextlib
 
     @contextlib.contextmanager
@@ -193,6 +197,15 @@ def planted(name):
                 if factored is not None and list(leaf_dims) == [factored[1]] and not keepdim:
                     return x.mean(dims)
                 return sound(self, x, dims, lay, leaf_dims, keepdim)
+        elif name == "pp_tp_outer_head":
+            from pytorch_operator_tpu_torch.parallel import sharding
+
+            where, attr = sharding, "take_block"  # as params_from_jax reads it
+
+            def fault(t, splits):
+                for ax, d in sharding.cut_splits(splits):
+                    t = t.narrow(d, *ax.block(t.shape[d], "a planted block"))
+                return t
         else:
             raise ValueError(f"no planted fault {name!r}")
         saved = getattr(where, attr)
@@ -515,6 +528,36 @@ def rank_vocab_parallel(world, h, w, labels, ct, chunk: int, plants: list) -> di
         out[plant] = {"loss": loss.detach().numpy(), "dh": hh.grad.numpy(), "dw": ww.grad.numpy(),
                       "start": start}
     return out
+
+
+def rank_pp_model(world, tree, cfg_over: dict, mesh_spec: str, tokens, steps: int, schedule: str) -> dict:
+    """The tiny Llama at 4 layers (``cfg_over``, dense attention) on this
+    world's ``mesh_spec`` built by hand as ``tests/test_llama_pp.py``'s
+    ``_train`` builds JAX's: JAX's ``tree`` carried by ``params_from_jax``,
+    optax's ``adamw(1e-3)`` (weight decay 1e-4), ``steps`` steps of
+    ``schedule`` on the same ``tokens`` [B, S] (this data coordinate's
+    rows). Returns each step's loss, this rank's coordinates and its head
+    rows as loaded (``[D, rows]``, JAX's layout) with their first id."""
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+    from pytorch_operator_tpu_torch.models.convert import params_from_jax
+    from pytorch_operator_tpu_torch.parallel.data import put_global
+    from pytorch_operator_tpu_torch.parallel.mesh import make_mesh, train_coords
+    from pytorch_operator_tpu_torch.parallel.sharding import shard_model
+    from pytorch_operator_tpu_torch.workloads import trainer
+
+    mesh = make_mesh(mesh_spec, "cpu")
+    coords = train_coords(mesh)
+    cfg = llama_lib.llama_tiny(n_layers=4, attn_impl="dense", **cfg_over)
+    model = llama_lib.Llama(cfg, mesh=mesh)
+    model.load_state_dict(params_from_jax(tree, cfg, model.tp, model.ep, model.pp))
+    head = model.head_kernel().detach().numpy().copy()
+    shard_model(model, mesh)
+    opt = trainer.make_optimizer(model, 1e-3, weight_decay=1e-4)
+    step = trainer.make_lm_train_step(model, opt, pp_schedule=schedule)
+    rows = put_global(np.asarray(tokens), "cpu", coords.data_index, coords.data_extent).long()
+    losses = [float(trainer.world_mean(step(rows), world.num_processes, mesh)) for _ in range(steps)]
+    return {"losses": losses, "pp_index": coords.pp_index, "tp_index": coords.tp_index,
+            "head": head, "head_offset": model.vocab_offset}
 
 
 def rank_restore_layout(world, root: str, step: int, mesh_spec: str, optimizer: str,
@@ -942,6 +985,91 @@ def finish_jax_runs(proc, d, timeout: float = 400) -> dict:
     _, err = proc.communicate(timeout=timeout)
     assert proc.returncode == 0, err[-4000:]
     return pickle.loads((Path(d) / "jax.pkl").read_bytes())
+
+
+# The JAX package's runs of each case, in a process whose XLA client has as
+# many CPU devices as the case's world, each step's loss recorded around its
+# train step: llama_train.run of a case's kwargs (the final parameters come
+# back through its checkpoint), or, for a case with "model", the tiny Llama
+# at 4 layers with dense attention and the config's overrides "model"
+# through tests/test_llama_pp.py's _train on "mesh" (optax's adamw(1e-3), the
+# key-0 init) over "tokens" (the losses only).
+JAX_RECORDED = """
+import os, pickle, sys
+import tests.jaxenv
+import jax
+from pytorch_operator_tpu.checkpoint import CheckpointManager
+from pytorch_operator_tpu.models import llama as jax_llama
+from pytorch_operator_tpu.workloads import llama_train, trainer
+cases, out_dir, n = pickle.load(open(sys.argv[1], "rb")), sys.argv[2], int(sys.argv[3])
+assert jax.device_count() == n, jax.devices()
+losses = []
+make = trainer.make_lm_train_step
+
+def recording(*a, **kw):
+    step = make(*a, **kw)
+
+    def run(state, tokens):
+        state, loss = step(state, tokens)
+        losses.append(float(jax.device_get(loss)))
+        return state, loss
+
+    return run
+
+trainer.make_lm_train_step = recording
+out = {}
+for name, kw in cases.items():
+    losses.clear()
+    if "model" in kw:
+        from tests.test_llama_pp import _train
+
+        cfg = jax_llama.llama_tiny(n_layers=4, attn_impl="dense", **kw["model"])
+        _train(cfg, kw["mesh"], jax.numpy.asarray(kw["tokens"]), steps=kw["steps"],
+               pp_schedule=kw["schedule"])
+        out[name] = {"losses": list(losses)}
+        continue
+    ck = os.path.join(out_dir, "ck_" + name)
+    os.environ["TPUJOB_CHECKPOINT_DIR"] = ck
+    r = llama_train.run(log=lambda m: None, checkpoint_every=1000, **kw)
+    _, params = CheckpointManager(ck, create=False).restore_subtree("params")
+    r["losses"] = list(losses)
+    out[name] = {"result": r, "params": jax.tree.map(lambda a: a.astype("float32"), params)}
+pickle.dump(out, open(os.path.join(out_dir, "jax.pkl"), "wb"))
+"""
+
+
+def start_jax_recorded(cases: dict, n_devices: int, d):
+    """Start :data:`JAX_RECORDED` over ``cases`` (name: kwargs) with
+    ``n_devices`` virtual CPU devices; read the results with
+    :func:`finish_jax_runs`."""
+    import subprocess
+    import sys
+
+    d = Path(d)
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "cases.pkl").write_bytes(pickle.dumps(cases))
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS=f"--xla_force_host_platform_device_count={n_devices}")
+    return subprocess.Popen(
+        [sys.executable, "-c", JAX_RECORDED, str(d / "cases.pkl"), str(d), str(n_devices)],
+        cwd=Path(__file__).resolve().parents[1], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+    )
+
+
+def jax_init(seq_len: int = 16, **over) -> dict:
+    """The JAX tiny Llama's key-0 init at 4 layers (with the config's
+    ``over``) as a tree of numpy arrays, as ``llama_train.run`` and
+    ``tests/test_llama_pp.py``'s ``_train`` draw it. In the test process
+    only: a rank imports no jax."""
+    import flax.linen as nn
+    import jax
+
+    from pytorch_operator_tpu.models import llama as jax_llama
+
+    model = jax_llama.Llama(jax_llama.llama_tiny(n_layers=4, **over))
+    params = model.init(jax.random.key(0), np.zeros((1, seq_len), np.int32))["params"]
+    return jax.device_get(nn.meta.unbox(params))
 
 
 def rank_many(world, calls: list) -> list:
