@@ -234,8 +234,8 @@ Phases, in order; any failure exits non-zero before the result line:
    training step of each model, the card's busy time split into convs,
    batch norm and elementwise ops, GEMMs and attention.
 13. Tensor parallelism and adafactor under a mesh, ranks sharing
-   ``cuda:0`` over gloo as in phase 11 (several runs in one world of
-   ranks), each rank's flash launches read from its result (each kernel
+   ``cuda:0`` over gloo as in phase 11 ((a), (b) and (d) in one world of
+   two ranks with phase 14(a)-(b)'s and 15(a)-(d)'s runs), each rank's flash launches read from its result (each kernel
    once a layer a step, the forward twice under remat): (a) ``llama_0_3b``
    at 2 of its 16 layers, tp=2, B4 x 2048, AdamW, 1 + 3 steps, against one
    process: losses
@@ -296,7 +296,7 @@ Phases, in order; any failure exits non-zero before the result line:
    peak memory and step time.
 15. Pipeline parallelism, two ranks sharing ``cuda:0`` over gloo in one
    world: ``llama_0_3b`` at full width and 8 of its 16 layers (4 a stage),
-   global B8 x 2048, AdamW, 1 + 2 steps (the world is phase 14's). (a)
+   global B8 x 2048, AdamW, 1 + 2 steps (the world is phase 13's). (a)
    One process, then ``pp=2`` with GPipe and with 1F1B at 4 microbatches
    (B2 x 2048 each): every step's loss within ``PP_LOSS_ATOL`` of one process's, each rank's stage
    (rank 0 the embedding) and parameter bytes exactly its stage's (its 4
@@ -347,10 +347,18 @@ Phases, in order; any failure exits non-zero before the result line:
    constant rate does not learn in 33 steps), ``final_accuracy`` at least
    ``BERT_ACC_MIN``; BERT-base in f32 (B2 x S128, a pad mask) on the card
    against the CPU within ``BERT_CARD_CPU_RTOL``, the mask dropped above
-   it; (f) BERT-base at fsdp=2 in two ranks sharing the card, global B64 x
-   S128, 1 + 3 steps: every step's loss within ``WORLD16_LOSS_ATOL`` of
-   (e)'s, each rank's parameter and AdamW bytes within ``BERT_HALF_RTOL``
-   of half of (e)'s, its peak memory.
+   it; (f) one world of two ranks sharing the card: BERT-base at fsdp=2,
+   global B64 x S128, 1 + 3 steps, each rank's parameter and AdamW bytes
+   within ``BERT_HALF_RTOL`` of half of (e)'s; at tp=2, the same recipe,
+   each rank's parameter bytes exactly ``BERT_TP_BYTES``, the ranks'
+   gathered parameters and the tensors tp holds whole equal (digests); at
+   sp=2 (replicas), 1 + 1 steps, the ranks' parameters equal: every step's
+   loss within ``WORLD16_LOSS_ATOL`` of (e)'s, AdamW bytes, peak memory and
+   step time, no flash launch; then the tp=2 model at full width in f32
+   (every bias drawn N(0, ``BERT_TP_BIAS_STD``)) against the whole model on
+   each rank, the sequence output and the logits within ``BERT_TP_RTOL``
+   (relative L2), a planted fault (the row-parallel bias added on both
+   ranks) above it.
 17. The HF weight import, the FLOP count and the data-plane bench: (a) an
    HF-layout state dict at Llama-3-8B's width (``IMPORT_LAYERS`` of its 32
    layers) drawn in bf16 on the card from a seed, imported by
@@ -3157,11 +3165,35 @@ def _rank_main(task: str, kw: dict) -> int:
             gc.collect()  # a run's FSDP2 modules hold reference cycles
             torch.cuda.empty_cache()
     elif task == "bert":
+        # Phase 16(f): bert_fsdp runs in one world, each with its flash
+        # launches and, with ``digest``, digests of its gathered parameters
+        # (all, and those tp holds whole); then the tp module check of
+        # ``module``'s config.
         from pytorch_operator_tpu_torch.ops import flash_attention as fa
+        from pytorch_operator_tpu_torch.parallel.sharding import BERT_PARAM_AXES, axis_dim
         from pytorch_operator_tpu_torch.workloads import bert_fsdp
 
-        out["result"] = bert_fsdp.run(log=_log, **{k: v for k, v in kw.items() if k != "out"})
-        out["flash_launches"] = fa.launch_counts()
+        out["runs"] = []
+        for run_kw in kw["runs"]:
+            run_kw = dict(run_kw)
+            digest = run_kw.pop("digest", False)
+            fa.reset_launch_count()
+            t_run = time.perf_counter()
+            r = bert_fsdp.run(log=_log, keep_params=digest, **run_kw)
+            done = {"flash_launches": fa.launch_counts()}
+            params = r.pop("params", None)
+            if digest:
+                done["digest"] = _params_digest(params.items())
+                done["whole_digest"] = _params_digest(
+                    (n, t) for n, t in params.items() if axis_dim(n, "tp", table=BERT_PARAM_AXES) is None)
+            del params
+            out["runs"].append(dict(done, result=r, wall_s=time.perf_counter() - t_run))
+            gc.collect()  # a run's FSDP2 modules hold reference cycles
+            torch.cuda.empty_cache()
+        if kw.get("module"):
+            t_run = time.perf_counter()
+            out["module"] = _bert_tp_module(dev, kw["module"])
+            out["module_s"] = time.perf_counter() - t_run
     elif task == "resnet":
         from pytorch_operator_tpu_torch.models import resnet
         from pytorch_operator_tpu_torch.workloads import resnet_bench
@@ -3960,7 +3992,9 @@ def _planted(name):
     sp coordinate instead of its tp coordinate; ``"pp_tp_outer_head"``, the
     seeded init taking each rank's blocks with the axes nested tp outer, pp
     inner (the head's rows of stage s, tp rank t at ``t·V/tp + s·V/(tp·P)``)
-    while the loss's column offset stays pp-outer."""
+    while the loss's column offset stays pp-outer; ``"bert_bias_every_rank"``,
+    BERT's row-parallel products (o_proj, mlp_down) adding the whole bias on
+    every tp rank before the sum."""
     import contextlib
 
     @contextlib.contextmanager
@@ -4012,6 +4046,17 @@ def _planted(name):
                 for ax, d in sharding.cut_splits(splits):
                     t = t.narrow(d, *ax.block(t.shape[d], "a planted block"))
                 return t
+        elif name == "bert_bias_every_rank":
+            import torch.nn.functional as F
+
+            from pytorch_operator_tpu_torch.models import bert
+
+            where, attr = bert, "row_parallel"
+
+            def fault(dense, x, tp):
+                dt = dense.compute_dtype
+                return dense(x) if tp is None else tp.leave(
+                    F.linear(x.to(dt), dense.weight.to(dt), dense.bias.to(dt)))
         elif name == "leave_psum_autograd":
             where, attr = collectives, "tp_leave"
             fault = lambda x, axis="tp", mesh=None: collectives.psum_autograd(x, axis, mesh)  # noqa: E731
@@ -4130,6 +4175,63 @@ def _tp_four_checks(kernels, outs, ck) -> None:
         _fail(f"tp (c): rank coordinates {r['per_rank']}")
 
 
+# Phases 13(a), (b), (d), 14(a)-(b) and 15(a)-(d) run in one world of two
+# ranks (a world's start-up costs ~10-12 s of the script's limit): the
+# first of phases 13 and 14 to run starts it, and each phase takes its runs'
+# outputs from here (15's through _PP_WORLD) with the directory its saves
+# went to.
+_WORLD2 = {}
+
+
+def _two_rank_world() -> None:
+    """The runs of phases 13(a), (b), (d), 14(a)-(b) and 15(a)-(d) in one
+    world of two ranks, in that order: 13's tp=2 pair (sound and the
+    planted leave fault), fsdp=2 adafactor f32, bf16 and the unreduced-row
+    fault, Llama-3-8B at tp=2; 14's sp=2 ring, its planted fault and
+    ulysses, ep=2 dense, sparse and the planted leave fault, the sparse
+    token groups and their planted fault; 15's pp=2 runs."""
+    import tempfile
+    from pathlib import Path
+
+    tdb_tp = tempfile.mkdtemp(prefix="chip_smoke_tp_b_")
+    tdb_ep = tempfile.mkdtemp(prefix="chip_smoke_ep_")
+    pp_dir = tempfile.mkdtemp(prefix="chip_smoke_pp_")
+    tp_runs = [
+        dict(TP_RUN, mesh_spec="tp=2"), dict(TP_RUN, mesh_spec="tp=2", plant="leave_psum_autograd"),
+        dict(TP_ADA_RUN, mesh_spec="fsdp=2", param_dtype="float32",
+             save=[f"{tdb_tp}/sound.pt", TP_ADA_TENSORS]),
+        dict(TP_ADA_RUN, mesh_spec="fsdp=2", param_dtype="bfloat16"),
+        dict(TP_ADA_RUN, mesh_spec="fsdp=2", param_dtype="float32", plant="unreduced_rows",
+             save=[f"{tdb_tp}/fault.pt", TP_ADA_TENSORS]),
+        dict(TP_8B_RUN, mesh_spec="tp=2"),
+    ]
+    sp_ep_runs = [
+        dict(SP_RUN, mesh_spec="sp=2", attn_impl="ring", digest=True),
+        dict(SP_RUN, mesh_spec="sp=2", attn_impl="ring", plant="ring_local_positions"),
+        dict(SP_RUN, mesh_spec="sp=2", attn_impl="ulysses", digest=True),
+        dict(EP_RUN, mesh_spec="ep=2", save=[f"{tdb_ep}/sound.pt", EP_MOVE_TENSORS]),
+        dict(EP_RUN, mesh_spec="ep=2", **EP_SPARSE),
+        dict(EP_RUN, mesh_spec="ep=2", plant="ep_leave_psum_autograd",
+             save=[f"{tdb_ep}/fault.pt", EP_MOVE_TENSORS]),
+        dict(EP_GROUPS, mesh_spec="fsdp=2"),
+        dict(EP_GROUPS, mesh_spec="sp=2", attn_impl="ring"),
+        dict(EP_GROUPS_ACCUM, mesh_spec="fsdp=2"),
+        dict(EP_GROUPS, mesh_spec="fsdp=2", plant="moe_rank_groups"),
+    ]
+    pp_runs = _pp_world_runs(Path(pp_dir) / "ck")
+    outs = _rank_world("runs", "13(a), (b), (d) tp=2 and fsdp=2, 14(a)-(b) sp=2 and ep=2, 15(a)-(d) pp=2",
+                       runs=[*tp_runs, *sp_ep_runs, *pp_runs])
+    _log(f"13(a), (b), (d), 14(a)-(b), 15(a)-(d): the world's runs took "
+         f"{[round(r['wall_s'], 1) for r in outs[0]['runs']]} s on rank 0")
+
+    def part(start: int, stop: int) -> list:
+        return [{**o, "runs": o["runs"][start:stop]} for o in outs]
+
+    n_tp, n_sp_ep = len(tp_runs), len(sp_ep_runs)
+    _WORLD2.update(tp=(part(0, n_tp), tdb_tp), sp_ep=(part(n_tp, n_tp + n_sp_ep), tdb_ep))
+    _PP_WORLD.update(dir=pp_dir, outs=part(n_tp + n_sp_ep, len(outs[0]["runs"])))
+
+
 def phase_tp(kernels):
     """Phase 13: (a) 0.3b at tp=2 against one process, and the planted
     leave fault; (b) 0.3b at fsdp=2 with adafactor in f32 and bf16 against
@@ -4139,7 +4241,6 @@ def phase_tp(kernels):
     The kernels at the per-rank shapes (B4 S2048 H4 KH2, B1 S2048 H16 KH4)
     are held and timed in phases 2-3."""
     import shutil
-    import tempfile
 
     import torch
 
@@ -4150,8 +4251,9 @@ def phase_tp(kernels):
     total = TP_RUN["warmup"] + TP_RUN["steps"]
     n_layers = TP_RUN["n_layers"]
 
-    # The one-process references of (a) and (b), then one world of two
-    # ranks for (a), (b) and (d) (a world's start-up is ~10 s).
+    # The one-process references of (a) and (b), then (a), (b) and (d) in
+    # the world of two ranks that phases 14 and 15 share
+    # (:func:`_two_rank_world`).
     t0 = time.perf_counter()
     fa.reset_launch_count()
     one = llama_train.run(device="cuda", log=_log, **TP_RUN)
@@ -4168,17 +4270,10 @@ def phase_tp(kernels):
     one_params = {name: whole[name] for name in TP_ADA_TENSORS}
     del whole
     init = _seeded_tensors("0.3b", TP_ADA_RUN["n_layers"], TP_ADA_TENSORS)
-    tdb = tempfile.mkdtemp(prefix="chip_smoke_tp_b_")
+    if "tp" not in _WORLD2:
+        _two_rank_world()
+    tp_world, tdb = _WORLD2.pop("tp")
     try:
-        tp_world = _rank_world("runs", "(a), (b), (d) tp=2 and fsdp=2", runs=[
-            dict(TP_RUN, mesh_spec="tp=2"), dict(TP_RUN, mesh_spec="tp=2", plant="leave_psum_autograd"),
-            dict(TP_ADA_RUN, mesh_spec="fsdp=2", param_dtype="float32",
-                 save=[f"{tdb}/sound.pt", TP_ADA_TENSORS]),
-            dict(TP_ADA_RUN, mesh_spec="fsdp=2", param_dtype="bfloat16"),
-            dict(TP_ADA_RUN, mesh_spec="fsdp=2", param_dtype="float32", plant="unreduced_rows",
-                 save=[f"{tdb}/fault.pt", TP_ADA_TENSORS]),
-            dict(TP_8B_RUN, mesh_spec="tp=2"),
-        ])
         moved = {tag: _move_error(torch.load(f"{tdb}/{tag}.pt"), one_params, init)
                  for tag in ("sound", "fault")}
     finally:
@@ -4334,10 +4429,10 @@ def phase_sp_ep(kernels):
     one-process shape (B2 S8192), at (b)'s per-rank shape (B8 S2048,
     ``MOE_SHAPE``), at the token groups' one-process shape (B2 S512,
     ``GROUPS_SHAPE``) and at (c)'s one-process shape (B8 S2048,
-    ``MOE_SHAPE``) are held and timed in phases 2-3."""
+    ``MOE_SHAPE``) are held and timed in phases 2-3. (a) and (b) run in the
+    world of two ranks that phases 13 and 15 share
+    (:func:`_two_rank_world`)."""
     import shutil
-    import tempfile
-    from pathlib import Path
 
     import torch
 
@@ -4346,8 +4441,7 @@ def phase_sp_ep(kernels):
 
     torch.cuda.empty_cache()
     total = SP_RUN["warmup"] + SP_RUN["steps"]
-    # The one-process references of (a) and (b), then one world of two ranks
-    # for both (a world's start-up is ~10 s).
+    # The one-process references of (a) and (b); their world ran in phase 13.
     t0 = time.perf_counter()
     fa.reset_launch_count()
     one = llama_train.run(device="cuda", log=_log, attn_impl="flash", **SP_RUN)
@@ -4370,27 +4464,10 @@ def phase_sp_ep(kernels):
     del whole
     init = _seeded_tensors(EP_RUN["config"], EP_RUN["n_layers"], EP_MOVE_TENSORS,
                            n_experts=EP_RUN["n_experts"])
-    tdb = tempfile.mkdtemp(prefix="chip_smoke_ep_")
-    # Phase 15(a)-(d)'s runs join this world (a world's start-up is time of
-    # the script's limit); phase_pp reads their outputs and (d)'s checkpoint.
-    pp_dir = tempfile.mkdtemp(prefix="chip_smoke_pp_")
-    pp_runs = _pp_world_runs(Path(pp_dir) / "ck")
+    if "sp_ep" not in _WORLD2:
+        _two_rank_world()
+    outs, tdb = _WORLD2.pop("sp_ep")
     try:
-        outs = _rank_world("runs", "(a), (b) sp=2 and ep=2, and 15(a)-(d) pp=2", runs=[
-            dict(SP_RUN, mesh_spec="sp=2", attn_impl="ring", digest=True),
-            dict(SP_RUN, mesh_spec="sp=2", attn_impl="ring", plant="ring_local_positions"),
-            dict(SP_RUN, mesh_spec="sp=2", attn_impl="ulysses", digest=True),
-            dict(EP_RUN, mesh_spec="ep=2", save=[f"{tdb}/sound.pt", EP_MOVE_TENSORS]),
-            dict(EP_RUN, mesh_spec="ep=2", **EP_SPARSE),
-            dict(EP_RUN, mesh_spec="ep=2", plant="ep_leave_psum_autograd",
-                 save=[f"{tdb}/fault.pt", EP_MOVE_TENSORS]),
-            dict(EP_GROUPS, mesh_spec="fsdp=2"),
-            dict(EP_GROUPS, mesh_spec="sp=2", attn_impl="ring"),
-            dict(EP_GROUPS_ACCUM, mesh_spec="fsdp=2"),
-            dict(EP_GROUPS, mesh_spec="fsdp=2", plant="moe_rank_groups"),
-            *pp_runs,
-        ])
-        _PP_WORLD.update(dir=pp_dir, outs=[{**o, "runs": o["runs"][-len(pp_runs):]} for o in outs])
         moved = {tag: _move_error(torch.load(f"{tdb}/{tag}.pt"), one_params, init)
                  for tag in ("sound", "fault")}
     finally:
@@ -4575,8 +4652,9 @@ PP_EP_RUN = dict(config="0.3b", n_layers=4, batch_size=8, seq_len=2048, warmup=1
                  n_experts=8, moe_top_k=2, moe_capacity_factor=1.25, moe_dispatch="sparse")
 
 
-# Phase 15(a)-(d)'s runs join phase 14's world of two ranks: their outputs
-# and (d)'s checkpoint directory, for phase_pp.
+# Phase 15(a)-(d)'s runs join the world of two ranks that phases 13 and 14
+# share (_two_rank_world): their outputs and (d)'s checkpoint directory, for
+# phase_pp.
 _PP_WORLD = {}
 
 
@@ -4673,7 +4751,7 @@ def phase_pp(kernels):
     one = llama_train.run(device="cuda", log=_log, **PP_RUN)
     _record_launches(kernels, "pp_one_process", fa.launch_counts())
     torch.cuda.empty_cache()
-    td, outs = _PP_WORLD.pop("dir"), _PP_WORLD.pop("outs")  # phase 14's world ran them
+    td, outs = _PP_WORLD.pop("dir"), _PP_WORLD.pop("outs")  # phase 13's world ran them
     try:
         ck = Path(td) / "ck"
         t_restore = time.perf_counter()
@@ -4848,11 +4926,29 @@ BERT_PARAMS_M = 109.5
 # of the logits; the planted fault (the mask dropped) above it. Predictions
 # (PERF.md §6): 1e-7 to 1e-5; the fault 1e-2 to 1.
 BERT_CARD_CPU_RTOL = 1e-4
-# (f) fsdp=2 on two ranks sharing the card: the global B64 x S128, 1 + 3
-# steps; each rank's parameter and AdamW bytes within this share of half of
-# (e)'s.
+# (f) one world of two ranks sharing the card, three meshes: fsdp=2, the
+# global B64 x S128, 1 + 3 steps, each rank's parameter and AdamW bytes
+# within this share of half of (e)'s; BERT-base at tp=2, the same recipe;
+# sp=2 (replicas, every gradient averaged over sp after the backward), 1 + 1
+# steps. Each run's losses against (e)'s within WORLD16_LOSS_ATOL.
 BERT_WORLD_RUN = dict(BERT_RUN, steps=3, warmup=1, mesh_spec="fsdp=2")
 BERT_HALF_RTOL = 0.01
+BERT_TP_RUN = dict(BERT_WORLD_RUN, mesh_spec="tp=2")
+BERT_SP_RUN = dict(BERT_WORLD_RUN, steps=1, mesh_spec="sp=2")
+# A tp=2 rank's parameter bytes, exactly (f32): half of the tensors tp
+# splits (q, k, v and mlp_up with their biases, o_proj, mlp_down, the word
+# embedding: 108,440,064 elements) and the whole rest (pos_embed, the
+# LayerNorms, the pooler, the classifier, the row-parallel biases:
+# 1,042,178), against one process's 437,928,968.
+BERT_TP_BYTES = 4 * (108_440_064 // 2 + 1_042_178)
+# (f) at tp=2 on the same ranks: the tp model at full width in f32 (TF32
+# off) against the whole model on the same rank, B2 x S128 with a pad mask
+# (row 1: 77 real tokens), every bias drawn N(0, BERT_TP_BIAS_STD) so that a
+# doubled one shows; the relative L2 error of the sequence output and of the
+# logits, and the planted fault (the row-parallel bias added on both ranks)
+# above it. Predictions (PERF.md §6): 1e-7 to 1e-5; the fault 1e-3 to 1e-1.
+BERT_TP_BIAS_STD = 0.02
+BERT_TP_RTOL = 1e-4
 
 
 def _chw_flatten_forward(model, x):
@@ -5039,9 +5135,59 @@ def _bert_card_vs_cpu():
         _fail("bert (e): the planted dropped mask reads within the limit")
 
 
+def _bert_tp_module(dev, config: str) -> dict:
+    """(f) in a rank of a tp world: BERT-base (``config`` ``"base"``;
+    ``"tiny"`` for a rehearsal on the CPU) in f32, every bias drawn N(0,
+    ``BERT_TP_BIAS_STD``), the tp model's sequence output and logits on B2
+    x S128 with a pad mask against the whole model's on this rank, by
+    relative L2; sound and under the planted row-parallel bias fault."""
+    import numpy as np
+    import torch
+
+    from pytorch_operator_tpu_torch.models import bert
+    from pytorch_operator_tpu_torch.parallel.mesh import make_mesh
+    from pytorch_operator_tpu_torch.parallel.sharding import model_splits, take_block
+    from pytorch_operator_tpu_torch.workloads.bert_fsdp import synthetic_topic_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = getattr(bert, f"bert_{config}")(dtype=torch.float32)
+    whole = bert.BertClassifier(cfg, 2, seed=0)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in whole.named_parameters():
+            if name.endswith("bias") and "_ln." not in name:
+                p.normal_(0.0, BERT_TP_BIAS_STD, generator=gen)
+    sd = whole.state_dict()
+    mesh = make_mesh({"tp": torch.distributed.get_world_size()}, dev.type)
+    model = bert.BertClassifier(cfg, 2, seed=0, mesh=mesh)
+    model.load_state_dict({n: take_block(t, model_splits(model, n)) for n, t in sd.items()})
+    whole.to(dev)
+    model.to(dev)
+    S = min(128, cfg.max_len)
+    toks, _ = synthetic_topic_batch(2, S, cfg.vocab_size, 0)
+    pad = np.arange(S)[None, :] < np.array([S, 77 * S // 128])[:, None]
+    inputs = (torch.from_numpy(toks).long().to(dev), None, torch.from_numpy(pad).to(dev))
+
+    def outputs(m):
+        with torch.no_grad():
+            seq, pooled = m.bert(*inputs)
+            return seq, m.classifier(pooled)
+
+    want = outputs(whole)
+    gaps = {}
+    for tag, plant in (("sound", None), ("fault", "bert_bias_every_rank")):
+        with _planted(plant):
+            got = outputs(model)
+        gaps[tag] = {k: float((g - w).norm() / w.norm()) for k, g, w in zip(("seq", "logits"), got, want)}
+    del whole, model
+    torch.cuda.empty_cache()
+    return gaps
+
+
 def _bert_parts(kernels):
     """(e) bench.py's BERT-base recipe, the same with a warmup (learning),
-    then card vs CPU; (f) fsdp=2 on two ranks."""
+    then card vs CPU; (f) fsdp=2, tp=2 and sp=2 on two ranks, and the tp
+    module against the whole model with the planted row-parallel bias."""
     import torch
 
     from pytorch_operator_tpu_torch.ops import flash_attention as fa
@@ -5070,28 +5216,59 @@ def _bert_parts(kernels):
     torch.cuda.empty_cache()
     _bert_card_vs_cpu()
     torch.cuda.empty_cache()
+    _bert_world(kernels, one)
 
-    # (f)
+
+def _bert_world(kernels, one: dict) -> None:
+    """(f) fsdp=2, tp=2 and sp=2 in one world of two ranks, each against
+    (e)'s one process ``one``, then the tp module check on the same
+    ranks."""
     t0 = time.perf_counter()
-    outs = _rank_world("bert", "(f) BERT-base fsdp=2", **BERT_WORLD_RUN)
-    runs = [o["result"] for o in outs]
-    n = BERT_WORLD_RUN["warmup"] + BERT_WORLD_RUN["steps"]
-    gap = max(_loss_gap(r["losses"], one["losses"][:n]) for r in runs)
-    half = {k: one[k] / 2 for k in ("param_bytes", "optimizer_state_bytes")}
-    _log(f"bert (f) fsdp=2 on one card ({runs[0]['backend']}): step {runs[0]['step_s']:.3f} s, losses "
-         f"{[round(x, 5) for x in runs[0]['losses']]} within {gap:.3e} of one process's (limit "
-         f"{WORLD16_LOSS_ATOL:.0e}); parameter bytes a rank {[r['param_bytes'] for r in runs]}, AdamW bytes "
-         f"{[r['optimizer_state_bytes'] for r in runs]} (one process {one['param_bytes']} and "
-         f"{one['optimizer_state_bytes']}), peak GiB {[round(r['peak_mem_bytes'] / 2**30, 3) for r in runs]}, "
-         f"flash launches {[o['flash_launches'] for o in outs]}; {time.perf_counter() - t0:.1f} s")
-    if gap > WORLD16_LOSS_ATOL or any(len(r["losses"]) != n or r["mesh"] != {"fsdp": 2} for r in runs):
-        _fail(f"bert (f): losses {gap:.3e} from one process's, or the wrong mesh")
-    for r in runs:
-        for k, v in half.items():
-            if abs(r[k] / v - 1) > BERT_HALF_RTOL:
-                _fail(f"bert (f): rank {k} {r[k]} is not about half of one process's {2 * v}")
-    _record_launches(kernels, "bert_fsdp2", {k: sum(o["flash_launches"][k] for o in outs)
-                                            for k in outs[0]["flash_launches"]})
+    outs = _rank_world("bert", "(f) BERT-base fsdp=2, tp=2, sp=2", runs=[
+        BERT_WORLD_RUN, dict(BERT_TP_RUN, digest=True), dict(BERT_SP_RUN, digest=True),
+    ], module="base")
+    for i, (axis, run_kw) in enumerate((("fsdp", BERT_WORLD_RUN), ("tp", BERT_TP_RUN), ("sp", BERT_SP_RUN))):
+        done = [o["runs"][i] for o in outs]
+        runs = [d["result"] for d in done]
+        n = run_kw["warmup"] + run_kw["steps"]
+        mesh = {axis: 2}
+        gap = max(_loss_gap(r["losses"], one["losses"][:n]) for r in runs)
+        launches = {k: sum(d["flash_launches"][k] for d in done) for k in done[0]["flash_launches"]}
+        _log(f"bert (f) {mesh} on one card ({runs[0]['backend']}): step {runs[0]['step_s']:.3f} s, losses "
+             f"{[round(x, 5) for x in runs[0]['losses']]} within {gap:.3e} of one process's (limit "
+             f"{WORLD16_LOSS_ATOL:.0e}); parameter bytes a rank {[r['param_bytes'] for r in runs]}, AdamW "
+             f"bytes {[r['optimizer_state_bytes'] for r in runs]} (one process {one['param_bytes']} and "
+             f"{one['optimizer_state_bytes']}), peak GiB {[round((r['peak_mem_bytes'] or 0) / 2**30, 3) for r in runs]}, "
+             f"flash launches {launches}")
+        if gap > WORLD16_LOSS_ATOL or any(len(r["losses"]) != n or r["mesh"] != mesh for r in runs):
+            _fail(f"bert (f) {mesh}: losses {gap:.3e} from one process's, or the wrong mesh")
+        if any(launches.values()):
+            _fail(f"bert (f) {mesh}: a flash kernel launched on BERT's path ({launches})")
+        _record_launches(kernels, f"bert_{axis}2", launches)
+        if axis == "fsdp":
+            for r in runs:
+                for k in ("param_bytes", "optimizer_state_bytes"):
+                    if abs(r[k] / (one[k] / 2) - 1) > BERT_HALF_RTOL:
+                        _fail(f"bert (f): rank {k} {r[k]} is not about half of one process's {one[k]}")
+            continue
+        digests = {(d["digest"], d["whole_digest"]) for d in done}
+        _log(f"bert (f) {mesh}: the ranks' gathered parameters {sorted(d['digest'] for d in done)}, the "
+             f"tensors tp holds whole {sorted(d['whole_digest'] for d in done)}")
+        if len(digests) != 1:
+            _fail(f"bert (f) {mesh}: the ranks' parameters differ after the last step")
+        want_bytes = BERT_TP_BYTES if axis == "tp" else one["param_bytes"]
+        if any(r["param_bytes"] != want_bytes for r in runs):
+            _fail(f"bert (f) {mesh}: parameter bytes a rank {[r['param_bytes'] for r in runs]}, want {want_bytes}")
+    _log(f"bert (f): the world's runs took {[round(r['wall_s'], 1) for r in outs[0]['runs']]} s and the module "
+         f"check {outs[0]['module_s']:.1f} s on rank 0")
+    gaps = [o["module"] for o in outs]
+    sound = max(max(g["sound"].values()) for g in gaps)
+    fault = min(min(g["fault"].values()) for g in gaps)
+    _log(f"bert (f) tp=2 module, f32, biases N(0, {BERT_TP_BIAS_STD}), against the whole model: sequence "
+         f"output and logits {[g['sound'] for g in gaps]}; planted row-parallel bias on both ranks "
+         f"{[g['fault'] for g in gaps]} (limit {BERT_TP_RTOL:.0e}, relative L2); {time.perf_counter() - t0:.1f} s")
+    if sound > BERT_TP_RTOL or fault <= BERT_TP_RTOL:
+        _fail(f"bert (f) tp=2 module: sound {sound:.3e}, the planted fault {fault:.3e} (limit {BERT_TP_RTOL:.0e})")
 
 
 def phase_mnist_bert(kernels):
@@ -5104,7 +5281,7 @@ def phase_mnist_bert(kernels):
         run(kernels)
         _log(f"mnist/bert {part}: {time.perf_counter() - t0:.1f} s")
     for k in kernels:
-        for path in ("mnist_main", "mnist_file", "bert_base", "bert_fsdp2"):
+        for path in ("mnist_main", "mnist_file", "bert_base", "bert_fsdp2", "bert_tp2", "bert_sp2"):
             if k["launches_by_path"].get(path):
                 _fail(f"phase 16: {path} launched {k['name']}, which its path does not run")
     _log(f"phase 16: {time.perf_counter() - t_phase:.1f} s")

@@ -331,7 +331,7 @@ def mnist_params_from_jax(params) -> Dict[str, torch.Tensor]:
     return resnet_params_from_jax(params, {})
 
 
-def bert_params_from_jax(params) -> Dict[str, torch.Tensor]:
+def bert_params_from_jax(params, tp=None) -> Dict[str, torch.Tensor]:
     """The state dict (f32) of the port's ``BertClassifier`` or ``BertMLM``
     for the JAX model's ``params`` tree. flax's ``Partitioned`` leaves are
     unboxed (``embed_ln``, ``mlm_ln`` and the classifier's bias are raw);
@@ -339,7 +339,11 @@ def bert_params_from_jax(params) -> Dict[str, torch.Tensor]:
     ``layers.<i>``; a ``DenseGeneral`` kernel ``[in, *out]`` becomes the
     ``[prod(out), in]`` weight (q, k and v ``[d, H, D]`` → ``[H·D, d]``) and
     its bias ``[*out]`` a vector; ``embedding`` is an ``nn.Embedding``'s
-    ``weight``, LayerNorm ``scale`` its ``weight``."""
+    ``weight``, LayerNorm ``scale`` its ``weight``. With ``tp``
+    (``parallel/sharding.TensorParallel``) this rank's block of each tensor
+    that tp splits (``sharding.BERT_PARAM_AXES``, ``take_block``)."""
+    from ..parallel.sharding import BERT_PARAM_AXES, param_splits, take_block
+
     sd: Dict[str, torch.Tensor] = {}
 
     def put(path, a: np.ndarray) -> None:
@@ -359,4 +363,7 @@ def bert_params_from_jax(params) -> Dict[str, torch.Tensor]:
                 put(path[:at] + (str(i),) + path[at:], a[i])
         else:
             put(path, a)
-    return sd
+    if tp is None or tp.size == 1:
+        return sd
+    return {name: take_block(t, param_splits(name, [tp], table=BERT_PARAM_AXES)).contiguous()
+            for name, t in sd.items()}

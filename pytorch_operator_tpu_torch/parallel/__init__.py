@@ -11,7 +11,7 @@
   tp's (and ep's) enter and leave as autograd functions.
 - ``data.py``: each rank's rows of the identical host batch.
 - ``sharding.py`` / ``logical.py``: the rule table, tp's and ep's blocks of
-  the Llama's tensors, pp's stages, and FSDP2 over the data axes (``fsdp`` shards,
+  the Llama's tensors (and tp's of BERT's), pp's stages, and FSDP2 over the data axes (``fsdp`` shards,
   ``dp`` replicates).
 - ``ring.py`` / ``ulysses.py``: sequence parallelism over ``sp`` (K/V
   rotated around the ring; the all-to-all head/sequence swap, under tp

@@ -12,7 +12,10 @@ apart.
 :func:`tp_dim` reads from the rule table the dim that ``tp`` splits: the
 heads of q/k/v (dim 0) and o (dim 1), the MLP's ``d_ff`` (gate and up dim
 0, down dim 1), the vocabulary of the embedding and the head (dim 0); the
-norms are replicated. A tensor-parallel model (``Llama(cfg,
+norms are replicated. A model names its own table in ``PARAM_AXES`` (the
+Llama's by default): BERT's, :data:`BERT_PARAM_AXES`, is read by whole
+names, so that ``pos_embed`` (whole over tp) is not taken for the Llama's
+``embed.weight``, and holds its biases too. A tensor-parallel model (``Llama(cfg,
 tp=TensorParallel...)``) holds only its rank's block of each such tensor, a
 plain tensor, and runs its collectives itself
 (``collectives.tp_enter``/``tp_leave``): PyTorch's ``parallelize_module``
@@ -56,6 +59,7 @@ not.
 from __future__ import annotations
 
 import math
+import re
 from dataclasses import dataclass
 from typing import Any, ClassVar, Optional, Sequence, Tuple, Union
 
@@ -144,18 +148,62 @@ LLAMA_PARAM_AXES = (
 )
 
 
-def param_axes(name: str) -> tuple:
-    """The logical axes of the Llama parameter ``name``."""
-    for suffix, axes in LLAMA_PARAM_AXES:
-        if name.endswith(suffix):
+# Each BERT parameter's logical axes in the port's orientation, by its whole
+# state-dict name in BertClassifier or BertMLM with the layer index written
+# "*" (models/bert.py of the JAX package: q/k/v l.85-88, o l.104, mlp_up
+# l.135, mlp_down l.138, the embeddings l.160-168, the LayerNorms l.119-124,
+# the pooler l.190, the classifier l.207, mlm_transform l.221, mlm_head
+# l.230). Looked up by the exact name, never by a suffix: pos_embed and
+# type_embed end like the Llama's embed.weight but are whole over tp. A leaf
+# that JAX leaves unannotated (embed_ln, mlm_ln, the classifier's, pooler's,
+# mlm_transform's and mlm_head's biases) is (None,): whole on every rank.
+BERT_PARAM_AXES = {
+    "bert.word_embed.weight": ("vocab", "embed"),
+    "bert.pos_embed.weight": (None, "embed"),
+    "bert.type_embed.weight": (None, "embed"),
+    "bert.embed_ln.weight": (None,),
+    "bert.embed_ln.bias": (None,),
+    **{f"bert.layers.*.attn.{p}_proj.{leaf}": axes
+       for p in "qkv" for leaf, axes in (("weight", ("heads", "embed")), ("bias", ("heads",)))},
+    "bert.layers.*.attn.o_proj.weight": ("embed", "heads"),
+    "bert.layers.*.attn.o_proj.bias": ("embed",),
+    "bert.layers.*.mlp_up.weight": ("mlp", "embed"),
+    "bert.layers.*.mlp_up.bias": ("mlp",),
+    "bert.layers.*.mlp_down.weight": ("embed", "mlp"),
+    "bert.layers.*.mlp_down.bias": ("embed",),
+    **{f"bert.layers.*.{ln}.{leaf}": ("norm",) for ln in ("attn_ln", "mlp_ln") for leaf in ("weight", "bias")},
+    **{f"{dense}.{leaf}": axes for dense in ("bert.pooler", "classifier", "mlm_transform")
+       for leaf, axes in (("weight", (None, "embed")), ("bias", (None,)))},
+    "mlm_ln.weight": (None,),
+    "mlm_ln.bias": (None,),
+    "mlm_head.weight": ("vocab", "embed"),
+    "mlm_head.bias": (None,),
+}
+
+_LAYER_INDEX = re.compile(r"(?<=\.layers\.)\d+(?=\.)")
+
+
+def param_axes(name: str, table=LLAMA_PARAM_AXES) -> tuple:
+    """The logical axes of parameter ``name`` in ``table``: the Llama's
+    (:data:`LLAMA_PARAM_AXES`, ``(suffix, axes)`` pairs matched by the end
+    of the name) by default, or a dict keyed by whole names with each layer
+    index written ``*`` (:data:`BERT_PARAM_AXES`)."""
+    if isinstance(table, dict):
+        axes = table.get(_LAYER_INDEX.sub("*", name))
+        if axes is not None:
             return axes
-    raise KeyError(f"no logical axes for parameter {name!r} (the Llama's layout)")
+    else:
+        for suffix, axes in table:
+            if name.endswith(suffix):
+                return axes
+    raise KeyError(f"no logical axes for parameter {name!r} in its model's layout")
 
 
-def axis_dim(name: str, axis: str, rules: LogicalRules = DEFAULT_RULES) -> Optional[int]:
-    """The dim of parameter ``name`` that mesh axis ``axis`` splits under
-    ``rules``, or None (replicated)."""
-    axes = logical_to_mesh_axes(param_axes(name), rules, {axis})
+def axis_dim(name: str, axis: str, rules: LogicalRules = DEFAULT_RULES,
+             table=LLAMA_PARAM_AXES) -> Optional[int]:
+    """The dim of parameter ``name`` (in ``table``, :func:`param_axes`) that
+    mesh axis ``axis`` splits under ``rules``, or None (replicated)."""
+    axes = logical_to_mesh_axes(param_axes(name, table), rules, {axis})
     dims = [i for i, ax in enumerate(axes) if ax == axis]
     return dims[0] if dims else None
 
@@ -280,7 +328,7 @@ def model_axes(model) -> tuple:
                  if ax is not None)
 
 
-def param_splits(name: str, axes, vocab: Optional[int] = None) -> tuple:
+def param_splits(name: str, axes, vocab: Optional[int] = None, table=LLAMA_PARAM_AXES) -> tuple:
     """``(axis, dim)`` for each of ``axes`` (:class:`AxisParallel` s, in
     :func:`model_axes`' order): the dim of parameter ``name`` it splits,
     None where it replicates it, or :data:`STAGE` where it is this pp
@@ -293,13 +341,14 @@ def param_splits(name: str, axes, vocab: Optional[int] = None) -> tuple:
     rank t holds rows ``[s·V/P + t·V/(P·tp), ...)``. Where tp does not
     divide a stage's ``V/P`` rows (JAX runs such a vocabulary; only a tp
     that does not divide V is refused, :func:`check_tp_divides`), tp
-    replicates the stage's rows instead of cutting them."""
+    replicates the stage's rows instead of cutting them. ``table``: the
+    model's parameter axes (:func:`param_axes`)."""
     pp = next((ax for ax in axes if isinstance(ax, PipelineParallel)), None)
 
     def dim(ax):
         if ax is pp:
             return ax.split(name, vocab)
-        d = axis_dim(name, ax.axis)
+        d = axis_dim(name, ax.axis, table=table)
         if (d is not None and pp is not None and name == "lm_head.weight" and pp.vocab_parallel(vocab)
                 and (vocab // pp.size) % ax.size):
             return None
@@ -402,8 +451,11 @@ class Block:
 
 def model_splits(model, name: str) -> tuple:
     """:func:`param_splits` of ``model``'s parameter ``name`` over the
-    model-parallel axes it holds."""
-    return param_splits(name, model_axes(model), model.cfg.vocab_size)
+    model-parallel axes it holds, in the model's table of parameter axes
+    (its ``PARAM_AXES``; the Llama's, :data:`LLAMA_PARAM_AXES`, by
+    default)."""
+    return param_splits(name, model_axes(model), model.cfg.vocab_size,
+                        getattr(model, "PARAM_AXES", LLAMA_PARAM_AXES))
 
 
 class Elsewhere:
@@ -433,8 +485,10 @@ def model_blocks(model) -> dict:
 def shard_model(model, mesh):
     """Lay ``model`` out on ``mesh``: tp and ep first (the model must hold
     the mesh's tp and ep blocks already: built with ``Llama(cfg,
-    mesh=mesh)``), then FSDP2 over the data axes, each decoder block of
-    ``model.layers`` and then the root (embedding, final norm, LM head), one
+    mesh=mesh)``; a model that names an axis in its ``REPLICATED_AXES``,
+    as BERT names sp, ep and pp, is whole over it), then FSDP2 over the
+    data axes, each block of ``model.layers`` and then the root (embedding,
+    final norm, LM head), one
     data mesh a coordinate of the other axes (tp, ep, sp, pp); a pp stage's
     parts (``llama.PP_FORWARD_METHODS``) become FSDP2 forward methods of the
     root. Returns the model, whose parameters are then DTensors (none
@@ -446,13 +500,14 @@ def shard_model(model, mesh):
     from .mesh import axis_sizes
 
     sizes = axis_sizes(mesh)
+    replicated = getattr(model, "REPLICATED_AXES", ())
     for name in ("tp", "ep"):
         ax = getattr(model, name, None)
-        if sizes.get(name, 1) != (ax.size if ax is not None else 1):
+        if name not in replicated and sizes.get(name, 1) != (ax.size if ax is not None else 1):
             raise ValueError(
                 f"the mesh has {name}={sizes.get(name, 1)} but the model holds "
                 f"{'whole tensors' if ax is None else f'{name}={ax.size} blocks'}: build it "
-                "with Llama(cfg, mesh=mesh)"
+                f"with {type(model).__name__}(cfg, mesh=mesh)"
             )
     axes = data_axes(mesh.mesh_dim_names)
     if math.prod(sizes[a] for a in axes) == 1:

@@ -7,27 +7,42 @@ optax's ``adamw``; with ``--lr-warmup-steps`` a linear warmup then cosine
 decay over ``steps + max(warmup, 1)``; ``--grad-clip`` a global-norm clip)
 on a synthetic two-topic set (:func:`synthetic_topic_batch`: class c draws
 its tokens from the c-th part of the vocabulary, so the accuracy shows real
-learning). The mesh is ``--mesh``, else ``TPUJOB_MESH``, else ``fsdp=-1``:
-over ``dp`` and ``fsdp`` each encoder layer and the root are FSDP2 units
-(``parallel/sharding.shard_model``), parameters and AdamW's moments sharded
-on dim 0, each rank training on its rows of the global batch (rounded to a
-multiple of the ranks). ``tp``, ``sp``, ``ep`` and ``pp`` are refused by
-name (:data:`ITEM_BERT_TP`): the JAX model shards heads, mlp and vocab over
-``tp``, which the port does not yet. The loop is ``trainer.throughput_loop``;
-``--prefetch`` feeds through a ``DevicePrefetcher``, ``--profile-dir``
-traces the timed window.
+learning). The mesh is ``--mesh``, else ``TPUJOB_MESH``, else ``fsdp=-1``,
+over any of JAX's axes, as JAX's ``bert_fsdp`` runs on any mesh:
+
+- ``tp`` is tensor parallelism (``models/bert.py``): each rank holds its
+  blocks of the heads, ``d_ff`` and the vocabulary, the rest whole; after
+  the backward the gradients of the tensors tp holds whole are averaged
+  over tp, so that the copies stay equal bit for bit where the card's
+  kernels sum in no fixed order. A tp that does not divide ``n_heads``,
+  ``d_ff`` or the vocabulary is refused, naming the dim.
+- ``sp``, ``ep`` and ``pp`` split no BERT parameter and no batch row in
+  JAX: their ranks are replicas here, reading the same rows, every
+  gradient averaged over them after the backward (a deliberate
+  difference: JAX splits sp's activations over the sequence).
+- over ``dp`` and ``fsdp`` each encoder layer and the root are FSDP2 units
+  (``parallel/sharding.shard_model``, one data mesh a coordinate of the
+  other axes), parameters and AdamW's moments sharded on dim 0, each data
+  coordinate training on its rows of the global batch (rounded to a
+  multiple of the ranks).
+
+The loop is ``trainer.throughput_loop``; ``--prefetch`` feeds through a
+``DevicePrefetcher``, ``--profile-dir`` traces the timed window.
 
 The result carries the JAX keys (``bert_train_sequences_per_sec_per_chip``
 over the world's size), plus ``device``, ``peak_mem_bytes`` (the card's,
 None on the CPU), every step's ``losses`` and ``accuracies``, ``step_s``,
-this rank's ``param_bytes`` and ``optimizer_state_bytes``, ``mesh``,
-``world`` and ``backend``.
+this rank's ``param_bytes`` and ``optimizer_state_bytes``, ``mesh`` (the
+axes and sizes), ``world`` and ``backend``; ``run(keep_params=True)`` adds
+``params``, the trained parameters whole on every rank
+(``sharding.full_state_dict``).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import sys
 import time
@@ -37,8 +52,6 @@ import torch
 import torch.nn.functional as F
 
 from ..runtime import rendezvous
-
-ITEM_BERT_TP = "ROADMAP.md Queue 1, BERT under tp"
 
 
 def synthetic_topic_batch(batch: int, seq_len: int, vocab: int, step: int, n_classes: int = 2):
@@ -53,20 +66,25 @@ def synthetic_topic_batch(batch: int, seq_len: int, vocab: int, step: int, n_cla
     return toks.astype(np.int32), labels
 
 
-def resolve_bert_mesh(spec: str, world: int) -> dict:
-    """The axes and sizes of mesh ``spec`` over ``world`` ranks; an axis
-    other than ``dp`` and ``fsdp`` of more than one rank (or ``-1``) is
-    refused by name before the sizes are resolved."""
-    from ..parallel import mesh as mesh_lib
+def _replica_groups(model, mesh) -> list:
+    """``(params, n, group)`` for each mean that keeps the model's copies
+    equal after the backward: the tensors tp holds whole over tp, every
+    parameter over each axis the model is whole over (sp, ep, pp)."""
+    from ..parallel.mesh import axis_sizes
+    from ..parallel.sharding import model_splits
 
-    sizes = mesh_lib.parse_mesh_spec(spec)
-    other = [a for a, n in sizes.items() if a not in mesh_lib.DATA_AXES and n != 1]
-    if other:
-        raise NotImplementedError(
-            f"bert_fsdp over {', '.join(other)} is not ported yet ({ITEM_BERT_TP}); "
-            "use dp and fsdp"
-        )
-    return mesh_lib.hybrid_axis_sizes(spec, world)
+    if mesh is None:
+        return []
+    sizes = axis_sizes(mesh)
+    out = []
+    if model.tp is not None:
+        whole = [p for name, p in model.named_parameters()
+                 if all(d is None for _, d in model_splits(model, name))]
+        out.append((whole, model.tp.size, mesh.get_group("tp")))
+    for axis in model.REPLICATED_AXES:
+        if sizes.get(axis, 1) > 1:
+            out.append((list(model.parameters()), sizes[axis], mesh.get_group(axis)))
+    return out
 
 
 def run(
@@ -87,26 +105,29 @@ def run(
     prefetch_workers: int = 0,
     profile_dir: str | None = None,
     init_params: dict | None = None,
+    keep_params: bool = False,
     device=None,
     log=print,
 ) -> dict:
-    """The fine-tune (``main`` and the tests use it). ``init_params``: a
-    state dict to start from (``models/convert.bert_params_from_jax``), else
-    the init seeded by ``TPUJOB_SEED`` (default 0), as the JAX workload's;
-    every rank builds the same values before sharding."""
+    """The fine-tune (``main`` and the tests use it). ``init_params``: one
+    process's state dict to start from (``models/convert.bert_params_from_jax``;
+    a tp rank loads its blocks of it), else the init seeded by
+    ``TPUJOB_SEED`` (default 0), as the JAX workload's; every rank builds
+    the same values before sharding."""
     from ..models import bert as bert_lib
     from ..parallel import data as data_lib
     from ..parallel import mesh as mesh_lib
     from ..parallel.collectives import world as joined_world
-    from ..parallel.sharding import local_nbytes, shard_model
+    from ..parallel.sharding import (Block, full_state_dict, local_nbytes, model_splits, shard_model,
+                                    take_block)
     from ..runtime.device import device_name, world_device
-    from .trainer import make_optimizer, throughput_loop, world_mean
+    from .trainer import make_optimizer, mean_all_reduce_, throughput_loop, world_mean
 
     _, n_dev = joined_world()
     backend = torch.distributed.get_backend() if n_dev > 1 else None
     dev = world_device(device)
     mesh_spec = mesh_spec or mesh_lib.mesh_spec_from_env()
-    axes = resolve_bert_mesh(mesh_spec, n_dev)
+    axes = mesh_lib.hybrid_axis_sizes(mesh_spec, n_dev)  # refuses sizes that are not the world's
     mesh = mesh_lib.make_mesh(mesh_spec, dev.type) if n_dev > 1 else None
     coords = mesh_lib.train_coords(mesh)
     cfg = bert_lib.bert_base() if bert_base else bert_lib.bert_tiny()
@@ -119,14 +140,18 @@ def run(
 
     t_init = time.time()
     model = bert_lib.BertClassifier(cfg, num_classes=num_classes,
-                                    seed=int(os.environ.get("TPUJOB_SEED", "0")))
+                                    seed=int(os.environ.get("TPUJOB_SEED", "0")), mesh=mesh)
     if init_params is not None:
-        model.load_state_dict(init_params)
+        model.load_state_dict({name: take_block(t, model_splits(model, name))
+                               for name, t in init_params.items()})
     model.to(dev)
     model.train()
-    n_params = sum(p.numel() for p in model.parameters())
+    # The whole model's count (a tp rank's blocks as their whole tensors).
+    n_params = sum(math.prod(Block.of(p, model_splits(model, name)).shape)
+                   for name, p in model.named_parameters())
     if mesh is not None:
         shard_model(model, mesh)
+    replicas = _replica_groups(model, mesh)
     log(f"[bert] {n_params / 1e6:.1f}M params, init +{time.time() - t_init:.1f}s")
     opt = make_optimizer(
         model, lr, schedule="cosine" if lr_warmup_steps > 0 else "constant",
@@ -140,6 +165,8 @@ def run(
         logits = model(tokens)
         loss = F.cross_entropy(logits, labels)
         loss.backward()
+        for params, n, group in replicas:
+            mean_all_reduce_([p.grad for p in params], n, group)
         opt.step()
         accuracies.append(world_mean((logits.detach().argmax(-1) == labels).float().mean(), n_dev, mesh))
         return world_mean(loss.detach(), n_dev, mesh)
@@ -226,6 +253,7 @@ def run(
         "mesh": axes,
         "world": n_dev,
         "backend": backend,
+        **({"params": full_state_dict(model)} if keep_params else {}),
     }
 
 
@@ -234,8 +262,9 @@ def main(argv=None) -> int:
     p.add_argument("--bert-base", action="store_true", help="real BERT-base dims")
     p.add_argument(
         "--mesh", default=None,
-        help='axes over the world\'s ranks: dp and fsdp, e.g. "fsdp=2", "dp=2" (default: '
-        f"TPUJOB_MESH or fsdp=-1); tp, sp, ep and pp are refused ({ITEM_BERT_TP})",
+        help='axes over the world\'s ranks, e.g. "fsdp=2", "dp=2", "fsdp=2,tp=2" (default: '
+        "TPUJOB_MESH or fsdp=-1): tp splits the heads, d_ff and the vocabulary; sp, ep and pp "
+        "ranks are replicas",
     )
     p.add_argument("--batch-size", type=int, default=16)
     p.add_argument("--seq-len", type=int, default=64)

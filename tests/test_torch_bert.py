@@ -17,8 +17,10 @@ against the JAX package's, on the CPU, at ``bert_tiny``.
 - ``bert_fsdp.run``: JAX's result keys, and its per-step losses against
   JAX's ``run`` from the same initial parameters under the constant and the
   cosine schedules and with ``grad_clip``; the prefetched feed's losses
-  equal the inline feed's; ``tp``, ``sp``, ``ep`` and ``pp`` refused by
-  name.
+  equal the inline feed's; a tp that does not divide the heads, ``d_ff``
+  or the vocabulary refused naming that dim (as JAX's run refuses it), and
+  a mesh whose size is not the world's. ``tests/test_torch_bert_tp.py``
+  holds BERT over tp, sp, ep and pp.
 
 Limits, from readings on the CPU: f32 outputs within ``F32_ATOL``
 (readings ≤ 7.2e-7 at the sequence output, the pooled output and the
@@ -293,12 +295,38 @@ def test_prefetched_run_equals_inline():
     assert runs[0]["losses"] == runs[1]["losses"] and runs[0]["accuracies"] == runs[1]["accuracies"]
 
 
-@pytest.mark.parametrize("axis", ["tp", "sp", "ep", "pp"])
-def test_model_parallel_axes_refused_by_name(axis):
-    with pytest.raises(NotImplementedError, match="BERT under tp"):
-        bert_fsdp.run(mesh_spec=f"{axis}=2", log=lambda m: None, **RUN)
-    with pytest.raises(NotImplementedError, match=axis):
-        bert_fsdp.resolve_bert_mesh(f"fsdp=1,{axis}=-1", 1)
+# Each refused layout changes one dim of bert_tiny (4 heads, d_ff 128, a
+# vocabulary of 128): (config overrides, tp, JAX's mesh over the pytest
+# process's 8 virtual devices).
+TP_REFUSALS = {
+    "n_heads": ({}, 8, "tp=8"),
+    "vocab_size": ({"vocab_size": 130}, 4, "dp=2,tp=4"),
+    "d_ff": ({"d_ff": 130}, 4, "dp=2,tp=4"),
+}
+
+
+@pytest.mark.parametrize("dim", [*TP_REFUSALS, "mesh_size"])
+def test_refused_layouts_name_the_dim(dim, monkeypatch):
+    """A tp that does not divide the heads, ``d_ff`` or the vocabulary is
+    refused naming that dim and no other, where JAX's ``bert_fsdp.run``
+    refuses the same layout (its partitioner's ValueError); a mesh whose
+    sizes do not multiply to the world's is refused by ``run``."""
+    from pytorch_operator_tpu_torch.parallel.sharding import TensorParallel
+
+    if dim == "mesh_size":
+        with pytest.raises(ValueError, match=r"axis product 2 != device count 1"):
+            bert_fsdp.run(mesh_spec="tp=2", log=lambda m: None, **RUN)
+        return
+    over, tp, jax_mesh = TP_REFUSALS[dim]
+    with pytest.raises(ValueError) as refused:
+        port_bert.BertClassifier(port_bert.bert_tiny(**over), 2, tp=TensorParallel(tp, 0))
+    msg = str(refused.value)
+    assert msg.startswith(f"tp={tp} does not divide {dim}="), msg
+    assert all(f"{other}=" not in msg for other in TP_REFUSALS if other != dim), msg
+    tiny = jax_bert.bert_tiny
+    monkeypatch.setattr(jax_bert, "bert_tiny", lambda **kw: tiny(**{**over, **kw}))
+    with pytest.raises(ValueError, match="divisible"):
+        jax_fsdp.run(mesh_spec=jax_mesh, batch_size=8, seq_len=16, steps=1, warmup=1, log=lambda m: None)
 
 
 def test_config_matches_jax():

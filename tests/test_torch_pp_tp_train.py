@@ -7,11 +7,11 @@ JAX's key-0 init carried by ``params_from_jax``.
 
 Against the JAX package's ``llama_train.run`` on the same mesh over four
 virtual CPU devices: GPipe with the dense loss, 1F1B with the chunked one,
-and the MoE Llama (4 experts, each a tp block), every step's loss within
+the MoE Llama (4 experts, each a tp block) and adafactor, every step's loss within
 rtol 2e-5 and the final parameters within atol 3e-5
 (``tests/test_torch_pp_train.py``'s tolerances). Against the port's one
 process, every loss within rtol 1e-5 (and the parameters): those runs,
-GPipe with the chunked loss and 1F1B with the dense one, adafactor, remat;
+GPipe with the chunked loss and 1F1B with the dense one, remat;
 and two vocabularies whose stage rows tp does not divide (254 and 250: tp
 then holds a stage's rows whole), whose losses are also held against JAX's
 pipeline at the model level (``tests/test_llama_pp.py``'s ``_train`` on
@@ -47,12 +47,12 @@ JAX_CASES = {
     "gpipe_dense": dict(KW, pp_schedule="gpipe", xent_impl="dense"),
     "1f1b_chunked": dict(KW, pp_schedule="1f1b", xent_impl="chunked"),
     "moe": dict(KW, pp_schedule="1f1b", n_experts=4),
+    "adafactor": dict(KW, pp_schedule="1f1b", optimizer="adafactor", lr=1e-2),
 }
 # Against one process only (each JAX run costs the tier-1 clock ~20 s).
 PORT_ONLY = {
     "gpipe_chunked": dict(KW, pp_schedule="gpipe", xent_impl="chunked"),
     "1f1b_dense": dict(KW, pp_schedule="1f1b", xent_impl="dense"),
-    "adafactor": dict(KW, pp_schedule="1f1b", optimizer="adafactor", lr=1e-2),
     "1f1b_remat": dict(KW, pp_schedule="1f1b", remat=True),
 }
 # Vocabularies whose stage rows (V/2) tp=2 does not divide, against one

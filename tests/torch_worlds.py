@@ -148,7 +148,12 @@ def planted(name):
     - ``"pp_tp_outer_head"``: ``params_from_jax`` taking each rank's
       blocks with the axes nested the other way (tp outer, pp inner: the
       head's rows of stage s, tp rank t at ``t·V/tp + s·V/(tp·P)``), while
-      the loss's column offset stays pp-outer."""
+      the loss's column offset stays pp-outer;
+    - ``"bert_bias_every_rank"``: BERT's row-parallel products (o_proj,
+      ``mlp_down``) adding the whole bias on every tp rank before the sum;
+    - ``"bert_pos_embed_by_suffix"``: BERT's parameter axes looked up by
+      the Llama's suffixes for the embeddings, so that ``pos_embed`` (which
+      ends with ``embed.weight``) is split over tp like a vocabulary."""
     import contextlib
 
     @contextlib.contextmanager
@@ -206,6 +211,27 @@ def planted(name):
                 for ax, d in sharding.cut_splits(splits):
                     t = t.narrow(d, *ax.block(t.shape[d], "a planted block"))
                 return t
+        elif name == "bert_bias_every_rank":
+            import torch.nn.functional as F
+
+            from pytorch_operator_tpu_torch.models import bert
+
+            where, attr = bert, "row_parallel"
+
+            def fault(dense, x, tp):
+                dt = dense.compute_dtype
+                return dense(x) if tp is None else tp.leave(
+                    F.linear(x.to(dt), dense.weight.to(dt), dense.bias.to(dt)))
+        elif name == "bert_pos_embed_by_suffix":
+            from pytorch_operator_tpu_torch.parallel import sharding
+
+            where, attr = sharding, "param_axes"
+            sound_axes = sharding.param_axes
+
+            def fault(name, table=sharding.LLAMA_PARAM_AXES):
+                if table is sharding.BERT_PARAM_AXES and name.endswith("embed.weight"):
+                    return sound_axes(name)  # the Llama's embed.weight
+                return sound_axes(name, table)
         else:
             raise ValueError(f"no planted fault {name!r}")
         saved = getattr(where, attr)
@@ -1038,8 +1064,45 @@ pickle.dump(out, open(os.path.join(out_dir, "jax.pkl"), "wb"))
 """
 
 
-def start_jax_recorded(cases: dict, n_devices: int, d):
-    """Start :data:`JAX_RECORDED` over ``cases`` (name: kwargs) with
+# The JAX package's bert_fsdp.run of each case (name: kwargs), in a process
+# whose XLA client has as many CPU devices as the case's world: every
+# step's loss recorded around its train step, and the final parameters
+# taken from the state the step loop returns.
+JAX_BERT_RECORDED = """
+import os, pickle, sys
+import tests.jaxenv
+import jax
+import numpy as np
+from pytorch_operator_tpu.workloads import bert_fsdp, trainer
+cases, out_dir, n = pickle.load(open(sys.argv[1], "rb")), sys.argv[2], int(sys.argv[3])
+assert jax.device_count() == n, jax.devices()
+real = trainer.throughput_loop
+rec = {}
+
+def loop(train_step, state, batches, **kw):
+    def recorded(state, b):
+        state, loss = train_step(state, b)
+        rec["losses"].append(float(jax.device_get(loss)))
+        return state, loss
+
+    got = real(recorded, state, batches, **kw)
+    rec["params"] = jax.tree.map(lambda a: np.asarray(a, np.float32), jax.device_get(got[0]["params"]))
+    return got
+
+trainer.throughput_loop = loop
+out = {}
+for name, kw in cases.items():
+    rec.clear()
+    rec["losses"] = []
+    r = bert_fsdp.run(log=lambda m: None, **kw)
+    out[name] = {"result": r, "losses": list(rec["losses"]), "params": rec["params"]}
+pickle.dump(out, open(os.path.join(out_dir, "jax.pkl"), "wb"))
+"""
+
+
+def start_jax_recorded(cases: dict, n_devices: int, d, script: str = JAX_RECORDED):
+    """Start :data:`JAX_RECORDED` (or ``script``, e.g.
+    :data:`JAX_BERT_RECORDED`) over ``cases`` (name: kwargs) with
     ``n_devices`` virtual CPU devices; read the results with
     :func:`finish_jax_runs`."""
     import subprocess
@@ -1051,7 +1114,7 @@ def start_jax_recorded(cases: dict, n_devices: int, d):
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS=f"--xla_force_host_platform_device_count={n_devices}")
     return subprocess.Popen(
-        [sys.executable, "-c", JAX_RECORDED, str(d / "cases.pkl"), str(d), str(n_devices)],
+        [sys.executable, "-c", script, str(d / "cases.pkl"), str(d), str(n_devices)],
         cwd=Path(__file__).resolve().parents[1], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True,
     )
@@ -1076,6 +1139,88 @@ def rank_many(world, calls: list) -> list:
     """Run each ``(name, args)`` of ``calls`` as ``rank_<name>(world,
     *args)`` in this one world, in order; their results."""
     return [globals()[f"rank_{name}"](world, *args) for name, args in calls]
+
+
+def rank_bert_runs(world, init: dict, runs: list) -> list:
+    """``bert_fsdp.run(device="cpu", init_params=init, keep_params=True,
+    **kw)`` for each ``kw`` of ``runs`` in this world (``kw["plant"]``
+    names a :func:`planted` fault to run it under); each result, its
+    ``params`` as numpy arrays."""
+    from pytorch_operator_tpu_torch.workloads import bert_fsdp
+
+    out = []
+    for kw in runs:
+        kw = dict(kw)
+        with planted(kw.pop("plant", None)):
+            r = bert_fsdp.run(device="cpu", log=lambda m: None, init_params=init, keep_params=True, **kw)
+        r["params"] = {name: t.numpy() for name, t in r["params"].items()}
+        out.append(r)
+    return out
+
+
+def rank_bert_tp_module(world, tree, mesh_spec: str, cases: list) -> list:
+    """BERT's heads built with the tp axis of ``mesh_spec`` from the JAX
+    ``tree`` (``bert_params_from_jax(tree, tp=...)``; with ``type_embed``
+    where the tree holds one), one forward and
+    backward for each case of ``cases``: a dict of ``head``
+    (``"classifier"`` or ``"mlm"``), ``tokens``, ``type_ids``, ``pad_mask``,
+    ``labels``, ``classes`` and ``plant`` (a :func:`planted` fault or
+    None), the classifier's loss its cross-entropy,
+    the MLM's the mean square of its logits. Each case's sequence output,
+    logits, and every gradient gathered whole (``sharding.full_tensor``),
+    as numpy."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_operator_tpu_torch.models import bert
+    from pytorch_operator_tpu_torch.models.convert import bert_params_from_jax
+    from pytorch_operator_tpu_torch.parallel.mesh import make_mesh
+    from pytorch_operator_tpu_torch.parallel.sharding import TensorParallel, full_tensor, model_splits
+
+    tp = TensorParallel.of(make_mesh(mesh_spec, "cpu"))
+
+    def t(a):
+        return None if a is None else torch.from_numpy(np.asarray(a)) if a.dtype == bool \
+            else torch.from_numpy(np.asarray(a)).long()
+
+    out = []
+    types = "type_embed" in tree["bert"]
+    for case in cases:
+        inputs = (t(case["tokens"]), t(case["type_ids"]), t(case["pad_mask"]))
+        with planted(case["plant"]):
+            cfg = bert.bert_tiny()
+            model = (bert.BertClassifier(cfg, case["classes"], type_embed=types, tp=tp)
+                     if case["head"] == "classifier" else bert.BertMLM(cfg, type_embed=types, tp=tp))
+            model.load_state_dict(bert_params_from_jax(tree, tp=tp))
+            seq, _ = model.bert(*inputs)
+            logits = model(*inputs)
+            loss = (F.cross_entropy(logits, t(case["labels"])) if case["head"] == "classifier"
+                    else logits.square().mean())
+            loss.backward()
+            grads = {n: full_tensor(torch.zeros_like(p) if p.grad is None else p.grad,
+                                    model_splits(model, n)).numpy()
+                     for n, p in model.named_parameters()}
+        out.append({"seq": seq.detach().numpy(), "logits": logits.detach().numpy(), "grads": grads,
+                    "tp_index": tp.index})
+    return out
+
+
+def rank_bert_shard(world, mesh_spec: str) -> dict:
+    """``shard_model`` on ``mesh_spec`` of a BERT classifier (the mesh dim
+    names of its parameters' FSDP2 layout) and of a Llama without ep blocks
+    (the refusal's message)."""
+    from pytorch_operator_tpu_torch.models import bert, llama
+    from pytorch_operator_tpu_torch.parallel.mesh import make_mesh
+    from pytorch_operator_tpu_torch.parallel.sharding import shard_model
+
+    mesh = make_mesh(mesh_spec, "cpu")
+    model = shard_model(bert.BertClassifier(bert.bert_tiny(), 2, mesh=mesh), mesh)
+    out = {"bert": list(model.classifier.weight.device_mesh.mesh_dim_names)}
+    try:
+        shard_model(llama.Llama(llama.llama_tiny(n_layers=2), device="meta"), mesh)
+    except ValueError as e:
+        out["llama"] = str(e)
+    return out
 
 
 def rank_workload(world, module: str, kw: dict) -> dict:
