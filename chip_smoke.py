@@ -318,14 +318,24 @@ Phases, in order; any failure exits non-zero before the result line:
    stage 0 half the embedding), each rank's flash launches (each kernel
    once a layer a microbatch, at ``PPTP_SHAPE``) into the kernels line, a
    planted fault (the head rows of the tp-outer nesting under the loss's
-   pp-outer offsets) above ``PP_LOSS_ATOL``, the world's checkpoint
-   restored by one process equal (a digest) to the ranks' gathered
-   parameters; (f) ``pp=2,ep=2``, the MoE Llama at 0.3b width (phase 10's
-   8 experts, top 2, capacity 1.25, aux weight 0, sparse dispatch) at 4
-   layers, B8 x 2048, 1 + 2 steps: every loss within ``EP_LOSS_ATOL`` of its
-   own one process's, each rank's expert bytes exactly E/ep of its stage's
-   layers, the launches (at ``PP_SHAPE``) into the kernels line. Step time
-   and peak memory a rank.
+   pp-outer offsets) above ``PP_LOSS_ATOL`` (the world's one checkpoint is
+   13(c)'s; (d) restores a pp checkpoint); (f) ``pp=2,ep=2``, the MoE
+   Llama at 0.3b width (phase 10's 8 experts, top 2, capacity 1.25, aux
+   weight 0, sparse dispatch) at 4 layers, B8 x 2048, 1 + 2 steps: every
+   loss within ``EP_LOSS_ATOL`` of its own one process's, each rank's
+   expert bytes exactly E/ep of its stage's layers, the launches (at
+   ``PP_SHAPE``) into the kernels line; (g) sparse dispatch in pp
+   microbatches over data ranks: ``dp=2,pp=2``, (f)'s model at capacity
+   0.5, global B8 x 512, 1F1B at 4 microbatches of the global batch's rows
+   (a microbatch's B2 x 512 one 1,024-token group, a row on each data rank,
+   so the top-k gather crosses ranks), 1 + 2 steps: every loss within
+   ``EP_LOSS_ATOL`` of one process accumulating over the same 4
+   microbatches (``grad_accum=4``), a planted fault (the feed giving each
+   data coordinate its own rows, split into the microbatches) above it, the
+   ranks' coordinates and expert bytes (a stage's layers' E experts), each
+   rank's launches (each kernel once a layer of its stage a microbatch, at
+   a rank's B1 S512) into the kernels line. Step time and peak memory a
+   rank.
 16. The digit CNN and BERT, random weights from seed 0 (neither path
    launches a flash kernel, as in JAX: 0 launches on their paths): (a) the
    digit CNN in f32 on the card against the CPU (B128 of the digits, TF32
@@ -445,6 +455,8 @@ PP_SHAPE = ("pp", 2, 2048, 8, 4, 128, True, None, "bfloat16")
 PPTP_SHAPE = ("pptp", 2, 2048, 4, 2, 128, True, None, "bfloat16")
 # Phase 14(b)'s sparse token groups over ranks: the one-process reference's
 # B2 x 512 (and a microbatch of its B4 in two); a world rank holds one row.
+# Also a microbatch of 15(g)'s one process accumulating over B8 x 512 in
+# four (a dp=2,pp=2 rank's share: one row).
 GROUPS_SHAPE = ("groups", 2, 512, 8, 4, 128, True, None, "bfloat16")
 EDGE_CASES = [
     ("S192_causal", 2, 192, 8, 4, 128, True, None, "bfloat16"),
@@ -3994,7 +4006,10 @@ def _planted(name):
     inner (the head's rows of stage s, tp rank t at ``t·V/tp + s·V/(tp·P)``)
     while the loss's column offset stays pp-outer; ``"bert_bias_every_rank"``,
     BERT's row-parallel products (o_proj, mlp_down) adding the whole bias on
-    every tp rank before the sum."""
+    every tp rank before the sum; ``"pp_coordinate_rows"``, the feed giving
+    each data coordinate its own consecutive rows of the global batch
+    whatever its microbatches (a pipeline microbatch then splits those rows,
+    not the reference's global batch)."""
     import contextlib
 
     @contextlib.contextmanager
@@ -4057,6 +4072,14 @@ def _planted(name):
                 dt = dense.compute_dtype
                 return dense(x) if tp is None else tp.leave(
                     F.linear(x.to(dt), dense.weight.to(dt), dense.bias.to(dt)))
+        elif name == "pp_coordinate_rows":
+            from pytorch_operator_tpu_torch.parallel import data
+
+            where, attr = data, "global_batch"
+            sound_rows = data.global_batch
+
+            def fault(batch, process_index=None, process_count=None, microbatches=1):
+                return sound_rows(batch, process_index, process_count)
         elif name == "leave_psum_autograd":
             where, attr = collectives, "tp_leave"
             fault = lambda x, axis="tp", mesh=None: collectives.psum_autograd(x, axis, mesh)  # noqa: E731
@@ -4650,6 +4673,23 @@ PP_LOSS_ATOL = 5e-3
 PP_TP_RUN = dict(PP_RUN, mesh_spec="pp=2,tp=2", pp_schedule="1f1b")
 PP_EP_RUN = dict(config="0.3b", n_layers=4, batch_size=8, seq_len=2048, warmup=1, steps=2,
                  n_experts=8, moe_top_k=2, moe_capacity_factor=1.25, moe_dispatch="sparse")
+# (g) sparse dispatch in pp microbatches over data ranks: the MoE Llama at
+# 0.3b width and 4 layers, capacity 0.5 (about half the routings drop, which
+# ones set by the group's global order), aux weight 0, global B8 x 512 at
+# dp=2,pp=2, 1F1B at 4 microbatches of the reference's rows: a microbatch's
+# B2 x 512 is one 1,024-token group whose rows lie one on each data rank,
+# so the top-k gather crosses ranks (at S 2,048, as in (f), a group lies
+# inside one row). Held against one process accumulating over the same 4
+# microbatches (the same groups, the same drops) to (f)'s EP_LOSS_ATOL, not
+# to 14(b)'s GROUPS_LOSS_ATOL: at aux weight 0 and 4,096 tokens a step the
+# sound run read 4.907e-04 and the planted old feed (each data coordinate's
+# own rows split into the microbatches) 1.918e-02 on an H100 80GB HBM3 at
+# 700 W, so 5e-2 would not tell them apart; the limit sits a factor 10 and
+# 3.8 from them.
+PP_GROUPS_RUN = dict(config="0.3b", n_layers=4, batch_size=8, seq_len=512, warmup=1, steps=2,
+                     n_experts=8, moe_top_k=2, moe_capacity_factor=0.5, moe_dispatch="sparse",
+                     moe_aux_weight=0.0)
+PP_GROUPS_M = 4
 
 
 # Phase 15(a)-(d)'s runs join the world of two ranks that phases 13 and 14
@@ -4732,9 +4772,11 @@ def phase_pp(kernels):
     microbatches against one process, their peaks; (b), the B16 runs at 8
     microbatches, given up for the time limit; (c) the planted
     shifted-cotangent fault; (d) the pp=2 checkpoint restored by one
-    process; (e)-(f) pp beside tp and ep (:func:`_pp_beside`). The kernels
-    at the microbatch's shape (``PP_SHAPE``) and at a pp=2,tp=2 rank's
-    (``PPTP_SHAPE``) are held and timed in phases 2-3."""
+    process; (e)-(g) pp beside tp and ep, and sparse dispatch in pp
+    microbatches over data ranks (:func:`_pp_beside`). The kernels at the
+    microbatch's shape (``PP_SHAPE``), at a pp=2,tp=2 rank's
+    (``PPTP_SHAPE``) and at (g)'s reference microbatch (``GROUPS_SHAPE``)
+    are held and timed in phases 2-3."""
     import shutil
     from pathlib import Path
 
@@ -4810,16 +4852,17 @@ def phase_pp(kernels):
 
 
 def _pp_beside(kernels, one: dict) -> None:
-    """Phase 15(e)-(f): pp beside tp (against (a)'s one process, the
-    planted tp-outer head rows, the checkpoint) and beside ep (against its
-    own one process), in one world of four ranks."""
+    """Phase 15(e)-(g): pp beside tp (against (a)'s one process, the
+    planted tp-outer head rows), beside ep (against its own one process)
+    and sparse dispatch in pp microbatches over data ranks (against one
+    process accumulating over the same microbatches, the planted old
+    feed), in one world of four ranks."""
     import shutil
     import tempfile
     from pathlib import Path
 
     import torch
 
-    from pytorch_operator_tpu_torch.checkpoint import CheckpointManager
     from pytorch_operator_tpu_torch.models import llama as llama_lib
     from pytorch_operator_tpu_torch.ops import flash_attention as fa
     from pytorch_operator_tpu_torch.workloads import llama_train
@@ -4830,28 +4873,33 @@ def _pp_beside(kernels, one: dict) -> None:
     one_ep = llama_train.run(device="cuda", log=_log, **PP_EP_RUN)
     _record_launches(kernels, "pp_ep_one_process", fa.launch_counts())
     torch.cuda.empty_cache()
+    fa.reset_launch_count()
+    one_groups = llama_train.run(device="cuda", log=_log, grad_accum=PP_GROUPS_M, **PP_GROUPS_RUN)
+    _record_launches(kernels, "pp_groups_one_process_accum4", fa.launch_counts())
+    torch.cuda.empty_cache()
     ep_world = dict(PP_EP_RUN, mesh_spec="pp=2,ep=2", pp_schedule="1f1b")
+    groups_world = dict(PP_GROUPS_RUN, mesh_spec="dp=2,pp=2", pp_schedule="1f1b",
+                        pp_microbatches=PP_GROUPS_M)
     td = tempfile.mkdtemp(prefix="chip_smoke_pp_tp_")
     try:
-        ck, ck_tp = Path(td) / "ck", Path(td) / "ck_tp"
-        # Phase 13(c)'s run first, each checkpoint into its own directory.
-        outs = _rank_world("runs", "13(c) fsdp=2,tp=2 and 15(e)-(f) pp=2,tp=2 and pp=2,ep=2", n=4, runs=[
-            dict(TP_FOUR_RUN, mesh_spec="fsdp=2,tp=2", digest=True, checkpoint_every=1000,
-                 env={"TPUJOB_CHECKPOINT_DIR": str(ck_tp)}),
-            dict(PP_TP_RUN, digest=True, checkpoint_every=1000, env={"TPUJOB_CHECKPOINT_DIR": str(ck)}),
-            # The fault shows from the first step.
-            dict(PP_TP_RUN, steps=1, plant="pp_tp_outer_head"),
-            ep_world,
-        ])
+        ck_tp = Path(td) / "ck_tp"
+        # Phase 13(c)'s run first, with the world's one checkpoint.
+        outs = _rank_world(
+            "runs", "13(c) fsdp=2,tp=2 and 15(e)-(g) pp=2,tp=2, pp=2,ep=2 and dp=2,pp=2", n=4, runs=[
+                dict(TP_FOUR_RUN, mesh_spec="fsdp=2,tp=2", digest=True, checkpoint_every=1000,
+                     env={"TPUJOB_CHECKPOINT_DIR": str(ck_tp)}),
+                PP_TP_RUN,
+                # The fault shows from the first step.
+                dict(PP_TP_RUN, steps=1, plant="pp_tp_outer_head"),
+                ep_world,
+                groups_world,
+                dict(groups_world, plant="pp_coordinate_rows"),
+            ])
         _tp_four_checks(kernels, outs, ck_tp)
-        step, params = CheckpointManager(ck, create=False).restore_subtree("params")
-        order = llama_lib.Llama(llama_lib.llama_0_3b(n_layers=PP_RUN["n_layers"]), device="meta").state_dict()
-        restored = _params_digest((name, params[name]) for name in order)
-        del params
     finally:
         shutil.rmtree(td, ignore_errors=True)
-    tp_run, fault, ep_run = (r["result"] for r in outs[0]["runs"][1:])
-    _log(f"pp (e)-(f): the world's runs took {[round(r['wall_s'], 1) for r in outs[0]['runs']]} s on rank 0")
+    tp_run, fault, ep_run, groups_run, groups_fault = (r["result"] for r in outs[0]["runs"][1:])
+    _log(f"pp (e)-(g): the world's runs took {[round(r['wall_s'], 1) for r in outs[0]['runs']]} s on rank 0")
 
     # (e) pp=2,tp=2 against (a)'s one process at the same steps.
     total = PP_TP_RUN["warmup"] + PP_TP_RUN["steps"]
@@ -4860,11 +4908,9 @@ def _pp_beside(kernels, one: dict) -> None:
     _pp_launches(kernels, "pp_tp_1f1b_m4", tp_run, 4, PP_TP_RUN)
     gap = _loss_gap(tp_run["losses"], one["losses"])
     fault_gap = _loss_gap(fault["losses"], one["losses"])
-    digests = {o["runs"][1]["params"] for o in outs}
     _log(f"pp (e): losses within {gap:.3e} of (a)'s one process (limit {PP_LOSS_ATOL:.0e}); param "
          f"bytes a rank want {want_bytes}; planted tp-outer head rows {fault_gap:.3e} "
-         f"({[round(x, 5) for x in fault['losses']]}), step {fault['step_s']:.4f} s; step {step} "
-         f"restored by one process, digest {restored}, the ranks' gathered parameters {sorted(digests)}")
+         f"({[round(x, 5) for x in fault['losses']]}), step {fault['step_s']:.4f} s")
     if gap > PP_LOSS_ATOL or len(tp_run["losses"]) != total:
         _fail(f"pp (e): losses {gap:.3e} from one process's")
     if fault_gap <= PP_LOSS_ATOL:
@@ -4874,8 +4920,6 @@ def _pp_beside(kernels, one: dict) -> None:
         _fail(f"pp (e): world, mesh or rank coordinates wrong: {tp_run['mesh']}")
     if [q["param_bytes"] for q in tp_run["per_rank"]] != want_bytes:
         _fail(f"pp (e): per-rank parameter bytes {[q['param_bytes'] for q in tp_run['per_rank']]}")
-    if step != total or digests != {restored}:
-        _fail("pp (e): the one-process restore differs from the ranks' gathered parameters")
 
     # (f) pp=2,ep=2 against its own one process.
     experts = sum(4 * p.numel() for n, p in llama_lib.Llama(
@@ -4893,6 +4937,43 @@ def _pp_beside(kernels, one: dict) -> None:
         _fail(f"pp (f): rank coordinates {ep_run['per_rank']}")
     if [q["expert_param_bytes"] for q in ep_run["per_rank"]] != [experts // 4] * 4:
         _fail(f"pp (f): expert bytes {[q['expert_param_bytes'] for q in ep_run['per_rank']]}")
+    _pp_groups_checks(kernels, one_groups, groups_run, groups_fault)
+    _log(f"pp (e)-(g): {time.perf_counter() - t0:.1f} s")
+
+
+def _pp_groups_checks(kernels, one: dict, r: dict, fault: dict) -> None:
+    """Phase 15(g)'s checks: dp=2,pp=2 sparse against one process
+    accumulating over the same 4 microbatches, every step's loss within
+    ``EP_LOSS_ATOL`` and the planted old feed above it; the ranks'
+    coordinates (pp outer, data inner), each rank's expert bytes (E of its
+    stage's layers: dp replicates them) and its launches (each kernel once
+    a layer of its stage a microbatch, at a rank's B1 S512)."""
+    from pytorch_operator_tpu_torch.models import llama as llama_lib
+
+    experts = sum(4 * p.numel() for n, p in llama_lib.Llama(
+        llama_lib.llama_0_3b(n_layers=PP_GROUPS_RUN["n_layers"], n_experts=8), device="meta").named_parameters()
+        if n.endswith(("moe_mlp.w_in", "moe_mlp.w_out")))
+    _pp_describe("(g) dp=2,pp=2 sparse", r)
+    _pp_launches(kernels, "pp_groups_dp2_1f1b_m4", r, PP_GROUPS_M, PP_GROUPS_RUN)
+    gap = _loss_gap(r["losses"], one["losses"])
+    fault_gap = _loss_gap(fault["losses"], one["losses"])
+    _log(f"pp (g): one process accumulating over {PP_GROUPS_M} microbatches "
+         f"{[round(x, 5) for x in one['losses']]}, step {one['step_s']:.4f} s, peak "
+         f"{(one['peak_mem_bytes'] or 0) / 2**30:.3f} GiB; dp=2,pp=2 within {gap:.3e} (limit "
+         f"{EP_LOSS_ATOL:.0e}); planted coordinate-row feed {fault_gap:.3e} "
+         f"({[round(x, 5) for x in fault['losses']]}), step {fault['step_s']:.4f} s; expert bytes a "
+         f"rank want {experts // 2}")
+    if gap > EP_LOSS_ATOL or len(r["losses"]) != len(one["losses"]):
+        _fail(f"pp (g): losses {gap:.3e} from one process's")
+    if fault_gap <= EP_LOSS_ATOL:
+        _fail(f"pp (g): the planted coordinate-row feed's losses are within {fault_gap:.3e} of one process's")
+    if (r["world"], r["mesh"], r["pp_schedule"], r["pp_microbatches"]) != (
+            4, {"pp": 2, "dp": 2}, "1f1b", PP_GROUPS_M):
+        _fail(f"pp (g): world, mesh or schedule wrong: {r['mesh']}")
+    if [(q["pp_index"], q["data_index"]) for q in r["per_rank"]] != [(0, 0), (0, 1), (1, 0), (1, 1)]:
+        _fail(f"pp (g): rank coordinates {r['per_rank']}")
+    if [q["expert_param_bytes"] for q in r["per_rank"]] != [experts // 2] * 4:
+        _fail(f"pp (g): expert bytes {[q['expert_param_bytes'] for q in r['per_rank']]}")
 
 
 # Phase 16: the digit CNN through mnist_train (examples/mnist.yaml; BASELINE.json's

@@ -607,12 +607,6 @@ class Block(nn.Module):
         return x + self.mlp(h), None
 
 
-ITEM_3C3C = (
-    "ROADMAP.md item 3c-3c: sparse MoE dispatch in pp microbatches over data ranks; a pp "
-    "microbatch holds each data coordinate's rows, JAX's the global batch's"
-)
-
-
 class Llama(nn.Module):
     """Decoder-only LM: tokens [B,S] → logits [B,S,vocab] (f32).
 
@@ -651,16 +645,11 @@ class Llama(nn.Module):
         # The axes that may split the tokens (the MoE layers').
         sizes = {} if mesh is None else dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
         self.mesh_axes = sizes
-        token_axes = tuple(a for a in ("dp", "fsdp", "sp") if sizes.get(a, 1) > 1)
         # Inside the pipeline sp never splits the sequence (ring and ulysses
-        # are refused there, check_pp): an sp rank's stage groups the same
-        # tokens as one process, so only the data axes wait for item 3c-3c.
-        data_axes = tuple(a for a in token_axes if a != "sp")
-        if pp is not None and data_axes and cfg.n_experts > 0 and cfg.moe_dispatch == "sparse":
-            raise NotImplementedError(
-                f"sparse MoE dispatch on a pp mesh with {', '.join(f'{a}={sizes[a]}' for a in data_axes)} "
-                f"is not ported yet ({ITEM_3C3C})"
-            )
+        # are refused there, check_pp; a stage's MoE layers get no
+        # seq_split): a stage's sparse groups span the data axes' shares of
+        # a pp microbatch, the global batch's microbatch as JAX's.
+        token_axes = tuple(a for a in ("dp", "fsdp", "sp") if sizes.get(a, 1) > 1)
         # The axes whose blocks the head's vocabulary rows are, innermost
         # first (sharding.param_splits: a pp stage's V/P rows, cut again by
         # tp where it divides them), and the first vocabulary id of this
@@ -882,10 +871,12 @@ class Llama(nn.Module):
 
     def _pp_stage(self, act):
         """A pp stage: ``act`` [b, S, D] through this stage's layers. Its tp
-        and ep collectives (``tp_enter``/``tp_leave``, the experts' sums) run
-        inside the tick, forward and in the stored graph's backward: every
-        rank of a tp or ep group holds the same pp index, so all of them
-        run this call at the same ticks on the same microbatch."""
+        and ep collectives (``tp_enter``/``tp_leave``, the experts' sums) and
+        sparse dispatch's gather of the top-k indices over the data axes run
+        inside the tick, forward, in the stored graph's backward and in a
+        remat's recompute: every rank of a tp, ep or data group holds the
+        same pp index, so all of them run this call at the same ticks on
+        their shares of the same microbatch."""
         positions = torch.arange(act.shape[1], device=act.device).expand(act.shape[:2])
         return self.run_layers(act, positions)[0]
 

@@ -92,7 +92,9 @@ def _map(fn, tree):
     return type(tree)(_map(fn, v) for v in tree)
 
 
-def _check_split(batch: int, M: int, P: int) -> None:
+def check_split(batch: int, M: int, P: int) -> None:
+    """JAX's checks, in its order and with its messages, that a batch of
+    ``batch`` rows splits into ``M`` microbatches over ``P`` stages."""
     if M < 1:
         raise ValueError("microbatches must be >= 1")
     if batch % M:
@@ -207,7 +209,7 @@ def pipeline_apply(fn: Callable, stage_params, x, *, mesh, microbatches: int, ax
     == 0``). Returns the output ``[B, ...]`` on every rank of ``axis``."""
     P, s = axis_size(axis, mesh), axis_index(axis, mesh)
     last, M = P - 1, microbatches
-    _check_split(x.shape[0], M, P)
+    check_split(x.shape[0], M, P)
     params = _stage_slice(stage_params, P, s, "stage")
     mb = x.shape[0] // M
     zero = torch.zeros(x[:mb].shape, dtype=x.dtype, device=x.device)
@@ -281,7 +283,7 @@ def pipeline_value_and_grad(
 
     # JAX checks GPipe's loss chunks before the split, 1F1B's after it.
     lp = loss_slice() if schedule == "gpipe" else None
-    _check_split(x.shape[0], M, P)
+    check_split(x.shape[0], M, P)
     params = _stage_slice(stage_params, P, s, "stage")
     if schedule == "1f1b":
         lp = loss_slice()

@@ -36,10 +36,11 @@ the embedding on stage 0 and the head's vocabulary rows over the stages;
 gradients and the optimizer's state with FSDP2, ``dp`` replicates them (both
 together: HSDP; ``@dcn`` axes outermost). ``--batch-size`` is the global
 batch; each data coordinate (``parallel/mesh.train_coords``) trains on its
-rows of it (with ``--grad-accum A``, its rows of each of the global batch's A
-microbatches, as JAX's accumulation splits it), the ranks of one tp, ep, sp
-or pp group on the same rows, and the losses reported are the global
-batch's. Sparse MoE dispatch groups the tokens of every data and sp rank of
+rows of it (with ``--grad-accum A``, or on a pp mesh, its rows of each of
+the global batch's A or ``--pp-microbatches`` microbatches, as JAX's
+accumulation and pipeline split it), the ranks of one tp, ep, sp or pp
+group on the same rows, and the losses reported are the global batch's.
+Sparse MoE dispatch groups the tokens of every data and sp rank of
 the step (or of the microbatch) as JAX groups the global batch's
 (``parallel/moe.py``). AdamW and adafactor both run in a
 world, in f32 or bf16 parameters (``--param-dtype``).
@@ -54,11 +55,9 @@ head's vocabulary rows are cut by pp and then by tp inside each stage, and
 the loss tail is vocab-parallel over both.
 
 It runs on ``cuda`` unless ``--device cpu`` or ``TPUJOB_PLATFORM=cpu`` asks
-for the host; with neither and no GPU it raises. What waits for ROADMAP.md
-is refused by name: sparse MoE dispatch on ``pp`` beside a data axis (item
-3c-3c). A tp that does not divide the heads, kv heads, ``d_ff`` or the
-vocabulary is refused as JAX's ``llama_train`` refuses it (its
-partitioner's ValueError).
+for the host; with neither and no GPU it raises. A tp that does not divide
+the heads, kv heads, ``d_ff`` or the vocabulary is refused as JAX's
+``llama_train`` refuses it (its partitioner's ValueError).
 """
 
 from __future__ import annotations
@@ -85,6 +84,7 @@ from ..parallel import data as data_lib
 from ..parallel import mesh as mesh_lib
 from ..parallel import ulysses as ulysses_lib
 from ..parallel.collectives import world as joined_world
+from ..parallel.pipeline import check_split
 from ..parallel.sharding import full_state_dict, local_nbytes, model_blocks, shard_model
 from ..runtime import rendezvous
 from ..runtime.device import device_name, world_device
@@ -121,6 +121,21 @@ def resolve_train_mesh(spec: str, world: int) -> dict:
     against ``world`` ranks (one device a process), with the JAX package's
     errors."""
     return mesh_lib.hybrid_axis_sizes(spec, world)
+
+
+def check_pp_microbatches(batch: int, microbatches: int, pp: int, data_extent: int) -> int:
+    """``microbatches``, once the pipeline can split the global ``batch``
+    into them as JAX's does (``pipeline.check_split``: JAX's checks and
+    messages) and the data coordinates can split each microbatch's rows
+    evenly (JAX's XLA would replicate them; a port rank feeds its share of
+    each)."""
+    check_split(batch, microbatches, pp)
+    if (batch // microbatches) % data_extent:
+        raise ValueError(
+            f"the data extent {data_extent} must divide each of the {microbatches} "
+            f"microbatches' {batch // microbatches} rows (the global batch {batch})"
+        )
+    return microbatches
 
 
 def run(
@@ -226,8 +241,10 @@ def run(
     its devices); each data coordinate takes its rows
     (``parallel/data.global_batch``), and ``losses``/``eval_loss`` are the
     global batch's means. On a pp mesh each step runs ``pp_schedule``
-    ("gpipe" or "1f1b") over ``pp_microbatches`` microbatches of each data
-    coordinate's rows (default 2·pp). The result adds ``world``, ``mesh``,
+    ("gpipe" or "1f1b") over ``pp_microbatches`` microbatches (default
+    2·pp) of the global batch, JAX's: microbatch m is the m-th of M
+    consecutive blocks, and a data coordinate holds its rows of each (the
+    held-out batches too). The result adds ``world``, ``mesh``,
     ``backend``, this rank's ``param_bytes`` and ``optimizer_state_bytes``,
     and ``per_rank`` (each rank's data, tp, sp, ep and pp coordinates, bytes,
     peak memory, flash launches and ``tp_head_gathers``, ulysses' gathers of
@@ -330,14 +347,13 @@ def run(
             f"{batch_size // coords.data_extent} rows"
         )
     pp = axes.get("pp", 1)
+    # The global batch's microbatches, of which a data coordinate feeds its
+    # rows of each (parallel/data.global_batch): the pipeline's on a pp mesh
+    # (JAX refuses grad_accum there), else grad_accum's.
+    feed_microbatches = grad_accum
     if pp > 1:
         pp_microbatches = pp_microbatches or 2 * pp
-        rows = batch_size // coords.data_extent
-        if rows % pp_microbatches:
-            raise ValueError(
-                f"--pp-microbatches {pp_microbatches} must divide each data coordinate's "
-                f"{rows} rows (the batch {batch_size} over the data extent {coords.data_extent})"
-            )
+        feed_microbatches = check_pp_microbatches(batch_size, pp_microbatches, pp, coords.data_extent)
     log(
         f"[llama] config={config} d_model={cfg.d_model} layers={cfg.n_layers} "
         f"mesh={axes}{f' pp_schedule={pp_schedule} microbatches={pp_microbatches}' if pp > 1 else ''} "
@@ -384,8 +400,11 @@ def run(
         return np.array(fields["tokens"][:, :seq_len], np.int32, copy=True)
 
     def next_tokens(ldr):
-        # This data coordinate's rows of the next global batch, on its device.
-        return data_lib.put_global(host_tokens(ldr), dev, coords.data_index, coords.data_extent).long()
+        # This data coordinate's rows of the next global batch, on its
+        # device: on a pp mesh its share of each of the eval step's
+        # microbatches.
+        return data_lib.put_global(host_tokens(ldr), dev, coords.data_index, coords.data_extent,
+                                   pp_microbatches if pp > 1 else 1).long()
 
     if eval_file:
         # Before any training compute: a bad eval file must not cost a
@@ -537,7 +556,8 @@ def run(
             feed_steps = itertools.count(start_step)
             prefetcher = DevicePrefetcher(
                 lambda: data_lib.global_batch(
-                    host_batch(next(feed_steps)), coords.data_index, coords.data_extent, grad_accum
+                    host_batch(next(feed_steps)), coords.data_index, coords.data_extent,
+                    feed_microbatches,
                 ),
                 put=lambda toks: to_device(toks.astype(np.int64), dev),
                 depth=prefetch,
@@ -557,7 +577,7 @@ def run(
                 maybe_preempt(step)
                 maybe_resize(step)
                 return data_lib.put_global(
-                    host_batch(step), dev, coords.data_index, coords.data_extent, grad_accum
+                    host_batch(step), dev, coords.data_index, coords.data_extent, feed_microbatches
                 ).long()
 
         def save(step: int):
@@ -736,8 +756,7 @@ def main(argv=None) -> int:
         "--mesh", default=None,
         help='axes over the world\'s ranks, e.g. "fsdp=2", "dp=2", "tp=2", "fsdp=2,tp=2", '
         '"sp=2", "dp=2,ep=2", "pp=2", "dp=2,pp=2", "pp=2,tp=2", "pp=2,ep=2", "dp=2@dcn,fsdp=-1" '
-        '(default: TPUJOB_MESH or fsdp=-1); --moe-dispatch sparse on pp beside dp or fsdp is '
-        'refused (ROADMAP.md item 3c-3c)',
+        '(default: TPUJOB_MESH or fsdp=-1)',
     )
     p.add_argument("--batch-size", type=int, default=8, help="the global batch, over every rank")
     p.add_argument("--seq-len", type=int, default=128)
@@ -866,8 +885,8 @@ def main(argv=None) -> int:
     p.add_argument("--json", action="store_true")
     p.add_argument(
         "--pp-microbatches", type=int, default=None,
-        help="pipeline microbatches of each data coordinate's rows when the mesh has a pp "
-        "axis (default 2 x pp extent; must be a multiple of it)",
+        help="pipeline microbatches of the global batch when the mesh has a pp axis "
+        "(default 2 x pp extent; must be a multiple of it)",
     )
     p.add_argument(
         "--pp-schedule", choices=("gpipe", "1f1b"), default="gpipe",

@@ -114,10 +114,11 @@ def port_runs(init_tree):
 # since item 3c-3b (tests/test_torch_pp_tp_train.py,
 # test_torch_pp_ep_sp_train.py), sparse dispatch over tokens that cross
 # ranks since its token groups over ranks (the two sparse cases once here,
-# fsdp=2 and sp=2 ring, run against JAX in tests/test_torch_moe_groups_train.py,
-# which also holds the refusal of sparse dispatch on pp beside a data axis,
-# item 3c-3c, the one item 3c left, in a world of four). What stays is
-# JAX's own refusal: ring attention inside the pipeline.
+# fsdp=2 and sp=2 ring, run against JAX in tests/test_torch_moe_groups_train.py),
+# and sparse dispatch in pp microbatches beside dp or fsdp since the feed
+# gives each data coordinate its share of JAX's microbatches (that file's
+# world of four). What stays is JAX's own refusal: ring attention inside
+# the pipeline.
 REFUSED = [
     dict(mesh_spec="pp=2", attn_impl="ring", raises=ValueError),
 ]

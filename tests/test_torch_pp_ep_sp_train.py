@@ -3,18 +3,22 @@ and tp together, in the port's ``llama_train.run``: ``pp=2,ep=2`` (the MoE
 Llama's experts split over ep inside each stage, dense and sparse
 dispatch), ``pp=2,sp=2`` with dense attention (every sp rank computes the
 whole sequence; sparse dispatch too, which then groups a microbatch's
-tokens as JAX's pipeline does), four ranks each, and ``fsdp=2,pp=2,tp=2``
-with 1F1B (eight ranks; ``tests/test_torch_pp_tp_train.py`` holds
-``pp=2,tp=2``). The tiny Llama at 4 layers with dense attention, B8 ×
-16, 2 steps, from JAX's key-0 init carried by ``params_from_jax``.
+tokens as JAX's pipeline does), four ranks each, and on eight ranks
+``fsdp=2,pp=2,tp=2`` with 1F1B (``tests/test_torch_pp_tp_train.py`` holds
+``pp=2,tp=2``) and ``dp=2,pp=2,ep=2`` with sparse dispatch (a microbatch's
+group over both data ranks' rows, the experts over ep). The tiny Llama at 4
+layers with dense attention, B8 × 16, 2 steps, from JAX's key-0 init
+carried by ``params_from_jax``.
 
 Each against the JAX package's ``llama_train.run`` on the same mesh over as
 many virtual CPU devices: every step's loss within rtol 2e-5, the final
 parameters within atol 3e-5 (``tests/test_torch_pp_train.py``'s
-tolerances), and, with dense dispatch, against the port's one process
-(every loss within rtol 1e-5). JAX's own refusals stay, with its
-messages: ring and ulysses inside the pipeline at ``pp=2,sp=2``, and a MoE
-aux loss on a pp mesh beside ep.
+tolerances), and against the port's one process (every loss within rtol
+1e-5): on the whole batch with dense dispatch, and with sparse dispatch
+accumulating over the pipeline's 4 microbatches (``grad_accum`` splits the
+global batch as the pipeline does, so it forms the same groups). JAX's own
+refusals stay, with its messages: ring and ulysses inside the pipeline at
+``pp=2,sp=2``, and a MoE aux loss on a pp mesh beside ep.
 """
 
 import numpy as np
@@ -39,6 +43,7 @@ FOUR = {
 }
 EIGHT = {
     "fsdp_pp_tp": dict(KW, mesh_spec="fsdp=2,pp=2,tp=2"),
+    "dp_pp_ep_sparse": dict(KW, mesh_spec="dp=2,pp=2,ep=2", moe_dispatch="sparse", **MOE),
 }
 REFUSED = {
     "ring": (dict(KW, mesh_spec="pp=2,sp=2", attn_impl="ring"),
@@ -50,10 +55,10 @@ REFUSED = {
 }
 
 
-# Sparse dispatch groups a pp microbatch's tokens (JAX's too, which the
-# sparse runs match): one process groups the whole batch's, so it drops
-# other tokens at capacity.
-ONE_CASES = sorted(k for k, kw in {**FOUR, **EIGHT}.items() if kw.get("moe_dispatch") != "sparse")
+ONE_CASES = sorted({**FOUR, **EIGHT})
+# The pipeline's default microbatches (2·pp), which a sparse run's one
+# process accumulates over.
+PP_MICROBATCHES = 4
 
 
 @pytest.fixture(scope="module")
@@ -75,7 +80,7 @@ def runs(tmp_path_factory):
         four = [dict(kw, init_params=init_for(kw)) for kw in FOUR.values()]
         four += [dict(kw, init_params=init_for(kw), raises=ValueError) for kw, _ in REFUSED.values()]
         four = torch_worlds.run_world("train", four, n=4, timeout=400)
-        eight = torch_worlds.run_world("train", [dict(kw, init_params=dense) for kw in EIGHT.values()],
+        eight = torch_worlds.run_world("train", [dict(kw, init_params=init_for(kw)) for kw in EIGHT.values()],
                                        n=8, timeout=400)
         jax_runs = {**torch_worlds.finish_jax_runs(procs[4], d / "four"),
                     **torch_worlds.finish_jax_runs(procs[8], d / "eight")}
@@ -89,7 +94,13 @@ def runs(tmp_path_factory):
 
 
 def _one(kw, init):
-    """One process's run of ``kw`` without its mesh and pipeline keys."""
+    """One process's run of ``kw`` without its mesh and pipeline keys; with
+    sparse dispatch accumulating over the pipeline's microbatches, whose
+    groups a pp run's sparse layers form (JAX's too, which the sparse runs
+    match): one process on the whole batch groups its tokens otherwise and
+    drops others at capacity."""
+    if kw.get("moe_dispatch") == "sparse":
+        kw = dict(kw, grad_accum=PP_MICROBATCHES)
     kw = {k: v for k, v in kw.items() if not k.startswith("pp_") and k != "mesh_spec"}
     r = llama_train.run(device="cpu", init_params=init, log=lambda m: None, keep_params=True, **kw)
     r["params"] = {k: v.float().numpy() for k, v in r["params"].items()}
@@ -121,9 +132,9 @@ def test_pp_world_beside_ep_sp_tp_matches_jax_run_on_the_same_mesh(case, runs):
 
 @pytest.mark.parametrize("case", ONE_CASES)
 def test_pp_world_beside_ep_sp_tp_matches_one_process(case, runs):
-    """Every step's loss as one process's on the same global batch, and the
-    ranks' gathered parameters (dense dispatch: the sparse runs' groups are
-    a microbatch's)."""
+    """Every step's loss as one process's on the same global batch (sparse
+    dispatch: over the same microbatches), and the ranks' gathered
+    parameters."""
     got, one = runs["ranks"][case][0], runs["one"][case]
     np.testing.assert_allclose(got["losses"], one["losses"], rtol=ONE_RTOL)
     for name, p in got["params"].items():

@@ -15,7 +15,9 @@ GPipe with the chunked loss and 1F1B with the dense one, remat;
 and two vocabularies whose stage rows tp does not divide (254 and 250: tp
 then holds a stage's rows whole), whose losses are also held against JAX's
 pipeline at the model level (``tests/test_llama_pp.py``'s ``_train`` on
-the same mesh, tokens drawn inside the vocabulary).
+the same mesh, tokens drawn inside the vocabulary), and whose first step's
+gradients, gathered whole, are held against one process's (relative L2
+1e-5 a parameter).
 
 Layout: each rank's head rows as loaded are its nested slice of JAX's
 ``lm_head.kernel``; the world's checkpoint restored whole by one process
@@ -41,6 +43,9 @@ from tests import torch_worlds
 KW = dict(config="tiny", n_layers=4, batch_size=8, seq_len=16, steps=2, warmup=1, lr=1e-3,
           attn_impl="dense", mesh_spec="pp=2,tp=2")
 LOSS_RTOL, PARAM_ATOL, ONE_RTOL = 2e-5, 3e-5, 1e-5
+# The first step's gradients against one process's, relative L2 a
+# parameter.
+GRAD_RTOL = 1e-5
 # Against JAX's run on the same mesh (and against one process): both
 # schedules and both losses, and the MoE Llama's experts as tp blocks.
 JAX_CASES = {
@@ -129,7 +134,7 @@ def _one(kw, init):
 
 def _one_model(tree, vocab: int) -> dict:
     """:func:`torch_worlds.rank_pp_model`'s steps in one process: the
-    losses."""
+    losses and the first step's gradients."""
     import torch
 
     from pytorch_operator_tpu_torch.workloads import trainer
@@ -137,9 +142,11 @@ def _one_model(tree, vocab: int) -> dict:
     cfg = port_llama.llama_tiny(n_layers=4, attn_impl="dense", vocab_size=vocab)
     model = port_llama.Llama(cfg)
     model.load_state_dict(params_from_jax(tree, cfg))
-    step = trainer.make_lm_train_step(model, trainer.make_optimizer(model, 1e-3, weight_decay=1e-4))
+    opt = trainer.make_optimizer(model, 1e-3, weight_decay=1e-4)
+    grads = torch_worlds.first_step_grads(model, opt, lambda: {n: p.grad for n, p in model.named_parameters()})
+    step = trainer.make_lm_train_step(model, opt)
     tokens = torch.from_numpy(_tokens(vocab)).long()
-    return {"losses": [float(step(tokens)) for _ in range(3)]}
+    return {"losses": [float(step(tokens)) for _ in range(3)], "grads": grads}
 
 
 def _jax_params(tree, n_experts: int = 0) -> dict:
@@ -223,6 +230,21 @@ def test_a_stage_whose_rows_tp_does_not_divide_trains_as_one_process_and_jax(voc
     for r in runs["ranks"][f"vocab_{vocab}"]:
         np.testing.assert_allclose(r["losses"], one["losses"], rtol=ONE_RTOL)
         np.testing.assert_allclose(r["losses"], jax_losses, rtol=LOSS_RTOL)
+
+
+@pytest.mark.parametrize("vocab", VOCABS)
+def test_a_stage_whose_rows_tp_does_not_divide_has_one_process_first_gradients(vocab, runs):
+    """At 254 and 250 every rank's first-step gradients, gathered whole
+    from the ranks' blocks, are one process's: relative L2 within
+    ``GRAD_RTOL`` for each parameter (AdamW's later steps amplify f32 noise
+    in the parameters, so the gradients say whether one is doubled or
+    lost)."""
+    want = runs["one"][f"vocab_{vocab}"]["grads"]
+    for r in runs["ranks"][f"vocab_{vocab}"]:
+        assert r["grads"].keys() == want.keys()
+        for name, g in r["grads"].items():
+            gap = np.linalg.norm(g - want[name]) / np.linalg.norm(want[name])
+            assert gap <= GRAD_RTOL, (name, gap)
 
 
 def test_pp_tp_checkpoint_restores_whole_in_one_process(runs):

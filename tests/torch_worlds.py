@@ -153,7 +153,11 @@ def planted(name):
       ``mlp_down``) adding the whole bias on every tp rank before the sum;
     - ``"bert_pos_embed_by_suffix"``: BERT's parameter axes looked up by
       the Llama's suffixes for the embeddings, so that ``pos_embed`` (which
-      ends with ``embed.weight``) is split over tp like a vocabulary."""
+      ends with ``embed.weight``) is split over tp like a vocabulary;
+    - ``"pp_coordinate_rows"``: the feed giving each data coordinate its own
+      consecutive rows of the global batch whatever its microbatches (the
+      pipeline's microbatches then split those rows, not JAX's global
+      batch)."""
     import contextlib
 
     @contextlib.contextmanager
@@ -232,6 +236,14 @@ def planted(name):
                 if table is sharding.BERT_PARAM_AXES and name.endswith("embed.weight"):
                     return sound_axes(name)  # the Llama's embed.weight
                 return sound_axes(name, table)
+        elif name == "pp_coordinate_rows":
+            from pytorch_operator_tpu_torch.parallel import data
+
+            where, attr = data, "global_batch"
+            sound_rows = data.global_batch
+
+            def fault(batch, process_index=None, process_count=None, microbatches=1):
+                return sound_rows(batch, process_index, process_count)
         else:
             raise ValueError(f"no planted fault {name!r}")
         saved = getattr(where, attr)
@@ -562,8 +574,10 @@ def rank_pp_model(world, tree, cfg_over: dict, mesh_spec: str, tokens, steps: in
     ``_train`` builds JAX's: JAX's ``tree`` carried by ``params_from_jax``,
     optax's ``adamw(1e-3)`` (weight decay 1e-4), ``steps`` steps of
     ``schedule`` on the same ``tokens`` [B, S] (this data coordinate's
-    rows). Returns each step's loss, this rank's coordinates and its head
-    rows as loaded (``[D, rows]``, JAX's layout) with their first id."""
+    rows). Returns each step's loss, the first step's gradients whole
+    (gathered from every rank's blocks before the update, by name), this
+    rank's coordinates and its head rows as loaded (``[D, rows]``, JAX's
+    layout) with their first id."""
     from pytorch_operator_tpu_torch.models import llama as llama_lib
     from pytorch_operator_tpu_torch.models.convert import params_from_jax
     from pytorch_operator_tpu_torch.parallel.data import put_global
@@ -579,11 +593,61 @@ def rank_pp_model(world, tree, cfg_over: dict, mesh_spec: str, tokens, steps: in
     head = model.head_kernel().detach().numpy().copy()
     shard_model(model, mesh)
     opt = trainer.make_optimizer(model, 1e-3, weight_decay=1e-4)
+    grads = first_step_grads(model, opt, lambda: _whole_pp_grads(model))
     step = trainer.make_lm_train_step(model, opt, pp_schedule=schedule)
     rows = put_global(np.asarray(tokens), "cpu", coords.data_index, coords.data_extent).long()
     losses = [float(trainer.world_mean(step(rows), world.num_processes, mesh)) for _ in range(steps)]
-    return {"losses": losses, "pp_index": coords.pp_index, "tp_index": coords.tp_index,
+    return {"losses": losses, "grads": grads, "pp_index": coords.pp_index, "tp_index": coords.tp_index,
             "head": head, "head_offset": model.vocab_offset}
+
+
+def first_step_grads(model, opt, whole) -> dict:
+    """A dict that ``opt``'s first ``step()`` fills, before its update, with
+    ``whole()``: the gradients by name as numpy arrays."""
+    grads, update = {}, opt.step
+
+    def step():
+        if not grads:
+            grads.update({n: g.float().numpy() for n, g in whole().items()})
+        update()
+
+    opt.step = step
+    return grads
+
+
+def _whole_pp_grads(model) -> dict:
+    """Each parameter's gradient of a pp model whole on every rank, by
+    name: tp's blocks and pp's head rows gathered (``full_tensor``), then
+    the stages' tensors merged, as ``full_state_dict`` gathers the
+    parameters."""
+    import torch.distributed as dist
+
+    from pytorch_operator_tpu_torch.parallel.sharding import full_tensor, model_splits
+
+    mine = {n: full_tensor(p.grad, model_splits(model, n)).detach().cpu()
+            for n, p in model.named_parameters()}
+    stages = [None] * model.pp.size
+    dist.all_gather_object(stages, mine, group=model.pp.mesh.get_group("pp"))
+    return {k: v for stage in stages for k, v in stage.items()}
+
+
+def rank_pp_feed(world, specs: list, batch: int, microbatches: int) -> list:
+    """For each mesh of ``specs``, the rows of a global batch of ``batch``
+    rows that this rank's feed takes with ``microbatches`` pipeline
+    microbatches (``llama_train``'s: ``check_pp_microbatches``, then
+    ``global_batch`` at the rank's data coordinate), and the coordinate."""
+    from pytorch_operator_tpu_torch.parallel.data import global_batch
+    from pytorch_operator_tpu_torch.parallel.mesh import axis_sizes, make_mesh, train_coords
+    from pytorch_operator_tpu_torch.workloads.llama_train import check_pp_microbatches
+
+    out = []
+    for spec in specs:
+        mesh = make_mesh(spec, "cpu")
+        c = train_coords(mesh)
+        m = check_pp_microbatches(batch, microbatches, axis_sizes(mesh)["pp"], c.data_extent)
+        rows = global_batch(np.arange(batch), c.data_index, c.data_extent, m)
+        out.append({"rows": rows.tolist(), "data_index": c.data_index, "pp_index": c.pp_index})
+    return out
 
 
 def rank_restore_layout(world, root: str, step: int, mesh_spec: str, optimizer: str,
